@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of pointcloud_orientation_tpu, for one NVIDIA H100.
+
+This slice serves the PointNet++ 8-direction model (``pointnet_pp_8dir``)
+through two CUDA kernels written for Hopper (``csrc/``): fused set-abstraction
+grouping and fused shared-MLP + max. Importing the package builds nothing
+and needs no ``nvcc``; the kernels are built on the first CUDA call.
+The JAX package beside it is the reference; this package never imports it.
+"""
+
+from .infer import OrientationPredictor
+from .models import MODEL_REGISTRY, PointNetPP8Dir
+from .utils import load_flax_variables, random_flax_variables
+
+__all__ = [
+    "MODEL_REGISTRY",
+    "OrientationPredictor",
+    "PointNetPP8Dir",
+    "load_flax_variables",
+    "random_flax_variables",
+]

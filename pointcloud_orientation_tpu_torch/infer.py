@@ -1,0 +1,121 @@
+"""Batched serving of the PointNet++ 8-dir model on the card.
+
+Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
+for one configuration: model ``pointnet_pp_8dir`` in eval mode, f32, one
+view, one ensemble member, no quantization, one device. Requests are padded
+to power-of-two batch buckets (clamped to ``max_batch``) and to
+``num_points`` points, exactly as the JAX predictor pads them.
+
+Example
+-------
+    from pointcloud_orientation_tpu_torch.infer import OrientationPredictor
+    from pointcloud_orientation_tpu_torch.utils import random_flax_variables
+
+    v = random_flax_variables(0)
+    predictor = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"])
+    logits = predictor(clouds)              # (B, N, 3) numpy -> (B, 8)
+    fwd = predictor.forward_vectors(clouds)  # unit forward vectors (B, 3)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .models import MODEL_REGISTRY
+from .ops import DIRS_8
+from .ops.cuda_kernels import f32_matmuls
+from .utils.jax_weights import load_flax_variables
+
+
+class OrientationPredictor:
+    """Bucketed predictor over the port's ``PointNetPP8Dir``.
+
+    ``params``/``batch_stats`` are the JAX package's flax trees as numpy
+    arrays (see :mod:`.utils.jax_weights`). Runs on ``device`` ("cuda" unless
+    the caller asks for the CPU). Centroids are drawn from a
+    ``torch.Generator`` seeded with ``seed``; they match the JAX predictor's
+    only in distribution (``sampling="first"`` makes both deterministic).
+    """
+
+    def __init__(
+        self,
+        model_name: str,
+        params: Dict,
+        batch_stats: Optional[Dict] = None,
+        num_points: int = 1024,
+        max_batch: int = 256,
+        seed: int = 0,
+        quantize: Optional[str] = None,
+        scales: Optional[Dict] = None,
+        mesh=None,
+        tta_views: int = 1,
+        ensemble_size: int = 1,
+        device: str | torch.device = "cuda",
+        **model_kwargs: Any,
+    ):
+        if model_name not in MODEL_REGISTRY:
+            raise NotImplementedError(
+                f"model {model_name!r} is not ported; the port serves {sorted(MODEL_REGISTRY)}")
+        for name, value, default in (("quantize", quantize, None), ("scales", scales, None),
+                                     ("mesh", mesh, None), ("tta_views", tta_views, 1),
+                                     ("ensemble_size", ensemble_size, 1)):
+            if value != default:
+                raise NotImplementedError(f"{name}={value!r} is not ported")
+        if num_points < 1 or max_batch < 1:
+            raise ValueError(f"num_points={num_points} and max_batch={max_batch} must be >= 1")
+        self.device = torch.device(device)
+        self.model_name = model_name
+        self.num_points = num_points
+        self.max_batch = max_batch
+        model = MODEL_REGISTRY[model_name](**model_kwargs)
+        load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
+        self.model = model.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        f32_matmuls()  # the FC funnel runs in cuBLAS; the JAX side is full f32
+
+    def _bucket(self, b: int) -> int:
+        bucket = 1
+        while bucket < b:
+            bucket *= 2
+        return min(bucket, self.max_batch)
+
+    def _pad(self, clouds: np.ndarray) -> np.ndarray:
+        """Points by cycling or truncation to ``num_points``; batch by
+        repeating the first cloud up to the bucket."""
+        b, n = clouds.shape[0], clouds.shape[1]
+        if n < self.num_points:
+            reps = -(-self.num_points // n)
+            clouds = np.tile(clouds, (1, reps, 1))[:, : self.num_points]
+        elif n > self.num_points:
+            clouds = clouds[:, : self.num_points]
+        bucket = self._bucket(b)
+        if b < bucket:
+            clouds = np.concatenate([clouds, np.repeat(clouds[:1], bucket - b, axis=0)], axis=0)
+        return clouds
+
+    @torch.inference_mode()
+    def __call__(self, clouds: np.ndarray) -> np.ndarray:
+        """Logits ``(B, 8)`` for ``(B, N, 3)`` clouds, any B and N; above
+        ``max_batch`` the request is served in chunks of ``max_batch``."""
+        clouds = np.asarray(clouds, np.float32)
+        if clouds.ndim != 3 or clouds.shape[-1] != 3 or clouds.shape[0] < 1 or clouds.shape[1] < 1:
+            raise ValueError(f"clouds must be (B>=1, N>=1, 3), got {clouds.shape}")
+        b = clouds.shape[0]
+        if b > self.max_batch:
+            return np.concatenate(
+                [self(clouds[i: i + self.max_batch]) for i in range(0, b, self.max_batch)],
+                axis=0)
+        pts = torch.from_numpy(np.ascontiguousarray(self._pad(clouds))).to(self.device)
+        out = self.model(pts, self.generator)
+        return out[:b].cpu().numpy()
+
+    def forward_vectors(self, clouds: np.ndarray) -> np.ndarray:
+        """Unit forward vectors ``(B, 3)``: softmax of the logits times
+        ``DIRS_8``, normalized."""
+        probs = torch.softmax(torch.from_numpy(self(clouds)), dim=-1)
+        fwd = (probs @ DIRS_8).numpy()
+        return fwd / (np.linalg.norm(fwd, axis=-1, keepdims=True) + 1e-12)

@@ -1,0 +1,17 @@
+"""PyTorch models of the port. This slice carries the PointNet++ 8-dir
+serving model."""
+
+from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
+from .pointnet_pp import PointNetPP8Dir
+
+MODEL_REGISTRY = {
+    "pointnet_pp_8dir": PointNetPP8Dir,
+}
+
+__all__ = [
+    "MODEL_REGISTRY",
+    "PointNetPP8Dir",
+    "PointNetPPTrunk",
+    "SetAbstraction",
+    "SharedMLP",
+]

@@ -1,0 +1,128 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface (no PyTorch headers, so it builds in seconds). The
+library lands in ``build/pcot_torch_kernels/<hash>/libpcot_kernels.so`` at
+the root of the checkout, keyed by the sources, the flags and
+``nvcc --version``; a second call in the same process, or a later process on
+the same tree, loads it without building. Nothing here runs at import time:
+the build starts when the first CUDA tensor reaches a kernel wrapper.
+
+Each C entry point takes ``void*`` pointers, ``int`` sizes and the CUDA
+stream, and returns ``cudaGetLastError()`` as an int.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "pcot_torch_kernels"
+LIB_NAME = "libpcot_kernels.so"
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> argtypes of each C entry point in csrc/
+SIGNATURES = {
+    # xyz, feats, cidx, new_xyz, grouped, idx, B, N, S, K, D, stream
+    "pcot_sa_group_f32": [_P] * 6 + [_I] * 5 + [_P],
+    # grouped, out, B, K, S, n_layers, (w, s, t) x 4, c0..c4, stream
+    "pcot_sa_mlp_max_f32": [_P, _P] + [_I] * 4 + [_P] * 12 + [_I] * 5 + [_P],
+}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        DEFAULT_NVCC,
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise BuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built")
+
+
+class _Library:
+    """The loaded library and what its build printed."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.cdll = None
+        self.path = None
+        self.build_seconds = None  # None when an earlier build was reused
+        self.nvcc_log = ""
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self.cdll is None:
+                self._load()
+            return self.cdll
+
+    def _load(self) -> None:
+        nvcc = nvcc_path()
+        ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
+        if ver.returncode != 0:
+            raise BuildError(f"{nvcc} --version failed:\n{ver.stderr}")
+        sources = sorted(CSRC.glob("*.cu"))
+        if not sources:
+            raise BuildError(f"no CUDA sources under {CSRC}")
+        h = hashlib.sha256(ver.stdout.encode() + " ".join(NVCC_FLAGS).encode())
+        for src in sources:
+            h.update(src.name.encode() + src.read_bytes())
+        out_dir = BUILD_ROOT / h.hexdigest()[:16]
+        lib = out_dir / LIB_NAME
+        log = out_dir / "nvcc.log"
+        if not lib.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            self.build_seconds = time.perf_counter() - t0
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise BuildError(
+                    f"nvcc failed with code {r.returncode}: {' '.join(cmd)}\n"
+                    f"{r.stdout}{r.stderr}")
+            log.write_text(r.stdout + r.stderr)
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        self.nvcc_log = log.read_text() if log.exists() else ""
+        cdll = ctypes.CDLL(str(lib))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self.path = lib
+        self.cdll = cdll
+
+
+LIBRARY = _Library()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build on first use, then return the loaded library."""
+    return LIBRARY.load()
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """The ``ptxas -v`` lines of a build log: registers, shared memory,
+    spills, one group per kernel."""
+    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]

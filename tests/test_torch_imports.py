@@ -1,0 +1,76 @@
+"""The port and chip_smoke.py run where JAX is absent, and chip_smoke.py
+refuses to run without a card."""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# A process in which jax, flax, optax, orbax, h5py, matplotlib and the JAX
+# package cannot be imported, as on the card's machine.
+_BLOCKER = textwrap.dedent("""
+    import importlib.abc, sys
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py", "matplotlib",
+               "pointcloud_orientation_tpu"}
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked: the port must not need it")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+""")
+
+
+def _run(code: str, cwd: str = REPO, timeout: float = 300) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_and_chip_smoke_import_and_serve_without_jax():
+    code = _BLOCKER + textwrap.dedent("""
+        import importlib, pkgutil
+        import numpy as np
+        import pointcloud_orientation_tpu_torch as port
+        names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # noqa: F401
+        for name in ("jax", "flax", "pointcloud_orientation_tpu"):
+            assert name not in sys.modules, name
+        v = port.random_flax_variables(0)
+        p = port.OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                      num_points=128, max_batch=2, device="cpu")
+        out = p(np.random.default_rng(0).normal(size=(3, 100, 3)).astype(np.float32))
+        assert out.shape == (3, 8) and np.isfinite(out).all()
+        print("IMPORTED", len(names))
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "IMPORTED" in r.stdout
+    # the blocker itself works: the JAX package cannot come in
+    r = _run(_BLOCKER + "import pointcloud_orientation_tpu.ops.dirs8")
+    assert r.returncode != 0 and "blocked" in r.stderr
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    # alone in a directory, without the rest of the repo, it fails too
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

@@ -1,0 +1,103 @@
+"""The port's two kernel modules on the CPU: plain versions against the JAX
+package's Pallas kernels (interpret mode), wrapper dispatch and checks, and
+the nvcc build's set-up. The kernels themselves are held against their plain
+versions on the card, in tests/test_torch_cuda.py."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointcloud_orientation_tpu.ops.pallas_kernels import sa_mlp_max_pallas
+from pointcloud_orientation_tpu_torch.ops import _build
+from pointcloud_orientation_tpu_torch.ops import cuda_kernels as K
+
+# (K, S, MLP widths) of the three set abstractions of the trunk
+SA_WIDTHS = {
+    "sa1": (32, 128, (3, 64, 64, 128)),
+    "sa2": (32, 32, (131, 128, 128, 256)),
+    "sa3": (32, 1, (259, 256, 512, 1024)),
+}
+
+
+def _layers_np(rng, widths):
+    return [
+        (
+            (rng.normal(size=(ci, co)) / math.sqrt(ci)).astype(np.float32),
+            rng.uniform(0.5, 1.5, size=co).astype(np.float32),
+            (0.1 * rng.normal(size=co)).astype(np.float32),
+        )
+        for ci, co in zip(widths[:-1], widths[1:])
+    ]
+
+
+@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+def test_sa_mlp_max_matches_pallas(rng, stage):
+    kn, s, widths = SA_WIDTHS[stage]
+    g = rng.normal(size=(2, kn, s, widths[0])).astype(np.float32)
+    layers = _layers_np(rng, widths)
+    want = sa_mlp_max_pallas(
+        jnp.asarray(g), [tuple(map(jnp.asarray, layer)) for layer in layers], False, True)
+    got = K.sa_mlp_max(torch.from_numpy(g),
+                       [tuple(map(torch.from_numpy, layer)) for layer in layers])
+    assert got.shape == (2, s, widths[-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
+    K.reset_launch_counts()
+    xyz = torch.from_numpy(rng.normal(size=(2, 64, 3)).astype(np.float32))
+    cidx = torch.arange(8, dtype=torch.int32).expand(2, 8).contiguous()
+    got = K.sa_group(xyz, None, cidx, 4)
+    want = K.sa_group_plain(xyz, None, cidx, 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    layers = [(torch.ones(3, 5), torch.ones(5), torch.zeros(5))]
+    g = torch.from_numpy(rng.normal(size=(2, 4, 8, 3)).astype(np.float32))
+    assert torch.equal(K.sa_mlp_max(g, layers), K.sa_mlp_max_plain(g, layers))
+    assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0}
+
+
+def test_wrappers_refuse_other_dtypes_and_devices():
+    xyz = torch.zeros((1, 64, 3), dtype=torch.float64)
+    cidx = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K.sa_group(xyz, None, cidx, 4)
+    with pytest.raises(TypeError):  # the bf16 variant is not ported
+        K.sa_mlp_max(torch.zeros((1, 4, 8, 3), dtype=torch.bfloat16),
+                     [(torch.ones(3, 5), torch.ones(5), torch.zeros(5))])
+    with pytest.raises(ValueError):
+        K.sa_group(torch.zeros((1, 64, 3), device="meta"), None,
+                   torch.zeros((1, 8), dtype=torch.int32, device="meta"), 4)
+    with pytest.raises(ValueError):
+        K.sa_mlp_max(torch.zeros((1, 4, 8, 3), device="meta"),
+                     [(torch.ones(3, 5), torch.ones(5), torch.zeros(5))])
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(_build.BuildError, match="nvcc not found"):
+        _build._Library().load()
+
+
+def test_build_flags_and_signatures():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-Xptxas -v" in flags
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert sources == ["sa_group.cu", "sa_mlp_max.cu"]
+    text = "".join((_build.CSRC / s).read_text() for s in sources)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert f'extern "C" int {name}(' in text
+        assert argtypes[-1] is _build.ctypes.c_void_p  # the stream
+    assert "torch/extension.h" not in text
+    log = ("ptxas info    : Function properties for k\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, 576 bytes smem\nother\n")
+    assert _build.ptxas_lines(log) == [
+        "ptxas info    : Function properties for k",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 576 bytes smem"]
