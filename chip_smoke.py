@@ -3,15 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pointcloud_orientation_tpu_torch/csrc``
-with nvcc, holds each kernel against its plain PyTorch version at the shapes
-the serving path gives it, serves requests through
-``OrientationPredictor`` (PointNet++ 8-dir, full width, random weights from
-a seed) at N=1024 and N=10,000 and checks that they went through the
-kernels, then times the kernels and the requests with CUDA events and the
-host clock. Prints one flushed JSON line per phase, each with a ``"phase"``
-key; any failure raises and exits non-zero. The line before the last is the
-per-kernel summary with the run's total seconds, and the last line is
-``{"ok": true, "device": ...}``.
+with nvcc and holds each kernel against its plain PyTorch version at the
+shapes its path gives it. Then drives the two main paths at full width,
+random weights from a seed, each with the launch counters set to 0 just
+before and read just after: serving through ``OrientationPredictor``
+(PointNet++ 8-dir) at N=1024 and N=10,000, and training of the 8dir_kl
+preset (B=16, N=10,000) through ``Trainer`` in both train configurations
+(the default, and ``fused_mlp_train``), with a gradient check against the
+plain versions and a checkpoint round trip. Finally times the kernels, the
+requests and the train steps with CUDA events and the host clock. Prints one
+flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
+and exits non-zero. The line before the last is the per-kernel summary with
+the run's total seconds, and the last line is ``{"ok": true, "device": ...}``.
 
 Imports only the port, torch, numpy and the standard library. Exits
 non-zero before building anything when no CUDA device is visible.
@@ -23,6 +26,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -30,8 +34,10 @@ import numpy as np
 import torch
 
 from pointcloud_orientation_tpu_torch import OrientationPredictor, random_flax_variables
+from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
+from pointcloud_orientation_tpu_torch.train import Trainer, preset
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
 # outside the tensor cores. The bound of a kernel is the larger of its bytes
@@ -39,6 +45,7 @@ from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TIMING_ITERS = 20
+SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's SM clock: a sleep at least this long
 SEED = 0
 
 # The kernels' shapes on the serving path. K1: (B, N, S, K, D); K2: (B, K, S,
@@ -59,6 +66,30 @@ BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
                  "sa_mlp_max": ("sa1 B=64", "sa2 B=64", "sa3 B=64")}
 MLP_TOL = 1e-4  # rtol and atol: the kernel sums in another order than cuBLAS
 LOGIT_TOL = 1e-4
+SERVE_KERNELS = ("sa_group", "sa_mlp_max")
+
+# The training path's backward kernels at the 8dir_kl preset's B=16 (N=10,000
+# points; sa2 groups 128 points). Scatter: (B, N, S, K, D); MLP: (B, K, S, widths).
+SCATTER_SHAPE = (16, 128, 32, 32, 128)
+TRAIN_MLP_SHAPES = {
+    "sa1 B=16": (16, 32, 128, (3, 64, 64, 128)),
+    "sa2 B=16": (16, 32, 32, (131, 128, 128, 256)),
+    "sa3 B=16": (16, 32, 1, (259, 256, 512, 1024)),
+}
+SCATTER_TOL = 1e-5  # the plain index_add_ sums up to 32 slots in another order
+# the MLP backward: rtol, and atol times the output's largest entry (sums
+# over up to 65,536 rows in another order), on inputs whose forward is exact
+BWD_TOL = 1e-4
+# on normal random inputs the kernel's and cuBLAS's f32 forwards can put a
+# few pre-activations on opposite sides of zero, which reroutes those rows'
+# gradients: held in norm, relative, per output
+BWD_RANDOM_NORM_TOL = 1e-3
+# a train step's gradients through the kernels vs the plain versions, per
+# parameter, relative in norm (fused: ReLU/max decisions, as above)
+GRAD_TOL = {"default": 1e-3, "fused": 5e-2}
+TRAIN_N = 10_000
+TRAIN_SAMPLES_PER_CLASS = 8  # 48 clouds: 3 train steps and 1 val batch at B=16
+TRAIN_STEP_ITERS = 5
 
 T_START = time.perf_counter()
 
@@ -71,19 +102,35 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def timed(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn`` over ``iters`` back-to-back
+    calls. The host ms is the time the host takes to enqueue one call. For
+    the device time the card first sleeps for twice the host's enqueue time
+    of all the calls, so that the calls queue up and run back to back: a
+    kernel shorter than its wrapper's host overhead is then timed on the
+    device, not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0 * host_s * SLEEP_CYCLES_PER_S) + 1000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+
+
+def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    return timed(fn, iters, warmup)[0]
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -224,14 +271,15 @@ def phase_serve(dev) -> dict:
         grown = {k: after[k] - before[k] for k in after}
         if out.shape != (b, 8) or not np.isfinite(out).all():
             fail(f"request N={n} B={b}: output {out.shape}, finite={np.isfinite(out).all()}")
-        if grown != {"sa_group": 2 * chunks, "sa_mlp_max": 3 * chunks}:
+        if grown != {"sa_group": 2 * chunks, "sa_mlp_max": 3 * chunks, "sa_group_scatter": 0,
+                     "sa_mlp_max_bwd": 0}:
             fail(f"request N={n} B={b} ({chunks} chunks): launches grew by {grown}")
         outs[(n, b)] = out
         per_request.append({"N": n, "B": b, "chunks": chunks, "launches": grown})
     launches = K.launch_counts()
     emit("serve", requests=per_request, launches=launches)
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the path was never launched: {launches}")
+    if min(launches[k] for k in SERVE_KERNELS) == 0:
+        fail(f"a kernel of the serving path was never launched: {launches}")
 
     fwd = predictors[1024].forward_vectors(clouds[(1024, 13)])
     norms = np.linalg.norm(fwd, axis=-1)
@@ -268,20 +316,21 @@ def phase_timing(dev, checks: dict, serve: dict) -> list:
     per_shape = {"sa_group": {}, "sa_mlp_max": {}}
     for name, shape in SA_GROUP_SHAPES.items():
         xyz, feats, cidx = sa_group_inputs(shape, gen, dev, tiled=False)
-        ms = cuda_ms(lambda: K.sa_group(xyz, feats, cidx, shape[3]))
+        ms, host_ms = timed(lambda: K.sa_group(xyz, feats, cidx, shape[3]))
         plain_ms = cuda_ms(lambda: K.sa_group_plain(xyz, feats, cidx, shape[3]))
         b_ms, b_by = bound_ms(*sa_group_cost(*shape))
         per_shape["sa_group"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                           **checks["sa_group"][name])
+                                           host_ms=host_ms, **checks["sa_group"][name])
         emit("timing", kernel="sa_group", shape=name, **per_shape["sa_group"][name])
     for name, (B, Kn, S, widths) in SA_MLP_SHAPES.items():
         g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
         layers = make_layers(widths, gen, dev)
-        ms = cuda_ms(lambda: K.sa_mlp_max(g, layers))
+        ms, host_ms = timed(lambda: K.sa_mlp_max(g, layers))
         plain_ms = cuda_ms(lambda: K.sa_mlp_max_plain(g, layers))
         b_ms, b_by = bound_ms(*sa_mlp_cost(B, Kn, S, widths))
         per_shape["sa_mlp_max"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                             bound_by=b_by, **checks["sa_mlp_max"][name])
+                                             bound_by=b_by, host_ms=host_ms,
+                                             **checks["sa_mlp_max"][name])
         emit("timing", kernel="sa_mlp_max", shape=name, **per_shape["sa_mlp_max"][name])
 
     # request latency per bucket (host clock around a whole request, which
@@ -324,14 +373,309 @@ def phase_timing(dev, checks: dict, serve: dict) -> list:
     return summary
 
 
+def scatter_cost(B, N, S, Kn, D) -> tuple[float, float]:
+    """Bytes: the cotangents and indices read once, the rows written once;
+    operations: one add per cotangent."""
+    return 4 * (B * Kn * S * D + B * S * Kn + B * N * D), B * S * Kn * D
+
+
+def mlp_bwd_cost(B, Kn, S, widths) -> tuple[float, float]:
+    """Bytes: grouped, the layers and dpooled read once; dgrouped and the
+    summed dW, dscale, dshift written once. Operations: the recompute, dW
+    and da products (6 * rows * sum Cin*Cout) and ~12 elementwise per
+    activation (affine, relu, max/tie split, mask, dscale/dshift sums)."""
+    rows = B * Kn * S
+    pairs = list(zip(widths[:-1], widths[1:]))
+    params = sum(ci * co + 2 * co for ci, co in pairs)
+    nbytes = 4 * (rows * widths[0] + params + B * S * widths[-1]) + 4 * (rows * widths[0] + params)
+    flops = sum(6 * rows * ci * co + 12 * rows * co for ci, co in pairs)
+    return nbytes, flops
+
+
+def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
+    """Inputs on which every forward product and sum is exact in f32 in any
+    order (grouped in multiples of 1/8 in [-1, 1], W in {-1, 0, 1}, scale a
+    power of two near 1/sqrt(Cin), shift a multiple of the layer's
+    granularity), so that the kernel and the plain version take the same
+    ReLU and max decisions; the max has many exact ties, split evenly.
+    ``dead``: the last shift at -1000, every pooled value 0, all tied."""
+    g = torch.randint(-8, 9, (b, kn, s, widths[0]), generator=gen, device=dev) / 8.0
+    layers, bits = [], 3
+    for ci, co in zip(widths[:-1], widths[1:]):
+        e = math.ceil(math.log2(math.sqrt(ci)))
+        bits += e
+        w = torch.randint(-1, 2, (ci, co), generator=gen, device=dev).float().contiguous()
+        sc = torch.full((co,), 2.0 ** -e, device=dev)
+        t = (torch.randint(-16, 17, (co,), generator=gen, device=dev) * 2.0 ** -bits).float()
+        layers.append((w, sc, t))
+    if dead:
+        layers[-1] = (layers[-1][0], layers[-1][1], torch.full_like(layers[-1][2], -1000.0))
+    dp = torch.randn((b, s, widths[-1]), generator=gen, device=dev)
+    return g.float().contiguous(), layers, dp
+
+
+def bwd_outputs(res):
+    dg, dlayers = res
+    out = [("dgrouped", dg)]
+    for i, layer in enumerate(dlayers):
+        out += [(f"layer{i}.{n}", x) for n, x in zip(("dW", "ds", "dt"), layer)]
+    return out
+
+
+def phase_kernels_bwd(dev) -> dict:
+    """The backward kernels against their plain versions at the training
+    path's shapes, and the scatter's determinism."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    results = {"sa_group_scatter": {}, "sa_mlp_max_bwd": {}}
+    B, N, S, Kn, D = SCATTER_SHAPE
+    xyz, feats, cidx = sa_group_inputs(SCATTER_SHAPE, gen, dev, tiled=False)
+    idx = K.sa_group(xyz, feats, cidx, Kn)[2]  # the grouping's own indices
+    dg = torch.randn((B, Kn, S, 3 + D), generator=gen, device=dev)[..., 3:]  # read in place
+    a = K.sa_group_scatter(idx, dg, N)
+    b = K.sa_group_scatter(idx, dg, N)
+    ref = K.sa_group_scatter_plain(idx, dg, N)
+    torch.cuda.synchronize()
+    err = float((a - ref).abs().max())
+    bit_equal = bool(torch.equal(a, b))
+    ok = bool(torch.allclose(a, ref, rtol=SCATTER_TOL, atol=SCATTER_TOL))
+    emit("kernel_check", kernel="sa_group_scatter", shape="sa2 B=16", max_abs_err=err,
+         tol=SCATTER_TOL, ok=ok, two_launches_bit_equal=bit_equal)
+    if not (ok and bit_equal and torch.isfinite(a).all()):
+        fail(f"sa_group_scatter: max abs err {err} (tol {SCATTER_TOL}), bit-equal {bit_equal}")
+    results["sa_group_scatter"]["sa2 B=16"] = {"max_abs_err": err}
+
+    for name, (B, Kn, S, widths) in TRAIN_MLP_SHAPES.items():
+        worst = worst_abs = 0.0
+        for case in ("ties", "all-tied", "random"):
+            if case == "random":
+                g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+                layers = make_layers(widths, gen, dev)
+                dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
+            else:
+                g, layers, dp = dyadic_mlp_case(gen, dev, B, Kn, S, widths, case == "all-tied")
+            got = K.sa_mlp_max_bwd(g, layers, dp)
+            again = K.sa_mlp_max_bwd(g, layers, dp)
+            want = K.sa_mlp_max_bwd_plain(g, layers, dp)
+            torch.cuda.synchronize()
+            fields = {}
+            for (label, x), (_, y), (_, z) in zip(bwd_outputs(got), bwd_outputs(want),
+                                                  bwd_outputs(again)):
+                scale = max(float(y.abs().max()), 1e-30)
+                diff = (x - y).abs()
+                fields[label] = {
+                    "max_abs_err": float(diff.max()), "scale": scale,
+                    "norm_rel_err": float((x - y).norm() / y.norm().clamp_min(1e-30)),
+                    "elementwise_ok": bool(torch.allclose(x, y, rtol=BWD_TOL, atol=BWD_TOL * scale)),
+                    "finite": bool(torch.isfinite(x).all()), "bit_equal_twice": bool(torch.equal(x, z)),
+                }
+            ok = all(f["finite"] and f["bit_equal_twice"] for f in fields.values())
+            if case == "random":
+                ok = ok and all(f["norm_rel_err"] <= BWD_RANDOM_NORM_TOL for f in fields.values())
+            else:
+                ok = ok and all(f["elementwise_ok"] for f in fields.values())
+            if case == "all-tied":
+                ok = ok and not bool(got[0].any())
+            rel_to_scale = max(f["max_abs_err"] / f["scale"] for f in fields.values())
+            emit("kernel_check", kernel="sa_mlp_max_bwd", shape=name, case=case, ok=ok,
+                 tol=BWD_TOL if case != "random" else BWD_RANDOM_NORM_TOL,
+                 max_abs_err_over_scale=rel_to_scale,
+                 max_norm_rel_err=max(f["norm_rel_err"] for f in fields.values()),
+                 max_abs_err=max(f["max_abs_err"] for f in fields.values()),
+                 finite=all(f["finite"] for f in fields.values()),
+                 bit_equal_twice=all(f["bit_equal_twice"] for f in fields.values()))
+            if not ok:
+                fail(f"sa_mlp_max_bwd {name} {case}: {fields}")
+            worst = max(worst, rel_to_scale)
+            worst_abs = max([worst_abs] + [f["max_abs_err"] for f in fields.values()])
+        results["sa_mlp_max_bwd"][name] = {"max_abs_err": worst_abs,
+                                           "max_abs_err_over_scale": worst}
+    return results
+
+
+def train_dataset() -> OrientationDataset:
+    return OrientationDataset(*synthetic_modelnet(num_points=TRAIN_N,
+                                                  samples_per_class=TRAIN_SAMPLES_PER_CLASS))
+
+
+def step_grads(trainer, batch, valid, seed) -> dict:
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    model.train()
+    logits = model(batch["points"], torch.Generator(device=batch["points"].device).manual_seed(seed))
+    per = trainer.adapter.loss(logits, batch, trainer.cfg)
+    ((per * valid).sum() / valid.sum().clamp_min(1.0)).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _zero_in_exact_arithmetic(name: str) -> bool:
+    """A Dense bias that feeds a train-mode BatchNorm: the batch mean
+    removes it, so its gradient is rounding noise on both sides."""
+    return name.endswith("bias") and ("linears" in name or name in ("trunk.fc1.bias",
+                                                                    "trunk.fc2.bias"))
+
+
+def phase_train(dev) -> dict:
+    """The training main path: one epoch of the 8dir_kl preset (B=16,
+    N=10,000, full width) in each train configuration, counters from 0."""
+    ds = train_dataset()
+    out = {}
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        trainer = Trainer(preset("8dir_kl", epochs=1), ds, device=dev, fused_mlp_train=fused)
+        steps = -(-len(trainer.train_ds) // trainer.cfg.batch_size)
+        val = -(-len(trainer.val_ds) // trainer.cfg.batch_size)
+        K.reset_launch_counts()
+        trainer.fit(epochs=1, log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expected = {"sa_group": 2 * (steps + val),
+                    "sa_mlp_max": 3 * (steps + val) if fused else 3 * val,
+                    "sa_group_scatter": steps, "sa_mlp_max_bwd": 3 * steps if fused else 0}
+        losses = trainer.step_losses
+        emit("train", mode=mode, train_steps=steps, val_batches=val, step_losses=losses,
+             val_loss=trainer.history["val"][0], val_angular_deg=trainer.history["val_ang"][0],
+             launches=launches, expected_launches=expected, timings=trainer.timings)
+        if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                and math.isfinite(trainer.history["val"][0])):
+            fail(f"train {mode}: losses {losses}, val {trainer.history['val']}")
+        if launches != expected:
+            fail(f"train {mode}: launches {launches}, expected {expected}")
+
+        # one step's gradients through the kernels vs through the plain versions
+        state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+        got = step_grads(trainer, batch, valid, SEED)
+        trainer.model.load_state_dict(state)
+        with mock.patch.object(K, "sa_group", K.sa_group_plain), \
+                mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
+                mock.patch.object(K, "sa_group_scatter", K.sa_group_scatter_plain), \
+                mock.patch.object(K, "sa_mlp_max_bwd", K.sa_mlp_max_bwd_plain):
+            want = step_grads(trainer, batch, valid, SEED)
+        trainer.model.load_state_dict(state)
+        rel = {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) for n in want}
+        checked = {n: r for n, r in rel.items() if not _zero_in_exact_arithmetic(n)}
+        worst = max(checked, key=checked.get)
+        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+        ok = finite and checked[worst] <= GRAD_TOL[mode]
+        emit("train_check", mode=mode, grads_vs_plain_worst=worst, norm_rel_err=checked[worst],
+             tol=GRAD_TOL[mode], finite=finite, ok=ok,
+             median_norm_rel_err=float(np.median(list(checked.values()))))
+        if not ok:
+            fail(f"train {mode}: gradient of {worst} differs by {checked[worst]} from the plain path")
+
+        # checkpoint round trip, in a temporary directory outside the tree
+        with tempfile.TemporaryDirectory() as d:
+            path = trainer.save_checkpoint(d)
+            other = Trainer(preset("8dir_kl", epochs=1), ds, device=dev, fused_mlp_train=fused)
+            epoch = other.restore_checkpoint(path)
+            same = all(torch.equal(a, b) for a, b in zip(other.model.state_dict().values(),
+                                                         trainer.model.state_dict().values()))
+            ok = same and epoch == 1 and other.history == trainer.history
+            emit("checkpoint", mode=mode, epoch=epoch, state_equal=same, ok=ok)
+            if not ok:
+                fail(f"checkpoint round trip ({mode}): epoch {epoch}, state equal {same}")
+        out[mode] = {"trainer": trainer, "launches": launches, "steps": steps}
+    return out
+
+
+def phase_timing_train(dev, checks: dict, train: dict) -> list:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    per_shape = {"sa_group_scatter": {}, "sa_mlp_max_bwd": {}}
+    B, N, S, Kn, D = SCATTER_SHAPE
+    xyz, feats, cidx = sa_group_inputs(SCATTER_SHAPE, gen, dev, tiled=False)
+    idx = K.sa_group(xyz, feats, cidx, Kn)[2]
+    dg = torch.randn((B, Kn, S, 3 + D), generator=gen, device=dev)[..., 3:]
+    ms, host_ms = timed(lambda: K.sa_group_scatter(idx, dg, N))
+    plain_ms = cuda_ms(lambda: K.sa_group_scatter_plain(idx, dg, N))
+    # the library call: one index_add over flattened (cloud, row) indices
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None, None] * N).reshape(-1)
+    vals = dg.permute(0, 2, 1, 3).reshape(-1, D).contiguous()
+    zeros = torch.zeros((B * N, D), device=dev)
+    library_ms = cuda_ms(lambda: zeros.index_add(0, flat, vals))
+    b_ms, b_by = bound_ms(*scatter_cost(*SCATTER_SHAPE))
+    per_shape["sa_group_scatter"]["sa2 B=16"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+        host_ms=host_ms, **checks["sa_group_scatter"]["sa2 B=16"])
+    emit("timing", kernel="sa_group_scatter", shape="sa2 B=16",
+         **per_shape["sa_group_scatter"]["sa2 B=16"])
+    for name, (B, Kn, S, widths) in TRAIN_MLP_SHAPES.items():
+        g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+        layers = make_layers(widths, gen, dev)
+        dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
+        ms, host_ms = timed(lambda: K.sa_mlp_max_bwd(g, layers, dp), iters=10)
+        plain_ms = cuda_ms(lambda: K.sa_mlp_max_bwd_plain(g, layers, dp), iters=10)
+        b_ms, b_by = bound_ms(*mlp_bwd_cost(B, Kn, S, widths))
+        per_shape["sa_mlp_max_bwd"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                                 bound_ms=b_ms, bound_by=b_by, host_ms=host_ms,
+                                                 **checks["sa_mlp_max_bwd"][name])
+        emit("timing", kernel="sa_mlp_max_bwd", shape=name, **per_shape["sa_mlp_max_bwd"][name])
+
+    # a train step (forward, backward, Adam) on one batch, host clock, synchronised
+    steps = {}
+    for mode, run in train.items():
+        trainer = run["trainer"]
+        ds = trainer.train_ds
+        idx, valid, _ = next(ds.batches(trainer.cfg.batch_size))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 98, 0))
+        ts = []
+        for i in range(2 + TRAIN_STEP_ITERS):
+            step_gen = trainer.generator(0, 97, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_step(batch, valid, step_gen)["loss"]
+            torch.cuda.synchronize()
+            if i >= 2:
+                ts.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(float(loss)):
+                fail(f"timing_train {mode}: loss {float(loss)}")
+        med = float(np.median(ts))
+        steps[mode] = {"ms_median": med, "ms_all": ts,
+                       "clouds_per_s": trainer.cfg.batch_size / med * 1e3,
+                       "epoch_train_clouds_per_s": trainer.timings.get("train_clouds_per_sec")}
+    emit("timing_train", batch=16, num_points=TRAIN_N, steps=steps)
+
+    sources = {
+        "sa_group_scatter": ("pointcloud_orientation_tpu_torch/csrc/sa_scatter.cu",
+                             "pointcloud_orientation_tpu/ops/pallas_kernels.py:530",
+                             "default", ("sa2 B=16",),
+                             "one train step at B=16 N=10000 (either configuration): sa2"),
+        "sa_mlp_max_bwd": ("pointcloud_orientation_tpu_torch/csrc/sa_mlp_max_bwd.cu",
+                           "pointcloud_orientation_tpu/ops/pallas_kernels.py:762",
+                           "fused", tuple(TRAIN_MLP_SHAPES),
+                           "one fused train step at B=16 N=10000: sa1, sa2, sa3"),
+    }
+    summary = []
+    for kname, (src, replaces, mode, shapes, per) in sources.items():
+        rows = [per_shape[kname][s] for s in shapes]
+        b_ms = sum(r["bound_ms"] for r in rows)
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        lib = [r["library_ms"] for r in rows]
+        summary.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": train[mode]["launches"][kname],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": b_ms, "bound_by": "bytes" if by_bytes * 2 >= b_ms else "operations",
+            "library_ms": None if None in lib else sum(lib),
+            "per": per, "launches_path": f"train {mode}, one epoch", "shapes": per_shape[kname],
+        })
+    return summary
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
     checks = phase_kernels(dev)
+    checks.update(phase_kernels_bwd(dev))
     serve = phase_serve(dev)
+    train = phase_train(dev)
     summary = phase_timing(dev, checks, serve)
+    summary += phase_timing_train(dev, checks, train)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of pointcloud_orientation_tpu, for one NVIDIA H100.
 
-This slice serves the PointNet++ 8-direction model (``pointnet_pp_8dir``)
-through two CUDA kernels written for Hopper (``csrc/``): fused set-abstraction
-grouping and fused shared-MLP + max. Importing the package builds nothing
-and needs no ``nvcc``; the kernels are built on the first CUDA call.
+The port serves the PointNet++ 8-direction model (``pointnet_pp_8dir``,
+``infer.OrientationPredictor``) and trains it (``train.Trainer``, the
+``8dir_kl``/``8dir_mse`` presets) through four CUDA kernels written for
+Hopper (``csrc/``): fused set-abstraction grouping and its scatter-add
+gradient, fused shared-MLP + max and its recompute backward. Importing the
+package builds nothing and needs no ``nvcc``; the kernels are built on the
+first CUDA call.
 The JAX package beside it is the reference; this package never imports it.
 """
 

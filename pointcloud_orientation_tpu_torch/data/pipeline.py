@@ -1,0 +1,68 @@
+"""Batch pipeline on the device: subsample -> rotate -> 8-direction targets.
+
+Counterpart of ``pointcloud_orientation_tpu/data/pipeline.py`` for the
+targets of the 8-direction tasks. ``augment_batch`` returns ``points``,
+``rotation``, ``axes``, ``forward`` and ``probs_8dir``; the von Mises and
+MvM targets come with their heads (ROADMAP.md queue 1). Random draws come
+from an explicit ``torch.Generator``: subsample uniforms first, then the
+yaw angles.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..ops.geometry import topk_of_uniform
+from ..ops.rotations import axes_gt_from_rotation, random_yaw_matrix, rotate_points
+from .gt import eight_dir_gt
+
+
+def subsample_by_uniform(pts: torch.Tensor, u: torch.Tensor, num_points: int) -> torch.Tensor:
+    """The points at the ``num_points`` largest entries of each row of the
+    uniforms ``u (B, M)``, in ``jax.lax.top_k``'s order."""
+    idx = topk_of_uniform(u, num_points)
+    return torch.gather(pts, 1, idx[:, :, None].expand(-1, -1, pts.shape[-1]))
+
+
+def subsample_points(generator: torch.Generator, pts: torch.Tensor, num_points: int
+                     ) -> torch.Tensor:
+    """Random per-cloud subsample of ``num_points`` from ``pts (B, M, 3)``
+    without replacement: one uniform draw and its top ``num_points``. The
+    trainer never asks for more points than the clouds hold (the JAX
+    function's with-replacement branch for that case is not ported)."""
+    B, M, _ = pts.shape
+    if M < num_points:
+        raise ValueError(f"{num_points} points asked of clouds of {M}")
+    if M == num_points:
+        return pts
+    u = torch.rand((B, M), generator=generator, device=pts.device)
+    return subsample_by_uniform(pts, u, num_points)
+
+
+def augment_batch(generator: torch.Generator, pts: torch.Tensor, uniform_mask: torch.Tensor,
+                  num_points: int, rotation_mode: str = "yaw") -> Dict[str, torch.Tensor]:
+    """Subsample, rotate, and synthesize the 8-direction targets.
+
+    ``pts (B, M, 3)`` canonical clouds, ``uniform_mask (B,)`` bool (see
+    :func:`.gt.class_masks`). ``rotation_mode``: ``"yaw"`` (``"so3"`` and
+    ``"none"`` are not ported). Returns ``points (B,N,3)``, ``rotation
+    (B,3,3)``, ``axes (B,3,3)`` (side, up, forward rows), ``forward (B,3)``
+    and ``probs_8dir (B,8)``.
+    """
+    B = pts.shape[0]
+    pts = subsample_points(generator, pts, num_points)
+    if rotation_mode != "yaw":
+        raise NotImplementedError(f"rotation_mode={rotation_mode!r}: only 'yaw' is ported")
+    rot = random_yaw_matrix(generator, B, pts.device)
+    pts = rotate_points(pts, rot)
+    axes = axes_gt_from_rotation(rot)
+    forward = axes[:, 2]
+    return {
+        "points": pts,
+        "rotation": rot,
+        "axes": axes,
+        "forward": forward,
+        "probs_8dir": eight_dir_gt(forward, uniform_mask),
+    }

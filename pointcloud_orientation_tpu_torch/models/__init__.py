@@ -1,5 +1,5 @@
-"""PyTorch models of the port. This slice carries the PointNet++ 8-dir
-serving model."""
+"""PyTorch models of the port: the PointNet++ 8-dir model, in eval and
+train mode."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
 from .pointnet_pp import PointNetPP8Dir

@@ -1,11 +1,22 @@
-"""PointNet++ building blocks in PyTorch, eval (serving) mode.
+"""PointNet++ building blocks in PyTorch, eval (serving) and train mode.
 
-Counterpart of ``pointcloud_orientation_tpu/models/layers.py`` on its fused
-eval path: every set abstraction groups through the ``sa_group`` kernel and
-runs its shared MLP and neighbour max through the ``sa_mlp_max`` kernel,
-with BatchNorm folded into a per-layer scale and shift from the running
-statistics (``SharedMLP._fused_max`` there). Training is the next slice of
-the port (ROADMAP.md): in train mode these modules raise.
+Counterpart of ``pointcloud_orientation_tpu/models/layers.py``. In eval every
+set abstraction groups through the ``sa_group`` kernel and runs its shared
+MLP and neighbour max through the ``sa_mlp_max`` kernel, with BatchNorm
+folded into a per-layer scale and shift from the running statistics
+(``SharedMLP._fused_max`` there). In train, BatchNorm follows flax: biased
+batch variance ``max(0, E[x^2] - E[x]^2)`` and running statistics updated as
+``0.9 * old + 0.1 * batch``. The shared MLP then runs in one of the JAX
+package's two train configurations:
+
+* default (``fused_mlp_train=False``, the JAX default): Linear + BatchNorm
+  over all rows + ReLU in plain PyTorch, then the max over neighbours; the
+  grouping's gradient reaches its features through the scatter kernel
+  (``cuda_kernels.SAGroupFeatsFn``).
+* ``fused_mlp_train=True`` (``PCOT_FUSED_MLP=1`` there): BatchNorm statistics
+  from the ghost rows ``grouped[:, ::GHOST_STRIDE]``, differentiable, folded
+  into scale and shift, then the ``sa_mlp_max`` kernel and its recompute
+  backward kernel (``cuda_kernels.SAMlpMaxFn``).
 """
 
 from __future__ import annotations
@@ -20,22 +31,64 @@ from ..ops import cuda_kernels as K
 from ..ops import geometry as G
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax: running = momentum * running + (1 - momentum) * batch
+# Every GHOST_STRIDE-th neighbour slot gives the fused train path's BatchNorm
+# statistics (``SharedMLP.ghost_stride`` in the JAX package's layers.py:51).
+GHOST_STRIDE = 4
 
-_TRAIN_NOT_PORTED = (
-    "train mode is not ported yet: training and its backward kernels are the next "
-    "slice of the PyTorch/CUDA port (ROADMAP.md)")
+
+def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and the unclamped fast variance ``E[x^2] - E[x]^2`` over every
+    leading axis of ``x``."""
+    rows = x.reshape(-1, x.shape[-1])
+    mean = rows.mean(dim=0)
+    return mean, (rows * rows).mean(dim=0) - mean * mean
+
+
+def flax_batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
+                          moments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """Train-mode BatchNorm over the last axis with flax's semantics
+    (``flax.linen.BatchNorm``, ``use_fast_variance=True``): statistics over
+    every leading axis, the biased variance ``max(0, E[x^2] - E[x]^2)``,
+    gradients through both, and ``bn``'s running statistics updated in place
+    as ``0.9 * old + 0.1 * batch`` (``nn.BatchNorm1d``'s own train forward
+    would store the unbiased variance). ``moments`` passes in
+    ``batch_moments(x)`` where the caller has them already."""
+    mean, raw_var = batch_moments(x) if moments is None else moments
+    var = torch.clamp_min(raw_var, 0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as ``flax.linen.Dropout``: keep each entry with
+    probability ``1 - p`` (mask drawn from ``generator``) and scale the kept
+    ones by ``1 / (1 - p)``."""
+    if p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep_prob = 1.0 - p
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class SharedMLP(nn.Module):
     """Pointwise Linear + BatchNorm + ReLU stack fused with the max over the
-    neighbour axis: ``(B, K, S, C_in)`` neighbour-major -> ``(B, S, C_out)``."""
+    neighbour axis: ``(B, K, S, C_in)`` neighbour-major -> ``(B, S, C_out)``.
+    ``fused_mlp_train`` picks the train configuration (module docstring)."""
 
-    def __init__(self, in_channels: int, channels: Sequence[int]):
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 fused_mlp_train: bool = False):
         super().__init__()
         widths = [in_channels, *channels]
         self.linears = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
         self.bns = nn.ModuleList(nn.BatchNorm1d(c, eps=BN_EPS) for c in channels)
+        self.fused_mlp_train = fused_mlp_train
 
     def folded_layers(self) -> List[K.Layer]:
         """``(W (Cin,Cout), scale, shift)`` per layer with the running-stats
@@ -49,9 +102,33 @@ class SharedMLP(nn.Module):
         return layers
 
     def forward(self, grouped: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
-        return K.sa_mlp_max(grouped.contiguous(), self.folded_layers())
+        if not self.training:
+            return K.sa_mlp_max(grouped.contiguous(), self.folded_layers())
+        if self.fused_mlp_train:
+            return self._fused_train(grouped)
+        x = grouped
+        for lin, bn in zip(self.linears, self.bns):
+            x = torch.relu(flax_batch_norm_train(lin(x), bn))
+        return x.amax(dim=1)
+
+    def _fused_train(self, grouped: torch.Tensor) -> torch.Tensor:
+        """Ghost-statistics BatchNorm folded into scale and shift, then the
+        fused kernel (``SharedMLP._fused_max`` with ``train=True`` there).
+        The ghost rows run through the flax BatchNorm (which updates the
+        running statistics and feeds the next layer's ghost rows); scale and
+        shift come from the same mean and unclamped ``E[z^2] - E[z]^2``,
+        differentiable, so the kernel's dscale/dshift reach W, bias, gamma
+        and beta."""
+        g = grouped[:, ::GHOST_STRIDE]
+        flat = []
+        for lin, bn in zip(self.linears, self.bns):
+            zg = lin(g)
+            mu, var = batch_moments(zg)
+            g = torch.relu(flax_batch_norm_train(zg, bn, (mu, var)))
+            s = bn.weight * torch.rsqrt(var + bn.eps)
+            t = (lin.bias - mu) * s + bn.bias
+            flat += [lin.weight.t().contiguous(), s, t]
+        return K.SAMlpMaxFn.apply(grouped.contiguous(), *flat)
 
 
 class SetAbstraction(nn.Module):
@@ -65,7 +142,7 @@ class SetAbstraction(nn.Module):
 
     def __init__(self, npoint: Optional[int], nsample: Optional[int], in_channels: int,
                  mlp_channels: Sequence[int], group_all: bool = False,
-                 sampling: str = "random"):
+                 sampling: str = "random", fused_mlp_train: bool = False):
         super().__init__()
         if sampling not in ("random", "first"):
             raise NotImplementedError(
@@ -74,13 +151,11 @@ class SetAbstraction(nn.Module):
         self.nsample = nsample
         self.group_all = group_all
         self.sampling = sampling
-        self.mlp = SharedMLP(in_channels, mlp_channels)
+        self.mlp = SharedMLP(in_channels, mlp_channels, fused_mlp_train=fused_mlp_train)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
         if self.group_all:
             new_xyz, grouped = G.group_all(xyz, points)
             grouped = grouped.transpose(1, 2)  # (B, N, 1, C): N neighbours of one centroid
@@ -99,27 +174,35 @@ class PointNetPPTrunk(nn.Module):
 
     sa1 = SA(128, 32, [64, 64, 128]); sa2 = SA(32, 32, [128, 128, 256]);
     sa3 = SA(group_all, [256, 512, 1024]); fc 1024 -> 512 -> 256 with
-    BatchNorm and ReLU. Dropout is the identity in eval, the only mode ported.
+    BatchNorm and ReLU, then dropout ``p_drop`` in train (the BatchNorm
+    trunk of the JAX package: dropout once, after fc2). ``generator`` feeds
+    the centroid sampling and the dropout mask.
     """
 
-    def __init__(self, sampling: str = "random"):
+    def __init__(self, sampling: str = "random", p_drop: float = 0.5,
+                 fused_mlp_train: bool = False):
         super().__init__()
-        self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), sampling=sampling)
-        self.sa2 = SetAbstraction(32, 32, 3 + 128, (128, 128, 256), sampling=sampling)
-        self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True,
-                                  sampling=sampling)
+        sa = dict(sampling=sampling, fused_mlp_train=fused_mlp_train)
+        self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), **sa)
+        self.sa2 = SetAbstraction(32, 32, 3 + 128, (128, 128, 256), **sa)
+        self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True, **sa)
         self.fc1 = nn.Linear(1024, 512)
         self.bn1 = nn.BatchNorm1d(512, eps=BN_EPS)
         self.fc2 = nn.Linear(512, 256)
         self.bn2 = nn.BatchNorm1d(256, eps=BN_EPS)
+        self.p_drop = p_drop
+
+    def _norm(self, bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+        return flax_batch_norm_train(x, bn) if self.training else bn(x)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
         l1_xyz, l1_pts = self.sa1(xyz, None, generator)
         l2_xyz, l2_pts = self.sa2(l1_xyz, l1_pts, generator)
         _, l3_pts = self.sa3(l2_xyz, l2_pts)
         x = l3_pts.reshape(xyz.shape[0], -1)  # (B, 1024)
-        x = F.relu(self.bn1(self.fc1(x)))
-        return F.relu(self.bn2(self.fc2(x)))
+        x = F.relu(self._norm(self.bn1, self.fc1(x)))
+        x = F.relu(self._norm(self.bn2, self.fc2(x)))
+        if self.training:
+            x = dropout(x, self.p_drop, generator)
+        return x

@@ -40,6 +40,11 @@ SIGNATURES = {
     "pcot_sa_group_f32": [_P] * 6 + [_I] * 5 + [_P],
     # grouped, out, B, K, S, n_layers, (w, s, t) x 4, c0..c4, stream
     "pcot_sa_mlp_max_f32": [_P, _P] + [_I] * 4 + [_P] * 12 + [_I] * 5 + [_P],
+    # idx, dg, out, B, N, S, K, D, row_stride, stream
+    "pcot_sa_scatter_f32": [_P] * 3 + [_I] * 6 + [_P],
+    # grouped, dpooled, dgrouped, scratch, scratch_floats, chunk_rows, B, K, S,
+    # n_layers, (w, s, t) x 4, (dw, ds, dt) x 4, c0..c4, stream
+    "pcot_sa_mlp_max_bwd_f32": [_P] * 4 + [_I] * 6 + [_P] * 24 + [_I] * 5 + [_P],
 }
 
 

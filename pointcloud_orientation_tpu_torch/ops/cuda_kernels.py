@@ -1,5 +1,5 @@
-"""The two set-abstraction kernels of the serving path, with their plain
-PyTorch versions and launch counters.
+"""The set-abstraction kernels of the serving and training paths, with
+their plain PyTorch versions, launch counters and autograd Functions.
 
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (built at first use by :mod:`._build`) or
@@ -17,11 +17,23 @@ pass is a register-and-shuffle reduction (see the source).
 ``pallas_kernels.py:_sa_mlp_max_fwd_impl`` (``sa_mlp_max_pallas``, f32). It
 is bound by f32 operations; activations stay in shared memory, and the last
 layer is fused with the max so its outputs are never stored.
+
+``sa_group_scatter`` (``csrc/sa_scatter.cu``) replaces
+``pallas_kernels.py:_sa_scatter_call``, the VJP of the grouping's feature
+gather; ``SAGroupFeatsFn`` wires it in as the backward of ``sa_group``. It
+is bound by bytes and deterministic: a counting sort by target row in shared
+memory, then fixed-order sums, no float atomics.
+
+``sa_mlp_max_bwd`` (``csrc/sa_mlp_max_bwd.cu``) replaces
+``pallas_kernels.py:_sa_mlp_max_bwd_impl`` (f32), the recompute backward of
+the MLP+max; ``SAMlpMaxFn`` wires it in as the backward of ``sa_mlp_max``.
+It is bound by f32 operations; the recomputed activations go to a scratch
+tensor in device memory and every product is a tiled CUDA-core SGEMM.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -147,6 +159,26 @@ def sa_mlp_max_plain(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Te
     return x.amax(dim=1)
 
 
+def _layer_args(layers: Sequence[Layer], c0: int, dev: torch.device):
+    """Check the layers against the input width ``c0``; returns the widths,
+    and the 12 (W, scale, shift) pointers padded with None."""
+    widths = [c0]
+    ptrs = []
+    for i, (w, s, t) in enumerate(layers):
+        if w.dim() != 2:
+            raise ValueError(f"layer {i} W must be 2-D, got {tuple(w.shape)}")
+        cin, cout = w.shape
+        if cin != widths[-1]:
+            raise ValueError(f"layer {i} takes {cin} channels, gets {widths[-1]}")
+        _check_cuda(f"layer {i} W", w, torch.float32, (cin, cout), dev)
+        _check_cuda(f"layer {i} scale", s, torch.float32, (cout,), dev)
+        _check_cuda(f"layer {i} shift", t, torch.float32, (cout,), dev)
+        widths.append(cout)
+        ptrs += [w.data_ptr(), s.data_ptr(), t.data_ptr()]
+    ptrs += [None] * (3 * (MAX_MLP_LAYERS - len(layers)))
+    return widths, ptrs
+
+
 def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
     """Fused shared MLP + neighbour max-pool, f32.
 
@@ -170,21 +202,8 @@ def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
         raise ValueError(f"B={B} must be at most 65535")
     dev = grouped.device
     _check_cuda("grouped", grouped, torch.float32, (B, K, S, C), dev)
-    widths = [C]
-    ptrs = []
-    for i, (w, s, t) in enumerate(layers):
-        if w.dim() != 2:
-            raise ValueError(f"layer {i} W must be 2-D, got {tuple(w.shape)}")
-        cin, cout = w.shape
-        if cin != widths[-1]:
-            raise ValueError(f"layer {i} takes {cin} channels, gets {widths[-1]}")
-        _check_cuda(f"layer {i} W", w, torch.float32, (cin, cout), dev)
-        _check_cuda(f"layer {i} scale", s, torch.float32, (cout,), dev)
-        _check_cuda(f"layer {i} shift", t, torch.float32, (cout,), dev)
-        widths.append(cout)
-        ptrs += [w.data_ptr(), s.data_ptr(), t.data_ptr()]
+    widths, ptrs = _layer_args(layers, C, dev)
     n_layers = len(layers)
-    ptrs += [None] * (3 * (MAX_MLP_LAYERS - n_layers))
     widths_arg = widths + [0] * (MAX_MLP_LAYERS + 1 - len(widths))
     out = torch.empty((B, S, widths[-1]), dtype=torch.float32, device=dev)
     lib = load_library()
@@ -202,10 +221,213 @@ def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
 sa_mlp_max.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K3: scatter-add, the backward of the grouping's feature gather
+# ---------------------------------------------------------------------------
+
+
+def sa_group_scatter_plain(idx: torch.Tensor, dg: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of :func:`sa_group_scatter`: one ``index_add_`` over
+    the flattened (cloud, row) index."""
+    B, S, Kn = idx.shape
+    D = dg.shape[-1]
+    vals = dg.permute(0, 2, 1, 3).reshape(B * S * Kn, D)  # slots in (b, s, k) order
+    base = torch.arange(B, device=idx.device)[:, None, None] * n
+    flat = (idx.long() + base).reshape(-1)
+    out = torch.zeros((B * n, D), dtype=dg.dtype, device=dg.device)
+    out.index_add_(0, flat, vals)
+    return out.reshape(B, n, D)
+
+
+def sa_group_scatter(idx: torch.Tensor, dg: torch.Tensor, n: int) -> torch.Tensor:
+    """Deterministic scatter-add of neighbour-slot cotangents.
+
+    ``idx (B,S,K)`` int32 rows in ``[0, n)`` (the grouping's ``idx``);
+    ``dg (B,K,S,D)`` f32 neighbour-major, contiguous or a column slice of a
+    contiguous ``(B,K,S,C)`` tensor (the grouped cotangent's ``[..., 3:]``,
+    read in place). Returns ``(B,n,D)``: row ``m`` of cloud ``b`` gets the
+    sum of ``dg[b,k,s]`` over the slots with ``idx[b,s,k] == m``, summed in
+    ascending slot order, so two launches give the same bits.
+    """
+    if dg.dtype != torch.float32:
+        raise TypeError(f"sa_group_scatter takes float32 cotangents, got {dg.dtype}")
+    if dg.device.type == "cpu":
+        return sa_group_scatter_plain(idx, dg, n)
+    if dg.device.type != "cuda":
+        raise ValueError(f"sa_group_scatter runs on cpu or cuda tensors, got {dg.device}")
+    if idx.dim() != 3 or dg.dim() != 4:
+        raise ValueError(f"idx must be (B,S,K) and dg (B,K,S,D), got {tuple(idx.shape)} "
+                         f"and {tuple(dg.shape)}")
+    B, S, Kn = idx.shape
+    D = dg.shape[-1]
+    dev = dg.device
+    _check_cuda("idx", idx, torch.int32, (B, S, Kn), dev)
+    if tuple(dg.shape) != (B, Kn, S, D):
+        raise ValueError(f"dg has shape {tuple(dg.shape)}, expected {(B, Kn, S, D)}")
+    row = dg.stride(2)
+    if dg.stride() != (Kn * S * row, S * row, row, 1) or row < D:
+        raise ValueError(f"dg must be contiguous or a column slice of a contiguous tensor, "
+                         f"got strides {dg.stride()}")
+    if n < 1 or B > 65535:
+        raise ValueError(f"n={n} must be >= 1 and B={B} at most 65535")
+    out = torch.empty((B, n, D), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_sa_scatter_f32(idx.data_ptr(), dg.data_ptr(), out.data_ptr(),
+                                      B, n, S, Kn, D, row, stream)
+    _raise_on(err, f"sa_group_scatter launch (B={B}, N={n}, S={S}, K={Kn}, D={D}); error 1 "
+                   "means arguments the kernel does not take, such as S*K and N too large "
+                   "for shared memory")
+    sa_group_scatter.launches += 1
+    return out
+
+
+sa_group_scatter.launches = 0
+
+
+class SAGroupFeatsFn(torch.autograd.Function):
+    """:func:`sa_group` with features, differentiable in ``feats``: the
+    backward scatters the features' part of the grouped cotangent back to
+    the source rows through :func:`sa_group_scatter`. ``xyz`` gets zeros
+    (coordinates carry no parameters), ``cidx`` and ``idx`` nothing. The
+    counterpart of ``sa_group_feats_pallas`` and its VJP."""
+
+    @staticmethod
+    def forward(ctx, xyz, feats, cidx, nsample):
+        new_xyz, grouped, idx = sa_group(xyz, feats, cidx, nsample)
+        ctx.save_for_backward(idx)
+        ctx.n = feats.shape[1]
+        ctx.xyz_meta = (xyz.shape, xyz.dtype, xyz.device)
+        ctx.mark_non_differentiable(idx)
+        return new_xyz, grouped, idx
+
+    @staticmethod
+    def backward(ctx, dnew_xyz, dgrouped, didx):
+        (idx,) = ctx.saved_tensors
+        dxyz = dfeats = None
+        if ctx.needs_input_grad[0]:
+            shape, dtype, device = ctx.xyz_meta
+            dxyz = torch.zeros(shape, dtype=dtype, device=device)
+        if ctx.needs_input_grad[1]:
+            dfeats = sa_group_scatter(idx, dgrouped.contiguous()[..., 3:], ctx.n)
+        return dxyz, dfeats, None, None
+
+
+# ---------------------------------------------------------------------------
+# K4: recompute backward of the shared MLP + max
+# ---------------------------------------------------------------------------
+
+
+def sa_mlp_max_bwd_plain(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torch.Tensor,
+                         need_dgrouped: bool = True
+                         ) -> Tuple[Optional[torch.Tensor], List[Layer]]:
+    """Plain version of :func:`sa_mlp_max_bwd`: autograd through
+    :func:`sa_mlp_max_plain` (``amax``'s backward splits ties evenly)."""
+    with torch.enable_grad():
+        g = grouped.detach().requires_grad_()
+        flat = [p.detach().requires_grad_() for layer in layers for p in layer]
+        pooled = sa_mlp_max_plain(g, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)])
+        grads = torch.autograd.grad(pooled, [g, *flat], dpooled)
+    dlayers = [tuple(grads[1 + i:4 + i]) for i in range(0, len(flat), 3)]
+    return (grads[0] if need_dgrouped else None), dlayers
+
+
+BWD_CHUNK_ROWS = 512  # rows per partial sum of dW, dscale, dshift in the kernel
+
+
+def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torch.Tensor,
+                   need_dgrouped: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], List[Layer]]:
+    """Backward of :func:`sa_mlp_max`, f32: recomputes the forward, splits
+    ``dpooled (B,S,C_last)`` evenly over the neighbours equal to the
+    recomputed maximum, and runs it back through relu, scale/shift and W.
+    Returns ``dgrouped (B,K,S,C)`` (None when ``need_dgrouped`` is false:
+    the kernel then skips that product) and ``[(dW, dscale, dshift)]`` per
+    layer; the partials over row chunks that the kernel writes are summed
+    here."""
+    if grouped.dtype != torch.float32:
+        raise TypeError(f"sa_mlp_max_bwd takes float32 (the bf16 variant is not ported), "
+                        f"got {grouped.dtype}")
+    if grouped.device.type == "cpu":
+        return sa_mlp_max_bwd_plain(grouped, layers, dpooled, need_dgrouped)
+    if grouped.device.type != "cuda":
+        raise ValueError(f"sa_mlp_max_bwd runs on cpu or cuda tensors, got {grouped.device}")
+    if grouped.dim() != 4:
+        raise ValueError(f"grouped must be (B, K, S, C), got {tuple(grouped.shape)}")
+    if not 1 <= len(layers) <= MAX_MLP_LAYERS:
+        raise ValueError(f"sa_mlp_max_bwd takes 1 to {MAX_MLP_LAYERS} layers, got {len(layers)}")
+    B, Kn, S, C = grouped.shape
+    dev = grouped.device
+    _check_cuda("grouped", grouped, torch.float32, (B, Kn, S, C), dev)
+    widths, ptrs = _layer_args(layers, C, dev)
+    grads, grad_ptrs = [], []
+    _check_cuda("dpooled", dpooled, torch.float32, (B, S, widths[-1]), dev)
+    rows = B * Kn * S
+    chunks = -(-rows // BWD_CHUNK_ROWS)
+    if chunks > 65535:
+        raise ValueError(f"B*K*S={rows} rows exceed the kernel's {65535 * BWD_CHUNK_ROWS}")
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        dw = torch.empty((chunks, cin, cout), dtype=torch.float32, device=dev)
+        ds = torch.empty((chunks, cout), dtype=torch.float32, device=dev)
+        dt = torch.empty((chunks, cout), dtype=torch.float32, device=dev)
+        grads.append((dw, ds, dt))
+        grad_ptrs += [dw.data_ptr(), ds.data_ptr(), dt.data_ptr()]
+    n_layers = len(layers)
+    grad_ptrs += [None] * (3 * (MAX_MLP_LAYERS - n_layers))
+    scratch_floats = rows * (2 * sum(widths[1:]) + 2 * max(widths[1:]))
+    if scratch_floats >= 2 ** 31:
+        raise ValueError(f"scratch of {scratch_floats} floats exceeds the kernel's int range")
+    scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=dev)
+    dgrouped = torch.empty_like(grouped) if need_dgrouped else None
+    widths_arg = widths + [0] * (MAX_MLP_LAYERS + 1 - len(widths))
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_sa_mlp_max_bwd_f32(
+            grouped.data_ptr(), dpooled.data_ptr(),
+            None if dgrouped is None else dgrouped.data_ptr(), scratch.data_ptr(),
+            scratch_floats, BWD_CHUNK_ROWS, B, Kn, S, n_layers, *ptrs, *grad_ptrs, *widths_arg,
+            stream)
+    _raise_on(err, f"sa_mlp_max_bwd launch (B={B}, K={Kn}, S={S}, widths={widths})")
+    sa_mlp_max_bwd.launches += 1
+    # partials summed outside the kernel, as the JAX package sums its
+    # kernel's per-cloud partials (at sa2, B=16: 32 chunks x 65,920 floats)
+    return dgrouped, [tuple(p.sum(dim=0) for p in layer) for layer in grads]
+
+
+sa_mlp_max_bwd.launches = 0
+
+
+class SAMlpMaxFn(torch.autograd.Function):
+    """:func:`sa_mlp_max` differentiable in ``grouped`` and in every
+    layer's W, scale and shift (so that scale and shift computed from
+    batch statistics carry their gradients on); the backward is
+    :func:`sa_mlp_max_bwd`. The counterpart of ``sa_mlp_max_pallas`` and its
+    VJP. Call as ``SAMlpMaxFn.apply(grouped, w0, s0, t0, w1, ...)``."""
+
+    @staticmethod
+    def forward(ctx, grouped, *flat):
+        ctx.save_for_backward(grouped, *flat)
+        return sa_mlp_max(grouped, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)])
+
+    @staticmethod
+    def backward(ctx, dpooled):
+        grouped, *flat = ctx.saved_tensors
+        layers = [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+        dgrouped, dlayers = sa_mlp_max_bwd(grouped, layers, dpooled.contiguous(),
+                                           need_dgrouped=ctx.needs_input_grad[0])
+        return (dgrouped, *[d for layer in dlayers for d in layer])
+
+
 def reset_launch_counts() -> None:
     sa_group.launches = 0
     sa_mlp_max.launches = 0
+    sa_group_scatter.launches = 0
+    sa_mlp_max_bwd.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"sa_group": sa_group.launches, "sa_mlp_max": sa_mlp_max.launches}
+    return {"sa_group": sa_group.launches, "sa_mlp_max": sa_mlp_max.launches,
+            "sa_group_scatter": sa_group_scatter.launches,
+            "sa_mlp_max_bwd": sa_mlp_max_bwd.launches}

@@ -1,7 +1,7 @@
-"""Point-cloud geometry for the PointNet++ serving path, in PyTorch.
+"""Point-cloud geometry for the PointNet++ serving and training paths, in PyTorch.
 
 Counterpart of ``pointcloud_orientation_tpu/ops/geometry.py`` for the modes
-the serving slice runs: ``first`` or ``random`` centroids, exact kNN
+the ported slices run: ``first`` or ``random`` centroids, exact kNN
 grouping, neighbour-major layout. Every other mode raises.
 
 Distances are the elementwise ``c2 - 2*c.x + x2`` sequence in one fixed
@@ -91,7 +91,7 @@ def sample_and_group(
     runs through the ``sa_group`` kernel wrapper (its plain version for CPU
     tensors).
     """
-    from .cuda_kernels import sa_group  # cuda_kernels imports this module
+    from . import cuda_kernels as K  # cuda_kernels imports this module
 
     B, N, _ = xyz.shape
     if grouping != "knn":
@@ -106,9 +106,12 @@ def sample_and_group(
         cidx = torch.arange(npoint, device=xyz.device).expand(B, npoint)
     else:
         raise NotImplementedError(f"sampling={sampling!r}: only 'first' and 'random' are ported")
-    new_xyz, grouped, _ = sa_group(
-        xyz.contiguous(), None if points is None else points.contiguous(),
-        cidx.to(torch.int32).contiguous(), nsample)
+    cidx = cidx.to(torch.int32).contiguous()
+    if points is None:  # coordinates carry no parameters: nothing to differentiate
+        new_xyz, grouped, _ = K.sa_group(xyz.contiguous(), None, cidx, nsample)
+    else:
+        new_xyz, grouped, _ = K.SAGroupFeatsFn.apply(
+            xyz.contiguous(), points.contiguous(), cidx, nsample)
     if not neighbor_major:
         grouped = grouped.transpose(1, 2)
     return new_xyz, grouped

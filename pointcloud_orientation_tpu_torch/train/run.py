@@ -1,0 +1,79 @@
+"""CLI: ``python -m pointcloud_orientation_tpu_torch.train.run``.
+
+Counterpart of ``pointcloud_orientation_tpu/train/run.py`` for the flags
+this slice supports. Trains a preset on the card (``--device cuda``, the
+default) or the CPU, tests the best-val weights and writes ``metrics.json``
+and ``summary.txt`` to ``--out``.
+
+    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \\
+        --data synthetic --epochs 5 --device cuda --out results/torch_8dir_kl
+
+Data: ``synthetic`` only (the HDF5 and PLY sources are not ported yet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from ..data import OrientationDataset
+from .config import PRESETS, preset
+from .trainer import Trainer
+
+
+def load_dataset(spec: str, num_points: int, classes=None) -> OrientationDataset:
+    if spec == "synthetic":
+        return OrientationDataset.synthetic(
+            samples_per_class=64, num_points=max(num_points, 512),
+            class_names=list(classes) if classes else None)
+    raise NotImplementedError(f"data {spec!r} is not ported; the port takes 'synthetic'")
+
+
+def run_single(cfg, dataset: OrientationDataset, out_dir: str, device: str,
+               fused_mlp_train: bool = False):
+    trainer = Trainer(cfg, dataset, device=device, fused_mlp_train=fused_mlp_train)
+    trainer.fit(checkpoint_dir=os.path.join(out_dir, "ckpt") if cfg.checkpoint_every else None)
+    test_acc = trainer.test()
+    trainer.write_artifacts(out_dir, test_acc)
+    print(f"[{cfg.task}] test loss {test_acc.mean_loss:.6f}  "
+          f"angular {test_acc.mean_angular_error:.2f} deg  "
+          f"best val {trainer.best_val:.6f} @ epoch {trainer.best_val_epoch}", flush=True)
+    return trainer, test_acc
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--preset", choices=sorted(PRESETS), required=True)
+    ap.add_argument("--data", default="synthetic")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None, dest="batch_size")
+    ap.add_argument("--num-points", type=int, default=None, dest="num_points")
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--classes", default=None, help="comma-separated override")
+    ap.add_argument("--checkpoint-every", type=int, default=None, dest="checkpoint_every")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--fused-mlp-train", action="store_true", dest="fused_mlp_train",
+                    help="train the shared MLPs through the fused MLP+max kernel and its "
+                         "backward kernel with ghost-row BatchNorm statistics (the JAX "
+                         "package's PCOT_FUSED_MLP=1)")
+    args = ap.parse_args(argv)
+
+    overrides = {k: getattr(args, k) for k in
+                 ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every")
+                 if getattr(args, k) is not None}
+    if args.classes:
+        overrides["classes"] = tuple(args.classes.split(","))
+    cfg = preset(args.preset, **overrides)
+    dataset = load_dataset(args.data, cfg.num_points, classes=cfg.classes)
+    out_dir = args.out or os.path.join(cfg.out_dir, "torch_" + args.preset)
+    t0 = time.time()
+    run_single(cfg, dataset, out_dir, args.device, args.fused_mlp_train)
+    print(f"done in {(time.time() - t0) / 60:.1f} min; artifacts in {out_dir}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -85,6 +85,38 @@ def _set(tree: Dict, path: Tuple[str, ...], value: Dict) -> None:
     tree[path[-1]] = value
 
 
+def _np(t: torch.Tensor, name: str) -> np.ndarray:
+    if t is None:
+        raise ValueError(f"{name} has no gradient")
+    return t.detach().cpu().numpy().copy()
+
+
+def to_flax_variables(model: PointNetPP8Dir, grads: bool = False) -> Dict:
+    """The model's weights and running statistics as a flax
+    ``{"params", "batch_stats"}`` tree of numpy arrays in the JAX package's
+    layout (the inverse of :func:`load_flax_variables`). With ``grads=True``,
+    ``{"params": ...}`` holds the parameters' ``.grad`` instead, so that a
+    step's gradients compare leaf by leaf with ``jax.grad``'s."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def value(p: torch.Tensor, name: str) -> np.ndarray:
+        return _np(p.grad if grads else p, name)
+
+    for lin_path, lin, bn_path, bn in _pairs(model):
+        name = "/".join(lin_path)
+        _set(params, lin_path, {"kernel": value(lin.weight, name + "/kernel").T.copy(),
+                                "bias": value(lin.bias, name + "/bias")})
+        if bn is None:
+            continue
+        name = "/".join(bn_path)
+        _set(params, bn_path, {"scale": value(bn.weight, name + "/scale"),
+                               "bias": value(bn.bias, name + "/bias")})
+        _set(stats, bn_path, {"mean": _np(bn.running_mean, name + "/mean"),
+                              "var": _np(bn.running_var, name + "/var")})
+    return {"params": params} if grads else {"params": params, "batch_stats": stats}
+
+
 def random_flax_variables(seed: int) -> Dict:
     """A ``PointNetPP8Dir`` variable tree in the JAX package's layout, made
     with numpy from ``seed``: LeCun-normal kernels, small random biases, and

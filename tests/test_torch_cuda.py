@@ -1,7 +1,7 @@
 """On the card only (marker ``cuda``; skipped without a CUDA device): each
 CUDA kernel of the port against its plain PyTorch version, the wrappers'
-refusals, and the model's logits through the kernels against the same model
-through the plain versions.
+refusals, the model's logits through the kernels against the same model
+through the plain versions, and a train step's gradients likewise.
 
 This file imports nothing of JAX, so that it runs on a machine without it:
 
@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from pointcloud_orientation_tpu_torch import OrientationPredictor, random_flax_variables
+from pointcloud_orientation_tpu_torch.data import OrientationDataset
+from pointcloud_orientation_tpu_torch.train import Trainer, preset
 from pointcloud_orientation_tpu_torch.ops import cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as TG
 
@@ -124,8 +126,170 @@ def test_logits_through_kernels_match_plain_versions_on_card(cuda_device):
     before = K.launch_counts()
     got = pred(clouds)
     after = K.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {"sa_group": 2, "sa_mlp_max": 3}
+    assert {k: after[k] - before[k] for k in after} == {
+        "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0}
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
         want = pred(clouds)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the training slice's backward kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["grouping", "random"])
+def test_scatter_kernel_is_deterministic_and_matches_plain_on_card(cuda_device, source):
+    """At sa2's shapes (B=16, N=128, S=32, K=32, D=128), reading the
+    cotangent in place at column offset 3 of a (B,K,S,131) tensor: two
+    launches bit-equal, and within 1e-5 of the plain version (index_add_,
+    another summation order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    B, N, S, KN, D = 16, 128, 32, 32, 128
+    if source == "grouping":
+        xyz, feats, cidx = _sa_group_case(gen, cuda_device, B, N, S, KN, D, False)
+        idx = K.sa_group(xyz, feats, cidx, KN)[2]
+    else:
+        idx = torch.randint(0, N, (B, S, KN), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+    dg = torch.randn((B, KN, S, 3 + D), generator=gen, device=cuda_device)[..., 3:]
+    before = K.sa_group_scatter.launches
+    a = K.sa_group_scatter(idx, dg, N)
+    b = K.sa_group_scatter(idx, dg, N)
+    want = K.sa_group_scatter_plain(idx, dg, N)
+    torch.cuda.synchronize()
+    assert K.sa_group_scatter.launches == before + 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+
+
+def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
+    """Inputs on which every forward product and sum is exact in f32 in any
+    order: grouped in multiples of 1/8 within [-1, 1], W in {-1, 0, 1},
+    scale a power of two near 1/sqrt(Cin), shift a multiple of the layer's
+    granularity. The kernel and the plain version then take the same ReLU
+    and max decisions (the max has many exact ties, split evenly), and only
+    the backward sums differ in order. ``dead``: the last shift at -1000,
+    so every pooled value is 0 and every neighbour ties."""
+    g = torch.randint(-8, 9, (b, kn, s, widths[0]), generator=gen, device=dev) / 8.0
+    layers, bits = [], 3
+    for ci, co in zip(widths[:-1], widths[1:]):
+        e = math.ceil(math.log2(math.sqrt(ci)))
+        bits += e
+        w = torch.randint(-1, 2, (ci, co), generator=gen, device=dev).float()
+        sc = torch.full((co,), 2.0 ** -e, device=dev)
+        t = torch.randint(-16, 17, (co,), generator=gen, device=dev) * 2.0 ** -bits
+        layers.append((w.contiguous(), sc, t.float()))
+    if dead:
+        layers[-1] = (layers[-1][0], layers[-1][1], torch.full_like(layers[-1][2], -1000.0))
+    dp = torch.randn((b, s, widths[-1]), generator=gen, device=dev)
+    return g.float().contiguous(), layers, dp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True], ids=["ties", "all-tied"])
+@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+def test_mlp_max_bwd_kernel_matches_plain_on_card(cuda_device, stage, dead):
+    """B=16 at each set abstraction's shapes: dgrouped, dW, dscale and
+    dshift within rtol 1e-4 and atol 1e-4 times the output's largest entry
+    (the backward sums over up to 65,536 rows run in another order)."""
+    kn, s, widths = SA_WIDTHS[stage]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g, layers, dp = dyadic_mlp_case(gen, cuda_device, 16, kn, s, widths, dead)
+    before = K.sa_mlp_max_bwd.launches
+    got = K.sa_mlp_max_bwd(g, layers, dp)
+    want = K.sa_mlp_max_bwd_plain(g, layers, dp)
+    torch.cuda.synchronize()
+    assert K.sa_mlp_max_bwd.launches == before + 1
+    pairs = [("dgrouped", got[0], want[0])]
+    for i, (a, b) in enumerate(zip(got[1], want[1])):
+        pairs += [(f"layer {i} {n}", x, y) for n, x, y in zip(("dW", "ds", "dt"), a, b)]
+    for name, a, b in pairs:
+        assert torch.isfinite(a).all(), name
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale, msg=name)
+    if dead:
+        assert not got[0].any()
+    again = K.sa_mlp_max_bwd(g, layers, dp)
+    assert torch.equal(again[0], got[0])  # no atomics: the same bits twice
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    dev = cuda_device
+    idx = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
+    dg = torch.zeros((1, 2, 4, 5), device=dev)
+    with pytest.raises(TypeError):
+        K.sa_group_scatter(idx, dg.double(), 8)
+    with pytest.raises(TypeError):  # int64 indices
+        K.sa_group_scatter(idx.long(), dg, 8)
+    with pytest.raises(ValueError):  # shape mismatch
+        K.sa_group_scatter(idx, torch.zeros((1, 4, 2, 5), device=dev), 8)
+    with pytest.raises(ValueError):  # a stride the kernel cannot read
+        K.sa_group_scatter(idx, torch.zeros((1, 2, 5, 4), device=dev).transpose(2, 3), 8)
+    with pytest.raises(ValueError):  # cpu idx with cuda cotangents
+        K.sa_group_scatter(idx.cpu(), dg, 8)
+    layer = (torch.ones(3, 5, device=dev), torch.ones(5, device=dev), torch.zeros(5, device=dev))
+    g = torch.zeros((1, 4, 8, 3), device=dev)
+    with pytest.raises(ValueError):  # dpooled of the wrong width
+        K.sa_mlp_max_bwd(g, [layer], torch.zeros((1, 8, 6), device=dev))
+    with pytest.raises(ValueError):  # more layers than the kernel takes
+        K.sa_mlp_max_bwd(g, [layer] + [(torch.ones(5, 5, device=dev),) + layer[1:]] * 4,
+                         torch.zeros((1, 8, 5), device=dev))
+    with pytest.raises(ValueError):  # channel mismatch
+        K.sa_mlp_max_bwd(torch.zeros((1, 4, 8, 4), device=dev), [layer],
+                         torch.zeros((1, 8, 5), device=dev))
+    with pytest.raises(TypeError):
+        K.sa_mlp_max_bwd(g.double(), [layer], torch.zeros((1, 8, 5), device=dev))
+
+
+def _step_grads(trainer, batch, valid, seed):
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    model.train()
+    logits = model(batch["points"], torch.Generator(device=batch["points"].device).manual_seed(seed))
+    per = trainer.adapter.loss(logits, batch, trainer.cfg)
+    ((per * valid).sum() / valid.sum().clamp_min(1.0)).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused-ghost"])
+def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, fused):
+    """One 8dir_kl step at B=16, N=2,048 (full width), through the kernels
+    and through the plain versions, from the same weights and generator:
+    each parameter's gradient within 1e-3 relative in norm (default path:
+    only the scatter's summation order differs) or 5e-2 (fused path: the
+    kernels' f32 sums can flip a few ReLU and max decisions between
+    near-equal values, which reroutes those rows' gradients)."""
+    ds = OrientationDataset.synthetic(samples_per_class=4, num_points=2048)
+    trainer = Trainer(preset("8dir_kl", num_points=2048), ds, device=cuda_device,
+                      fused_mlp_train=fused)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+    batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 1, 0))
+    before = K.launch_counts()
+    got = _step_grads(trainer, batch, valid, 3)
+    grown = {k: v - before[k] for k, v in K.launch_counts().items()}
+    if fused:
+        assert grown == {"sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 1,
+                         "sa_mlp_max_bwd": 3}, grown
+    else:
+        assert grown == {"sa_group": 2, "sa_mlp_max": 0, "sa_group_scatter": 1,
+                         "sa_mlp_max_bwd": 0}, grown
+    trainer.model.load_state_dict(state)
+    with mock.patch.object(K, "sa_group", K.sa_group_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
+            mock.patch.object(K, "sa_group_scatter", K.sa_group_scatter_plain), \
+            mock.patch.object(K, "sa_mlp_max_bwd", K.sa_mlp_max_bwd_plain):
+        want = _step_grads(trainer, batch, valid, 3)
+    for name in want:
+        a, b = got[name], want[name]
+        assert torch.isfinite(a).all(), name
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if name.endswith("bias") and "linears" in name or name in ("trunk.fc1.bias",
+                                                                  "trunk.fc2.bias"):
+            continue  # zero in exact arithmetic: a Dense bias that feeds a train BatchNorm
+        assert rel <= (5e-2 if fused else 1e-3), (name, rel)

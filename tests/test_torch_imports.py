@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py run where JAX is absent, and chip_smoke.py
+"""The port and chip_smoke.py run where JAX is absent (serving, one train
+step in each train configuration, the training CLI), and chip_smoke.py
 refuses to run without a card."""
 
 import os
@@ -29,13 +30,13 @@ _BLOCKER = textwrap.dedent("""
 """)
 
 
-def _run(code: str, cwd: str = REPO, timeout: float = 300) -> subprocess.CompletedProcess:
+def _run(code: str, cwd: str = REPO, timeout: float = 300, args=()) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+    return subprocess.run([sys.executable, "-c", code, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
 
-def test_port_and_chip_smoke_import_and_serve_without_jax():
+def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
     code = _BLOCKER + textwrap.dedent("""
         import importlib, pkgutil
         import numpy as np
@@ -51,11 +52,26 @@ def test_port_and_chip_smoke_import_and_serve_without_jax():
                                       num_points=128, max_batch=2, device="cpu")
         out = p(np.random.default_rng(0).normal(size=(3, 100, 3)).astype(np.float32))
         assert out.shape == (3, 8) and np.isfinite(out).all()
+        # one CPU train step in each train configuration, and the CLI
+        from pointcloud_orientation_tpu_torch.data import OrientationDataset
+        from pointcloud_orientation_tpu_torch.train import Trainer, preset
+        from pointcloud_orientation_tpu_torch.train.run import main
+        ds = OrientationDataset.synthetic(samples_per_class=2, num_points=160)
+        for fused in (False, True):
+            t = Trainer(preset("8dir_kl", batch_size=4, num_points=160), ds, device="cpu",
+                        fused_mlp_train=fused)
+            idx, valid, _ = next(ds.batches(4))
+            batch, valid, _ = t.device_batch(ds, idx, valid, t.generator(0, 1, 0))
+            loss = float(t.train_step(batch, valid, t.generator(0, 1, 0))["loss"])
+            assert np.isfinite(loss), loss
+        main(["--preset", "8dir_kl", "--epochs", "1", "--num-points", "128",
+              "--batch-size", "16", "--device", "cpu", "--out", sys.argv[1]])
         print("IMPORTED", len(names))
     """)
-    r = _run(code)
+    r = _run(code, args=(str(tmp_path / "run"),))
     assert r.returncode == 0, r.stderr
     assert "IMPORTED" in r.stdout
+    assert (tmp_path / "run" / "summary.txt").read_text().splitlines()[-1].startswith("Overall")
     # the blocker itself works: the JAX package cannot come in
     r = _run(_BLOCKER + "import pointcloud_orientation_tpu.ops.dirs8")
     assert r.returncode != 0 and "blocked" in r.stderr

@@ -95,9 +95,15 @@ def test_shared_mlp_fold_matches_unfolded_batchnorm(rng):
 
 
 def test_train_mode_raises_until_the_training_slice():
+    """The training slice is ported: a fresh module (train mode) runs, and
+    it raises only where the JAX module would too, on a dropout without a
+    random stream."""
     model = PointNetPP8Dir(sampling="first")  # a fresh module is in train mode
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model(torch.zeros((1, 128, 3)))
+    with pytest.raises(ValueError, match="Generator"):
+        model(torch.zeros((2, 128, 3)))
+    out = model(torch.randn((2, 128, 3), generator=torch.Generator().manual_seed(0)),
+                torch.Generator().manual_seed(1))
+    assert out.shape == (2, 8) and torch.isfinite(out).all() and out.requires_grad
 
 
 @pytest.mark.parametrize("kwargs", [{"grouping": "ball"}, {"dtype": torch.bfloat16},
