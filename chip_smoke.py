@@ -4,10 +4,13 @@
 
 Builds the port's CUDA kernels from ``pointcloud_orientation_tpu_torch/csrc``
 with nvcc and holds each kernel against its plain PyTorch version at the
-shapes its path gives it. Then drives the two main paths at full width,
-random weights from a seed, each with the launch counters set to 0 just
-before and read just after: serving through ``OrientationPredictor``
-(PointNet++ 8-dir) at N=1024 and N=10,000, and training of the 8dir_kl
+shapes its path gives it. Then drives the main paths at full width, random
+weights from a seed, each with the launch counters set to 0 just before and
+read just after: serving through ``OrientationPredictor`` (PointNet++ 8-dir)
+at N=1024 and N=10,000; serving the ModelNet40 classifier
+(``pointnet_pp_cls``, FPS and ball query, 6-channel clouds) at N=1024;
+8-dir serving at N=16,384 (the kNN kernel) and N=24,576 (no kernel for the
+kNN) and one 8dir_kl train step at N=16,384; and training of the 8dir_kl
 preset (B=16, N=10,000) through ``Trainer`` in both train configurations
 (the default, and ``fused_mlp_train``), with a gradient check against the
 plain versions and a checkpoint round trip. Finally times the kernels, the
@@ -36,6 +39,7 @@ import torch
 from pointcloud_orientation_tpu_torch import OrientationPredictor, random_flax_variables
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
+from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
 
@@ -60,6 +64,11 @@ SA_MLP_SHAPES = {
     "sa1 B=64": (64, 32, 128, (3, 64, 64, 128)),
     "sa2 B=64": (64, 32, 32, (131, 128, 128, 256)),
     "sa3 B=64": (64, 32, 1, (259, 256, 512, 1024)),
+    # the classifier's three stages at B=64 N=1024 (6-channel clouds); the
+    # group-all stage's 128 rows run in two chunks
+    "cls sa1 B=64": (64, 32, 512, (6, 64, 64, 128)),
+    "cls sa2 B=64": (64, 64, 128, (131, 128, 128, 256)),
+    "cls group-all K=128 B=64": (64, 128, 1, (259, 256, 512, 1024)),
 }
 # one forward at the bench shape launches these (summed in the last line)
 BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
@@ -67,6 +76,19 @@ BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
 MLP_TOL = 1e-4  # rtol and atol: the kernel sums in another order than cuBLAS
 LOGIT_TOL = 1e-4
 SERVE_KERNELS = ("sa_group", "sa_mlp_max")
+
+# The index kernels' shapes. FPS: (B, N, npoint), the classifier's two stages
+# at B=64 N=1024 and a 10,000-point cloud. Ball query: (B, S, N, K, radius),
+# the classifier's two stages. kNN: (B, S, N, K), the 8-dir sa1 above the
+# fused grouping's 10,240 points, up to the kernel's 20,480.
+FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 128),
+              "B=16 N=10000": (16, 10000, 512)}
+BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2), "sa2 B=64": (64, 128, 512, 64, 0.4)}
+KNN_SHAPES = {"sa1 B=16 N=16384": (16, 128, 16384, 32), "sa1 B=16 N=20480": (16, 128, 20480, 32)}
+CLS_FORWARD = {"fps": ("sa1 B=64 N=1024", "sa2 B=64 N=512"), "ball_query": ("sa1 B=64", "sa2 B=64")}
+CLS_CHANNELS = 6  # xyz and normals
+LARGE_N = (16_384, 24_576)  # 8-dir serving with and without the kNN kernel
+LSE_TOL = 1e-5  # log-probabilities: each row's logsumexp is 0 up to f32 rounding
 
 # The training path's backward kernels at the 8dir_kl preset's B=16 (N=10,000
 # points; sa2 groups 128 points). Scatter: (B, N, S, K, D); MLP: (B, K, S, widths).
@@ -154,6 +176,40 @@ def sa_mlp_cost(B, Kn, S, widths) -> tuple[float, float]:
     nbytes = 4 * (rows * widths[0] + sum(ci * co + 2 * co for ci, co in pairs) + B * S * widths[-1])
     flops = sum(2 * rows * ci * co + 3 * rows * co for ci, co in pairs) + rows * widths[-1]
     return nbytes, flops
+
+
+def fps_cost(B, N, npoint) -> tuple[float, float]:
+    """Bytes: the cloud and the seeds read once, the indices written once.
+    Operations: 10 per point for each of the npoint - 1 updates (3
+    differences, 3 squares, 2 adds, the running min, the argmax compare)."""
+    return 4 * (B * N * 3 + B + B * npoint), 10 * B * N * (npoint - 1)
+
+
+def ball_cost(B, S, N, Kn, scanned) -> tuple[float, float]:
+    """Bytes: cloud and centroids read once, indices written once.
+    Operations: 9 per point a query must test (3 differences, 3 squares, 2
+    adds, the compare), ``scanned`` of them: for each centroid the points up
+    to its Kn-th hit, or all N when it has fewer (what this run's data
+    needs)."""
+    return 4 * (B * N * 3 + B * S * 3 + B * S * Kn), 9 * scanned
+
+
+def knn_cost(B, S, N, Kn) -> tuple[float, float]:
+    """Bytes: cloud and centroids read once, indices written once.
+    Operations: 8 per centroid-point distance and one selection compare per
+    centroid-point pair (picking the Kn smallest of N needs on the order of
+    N compares, not the Kn passes over all N that the kernel makes)."""
+    return 4 * (B * N * 3 + B * S * 3 + B * S * Kn), 9 * B * S * N
+
+
+def ball_scanned(new_xyz, xyz, radius, Kn) -> int:
+    """The points the ball query of these inputs must test: for each
+    centroid up to its Kn-th point within ``radius``, else all N."""
+    hits = (G.diff_square_distance(new_xyz, xyz) <= K.radius_sq_f32(radius)).int().cumsum(-1)
+    full = hits[..., -1] >= Kn
+    need = torch.where(full, (hits < Kn).sum(-1) + 1, torch.full_like(full, xyz.shape[1],
+                                                                      dtype=torch.long))
+    return int(need.sum())
 
 
 def phase_device() -> dict:
@@ -247,6 +303,189 @@ def phase_kernels(dev) -> dict:
     return results
 
 
+def unit_cloud(B, N, gen, dev, tiled: bool) -> torch.Tensor:
+    """``(B, N, 3)`` points scaled into the unit ball, as the classifier's
+    clouds are; ``tiled``: a quarter of them cycled to N (exact ties, and
+    four times the points inside any radius)."""
+    n = max(1, N // 4) if tiled else N
+    x = torch.randn((B, n, 3), generator=gen, device=dev)
+    x = (x / x.norm(dim=-1).amax(dim=1)[:, None, None]).contiguous()
+    return x.repeat(1, -(-N // n), 1)[:, :N].contiguous() if tiled else x
+
+
+def select_inputs(kernel, shape, gen, dev, case):
+    """The inputs of one index kernel at ``shape``: ``case`` is "random",
+    "tiled", "empty" (ball query: centroid 0 of every cloud far from the
+    cloud) or "seeds" (FPS: random non-zero start points)."""
+    if kernel == "fps":
+        B, N, npoint = shape
+        xyz = unit_cloud(B, N, gen, dev, case == "tiled")
+        if case == "seeds":
+            seeds = torch.randint(1, N, (B,), generator=gen, device=dev, dtype=torch.int32)
+        else:
+            seeds = torch.zeros((B,), dtype=torch.int32, device=dev)
+        return xyz, seeds, npoint
+    if kernel == "ball_query":
+        B, S, N, Kn, radius = shape
+        xyz = unit_cloud(B, N, gen, dev, case == "tiled")
+        cidx = random_sample_indices(gen, B, N, S, dev)
+        new_xyz = G.index_points(xyz, cidx).contiguous()
+        if case == "empty":
+            new_xyz[:, 0] = 3.0
+        return new_xyz, xyz, radius, Kn
+    B, S, N, Kn = shape
+    xyz = unit_cloud(B, N, gen, dev, case == "tiled")
+    cidx = random_sample_indices(gen, B, N, S, dev)
+    return G.index_points(xyz, cidx).contiguous(), xyz, Kn
+
+
+SELECT = {  # kernel: (shapes, cases, plain version)
+    "fps": (FPS_SHAPES, ("random", "tiled", "seeds"), K.fps_plain),
+    "ball_query": (BALL_SHAPES, ("random", "tiled", "empty"), K.ball_query_plain),
+    "knn": (KNN_SHAPES, ("random", "tiled"), K.knn_plain),
+}
+
+
+def phase_kernels_select(dev) -> dict:
+    """FPS, ball query and kNN bit-equal to their plain versions on random
+    clouds, tiled clouds (ties), start seeds and empty radii."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    results = {k: {} for k in SELECT}
+    for kname, (shapes, cases, plain) in SELECT.items():
+        for name, shape in shapes.items():
+            for case in cases:
+                args = select_inputs(kname, shape, gen, dev, case)
+                got = getattr(K, kname)(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    fail(f"{kname} {name} {case}: {tuple(got.shape)} {got.dtype} vs "
+                         f"{tuple(want.shape)} {want.dtype}")
+                if not torch.equal(got, want):
+                    fail(f"{kname} {name} {case}: differs in {int((got != want).sum())} entries")
+                if case == "empty" and not bool((got[:, 0] == args[1].shape[1] - 1).all()):
+                    fail(f"{kname} {name}: a centroid with an empty radius got {got[0, 0]}")
+            results[kname][name] = {"max_abs_err": 0.0, "exact": True}
+            emit("kernel_check", kernel=kname, shape=name, exact=True, inputs=list(cases))
+    return results
+
+
+def expected_launches(**nonzero) -> dict:
+    """Every counter at 0 but the ones given."""
+    return {**{k: 0 for k in K.launch_counts()}, **nonzero}
+
+
+def cls_clouds(b, n, rng) -> np.ndarray:
+    """``(b, n, 6)`` classifier inputs: synthetic ModelNet-like xyz (boxes
+    with a nose, centred and scaled) and unit normals pointing outwards."""
+    xyz, _, _ = synthetic_modelnet(seed=int(rng.integers(1 << 30)), num_points=n,
+                                   samples_per_class=-(-b // 6))
+    xyz = xyz[rng.permutation(len(xyz))[:b]].astype(np.float32)
+    normals = xyz / (np.linalg.norm(xyz, axis=-1, keepdims=True) + 1e-6)
+    return np.concatenate([xyz, normals], axis=-1).astype(np.float32)
+
+
+def phase_serve_cls(dev) -> dict:
+    """The classifier's main path: ``OrientationPredictor("pointnet_pp_cls")``
+    at N=1024, max_batch 64, 6-channel clouds, B = 1, 13, 64, 100; per chunk
+    2 FPS, 2 ball-query and 3 MLP launches, no grouping kernel."""
+    v = random_flax_variables(SEED, "pointnet_pp_cls", in_channels=CLS_CHANNELS)
+    rng = np.random.default_rng(SEED + 6)
+    pred = OrientationPredictor("pointnet_pp_cls", v["params"], v["batch_stats"],
+                                num_points=1024, max_batch=64, seed=SEED, device=dev)
+    clouds = {b: cls_clouds(b, 1024, rng) for b in (1, 13, 64, 100)}
+
+    K.reset_launch_counts()
+    per_request = []
+    for b, x in clouds.items():
+        before = K.launch_counts()
+        out = pred(x)
+        after = K.launch_counts()
+        chunks = -(-b // 64)
+        grown = {k: after[k] - before[k] for k in after}
+        lse = np.log(np.exp(out.astype(np.float64)).sum(-1))
+        if out.shape != (b, 40) or not np.isfinite(out).all() or np.abs(lse).max() > LSE_TOL:
+            fail(f"classifier B={b}: output {out.shape}, logsumexp up to {np.abs(lse).max()}")
+        if grown != expected_launches(fps=2 * chunks, ball_query=2 * chunks,
+                                      sa_mlp_max=3 * chunks):
+            fail(f"classifier B={b} ({chunks} chunks): launches grew by {grown}")
+        per_request.append({"B": b, "chunks": chunks, "launches": grown,
+                            "max_abs_logsumexp": float(np.abs(lse).max())})
+    launches = K.launch_counts()
+    emit("serve_cls", requests=per_request, launches=launches)
+
+    # the B=64 log-probabilities through the kernels and through the plain
+    # versions, from the same generator state (the same FPS start points)
+    x = clouds[64]
+    pred.generator.manual_seed(SEED)
+    with_kernels = pred(x)
+    pred.generator.manual_seed(SEED)
+    with mock.patch.object(K, "fps", K.fps_plain), \
+            mock.patch.object(K, "ball_query", K.ball_query_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
+        plain = pred(x)
+    err = float(np.abs(with_kernels - plain).max())
+    ok = bool(np.allclose(with_kernels, plain, rtol=LOGIT_TOL, atol=LOGIT_TOL))
+    emit("serve_cls_check", B=64, max_abs_err=err, tol=LOGIT_TOL, ok=ok)
+    if not ok:
+        fail(f"classifier B=64: kernels vs plain versions max abs err {err}")
+    return {"launches": launches, "predictor": pred}
+
+
+def phase_large(dev) -> dict:
+    """Clouds above the fused grouping kernel's 10,240 points: 8-dir serving
+    at N=16,384 (sa1 through the kNN kernel) and N=24,576 (sa1 through the
+    matmul-form sort), each against the plain versions, then one 8dir_kl
+    train step at B=16 N=16,384."""
+    v = random_flax_variables(SEED)
+    rng = np.random.default_rng(SEED + 7)
+    out = {"predictors": {}, "launches": {}}
+    patches = (("sa_group", K.sa_group_plain), ("sa_mlp_max", K.sa_mlp_max_plain),
+               ("knn", K.knn_plain))
+    for n in LARGE_N:
+        x = rng.normal(size=(16, n, 3)).astype(np.float32)
+        pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                    num_points=n, max_batch=16, seed=SEED, device=dev)
+        K.reset_launch_counts()
+        got = pred(x)
+        launches = K.launch_counts()
+        knn_n = 1 if n <= G.KNN_KERNEL_MAX_N else 0
+        if launches != expected_launches(knn=knn_n, sa_group=1, sa_mlp_max=3):
+            fail(f"8-dir N={n}: launches {launches}")
+        if got.shape != (16, 8) or not np.isfinite(got).all():
+            fail(f"8-dir N={n}: output {got.shape}, finite={np.isfinite(got).all()}")
+        pred.generator.manual_seed(SEED)
+        with_kernels = pred(x)
+        pred.generator.manual_seed(SEED)
+        with mock.patch.multiple(K, **dict(patches)):
+            plain = pred(x)
+        err = float(np.abs(with_kernels - plain).max())
+        ok = bool(np.allclose(with_kernels, plain, rtol=LOGIT_TOL, atol=LOGIT_TOL))
+        emit("serve_large", N=n, B=16, launches=launches, max_abs_err=err, tol=LOGIT_TOL, ok=ok)
+        if not ok:
+            fail(f"8-dir N={n}: kernels vs plain versions max abs err {err}")
+        out["predictors"][n] = pred
+        out["launches"][n] = launches
+
+    n = LARGE_N[0]
+    ds = OrientationDataset(*synthetic_modelnet(num_points=n, samples_per_class=3))
+    trainer = Trainer(preset("8dir_kl", num_points=n), ds, device=dev)
+    idx, valid, _ = next(trainer.train_ds.batches(16))
+    batch, valid, _ = trainer.device_batch(trainer.train_ds, idx, valid,
+                                           trainer.generator(0, 96, 0))
+    K.reset_launch_counts()
+    loss = float(trainer.train_step(batch, valid, trainer.generator(0, 95, 0))["loss"])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expected = expected_launches(knn=1, sa_group=1, sa_group_scatter=1)
+    emit("train_large", N=n, B=16, loss=loss, launches=launches, expected_launches=expected)
+    if not math.isfinite(loss) or launches != expected:
+        fail(f"8dir_kl step at N={n}: loss {loss}, launches {launches}")
+    out["train_launches"] = launches
+    return out
+
+
 def phase_serve(dev) -> dict:
     v = random_flax_variables(SEED)
     rng = np.random.default_rng(SEED)
@@ -271,8 +510,7 @@ def phase_serve(dev) -> dict:
         grown = {k: after[k] - before[k] for k in after}
         if out.shape != (b, 8) or not np.isfinite(out).all():
             fail(f"request N={n} B={b}: output {out.shape}, finite={np.isfinite(out).all()}")
-        if grown != {"sa_group": 2 * chunks, "sa_mlp_max": 3 * chunks, "sa_group_scatter": 0,
-                     "sa_mlp_max_bwd": 0}:
+        if grown != expected_launches(sa_group=2 * chunks, sa_mlp_max=3 * chunks):
             fail(f"request N={n} B={b} ({chunks} chunks): launches grew by {grown}")
         outs[(n, b)] = out
         per_request.append({"N": n, "B": b, "chunks": chunks, "launches": grown})
@@ -369,6 +607,81 @@ def phase_timing(dev, checks: dict, serve: dict) -> list:
             "library_ms": None,
             "per": "one forward at B=64 N=1024: " + ", ".join(shapes),
             "shapes": per_shape[kname],
+        })
+    return summary
+
+
+def request_latency(pred, x) -> dict:
+    """Host clock around whole requests (ending in a device-to-host copy),
+    median of 5 after one warm-up."""
+    pred(x)
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pred(x)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ts))
+    return {"N": x.shape[1], "B": x.shape[0], "ms_median": med, "ms_all": ts,
+            "clouds_per_s": x.shape[0] / med * 1e3}
+
+
+def phase_timing_select(dev, checks: dict, cls: dict, large: dict) -> list:
+    """The index kernels at their shapes (CUDA events, bound, plain version),
+    the classifier's request latency and 8-dir requests on large clouds."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    per_shape = {k: {} for k in SELECT}
+    for kname, (shapes, _, plain) in SELECT.items():
+        for name, shape in shapes.items():
+            args = select_inputs(kname, shape, gen, dev, "random")
+            kernel = getattr(K, kname)
+            ms, host_ms = timed(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), iters=3 if kname == "fps" else TIMING_ITERS,
+                               warmup=1)
+            if kname == "fps":
+                cost = fps_cost(*shape)
+            elif kname == "ball_query":
+                cost = ball_cost(*shape[:4], ball_scanned(*args))
+            else:
+                cost = knn_cost(*shape)
+            b_ms, b_by = bound_ms(*cost)
+            per_shape[kname][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                          share=b_ms / ms, library_ms=None, host_ms=host_ms,
+                                          ops=cost[1], **checks[kname][name])
+            emit("timing", kernel=kname, shape=name, **per_shape[kname][name])
+
+    rng = np.random.default_rng(SEED + 9)
+    latency = [request_latency(cls["predictor"], cls_clouds(b, 1024, rng)) for b in (1, 64)]
+    emit("timing_serve_cls", requests=latency)
+    latency = [request_latency(large["predictors"][n],
+                               rng.normal(size=(16, n, 3)).astype(np.float32))
+               for n in LARGE_N]
+    emit("timing_serve_large", requests=latency)
+
+    paths = {
+        "fps": ("fps.cu", ":74", CLS_FORWARD["fps"], cls["launches"]["fps"],
+                "one classifier forward at B=64 N=1024: sa1, sa2",
+                "classifier serving, B=1/13/64/100 (5 chunks)"),
+        "ball_query": ("ball_query.cu", ":202", CLS_FORWARD["ball_query"],
+                       cls["launches"]["ball_query"],
+                       "one classifier forward at B=64 N=1024: sa1, sa2",
+                       "classifier serving, B=1/13/64/100 (5 chunks)"),
+        "knn": ("knn.cu", ":238", ("sa1 B=16 N=16384",), large["launches"][LARGE_N[0]]["knn"],
+                "one 8-dir forward at B=16 N=16384: sa1", "8-dir serving at N=16384, B=16"),
+    }
+    summary = []
+    for kname, (src, line, shapes, launches, per, path) in paths.items():
+        rows = [per_shape[kname][s] for s in shapes]
+        b_ms = sum(r["bound_ms"] for r in rows)
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        summary.append({
+            "name": kname, "route": "cuda",
+            "source": f"pointcloud_orientation_tpu_torch/csrc/{src}",
+            "replaces": f"pointcloud_orientation_tpu/ops/pallas_kernels.py{line}",
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": b_ms, "bound_by": "bytes" if by_bytes * 2 >= b_ms else "operations",
+            "library_ms": None, "per": per, "launches_path": path, "shapes": per_shape[kname],
         })
     return summary
 
@@ -529,9 +842,10 @@ def phase_train(dev) -> dict:
         trainer.fit(epochs=1, log_every=0)
         torch.cuda.synchronize()
         launches = K.launch_counts()
-        expected = {"sa_group": 2 * (steps + val),
-                    "sa_mlp_max": 3 * (steps + val) if fused else 3 * val,
-                    "sa_group_scatter": steps, "sa_mlp_max_bwd": 3 * steps if fused else 0}
+        expected = expected_launches(sa_group=2 * (steps + val),
+                                     sa_mlp_max=3 * (steps + val) if fused else 3 * val,
+                                     sa_group_scatter=steps,
+                                     sa_mlp_max_bwd=3 * steps if fused else 0)
         losses = trainer.step_losses
         emit("train", mode=mode, train_steps=steps, val_batches=val, step_losses=losses,
              val_loss=trainer.history["val"][0], val_angular_deg=trainer.history["val_ang"][0],
@@ -671,11 +985,15 @@ def main() -> None:
     torch.cuda.set_device(dev)
     phase_build()
     checks = phase_kernels(dev)
+    checks.update(phase_kernels_select(dev))
     checks.update(phase_kernels_bwd(dev))
     serve = phase_serve(dev)
+    cls = phase_serve_cls(dev)
+    large = phase_large(dev)
     train = phase_train(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
+    summary += phase_timing_select(dev, checks, cls, large)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

@@ -28,6 +28,11 @@
 // few blocks to fill the card (sa3: one centroid per cloud), the last
 // layer's columns are split over a few blocks that each recompute the
 // earlier layers; the host picks the split from the occupancy it queries.
+// When a one-centroid tile's rows do not fit at once (the classifier's
+// group-all stage: K = 128 rows of 259 -> 256 -> 512 -> 1024 channels would
+// need 417,792 B), they run through all the layers in chunks of 64 rows
+// (221,184 B), each chunk folding its maxima into the same shared maximum;
+// max is associative, so the result does not depend on the chunks.
 
 #include <cuda_runtime.h>
 
@@ -52,11 +57,16 @@ struct Tiling {
   int rows;        // K * ts real rows
   int rows_pad;    // rows rounded up to rt
   int rt;          // rows per pass: 32 or 64
-  int ld;          // row stride of the transposed activations (rows_pad + 4)
+  int chunk;       // rows in shared memory at once: a multiple of rt, at most rows_pad
+  int ld;          // row stride of the transposed activations (chunk + 4)
   int groups;      // blocks sharing one tile, splitting the last layer's columns
   int buf0, buf1;  // floats of the two activation buffers
 };
 
+// kChunked: the tile's rows run in chunks of tl.chunk. Without it the one
+// pass starts at row 0 at compile time, so tiles that fit at once run the
+// code they ran before chunks existed.
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const MlpParams p,
                   const Tiling tl, int K, int S) {
@@ -81,121 +91,130 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
   const int ld = tl.ld;
 
   const int c0 = p.c[0];
-  for (int e = tid; e < tl.rows_pad * c0; e += kThreads) {
-    const int r = e / c0;
-    const int ch = e - r * c0;
-    float v = 0.f;
-    if (r < tl.rows) {
-      const int sl = r / K;
-      const int sg = s0 + sl;
-      if (sg < S) v = g[(((size_t)b * K + (r - sl * K)) * S + sg) * c0 + ch];
-    }
-    buf0[ch * ld + r] = v;
-  }
   for (int e = tid; e < tl.ts * c_last; e += kThreads) pool[e] = 0.f;
-  __syncthreads();
 
-  for (int l = 0; l < p.n_layers; ++l) {
-    const float* in = (l & 1) ? buf1 : buf0;
-    float* nxt = (l & 1) ? buf0 : buf1;
-    const int cin = p.c[l];
-    const int cout = p.c[l + 1];
-    const bool last = l == p.n_layers - 1;
-    const float* __restrict__ W = p.w[l];
-    const float* __restrict__ sc = p.s[l];
-    const float* __restrict__ sh = p.t[l];
-    const int passes = (cout + ct - 1) / ct;
-    int p_begin = 0, p_end = passes;
-    if (last) {
-      const int per = (passes + tl.groups - 1) / tl.groups;
-      p_begin = min(passes, grp * per);
-      p_end = min(passes, p_begin + per);
+  const int n_chunks = kChunked ? (tl.rows_pad + tl.chunk - 1) / tl.chunk : 1;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int cr0 = kChunked ? ci * tl.chunk : 0;  // first row of the chunk
+    // rows of the chunk, a multiple of rt
+    const int crows = kChunked ? min(tl.chunk, tl.rows_pad - cr0) : tl.rows_pad;
+    for (int e = tid; e < crows * c0; e += kThreads) {
+      const int rl = e / c0;
+      const int ch = e - rl * c0;
+      const int r = cr0 + rl;
+      float v = 0.f;
+      if (r < tl.rows) {
+        const int sl = r / K;
+        const int sg = s0 + sl;
+        if (sg < S) v = g[(((size_t)b * K + (r - sl * K)) * S + sg) * c0 + ch];
+      }
+      buf0[ch * ld + rl] = v;
     }
-    const int per_thread = kStage * ct / kThreads;  // 8 or 16 staged weights
+    __syncthreads();
 
-    for (int r0 = 0; r0 < tl.rows_pad; r0 += tl.rt) {
-      for (int pc = p_begin; pc < p_end; ++pc) {
-        const int q0 = pc * ct;
-        float acc[4][4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+    for (int l = 0; l < p.n_layers; ++l) {
+      const float* in = (l & 1) ? buf1 : buf0;
+      float* nxt = (l & 1) ? buf0 : buf1;
+      const int cin = p.c[l];
+      const int cout = p.c[l + 1];
+      const bool last = l == p.n_layers - 1;
+      const float* __restrict__ W = p.w[l];
+      const float* __restrict__ sc = p.s[l];
+      const float* __restrict__ sh = p.t[l];
+      const int passes = (cout + ct - 1) / ct;
+      int p_begin = 0, p_end = passes;
+      if (last) {
+        const int per = (passes + tl.groups - 1) / tl.groups;
+        p_begin = min(passes, grp * per);
+        p_end = min(passes, p_begin + per);
+      }
+      const int per_thread = kStage * ct / kThreads;  // 8 or 16 staged weights
 
-        float pre[kMaxPrefetch];
-        auto fetch = [&](int i0) {
+      for (int r0 = 0; r0 < crows; r0 += tl.rt) {  // rows of this chunk
+        for (int pc = p_begin; pc < p_end; ++pc) {
+          const int q0 = pc * ct;
+          float acc[4][4];
 #pragma unroll
-          for (int q = 0; q < kMaxPrefetch; ++q) {
-            if (q < per_thread) {
-              const int e = tid + q * kThreads;
-              const int ii = e / ct;
-              const int col = q0 + (e - ii * ct);
-              pre[q] = (i0 + ii < cin && col < cout)
-                           ? __ldg(W + (size_t)(i0 + ii) * cout + col)
-                           : 0.f;
+          for (int m = 0; m < 4; ++m)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+
+          float pre[kMaxPrefetch];
+          auto fetch = [&](int i0) {
+#pragma unroll
+            for (int q = 0; q < kMaxPrefetch; ++q) {
+              if (q < per_thread) {
+                const int e = tid + q * kThreads;
+                const int ii = e / ct;
+                const int col = q0 + (e - ii * ct);
+                pre[q] = (i0 + ii < cin && col < cout)
+                             ? __ldg(W + (size_t)(i0 + ii) * cout + col)
+                             : 0.f;
+              }
+            }
+          };
+          fetch(0);
+          for (int i0 = 0; i0 < cin; i0 += kStage) {
+            __syncthreads();  // every thread is done with the previous stage
+#pragma unroll
+            for (int q = 0; q < kMaxPrefetch; ++q)
+              if (q < per_thread) wS[tid + q * kThreads] = pre[q];
+            __syncthreads();
+            if (i0 + kStage < cin) fetch(i0 + kStage);  // in flight during the FMAs
+            const int kc = min(kStage, cin - i0);
+            const float* xin = in + (size_t)i0 * ld + r0 + 4 * ty;
+            const float* win = wS + 4 * tx;
+#pragma unroll 4
+            for (int ii = 0; ii < kc; ++ii) {
+              const float4 xv = *reinterpret_cast<const float4*>(xin + ii * ld);
+              const float4 wv = *reinterpret_cast<const float4*>(win + ii * ct);
+              const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+              const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+              for (int m = 0; m < 4; ++m)
+#pragma unroll
+                for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(xs[m], ws[n], acc[m][n]);
             }
           }
-        };
-        fetch(0);
-        for (int i0 = 0; i0 < cin; i0 += kStage) {
-          __syncthreads();  // every thread is done with the previous stage
-#pragma unroll
-          for (int q = 0; q < kMaxPrefetch; ++q)
-            if (q < per_thread) wS[tid + q * kThreads] = pre[q];
-          __syncthreads();
-          if (i0 + kStage < cin) fetch(i0 + kStage);  // in flight during the FMAs
-          const int kc = min(kStage, cin - i0);
-          const float* xin = in + (size_t)i0 * ld + r0 + 4 * ty;
-          const float* win = wS + 4 * tx;
-#pragma unroll 4
-          for (int ii = 0; ii < kc; ++ii) {
-            const float4 xv = *reinterpret_cast<const float4*>(xin + ii * ld);
-            const float4 wv = *reinterpret_cast<const float4*>(win + ii * ct);
-            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-            const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-#pragma unroll
-              for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(xs[m], ws[n], acc[m][n]);
-          }
-        }
 
-        const int r_first = r0 + 4 * ty;
-        // rows of this thread that belong to real centroids of the tile
-        bool valid[4];
+          const int r_local = r0 + 4 * ty;
+          const int r_first = cr0 + r_local;
+          // rows of this thread that belong to real centroids of the tile
+          bool valid[4];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int r = r_first + m;
-          valid[m] = r < tl.rows && s0 + r / K < S;
-        }
-        const bool one_centroid = valid[0] && valid[3] && r_first / K == (r_first + 3) / K;
+          for (int m = 0; m < 4; ++m) {
+            const int r = r_first + m;
+            valid[m] = r < tl.rows && s0 + r / K < S;
+          }
+          const bool one_centroid = valid[0] && valid[3] && r_first / K == (r_first + 3) / K;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int col = q0 + 4 * tx + n;
-          if (col >= cout) continue;
-          const float scn = sc[col];
-          const float shn = sh[col];
-          float y[4];
+          for (int n = 0; n < 4; ++n) {
+            const int col = q0 + 4 * tx + n;
+            if (col >= cout) continue;
+            const float scn = sc[col];
+            const float shn = sh[col];
+            float y[4];
 #pragma unroll
-          for (int m = 0; m < 4; ++m) y[m] = fmaxf(acc[m][n] * scn + shn, 0.f);
-          if (!last) {
-            *reinterpret_cast<float4*>(nxt + (size_t)col * ld + r_first) =
-                make_float4(y[0], y[1], y[2], y[3]);
-          } else if (one_centroid) {
-            const float v = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
-            atomicMax(reinterpret_cast<int*>(pool) + (r_first / K) * c_last + col,
-                      __float_as_int(v));
-          } else {
+            for (int m = 0; m < 4; ++m) y[m] = fmaxf(acc[m][n] * scn + shn, 0.f);
+            if (!last) {
+              *reinterpret_cast<float4*>(nxt + (size_t)col * ld + r_local) =
+                  make_float4(y[0], y[1], y[2], y[3]);
+            } else if (one_centroid) {
+              const float v = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
+              atomicMax(reinterpret_cast<int*>(pool) + (r_first / K) * c_last + col,
+                        __float_as_int(v));
+            } else {
 #pragma unroll
-            for (int m = 0; m < 4; ++m)
-              if (valid[m])
-                atomicMax(reinterpret_cast<int*>(pool) + ((r_first + m) / K) * c_last + col,
-                          __float_as_int(y[m]));
+              for (int m = 0; m < 4; ++m)
+                if (valid[m])
+                  atomicMax(reinterpret_cast<int*>(pool) + ((r_first + m) / K) * c_last + col,
+                            __float_as_int(y[m]));
+            }
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // this block's columns of the last layer
@@ -214,15 +233,17 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
 
 constexpr long kMaxSmemBytes = 232448;  // 227 KB a block can opt into on sm_90
 
-// Tiling for ts centroids per block; its shared memory in *floats, -1 if a
+// Tiling for ts centroids per block and chunks of at most max_chunk rows
+// (all rows when max_chunk <= 0); its shared memory in *floats, -1 if a
 // width is out of range.
-Tiling make_tiling(int K, int ts, int n_layers, const int* c, long* floats) {
+Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, long* floats) {
   Tiling tl;
   tl.ts = ts;
   tl.rows = K * ts;
   tl.rt = tl.rows <= 32 ? 32 : 64;
   tl.rows_pad = (tl.rows + tl.rt - 1) / tl.rt * tl.rt;
-  tl.ld = tl.rows_pad + 4;
+  tl.chunk = max_chunk > 0 && max_chunk < tl.rows_pad ? max_chunk : tl.rows_pad;
+  tl.ld = tl.chunk + 4;
   tl.groups = 1;
   tl.buf0 = tl.buf1 = 0;
   long b0 = 0, b1 = 0;
@@ -245,7 +266,9 @@ Tiling make_tiling(int K, int ts, int n_layers, const int* c, long* floats) {
 // grouped (B,K,S,c0) f32 -> out (B,S,c[n_layers]) f32. Layer l reads
 // w_l (c_l, c_{l+1}) row-major, s_l and t_l (c_{l+1},); unused layers pass
 // NULL and width 0. Tiles of ts = min(S, max(1, 64 / K)) centroids, halved
-// until the tile fits in shared memory. Returns cudaErrorInvalidValue for
+// until the tile fits in shared memory; a one-centroid tile that still does
+// not fit runs its rows in chunks, halved from all of them down to one pass
+// of rt rows until they fit. Returns cudaErrorInvalidValue for
 // arguments the kernel does not take, else cudaGetLastError() after launch.
 extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K, int S,
                                    int n_layers,
@@ -274,15 +297,20 @@ extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K,
   int ts = K >= 64 ? 1 : 64 / K;
   if (ts > S) ts = S;
   long floats = 0;
-  Tiling tl = make_tiling(K, ts, n_layers, p.c, &floats);
+  Tiling tl = make_tiling(K, ts, 0, n_layers, p.c, &floats);
   while (floats >= 0 && floats * 4 > kMaxSmemBytes && ts > 1) {
     ts /= 2;
-    tl = make_tiling(K, ts, n_layers, p.c, &floats);
+    tl = make_tiling(K, ts, 0, n_layers, p.c, &floats);
+  }
+  while (floats >= 0 && floats * 4 > kMaxSmemBytes && tl.chunk > tl.rt) {
+    const int half = (tl.chunk / 2 + tl.rt - 1) / tl.rt * tl.rt;
+    tl = make_tiling(K, ts, half, n_layers, p.c, &floats);
   }
   if (floats < 0 || floats * 4 > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   const int smem_bytes = (int)(floats * 4);
+  auto kernel = tl.chunk < tl.rows_pad ? sa_mlp_max_kernel<true> : sa_mlp_max_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      sa_mlp_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
 
   // Split the last layer's columns over more blocks when the tiles alone
@@ -293,7 +321,7 @@ extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K,
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sa_mlp_max_kernel, kThreads,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
                                                            smem_bytes)) != cudaSuccess)
     return (int)err;
   if (occ < 1) return (int)cudaErrorInvalidConfiguration;
@@ -315,7 +343,7 @@ extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K,
   }
 
   const dim3 grid((unsigned)((S + ts - 1) / ts * tl.groups), B);
-  sa_mlp_max_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)grouped, (float*)out, p, tl, K, S);
   return (int)cudaGetLastError();
 }

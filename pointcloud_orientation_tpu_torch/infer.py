@@ -1,7 +1,8 @@
-"""Batched serving of the PointNet++ 8-dir model on the card.
+"""Batched serving of the PointNet++ models on the card.
 
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
-for one configuration: model ``pointnet_pp_8dir`` in eval mode, f32, one
+for the models ``pointnet_pp_8dir`` (8-way direction logits) and
+``pointnet_pp_cls`` (ModelNet40 log-probabilities) in eval mode, f32, one
 view, one ensemble member, no quantization, one device. Requests are padded
 to power-of-two batch buckets (clamped to ``max_batch``) and to
 ``num_points`` points, exactly as the JAX predictor pads them.
@@ -27,17 +28,20 @@ import torch
 from .models import MODEL_REGISTRY
 from .ops import DIRS_8
 from .ops.cuda_kernels import f32_matmuls
-from .utils.jax_weights import load_flax_variables
+from .utils.jax_weights import cls_kwargs, load_flax_variables
 
 
 class OrientationPredictor:
-    """Bucketed predictor over the port's ``PointNetPP8Dir``.
+    """Bucketed predictor over the port's ``PointNetPP8Dir`` or
+    ``PointNetPPCls``.
 
     ``params``/``batch_stats`` are the JAX package's flax trees as numpy
-    arrays (see :mod:`.utils.jax_weights`). Runs on ``device`` ("cuda" unless
-    the caller asks for the CPU). Centroids are drawn from a
-    ``torch.Generator`` seeded with ``seed``; they match the JAX predictor's
-    only in distribution (``sampling="first"`` makes both deterministic).
+    arrays (see :mod:`.utils.jax_weights`); the classifier's input width (3,
+    or 6 with normals) and class count are read from them. Runs on
+    ``device`` ("cuda" unless the caller asks for the CPU). Random centroids
+    and FPS start points are drawn from a ``torch.Generator`` seeded with
+    ``seed``; they match the JAX predictor's only in distribution
+    (``sampling="first"`` makes the 8-dir model deterministic).
     """
 
     def __init__(
@@ -70,7 +74,10 @@ class OrientationPredictor:
         self.model_name = model_name
         self.num_points = num_points
         self.max_batch = max_batch
+        if model_name == "pointnet_pp_cls":
+            model_kwargs = {**cls_kwargs(params), **model_kwargs}
         model = MODEL_REGISTRY[model_name](**model_kwargs)
+        self.channels = getattr(model, "in_channels", 3)
         load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
         self.model = model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device)
@@ -99,11 +106,14 @@ class OrientationPredictor:
 
     @torch.inference_mode()
     def __call__(self, clouds: np.ndarray) -> np.ndarray:
-        """Logits ``(B, 8)`` for ``(B, N, 3)`` clouds, any B and N; above
-        ``max_batch`` the request is served in chunks of ``max_batch``."""
+        """The model's output for ``(B, N, C)`` clouds, any B and N, C the
+        model's input width: logits ``(B, 8)`` (8-dir) or log-probabilities
+        ``(B, num_classes)`` (classifier); above ``max_batch`` the request
+        is served in chunks of ``max_batch``."""
         clouds = np.asarray(clouds, np.float32)
-        if clouds.ndim != 3 or clouds.shape[-1] != 3 or clouds.shape[0] < 1 or clouds.shape[1] < 1:
-            raise ValueError(f"clouds must be (B>=1, N>=1, 3), got {clouds.shape}")
+        c = self.channels
+        if clouds.ndim != 3 or clouds.shape[-1] != c or clouds.shape[0] < 1 or clouds.shape[1] < 1:
+            raise ValueError(f"clouds must be (B>=1, N>=1, {c}), got {clouds.shape}")
         b = clouds.shape[0]
         if b > self.max_batch:
             return np.concatenate(
@@ -114,8 +124,11 @@ class OrientationPredictor:
         return out[:b].cpu().numpy()
 
     def forward_vectors(self, clouds: np.ndarray) -> np.ndarray:
-        """Unit forward vectors ``(B, 3)``: softmax of the logits times
-        ``DIRS_8``, normalized."""
-        probs = torch.softmax(torch.from_numpy(self(clouds)), dim=-1)
-        fwd = (probs @ DIRS_8).numpy()
-        return fwd / (np.linalg.norm(fwd, axis=-1, keepdims=True) + 1e-12)
+        """The JAX predictor's decode, normalized: for 8-dir the softmax of
+        the logits times ``DIRS_8`` (unit forward vectors ``(B, 3)``); any
+        other model's output as it is (for the classifier ``(B,
+        num_classes)``, as the JAX package's fall-through branch does)."""
+        out = self(clouds)
+        if self.model_name == "pointnet_pp_8dir":
+            out = (torch.softmax(torch.from_numpy(out), dim=-1) @ DIRS_8).numpy()
+        return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)

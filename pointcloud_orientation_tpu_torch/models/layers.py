@@ -1,8 +1,9 @@
 """PointNet++ building blocks in PyTorch, eval (serving) and train mode.
 
 Counterpart of ``pointcloud_orientation_tpu/models/layers.py``. In eval every
-set abstraction groups through the ``sa_group`` kernel and runs its shared
-MLP and neighbour max through the ``sa_mlp_max`` kernel, with BatchNorm
+set abstraction samples and groups through the kernels that
+``geometry.sample_and_group`` picks and runs its shared MLP and neighbour
+max through the ``sa_mlp_max`` kernel, with BatchNorm
 folded into a per-layer scale and shift from the running statistics
 (``SharedMLP._fused_max`` there). In train, BatchNorm follows flax: biased
 batch variance ``max(0, E[x^2] - E[x]^2)`` and running statistics updated as
@@ -132,25 +133,34 @@ class SharedMLP(nn.Module):
 
 
 class SetAbstraction(nn.Module):
-    """Sample centroids, group their nearest neighbours, shared MLP, max.
+    """Sample centroids, group their neighbours, shared MLP, max.
 
     ``sampling``: ``"random"`` (draws from the generator passed to
     ``forward``; without one it takes the first points, as the JAX module does
-    without a ``sampling`` rng) or ``"first"``. ``group_all`` pools the whole
-    cloud with uncentered coordinates.
+    without a ``sampling`` rng), ``"fps"`` (farthest points, starting at a
+    point drawn from the generator, or at index 0 without one) or
+    ``"first"``. ``grouping``: ``"knn"`` or ``"ball"`` (the points within
+    ``radius``). ``in_channels`` is the grouped width, 3 plus the input
+    features'. ``group_all`` pools the whole cloud with uncentered
+    coordinates.
     """
 
     def __init__(self, npoint: Optional[int], nsample: Optional[int], in_channels: int,
                  mlp_channels: Sequence[int], group_all: bool = False,
-                 sampling: str = "random", fused_mlp_train: bool = False):
+                 sampling: str = "random", grouping: str = "knn", radius: float = 0.2,
+                 fused_mlp_train: bool = False):
         super().__init__()
-        if sampling not in ("random", "first"):
+        if sampling not in ("random", "first", "fps"):
             raise NotImplementedError(
-                f"sampling={sampling!r}: only 'random' and 'first' are ported")
+                f"sampling={sampling!r}: only 'random', 'first' and 'fps' are ported")
+        if grouping not in ("knn", "ball"):
+            raise NotImplementedError(f"grouping={grouping!r}: only 'knn' and 'ball' are ported")
         self.npoint = npoint
         self.nsample = nsample
         self.group_all = group_all
         self.sampling = sampling
+        self.grouping = grouping
+        self.radius = radius
         self.mlp = SharedMLP(in_channels, mlp_channels, fused_mlp_train=fused_mlp_train)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
@@ -165,7 +175,8 @@ class SetAbstraction(nn.Module):
                 sampling = "first"
             new_xyz, grouped = G.sample_and_group(
                 xyz, points, self.npoint, self.nsample, generator=generator,
-                sampling=sampling, neighbor_major=True)
+                sampling=sampling, grouping=self.grouping, radius=self.radius,
+                neighbor_major=True)
         return new_xyz, self.mlp(grouped)
 
 

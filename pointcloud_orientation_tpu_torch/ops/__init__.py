@@ -2,6 +2,10 @@
 
 from .dirs8 import DIRS_8, forward_to_8dir_probs
 from .geometry import (
+    ball_query,
+    diff_square_distance,
+    exact_full_knn,
+    farthest_point_sample,
     group_all,
     index_points,
     knn_query,
@@ -13,6 +17,10 @@ from .geometry import (
 
 __all__ = [
     "DIRS_8",
+    "ball_query",
+    "diff_square_distance",
+    "exact_full_knn",
+    "farthest_point_sample",
     "forward_to_8dir_probs",
     "group_all",
     "index_points",

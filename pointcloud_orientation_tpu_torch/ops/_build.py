@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes of each C entry point in csrc/
 SIGNATURES = {
     # xyz, feats, cidx, new_xyz, grouped, idx, B, N, S, K, D, stream
@@ -45,6 +45,12 @@ SIGNATURES = {
     # grouped, dpooled, dgrouped, scratch, scratch_floats, chunk_rows, B, K, S,
     # n_layers, (w, s, t) x 4, (dw, ds, dt) x 4, c0..c4, stream
     "pcot_sa_mlp_max_bwd_f32": [_P] * 4 + [_I] * 6 + [_P] * 24 + [_I] * 5 + [_P],
+    # new_xyz, xyz, idx, B, N, S, K, stream
+    "pcot_knn_f32": [_P] * 3 + [_I] * 4 + [_P],
+    # xyz, seeds, out, B, N, npoint, stream
+    "pcot_fps_f32": [_P] * 3 + [_I] * 3 + [_P],
+    # new_xyz, xyz, idx, B, N, S, K, radius_sq, stream
+    "pcot_ball_query_f32": [_P] * 3 + [_I] * 4 + [_F, _P],
 }
 
 

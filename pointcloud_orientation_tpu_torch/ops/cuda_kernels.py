@@ -29,6 +29,15 @@ memory, then fixed-order sums, no float atomics.
 the MLP+max; ``SAMlpMaxFn`` wires it in as the backward of ``sa_mlp_max``.
 It is bound by f32 operations; the recomputed activations go to a scratch
 tensor in device memory and every product is a tiled CUDA-core SGEMM.
+
+``knn`` (``csrc/knn.cu``) replaces ``pallas_kernels.py:knn_pallas``, the
+kNN of clouds of 10,240 < N <= 20,480 points; ``fps`` (``csrc/fps.cu``)
+replaces ``fps_pallas`` and ``ball_query`` (``csrc/ball_query.cu``)
+replaces ``ball_query_pallas``, the sampling and grouping of the ModelNet40
+classifier. All three return indices and compute their distances in the
+difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels. kNN and
+FPS are held back by their dependent block-wide argmin/argmax steps; the
+ball query is bound by bytes and stops scanning once it has its points.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W (Cin,Cout), scale,
 
 MAX_MLP_LAYERS = 4
 MAX_K = 128
+FPS_MAX_N = 32_768  # 512 threads of 64 points each (csrc/fps.cu)
 
 
 def f32_matmuls() -> None:
@@ -420,14 +430,179 @@ class SAMlpMaxFn(torch.autograd.Function):
         return (dgrouped, *[d for layer in dlayers for d in layer])
 
 
+# ---------------------------------------------------------------------------
+# K5-K7: the index kernels (kNN above the fused grouping's size, FPS, ball query)
+# ---------------------------------------------------------------------------
+
+
+def _check_points(name: str, fn: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{fn} takes float32 {name}, got {t.dtype}")
+    if t.dim() != 3 or t.shape[-1] != 3:
+        raise ValueError(f"{name} must be (B, M, 3), got {tuple(t.shape)}")
+
+
+def _cuda_only(fn: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cpu or cuda tensors, got {t.device}")
+
+
+def knn_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
+    """Plain version of :func:`knn`: difference-form distances, then the
+    first ``nsample`` of a stable sort."""
+    dist = G.diff_square_distance(new_xyz, xyz)
+    return torch.sort(dist, dim=-1, stable=True).indices[..., :nsample].to(torch.int32)
+
+
+def knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
+    """Exact kNN indices ``(B,S,nsample)`` int32 of ``new_xyz (B,S,3)`` in
+    ``xyz (B,N,3)``, f32, nearest first, equal distances to the lowest
+    index; distances in the difference form. The kernel takes
+    ``N <= geometry.KNN_KERNEL_MAX_N`` and ``nsample <= 128``."""
+    _check_points("new_xyz", "knn", new_xyz)
+    _check_points("xyz", "knn", xyz)
+    if xyz.device.type == "cpu":
+        return knn_plain(new_xyz, xyz, nsample)
+    _cuda_only("knn", xyz)
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    if not 1 <= nsample <= min(N, MAX_K):
+        raise ValueError(f"nsample={nsample} must lie in [1, min(N={N}, {MAX_K})]")
+    if N > G.KNN_KERNEL_MAX_N or B > 65535 or S > 65535:
+        raise ValueError(f"N={N} must be at most {G.KNN_KERNEL_MAX_N}, B={B} and S={S} "
+                         "at most 65535")
+    dev = xyz.device
+    _check_cuda("xyz", xyz, torch.float32, (B, N, 3), dev)
+    _check_cuda("new_xyz", new_xyz, torch.float32, (B, S, 3), dev)
+    idx = torch.empty((B, S, nsample), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_knn_f32(new_xyz.data_ptr(), xyz.data_ptr(), idx.data_ptr(),
+                               B, N, S, nsample, stream)
+    _raise_on(err, f"knn launch (B={B}, N={N}, S={S}, K={nsample})")
+    knn.launches += 1
+    return idx
+
+
+knn.launches = 0
+
+
+def fps_plain(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Plain version of :func:`fps`: the step loop over ``(B, N)`` tensors."""
+    B, N, _ = xyz.shape
+    batch = torch.arange(B, device=xyz.device)
+    far = seeds.long().clamp(0, N - 1)
+    dist = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    for i in range(npoint):
+        out[:, i] = far
+        if i + 1 == npoint:
+            break
+        diff = xyz - xyz[batch, far][:, None, :]
+        d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+            + diff[..., 2] * diff[..., 2]
+        dist = torch.minimum(dist, d)
+        far = torch.argmax(dist, dim=-1)  # the first of equal maxima
+    return out
+
+
+def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
+    """Farthest-point sampling: ``(B,npoint)`` int32 indices into ``xyz
+    (B,N,3)`` f32, starting at ``seeds (B,)`` int32 in ``[0, N)``. Each step
+    lowers the running minimum squared distance (from 1e10) and moves to its
+    largest entry, equal values to the lowest index. The kernel takes
+    ``N <= FPS_MAX_N``."""
+    _check_points("xyz", "fps", xyz)
+    if npoint < 1:
+        raise ValueError(f"npoint={npoint} must be >= 1")
+    if xyz.device.type == "cpu":
+        return fps_plain(xyz, seeds, npoint)
+    _cuda_only("fps", xyz)
+    B, N, _ = xyz.shape
+    if N > FPS_MAX_N:
+        raise ValueError(f"N={N} exceeds the FPS kernel's {FPS_MAX_N} points")
+    dev = xyz.device
+    _check_cuda("xyz", xyz, torch.float32, (B, N, 3), dev)
+    _check_cuda("seeds", seeds, torch.int32, (B,), dev)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_fps_f32(xyz.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                               B, N, npoint, stream)
+    _raise_on(err, f"fps launch (B={B}, N={N}, npoint={npoint})")
+    fps.launches += 1
+    return out
+
+
+fps.launches = 0
+
+
+def radius_sq_f32(radius: float) -> float:
+    """``float(radius) ** 2`` in double, as JAX squares it, then rounded to
+    f32, the type the comparison runs in."""
+    return float(torch.tensor(float(radius) ** 2, dtype=torch.float32))
+
+
+def ball_query_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
+                     nsample: int) -> torch.Tensor:
+    """Plain version of :func:`ball_query`: the in-radius indices (others
+    N), sorted, the first ``nsample``, N replaced by the first, clipped."""
+    N = xyz.shape[1]
+    dist = G.diff_square_distance(new_xyz, xyz)
+    r2 = torch.tensor(radius_sq_f32(radius), dtype=torch.float32, device=xyz.device)
+    cols = torch.arange(N, dtype=torch.int32, device=xyz.device)
+    cand = torch.where(dist <= r2, cols, torch.full_like(cols, N))
+    take = torch.sort(cand, dim=-1).values[..., :nsample]
+    if nsample > N:  # more slots than points: the rest hold the sentinel too
+        take = torch.cat([take, torch.full((*take.shape[:-1], nsample - N), N,
+                                           dtype=take.dtype, device=take.device)], dim=-1)
+    take = torch.where(take == N, take[..., :1], take)
+    return take.clamp(0, N - 1).to(torch.int32)
+
+
+def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
+               nsample: int) -> torch.Tensor:
+    """Radius ball query: ``(B,S,nsample)`` int32, for each centroid of
+    ``new_xyz (B,S,3)`` the smallest indices of ``xyz (B,N,3)`` whose
+    difference-form squared distance is ``<= radius**2`` (squared in double,
+    compared in f32), ascending, short rows padded with the first one found;
+    a centroid with no point in its radius gets ``N - 1`` everywhere."""
+    _check_points("new_xyz", "ball_query", new_xyz)
+    _check_points("xyz", "ball_query", xyz)
+    if nsample < 1:
+        raise ValueError(f"nsample={nsample} must be >= 1")
+    if xyz.device.type == "cpu":
+        return ball_query_plain(new_xyz, xyz, radius, nsample)
+    _cuda_only("ball_query", xyz)
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    if B > 65535:
+        raise ValueError(f"B={B} must be at most 65535")
+    dev = xyz.device
+    _check_cuda("xyz", xyz, torch.float32, (B, N, 3), dev)
+    _check_cuda("new_xyz", new_xyz, torch.float32, (B, S, 3), dev)
+    idx = torch.empty((B, S, nsample), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_ball_query_f32(new_xyz.data_ptr(), xyz.data_ptr(), idx.data_ptr(),
+                                      B, N, S, nsample, radius_sq_f32(radius), stream)
+    _raise_on(err, f"ball_query launch (B={B}, N={N}, S={S}, K={nsample})")
+    ball_query.launches += 1
+    return idx
+
+
+ball_query.launches = 0
+
+_COUNTED = (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query)
+
+
 def reset_launch_counts() -> None:
-    sa_group.launches = 0
-    sa_mlp_max.launches = 0
-    sa_group_scatter.launches = 0
-    sa_mlp_max_bwd.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"sa_group": sa_group.launches, "sa_mlp_max": sa_mlp_max.launches,
-            "sa_group_scatter": sa_group_scatter.launches,
-            "sa_mlp_max_bwd": sa_mlp_max_bwd.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

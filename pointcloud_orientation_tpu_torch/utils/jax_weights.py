@@ -1,5 +1,6 @@
 """Carry the JAX package's flax variables into the port, and make such a
-variable tree with numpy alone.
+variable tree with numpy alone, for the 8-dir model (``PointNetPP8Dir``)
+and the classifier (``PointNetPPCls``).
 
 A tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
 arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
@@ -9,32 +10,52 @@ BatchNorm has ``scale``/``bias`` params and ``mean``/``var`` statistics.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..models.layers import PointNetPPTrunk, SharedMLP
-from ..models.pointnet_pp import PointNetPP8Dir
+from ..models.pointnet_pp import PointNetPP8Dir, PointNetPPCls
 
-# (input width, MLP widths) of each set abstraction, and the FC funnel
-_SA_WIDTHS = ((3, (64, 64, 128)), (3 + 128, (128, 128, 256)), (3 + 256, (256, 512, 1024)))
+Model = Union[PointNetPP8Dir, PointNetPPCls]
+
+# MLP widths of each set abstraction (the grouped input width is 3 plus the
+# previous stage's output, or plus the cloud's features for the first)
+_SA_WIDTHS = ((64, 64, 128), (128, 128, 256), (256, 512, 1024))
 _FC_WIDTHS = ((1024, 512), (512, 256))
-_HEAD_WIDTHS = (256, 8)
+# the classifier's set-abstraction scopes sit at the top of its tree, the
+# 8-dir model's under its trunk
+_SCOPE = {"pointnet_pp_8dir": ("PointNetPPTrunk_0",), "pointnet_pp_cls": ()}
 
 
-def _pairs(model: PointNetPP8Dir) -> Iterator[Tuple]:
+def _pairs(model: Model) -> Iterator[Tuple]:
     """(Dense scope, Linear, BatchNorm scope, BatchNorm) for every layer of
-    the model, the last two None for the head."""
-    trunk: PointNetPPTrunk = model.trunk
-    for i, sa in enumerate((trunk.sa1, trunk.sa2, trunk.sa3)):
-        mlp: SharedMLP = sa.mlp
-        for j, (lin, bn) in enumerate(zip(mlp.linears, mlp.bns)):
-            scope = ("PointNetPPTrunk_0", f"SetAbstraction_{i}", "SharedMLP_0")
+    the model, the last two None for the output layer."""
+    if isinstance(model, PointNetPPCls):
+        top, sas = (), (model.sa1, model.sa2, model.sa3)
+        fcs = ((model.fc1, model.bn1), (model.fc2, model.bn2), (model.fc3, None))
+    else:
+        trunk = model.trunk
+        top, sas = ("PointNetPPTrunk_0",), (trunk.sa1, trunk.sa2, trunk.sa3)
+        fcs = ((trunk.fc1, trunk.bn1), (trunk.fc2, trunk.bn2))
+    for i, sa in enumerate(sas):
+        for j, (lin, bn) in enumerate(zip(sa.mlp.linears, sa.mlp.bns)):
+            scope = top + (f"SetAbstraction_{i}", "SharedMLP_0")
             yield scope + (f"Dense_{j}",), lin, scope + (f"BatchNorm_{j}",), bn
-    for j, (lin, bn) in enumerate(((trunk.fc1, trunk.bn1), (trunk.fc2, trunk.bn2))):
-        yield ("PointNetPPTrunk_0", f"Dense_{j}"), lin, ("PointNetPPTrunk_0", f"BatchNorm_{j}"), bn
-    yield ("Dense_0",), model.head, None, None
+    for j, (lin, bn) in enumerate(fcs):
+        yield top + (f"Dense_{j}",), lin, (None if bn is None else top + (f"BatchNorm_{j}",)), bn
+    if isinstance(model, PointNetPP8Dir):
+        yield ("Dense_0",), model.head, None, None
+
+
+def cls_kwargs(params: Dict) -> Dict[str, int]:
+    """``PointNetPPCls`` constructor arguments read from a flax ``params``
+    tree: ``in_channels`` (3, or 6 with normals) from the first Dense of
+    the first set abstraction, ``num_classes`` from the output Dense."""
+    first = _get(params, ("SetAbstraction_0", "SharedMLP_0", "Dense_0"), "params")
+    last = _get(params, ("Dense_2",), "params")
+    return {"in_channels": int(np.shape(first["kernel"])[0]),
+            "num_classes": int(np.shape(last["kernel"])[1])}
 
 
 def _get(tree: Dict, path: Tuple[str, ...], what: str) -> Dict:
@@ -54,10 +75,12 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
         dst.copy_(torch.from_numpy(np.array(arr, copy=True)))
 
 
-def load_flax_variables(model: PointNetPP8Dir, variables: Dict) -> PointNetPP8Dir:
+def load_flax_variables(model: Model, variables: Dict) -> Model:
     """Copy a flax ``{"params", "batch_stats"}`` tree of the JAX package's
-    ``PointNetPP8Dir`` into ``model`` in place; returns the model. Raises on
-    a missing entry or a shape that does not match."""
+    ``PointNetPP8Dir`` or ``PointNetPPCls`` into the port's ``model`` of the
+    same kind in place; returns the model. Raises on a missing entry or a
+    shape that does not match (for the classifier, build the model with
+    :func:`cls_kwargs` of the tree)."""
     params = variables["params"]
     stats = variables.get("batch_stats")
     for lin_path, lin, bn_path, bn in _pairs(model):
@@ -91,7 +114,7 @@ def _np(t: torch.Tensor, name: str) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
-def to_flax_variables(model: PointNetPP8Dir, grads: bool = False) -> Dict:
+def to_flax_variables(model: Model, grads: bool = False) -> Dict:
     """The model's weights and running statistics as a flax
     ``{"params", "batch_stats"}`` tree of numpy arrays in the JAX package's
     layout (the inverse of :func:`load_flax_variables`). With ``grads=True``,
@@ -117,11 +140,17 @@ def to_flax_variables(model: PointNetPP8Dir, grads: bool = False) -> Dict:
     return {"params": params} if grads else {"params": params, "batch_stats": stats}
 
 
-def random_flax_variables(seed: int) -> Dict:
-    """A ``PointNetPP8Dir`` variable tree in the JAX package's layout, made
-    with numpy from ``seed``: LeCun-normal kernels, small random biases, and
-    BatchNorm with random scale, shift, mean and variance (var in
-    [0.5, 1.5]), so that folding BatchNorm into the kernels is exercised."""
+def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channels: int = 3,
+                          num_classes: int = 40) -> Dict:
+    """A variable tree of the JAX package's ``model`` (``pointnet_pp_8dir``,
+    or ``pointnet_pp_cls`` with ``in_channels`` 3 or 6 and ``num_classes``)
+    in its layout, made with numpy from ``seed``: LeCun-normal kernels,
+    small random biases, and BatchNorm with random scale, shift, mean and
+    variance (var in [0.5, 1.5]), so that folding BatchNorm into the kernels
+    is exercised."""
+    if model not in _SCOPE:
+        raise NotImplementedError(f"model {model!r}: the port has {sorted(_SCOPE)}")
+    top = _SCOPE[model]
     rng = np.random.default_rng(seed)
     params: Dict = {}
     stats: Dict = {}
@@ -142,14 +171,19 @@ def random_flax_variables(seed: int) -> Dict:
             "var": rng.uniform(0.5, 1.5, c).astype(np.float32),
         })
 
-    for i, (cin, widths) in enumerate(_SA_WIDTHS):
-        scope = ("PointNetPPTrunk_0", f"SetAbstraction_{i}", "SharedMLP_0")
+    cin = in_channels if model == "pointnet_pp_cls" else 3
+    for i, widths in enumerate(_SA_WIDTHS):
+        scope = top + (f"SetAbstraction_{i}", "SharedMLP_0")
         for j, cout in enumerate(widths):
             dense(scope + (f"Dense_{j}",), cin, cout)
             batchnorm(scope + (f"BatchNorm_{j}",), cout)
             cin = cout
+        cin += 3  # the next stage groups [centred xyz | these features]
     for j, (cin, cout) in enumerate(_FC_WIDTHS):
-        dense(("PointNetPPTrunk_0", f"Dense_{j}"), cin, cout)
-        batchnorm(("PointNetPPTrunk_0", f"BatchNorm_{j}"), cout)
-    dense(("Dense_0",), *_HEAD_WIDTHS)
+        dense(top + (f"Dense_{j}",), cin, cout)
+        batchnorm(top + (f"BatchNorm_{j}",), cout)
+    if model == "pointnet_pp_cls":
+        dense(("Dense_2",), 256, num_classes)
+    else:
+        dense(("Dense_0",), 256, 8)
     return {"params": params, "batch_stats": stats}

@@ -1,7 +1,8 @@
 """On the card only (marker ``cuda``; skipped without a CUDA device): each
 CUDA kernel of the port against its plain PyTorch version, the wrappers'
-refusals, the model's logits through the kernels against the same model
-through the plain versions, and a train step's gradients likewise.
+refusals, the models' outputs through the kernels against the same models
+through the plain versions (8-dir, the classifier, clouds above the fused
+grouping's size), and a train step's gradients likewise.
 
 This file imports nothing of JAX, so that it runs on a machine without it:
 
@@ -75,6 +76,10 @@ MLP_CASES = {
     "ragged-S": (2, 32, 7, (5, 64, 96)),
     "one-layer": (2, 8, 9, (3, 130)),
     "four-layers": (2, 16, 3, (6, 33, 65, 17, 300)),
+    # the classifier's group-all stage: 128 rows in two chunks of 64; and
+    # rows in three chunks with a ragged last one
+    "cls-group-all-K=128": (64, 128, 1, (259, 256, 512, 1024)),
+    "K=150-chunked": (2, 150, 1, (259, 256, 512, 1024)),
 }
 
 
@@ -127,7 +132,8 @@ def test_logits_through_kernels_match_plain_versions_on_card(cuda_device):
     got = pred(clouds)
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0}
+        "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
+        "knn": 0, "fps": 0, "ball_query": 0}
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
         want = pred(clouds)
@@ -273,12 +279,13 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
     before = K.launch_counts()
     got = _step_grads(trainer, batch, valid, 3)
     grown = {k: v - before[k] for k, v in K.launch_counts().items()}
+    index_kernels = {"knn": 0, "fps": 0, "ball_query": 0}
     if fused:
         assert grown == {"sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 1,
-                         "sa_mlp_max_bwd": 3}, grown
+                         "sa_mlp_max_bwd": 3, **index_kernels}, grown
     else:
         assert grown == {"sa_group": 2, "sa_mlp_max": 0, "sa_group_scatter": 1,
-                         "sa_mlp_max_bwd": 0}, grown
+                         "sa_mlp_max_bwd": 0, **index_kernels}, grown
     trainer.model.load_state_dict(state)
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
@@ -293,3 +300,142 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
                                                                   "trunk.fc2.bias"):
             continue  # zero in exact arithmetic: a Dense bias that feeds a train BatchNorm
         assert rel <= (5e-2 if fused else 1e-3), (name, rel)
+
+
+# ---------------------------------------------------------------------------
+# the index kernels: kNN above the fused grouping's size, FPS, ball query
+# ---------------------------------------------------------------------------
+
+
+def _unit_cloud(gen, dev, B, N, tiled):
+    n = max(1, N // 4) if tiled else N
+    x = torch.randn((B, n, 3), generator=gen, device=dev)
+    x = x / x.norm(dim=-1).amax(dim=1)[:, None, None]
+    return x.repeat(1, -(-N // n), 1)[:, :N].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
+@pytest.mark.parametrize("shape", [(64, 1024, 512), (64, 512, 128), (16, 10000, 512),
+                                   (2, 20000, 40), (3, 33, 40)],
+                         ids=["sa1", "sa2", "N=10000", "N=20000", "npoint>N"])
+def test_fps_kernel_equals_plain_on_card(cuda_device, shape, tiled):
+    B, N, npoint = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    xyz = _unit_cloud(gen, cuda_device, B, N, tiled)
+    seeds = torch.randint(0, N, (B,), generator=gen, device=cuda_device, dtype=torch.int32)
+    before = K.fps.launches
+    got = K.fps(xyz, seeds, npoint)
+    want = K.fps_plain(xyz, seeds, npoint)
+    torch.cuda.synchronize()
+    assert K.fps.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got[:, 0], seeds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
+@pytest.mark.parametrize("shape", [(64, 512, 1024, 32, 0.2), (64, 128, 512, 64, 0.4),
+                                   (2, 7, 50, 80, 0.5)], ids=["sa1", "sa2", "K>N"])
+def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled):
+    B, S, N, KN, radius = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    xyz = _unit_cloud(gen, cuda_device, B, N, tiled)
+    new_xyz = TG.index_points(xyz, TG.random_sample_indices(gen, B, N, S, cuda_device))
+    new_xyz = new_xyz.contiguous()
+    new_xyz[:, 0] = 3.0  # no point within the radius
+    before = K.ball_query.launches
+    got = K.ball_query(new_xyz, xyz, radius, KN)
+    want = K.ball_query_plain(new_xyz, xyz, radius, KN)
+    torch.cuda.synchronize()
+    assert K.ball_query.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((got[:, 0] == N - 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
+@pytest.mark.parametrize("shape", [(16, 128, 16384, 32), (16, 128, 20480, 32),
+                                   (2, 5, 10300, 128)], ids=["N=16384", "N=20480", "K=128"])
+def test_knn_kernel_equals_plain_on_card(cuda_device, shape, tiled):
+    B, S, N, KN = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    xyz = _unit_cloud(gen, cuda_device, B, N, tiled)
+    new_xyz = TG.index_points(xyz, TG.random_sample_indices(gen, B, N, S, cuda_device))
+    before = K.knn.launches
+    got = K.knn(new_xyz.contiguous(), xyz, KN)
+    want = K.knn_plain(new_xyz, xyz, KN)
+    torch.cuda.synchronize()
+    assert K.knn.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_index_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    dev = cuda_device
+    xyz = torch.zeros((1, 64, 3), device=dev)
+    with pytest.raises(ValueError):  # beyond the kNN kernel's N
+        K.knn(xyz[:, :8], torch.zeros((1, 20481, 3), device=dev), 4)
+    with pytest.raises(ValueError):  # more neighbours than points
+        K.knn(xyz[:, :8], xyz, 65)
+    with pytest.raises(ValueError):  # beyond the FPS kernel's N
+        K.fps(torch.zeros((1, K.FPS_MAX_N + 1, 3), device=dev),
+              torch.zeros((1,), dtype=torch.int32, device=dev), 4)
+    with pytest.raises(TypeError):  # int64 seeds
+        K.fps(xyz, torch.zeros((1,), dtype=torch.long, device=dev), 4)
+    with pytest.raises(TypeError):
+        K.ball_query(xyz[:, :8].double(), xyz.double(), 0.2, 4)
+    with pytest.raises(ValueError):  # a cloud on another device
+        K.ball_query(xyz[:, :8].cpu(), xyz, 0.2, 4)
+
+
+@pytest.mark.cuda
+def test_classifier_through_kernels_matches_plain_versions_on_card(cuda_device):
+    """PointNetPPCls serving at N=1024 with normals: 2 FPS, 2 ball-query and
+    3 MLP launches, no grouping kernel; log-probabilities within 1e-4 of the
+    plain versions from the same generator state."""
+    v = random_flax_variables(5, "pointnet_pp_cls", in_channels=6)
+    pred = OrientationPredictor("pointnet_pp_cls", v["params"], v["batch_stats"],
+                                num_points=1024, max_batch=8, device=cuda_device)
+    rng = np.random.default_rng(5)
+    xyz = rng.normal(size=(5, 900, 3))
+    xyz /= np.linalg.norm(xyz, axis=-1).max(axis=1)[:, None, None]
+    clouds = np.concatenate([xyz, rng.normal(size=(5, 900, 3))], -1).astype(np.float32)
+    before = K.launch_counts()
+    pred.generator.manual_seed(1)
+    got = pred(clouds)
+    after = K.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "sa_group": 0, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
+        "knn": 0, "fps": 2, "ball_query": 2}
+    pred.generator.manual_seed(1)
+    with mock.patch.object(K, "fps", K.fps_plain), \
+            mock.patch.object(K, "ball_query", K.ball_query_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
+        want = pred(clouds)
+    assert got.shape == (5, 40)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 24576])
+def test_large_clouds_serve_on_card(cuda_device, n):
+    """8-dir serving above the fused grouping's 10,240 points: sa1 through
+    the kNN kernel up to 20,480 points, through the matmul-form sort above;
+    logits within 1e-4 of the plain versions."""
+    v = random_flax_variables(6)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=n, max_batch=4, device=cuda_device,
+                                sampling="first")
+    clouds = np.random.default_rng(6).normal(size=(3, n, 3)).astype(np.float32)
+    before = K.launch_counts()
+    got = pred(clouds)
+    after = K.launch_counts()
+    grown = {k: after[k] - before[k] for k in after}
+    assert grown["knn"] == (1 if n <= TG.KNN_KERNEL_MAX_N else 0)
+    assert grown["sa_group"] == 1 and grown["sa_mlp_max"] == 3
+    with mock.patch.object(K, "sa_group", K.sa_group_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
+            mock.patch.object(K, "knn", K.knn_plain):
+        want = pred(clouds)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -154,9 +154,11 @@ def test_group_all_matches_jax(rng):
         np.testing.assert_array_equal(t_g.numpy(), np.asarray(j_g))
 
 
-@pytest.mark.parametrize("kwargs", [{"sampling": "fps"}, {"grouping": "ball"},
+@pytest.mark.parametrize("kwargs", [{"sampling": "grid"}, {"grouping": "radius"},
                                     {"sampling": "random"}])
 def test_sample_and_group_refuses_what_is_not_ported(kwargs):
+    """Modes the JAX package does not have either (FPS and the ball query
+    are ported), and random sampling without a generator."""
     xyz = torch.zeros((1, 64, 3))
     with pytest.raises((NotImplementedError, ValueError)):
         TG.sample_and_group(xyz, None, 8, 4, **kwargs)  # random: no generator given

@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py run where JAX is absent (serving, one train
-step in each train configuration, the training CLI), and chip_smoke.py
-refuses to run without a card."""
+"""The port and chip_smoke.py run where JAX is absent (serving both
+models, one train step in each train configuration, the training CLI), and
+chip_smoke.py refuses to run without a card."""
 
 import os
 import shutil
@@ -52,6 +52,11 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
                                       num_points=128, max_batch=2, device="cpu")
         out = p(np.random.default_rng(0).normal(size=(3, 100, 3)).astype(np.float32))
         assert out.shape == (3, 8) and np.isfinite(out).all()
+        v = port.random_flax_variables(0, "pointnet_pp_cls", in_channels=6)
+        p = port.OrientationPredictor("pointnet_pp_cls", v["params"], v["batch_stats"],
+                                      num_points=128, max_batch=2, device="cpu")
+        out = p(np.random.default_rng(0).normal(size=(3, 100, 6)).astype(np.float32))
+        assert out.shape == (3, 40) and np.isfinite(out).all()
         # one CPU train step in each train configuration, and the CLI
         from pointcloud_orientation_tpu_torch.data import OrientationDataset
         from pointcloud_orientation_tpu_torch.train import Trainer, preset

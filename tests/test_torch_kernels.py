@@ -58,7 +58,7 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     g = torch.from_numpy(rng.normal(size=(2, 4, 8, 3)).astype(np.float32))
     assert torch.equal(K.sa_mlp_max(g, layers), K.sa_mlp_max_plain(g, layers))
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
-                                 "sa_mlp_max_bwd": 0}
+                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0}
 
 
 def test_wrappers_refuse_other_dtypes_and_devices():
@@ -89,7 +89,8 @@ def test_build_flags_and_signatures():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-Xptxas -v" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["sa_group.cu", "sa_mlp_max.cu", "sa_mlp_max_bwd.cu", "sa_scatter.cu"]
+    assert sources == ["ball_query.cu", "fps.cu", "knn.cu", "sa_group.cu", "sa_mlp_max.cu",
+                       "sa_mlp_max_bwd.cu", "sa_scatter.cu"]
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text
@@ -102,3 +103,4 @@ def test_build_flags_and_signatures():
         "ptxas info    : Function properties for k",
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 576 bytes smem"]
+

@@ -9,7 +9,12 @@ import torch
 
 from pointcloud_orientation_tpu.models import PointNetPP8Dir as JaxPointNetPP8Dir
 from pointcloud_orientation_tpu.ops.geometry import set_pallas_mode
-from pointcloud_orientation_tpu_torch.models import MODEL_REGISTRY, PointNetPP8Dir, SharedMLP
+from pointcloud_orientation_tpu_torch.models import (
+    MODEL_REGISTRY,
+    PointNetPP8Dir,
+    PointNetPPCls,
+    SharedMLP,
+)
 from pointcloud_orientation_tpu_torch.utils import load_flax_variables, random_flax_variables
 
 
@@ -114,7 +119,8 @@ def test_model_refuses_what_is_not_ported(kwargs):
 
 
 def test_registry_holds_the_ported_model():
-    assert MODEL_REGISTRY == {"pointnet_pp_8dir": PointNetPP8Dir}
+    assert MODEL_REGISTRY == {"pointnet_pp_8dir": PointNetPP8Dir,
+                              "pointnet_pp_cls": PointNetPPCls}
 
 
 def test_random_sampling_uses_the_generator(rng):

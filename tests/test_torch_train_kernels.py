@@ -181,7 +181,7 @@ def test_backward_wrappers_count_nothing_on_the_cpu(rng):
     assert K.sa_mlp_max_bwd(torch.ones((1, 4, 2, 3)), [layer], torch.ones((1, 2, 5)),
                             need_dgrouped=False)[0] is None
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
-                                 "sa_mlp_max_bwd": 0}
+                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0}
     with pytest.raises(TypeError):
         K.sa_group_scatter(idx, torch.ones((1, 3, 2, 4), dtype=torch.float64), 5)
     with pytest.raises(TypeError):  # the bf16 variant is not ported
