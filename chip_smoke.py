@@ -8,13 +8,18 @@ shapes its path gives it. Then drives the main paths at full width, random
 weights from a seed, each with the launch counters set to 0 just before and
 read just after: serving through ``OrientationPredictor`` (PointNet++ 8-dir)
 at N=1024 and N=10,000; serving the ModelNet40 classifier
-(``pointnet_pp_cls``, FPS and ball query, 6-channel clouds) at N=1024;
-8-dir serving at N=16,384 (the kNN kernel) and N=24,576 (no kernel for the
-kNN) and one 8dir_kl train step at N=16,384; and training of the 8dir_kl
-preset (B=16, N=10,000) through ``Trainer`` in both train configurations
-(the default, and ``fused_mlp_train``), with a gradient check against the
-plain versions and a checkpoint round trip. Finally times the kernels, the
-requests and the train steps with CUDA events and the host clock. Prints one
+(``pointnet_pp_cls``, FPS and ball query, 6-channel clouds) at N=1024 and
+N=40,000; 8-dir serving at N=16,384 (the kNN kernel) and N=24,576 (no kernel
+for the kNN) and one 8dir_kl train step at N=16,384; and training of the
+8dir_kl preset (B=16, N=10,000) through ``Trainer`` in both train
+configurations (the default, and ``fused_mlp_train``), with a gradient check
+against the plain versions and a checkpoint round trip. The bfloat16 trunk
+(``dtype="bfloat16"``, ``compute_dtype="bfloat16"``) is driven the same way:
+8-dir serving at N=1024 and N=10,000 through the bf16 ``sa_mlp_max`` kernel,
+and one epoch of the 8dir_kl preset in both train configurations (the fused
+one through the bf16 backward kernel). Finally times the kernels, the
+requests and the train steps, f32 beside bf16, with CUDA events and the
+host clock. Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
 the run's total seconds, and the last line is ``{"ok": true, "device": ...}``.
@@ -43,11 +48,13 @@ from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores. The bound of a kernel is the larger of its bytes
-# and its FLOPs over these.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside
+# the tensor cores, and dense bf16 in the tensor cores (f32 accumulation).
+# The bound of a kernel is the larger of its bytes and its operations over
+# these (a bf16 kernel's products at the bf16 rate, the rest at the f32 one).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 TIMING_ITERS = 20
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's SM clock: a sleep at least this long
 SEED = 0
@@ -76,17 +83,52 @@ BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
 MLP_TOL = 1e-4  # rtol and atol: the kernel sums in another order than cuBLAS
 LOGIT_TOL = 1e-4
 SERVE_KERNELS = ("sa_group", "sa_mlp_max")
+# bf16 variants of the MLP kernels, at the 8-dir serving shapes and the K=128
+# group-all (forward) and the training shapes (backward). On dyadic inputs
+# (``dyadic_mlp_case``: every sum exact in any order, so both round the same
+# values to bf16) within BF16_TOL of the output's scale; on normal random
+# inputs a sum in another order puts a few activations on the other side of a
+# bf16 rounding midpoint, so those are held in norm
+BF16_MLP_SHAPES = ("sa1 B=64", "sa2 B=64", "sa3 B=64", "cls group-all K=128 B=64")
+BF16_TOL = 1e-4
+BF16_RANDOM_NORM_TOL = 1e-3
+# bf16 logits through the kernels vs the plain versions (rounding flips, as
+# above), and vs the f32 model (the bound of tests/test_bf16.py). A smoke
+# check only: the bf16 logits lie 3.3e-3 to 4.5e-3 from the f32 ones, inside
+# BF16_LOGIT_TOL, so it cannot tell the bf16 path from the f32 one; the
+# kernel checks on random inputs (BF16_RANDOM_NORM_TOL) and the train-step
+# checks below can
+BF16_LOGIT_TOL = 1e-2
+BF16_VS_F32_TOL = 0.05
+# A bf16 train step's gradients. Default configuration: through the kernels
+# against autograd through the plain grouping, the same forward (the
+# grouping kernel is bit-equal to it), whole gradient relative in norm.
+# Fused: each call of the bf16 MLP backward kernel in the step against the
+# bf16 plain version on the same inputs, all outputs relative in norm; the
+# f32 plain version (f32 recompute, other max decisions) must lie further
+# than the bound from the kernel's result (its f32 max decisions move a
+# whole fused step's gradient 0.21-0.30 on the CPU, tests/test_torch_bf16.py)
+BF16_GRAD_TOL = {"default": 1e-3, "fused": 1e-2}
 
 # The index kernels' shapes. FPS: (B, N, npoint), the classifier's two stages
 # at B=64 N=1024 and a 10,000-point cloud. Ball query: (B, S, N, K, radius),
 # the classifier's two stages. kNN: (B, S, N, K), the 8-dir sa1 above the
 # fused grouping's 10,240 points, up to the kernel's 20,480.
+# FPS above 32,768 points keeps its running minima in device memory.
+# Ball query: the matmul form (last entry) where the JAX package's TPU
+# dispatch takes it (N=512 at the classifier's sa2, N above 20,480), and the
+# difference form at sa2 too, for its time beside the matmul form's.
 FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 128),
-              "B=16 N=10000": (16, 10000, 512)}
-BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2), "sa2 B=64": (64, 128, 512, 64, 0.4)}
+              "B=16 N=10000": (16, 10000, 512), "B=4 N=40000": (4, 40_000, 512),
+              "B=4 N=65536": (4, 65_536, 512)}
+BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2, False),
+               "sa2 B=64": (64, 128, 512, 64, 0.4, True),
+               "sa2 B=64 difference form": (64, 128, 512, 64, 0.4, False),
+               "B=4 N=24576": (4, 128, 24_576, 32, 0.2, True)}
 KNN_SHAPES = {"sa1 B=16 N=16384": (16, 128, 16384, 32), "sa1 B=16 N=20480": (16, 128, 20480, 32)}
 CLS_FORWARD = {"fps": ("sa1 B=64 N=1024", "sa2 B=64 N=512"), "ball_query": ("sa1 B=64", "sa2 B=64")}
 CLS_CHANNELS = 6  # xyz and normals
+CLS_LARGE_N = 40_000  # a classifier request above the FPS kernel's register limit
 LARGE_N = (16_384, 24_576)  # 8-dir serving with and without the kNN kernel
 LSE_TOL = 1e-5  # log-probabilities: each row's logsumexp is 0 up to f32 rounding
 
@@ -112,6 +154,8 @@ GRAD_TOL = {"default": 1e-3, "fused": 5e-2}
 TRAIN_N = 10_000
 TRAIN_SAMPLES_PER_CLASS = 8  # 48 clouds: 3 train steps and 1 val batch at B=16
 TRAIN_STEP_ITERS = 5
+# train steps timed f32 beside bf16, (N, B): the preset's and bench.py's shape
+TIMED_TRAIN_SHAPES = ((TRAIN_N, 16), (1024, 64))
 
 T_START = time.perf_counter()
 
@@ -155,9 +199,12 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
     return timed(fn, iters, warmup)[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time: ``flops`` at
+    the f32 peak, ``bf16_flops`` (products of bf16 operands) at the bf16
+    tensor-core peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -170,12 +217,17 @@ def sa_group_cost(B, N, S, Kn, D) -> tuple[float, float]:
     return nbytes, flops
 
 
-def sa_mlp_cost(B, Kn, S, widths) -> tuple[float, float]:
+def sa_mlp_cost(B, Kn, S, widths, bf16=False) -> tuple[float, ...]:
+    """Bytes (grouped, the layers and the output once, all f32) and
+    operations: the products, then 3 per activation (scale, shift, ReLU)
+    and the max. With ``bf16`` the products are returned apart, as bf16
+    operations."""
     rows = B * Kn * S
     pairs = list(zip(widths[:-1], widths[1:]))
     nbytes = 4 * (rows * widths[0] + sum(ci * co + 2 * co for ci, co in pairs) + B * S * widths[-1])
-    flops = sum(2 * rows * ci * co + 3 * rows * co for ci, co in pairs) + rows * widths[-1]
-    return nbytes, flops
+    products = sum(2 * rows * ci * co for ci, co in pairs)
+    rest = sum(3 * rows * co for ci, co in pairs) + rows * widths[-1]
+    return (nbytes, rest, products) if bf16 else (nbytes, products + rest)
 
 
 def fps_cost(B, N, npoint) -> tuple[float, float]:
@@ -202,10 +254,11 @@ def knn_cost(B, S, N, Kn) -> tuple[float, float]:
     return 4 * (B * N * 3 + B * S * 3 + B * S * Kn), 9 * B * S * N
 
 
-def ball_scanned(new_xyz, xyz, radius, Kn) -> int:
+def ball_scanned(new_xyz, xyz, radius, Kn, matmul_form=False) -> int:
     """The points the ball query of these inputs must test: for each
     centroid up to its Kn-th point within ``radius``, else all N."""
-    hits = (G.diff_square_distance(new_xyz, xyz) <= K.radius_sq_f32(radius)).int().cumsum(-1)
+    distance = G.square_distance if matmul_form else G.diff_square_distance
+    hits = (distance(new_xyz, xyz) <= K.radius_sq_f32(radius)).int().cumsum(-1)
     full = hits[..., -1] >= Kn
     need = torch.where(full, (hits < Kn).sum(-1) + 1, torch.full_like(full, xyz.shape[1],
                                                                       dtype=torch.long))
@@ -326,13 +379,13 @@ def select_inputs(kernel, shape, gen, dev, case):
             seeds = torch.zeros((B,), dtype=torch.int32, device=dev)
         return xyz, seeds, npoint
     if kernel == "ball_query":
-        B, S, N, Kn, radius = shape
+        B, S, N, Kn, radius, matmul_form = shape
         xyz = unit_cloud(B, N, gen, dev, case == "tiled")
         cidx = random_sample_indices(gen, B, N, S, dev)
         new_xyz = G.index_points(xyz, cidx).contiguous()
         if case == "empty":
             new_xyz[:, 0] = 3.0
-        return new_xyz, xyz, radius, Kn
+        return new_xyz, xyz, radius, Kn, matmul_form
     B, S, N, Kn = shape
     xyz = unit_cloud(B, N, gen, dev, case == "tiled")
     cidx = random_sample_indices(gen, B, N, S, dev)
@@ -735,6 +788,58 @@ def bwd_outputs(res):
     return out
 
 
+def check_mlp_bwd(gen, dev, name, shape, cases, bf16=False) -> dict:
+    """``sa_mlp_max_bwd`` against its plain version at ``shape``: on dyadic
+    inputs (``ties``, ``all-tied``) every output within BWD_TOL of its
+    scale, on normal random inputs within BWD_RANDOM_NORM_TOL in norm; two
+    launches bit-equal; finite."""
+    B, Kn, S, widths = shape
+    kernel = "sa_mlp_max_bwd_bf16" if bf16 else "sa_mlp_max_bwd"
+    worst = worst_abs = 0.0
+    for case in cases:
+        if case == "random":
+            g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+            layers = make_layers(widths, gen, dev)
+            dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
+        else:
+            g, layers, dp = dyadic_mlp_case(gen, dev, B, Kn, S, widths, case == "all-tied")
+        got = K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16)
+        again = K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16)
+        want = K.sa_mlp_max_bwd_plain(g, layers, dp, bf16=bf16)
+        torch.cuda.synchronize()
+        fields = {}
+        for (label, x), (_, y), (_, z) in zip(bwd_outputs(got), bwd_outputs(want),
+                                              bwd_outputs(again)):
+            scale = max(float(y.abs().max()), 1e-30)
+            diff = (x - y).abs()
+            fields[label] = {
+                "max_abs_err": float(diff.max()), "scale": scale,
+                "norm_rel_err": float((x - y).norm() / y.norm().clamp_min(1e-30)),
+                "elementwise_ok": bool(torch.allclose(x, y, rtol=BWD_TOL, atol=BWD_TOL * scale)),
+                "finite": bool(torch.isfinite(x).all()), "bit_equal_twice": bool(torch.equal(x, z)),
+            }
+        ok = all(f["finite"] and f["bit_equal_twice"] for f in fields.values())
+        if case == "random":
+            ok = ok and all(f["norm_rel_err"] <= BWD_RANDOM_NORM_TOL for f in fields.values())
+        else:
+            ok = ok and all(f["elementwise_ok"] for f in fields.values())
+        if case == "all-tied":
+            ok = ok and not bool(got[0].any())
+        rel_to_scale = max(f["max_abs_err"] / f["scale"] for f in fields.values())
+        emit("kernel_check", kernel=kernel, shape=name, case=case, ok=ok,
+             tol=BWD_TOL if case != "random" else BWD_RANDOM_NORM_TOL,
+             max_abs_err_over_scale=rel_to_scale,
+             max_norm_rel_err=max(f["norm_rel_err"] for f in fields.values()),
+             max_abs_err=max(f["max_abs_err"] for f in fields.values()),
+             finite=all(f["finite"] for f in fields.values()),
+             bit_equal_twice=all(f["bit_equal_twice"] for f in fields.values()))
+        if not ok:
+            fail(f"{kernel} {name} {case}: {fields}")
+        worst = max(worst, rel_to_scale)
+        worst_abs = max([worst_abs] + [f["max_abs_err"] for f in fields.values()])
+    return {"max_abs_err": worst_abs, "max_abs_err_over_scale": worst}
+
+
 def phase_kernels_bwd(dev) -> dict:
     """The backward kernels against their plain versions at the training
     path's shapes, and the scatter's determinism."""
@@ -758,51 +863,9 @@ def phase_kernels_bwd(dev) -> dict:
         fail(f"sa_group_scatter: max abs err {err} (tol {SCATTER_TOL}), bit-equal {bit_equal}")
     results["sa_group_scatter"]["sa2 B=16"] = {"max_abs_err": err}
 
-    for name, (B, Kn, S, widths) in TRAIN_MLP_SHAPES.items():
-        worst = worst_abs = 0.0
-        for case in ("ties", "all-tied", "random"):
-            if case == "random":
-                g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
-                layers = make_layers(widths, gen, dev)
-                dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
-            else:
-                g, layers, dp = dyadic_mlp_case(gen, dev, B, Kn, S, widths, case == "all-tied")
-            got = K.sa_mlp_max_bwd(g, layers, dp)
-            again = K.sa_mlp_max_bwd(g, layers, dp)
-            want = K.sa_mlp_max_bwd_plain(g, layers, dp)
-            torch.cuda.synchronize()
-            fields = {}
-            for (label, x), (_, y), (_, z) in zip(bwd_outputs(got), bwd_outputs(want),
-                                                  bwd_outputs(again)):
-                scale = max(float(y.abs().max()), 1e-30)
-                diff = (x - y).abs()
-                fields[label] = {
-                    "max_abs_err": float(diff.max()), "scale": scale,
-                    "norm_rel_err": float((x - y).norm() / y.norm().clamp_min(1e-30)),
-                    "elementwise_ok": bool(torch.allclose(x, y, rtol=BWD_TOL, atol=BWD_TOL * scale)),
-                    "finite": bool(torch.isfinite(x).all()), "bit_equal_twice": bool(torch.equal(x, z)),
-                }
-            ok = all(f["finite"] and f["bit_equal_twice"] for f in fields.values())
-            if case == "random":
-                ok = ok and all(f["norm_rel_err"] <= BWD_RANDOM_NORM_TOL for f in fields.values())
-            else:
-                ok = ok and all(f["elementwise_ok"] for f in fields.values())
-            if case == "all-tied":
-                ok = ok and not bool(got[0].any())
-            rel_to_scale = max(f["max_abs_err"] / f["scale"] for f in fields.values())
-            emit("kernel_check", kernel="sa_mlp_max_bwd", shape=name, case=case, ok=ok,
-                 tol=BWD_TOL if case != "random" else BWD_RANDOM_NORM_TOL,
-                 max_abs_err_over_scale=rel_to_scale,
-                 max_norm_rel_err=max(f["norm_rel_err"] for f in fields.values()),
-                 max_abs_err=max(f["max_abs_err"] for f in fields.values()),
-                 finite=all(f["finite"] for f in fields.values()),
-                 bit_equal_twice=all(f["bit_equal_twice"] for f in fields.values()))
-            if not ok:
-                fail(f"sa_mlp_max_bwd {name} {case}: {fields}")
-            worst = max(worst, rel_to_scale)
-            worst_abs = max([worst_abs] + [f["max_abs_err"] for f in fields.values()])
-        results["sa_mlp_max_bwd"][name] = {"max_abs_err": worst_abs,
-                                           "max_abs_err_over_scale": worst}
+    for name, shape in TRAIN_MLP_SHAPES.items():
+        results["sa_mlp_max_bwd"][name] = check_mlp_bwd(gen, dev, name, shape,
+                                                        ("ties", "all-tied", "random"))
     return results
 
 
@@ -894,6 +957,29 @@ def phase_train(dev) -> dict:
     return out
 
 
+def step_times(trainer, what: str) -> dict:
+    """A train step (forward, backward, Adam) on one batch, host clock
+    around a synchronised step: median of TRAIN_STEP_ITERS after 2
+    warm-ups."""
+    ds = trainer.train_ds
+    idx, valid, _ = next(ds.batches(trainer.cfg.batch_size))
+    batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 98, 0))
+    ts = []
+    for i in range(2 + TRAIN_STEP_ITERS):
+        step_gen = trainer.generator(0, 97, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch, valid, step_gen)["loss"]
+        torch.cuda.synchronize()
+        if i >= 2:
+            ts.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(float(loss)):
+            fail(f"{what}: loss {float(loss)}")
+    med = float(np.median(ts))
+    return {"ms_median": med, "ms_all": ts, "clouds_per_s": trainer.cfg.batch_size / med * 1e3,
+            "epoch_train_clouds_per_s": trainer.timings.get("train_clouds_per_sec")}
+
+
 def phase_timing_train(dev, checks: dict, train: dict) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
@@ -927,28 +1013,8 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
                                                  **checks["sa_mlp_max_bwd"][name])
         emit("timing", kernel="sa_mlp_max_bwd", shape=name, **per_shape["sa_mlp_max_bwd"][name])
 
-    # a train step (forward, backward, Adam) on one batch, host clock, synchronised
-    steps = {}
-    for mode, run in train.items():
-        trainer = run["trainer"]
-        ds = trainer.train_ds
-        idx, valid, _ = next(ds.batches(trainer.cfg.batch_size))
-        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 98, 0))
-        ts = []
-        for i in range(2 + TRAIN_STEP_ITERS):
-            step_gen = trainer.generator(0, 97, i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = trainer.train_step(batch, valid, step_gen)["loss"]
-            torch.cuda.synchronize()
-            if i >= 2:
-                ts.append((time.perf_counter() - t0) * 1e3)
-            if not math.isfinite(float(loss)):
-                fail(f"timing_train {mode}: loss {float(loss)}")
-        med = float(np.median(ts))
-        steps[mode] = {"ms_median": med, "ms_all": ts,
-                       "clouds_per_s": trainer.cfg.batch_size / med * 1e3,
-                       "epoch_train_clouds_per_s": trainer.timings.get("train_clouds_per_sec")}
+    steps = {mode: step_times(run["trainer"], f"timing_train {mode}")
+             for mode, run in train.items()}
     emit("timing_train", batch=16, num_points=TRAIN_N, steps=steps)
 
     sources = {
@@ -979,6 +1045,359 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the bfloat16 trunk
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_bf16(dev) -> dict:
+    """The bf16 variants of the MLP kernels against their plain versions:
+    the forward at the 8-dir serving shapes and the K=128 group-all, the
+    backward at the training shapes (dyadic inputs, as the f32 backward)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    results = {"sa_mlp_max_bf16": {}, "sa_mlp_max_bwd_bf16": {}}
+    for name in BF16_MLP_SHAPES:
+        B, Kn, S, widths = SA_MLP_SHAPES[name]
+        row = {}
+        for case in ("dyadic", "random"):
+            if case == "dyadic":
+                g, layers, _ = dyadic_mlp_case(gen, dev, B, Kn, S, widths)
+            else:
+                g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+                layers = make_layers(widths, gen, dev)
+            got = K.sa_mlp_max(g, layers, bf16=True)
+            ref = K.sa_mlp_max_plain(g, layers, bf16=True)
+            f32 = K.sa_mlp_max_plain(g, layers)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or got.dtype != torch.float32:
+                fail(f"sa_mlp_max bf16 {name}: {tuple(got.shape)} {got.dtype}")
+            scale = max(float(ref.abs().max()), 1e-30)
+            err = float((got - ref).abs().max())
+            norm_rel = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+            vs_f32 = float((ref - f32).norm() / f32.norm().clamp_min(1e-30))
+            if case == "dyadic":
+                ok, tol = err <= BF16_TOL * scale, BF16_TOL
+            else:
+                ok, tol = norm_rel <= BF16_RANDOM_NORM_TOL, BF16_RANDOM_NORM_TOL
+            ok = ok and bool(torch.isfinite(got).all())
+            emit("kernel_check", kernel="sa_mlp_max_bf16", shape=name, case=case,
+                 max_abs_err=err, max_abs_err_over_scale=err / scale, norm_rel_err=norm_rel,
+                 plain_bf16_vs_plain_f32_norm_rel=vs_f32, tol=tol, ok=ok)
+            if not ok:
+                fail(f"sa_mlp_max bf16 {name} {case}: max abs err {err} (scale {scale}), "
+                     f"norm rel {norm_rel}")
+            row[case] = {"max_abs_err": err, "max_abs_err_over_scale": err / scale,
+                         "norm_rel_err": norm_rel}
+        results["sa_mlp_max_bf16"][name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in row.values()), "cases": row}
+    for name, shape in TRAIN_MLP_SHAPES.items():
+        results["sa_mlp_max_bwd_bf16"][name] = check_mlp_bwd(gen, dev, name, shape,
+                                                             ("ties", "all-tied"), bf16=True)
+    return results
+
+
+def phase_serve_bf16(dev) -> dict:
+    """The bf16 serving main path: ``OrientationPredictor("pointnet_pp_8dir",
+    dtype="bfloat16")`` at N=1024 (B = 1, 13, 64, 100, max_batch 64) and at
+    N=10,000 (B=16); per chunk 2 ``sa_group`` and 3 bf16 ``sa_mlp_max``
+    launches, no f32 ``sa_mlp_max``. Then the same centroids through the f32
+    predictor and through the plain versions."""
+    v = random_flax_variables(SEED)
+    rng = np.random.default_rng(SEED + 11)
+    requests = [(1024, 64, b) for b in (1, 13, 64, 100)] + [(10000, 16, 16)]
+    shapes = {(1024, 64), (10000, 16)}
+    kw = {n: dict(num_points=n, max_batch=mb, seed=SEED, device=dev) for n, mb in shapes}
+    predictors = {n: OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                          dtype="bfloat16", **kw[n]) for n, _ in shapes}
+    f32 = {n: OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"], **kw[n])
+           for n, _ in shapes}
+    clouds = {(n, b): rng.normal(size=(b, n, 3)).astype(np.float32) for n, _, b in requests}
+
+    K.reset_launch_counts()
+    per_request = []
+    for n, mb, b in requests:
+        before = K.launch_counts()
+        out = predictors[n](clouds[(n, b)])
+        after = K.launch_counts()
+        chunks = -(-b // mb)
+        grown = {k: after[k] - before[k] for k in after}
+        if out.shape != (b, 8) or out.dtype != np.float32 or not np.isfinite(out).all():
+            fail(f"bf16 request N={n} B={b}: output {out.shape} {out.dtype}")
+        if grown != expected_launches(sa_group=2 * chunks, sa_mlp_max_bf16=3 * chunks):
+            fail(f"bf16 request N={n} B={b} ({chunks} chunks): launches grew by {grown}")
+        per_request.append({"N": n, "B": b, "chunks": chunks, "launches": grown})
+    launches = K.launch_counts()
+    emit("serve_bf16", requests=per_request, launches=launches)
+
+    checks = []
+    for n, b in ((1024, 64), (10000, 16)):
+        x = clouds[(n, b)]
+        predictors[n].generator.manual_seed(SEED)
+        got = predictors[n](x)
+        f32[n].generator.manual_seed(SEED)
+        ref = f32[n](x)
+        predictors[n].generator.manual_seed(SEED)
+        with mock.patch.object(K, "sa_group", K.sa_group_plain), \
+                mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
+            plain = predictors[n](x)
+        vs_plain = float(np.abs(got - plain).max())
+        vs_f32 = float(np.abs(got - ref).max())
+        ok = vs_plain <= BF16_LOGIT_TOL and vs_f32 <= BF16_VS_F32_TOL
+        checks.append({"N": n, "B": b, "max_abs_err_vs_plain": vs_plain,
+                       "max_abs_diff_vs_f32": vs_f32, "ok": ok})
+        if not ok:
+            fail(f"bf16 logits N={n} B={b}: {vs_plain} from the plain versions (tol "
+                 f"{BF16_LOGIT_TOL}), {vs_f32} from f32 (tol {BF16_VS_F32_TOL})")
+    emit("serve_bf16_check", logits=checks, tol_vs_plain=BF16_LOGIT_TOL,
+         tol_vs_f32=BF16_VS_F32_TOL)
+    return {"launches": launches, "predictors": predictors, "f32": f32,
+            "max_abs_err": max(c["max_abs_err_vs_plain"] for c in checks)}
+
+
+def phase_train_bf16(dev) -> dict:
+    """The bf16 training main path: one epoch of the 8dir_kl preset with
+    ``compute_dtype="bfloat16"`` (B=16, N=10,000) in each train
+    configuration, counters from 0; the fused one runs the bf16 backward
+    kernel. Parameters and Adam's state stay f32. One more step's gradients
+    are checked (``BF16_GRAD_TOL``): not against the plain versions' whole
+    step, because in bf16 a few rounding flips reroute a step's gradient as
+    much as bf16 itself does (tests/test_torch_bf16.py), but with the same
+    forward on both sides."""
+    ds = train_dataset()
+    out = {}
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        trainer = Trainer(preset("8dir_kl", epochs=1, compute_dtype="bfloat16"), ds, device=dev,
+                          fused_mlp_train=fused)
+        steps = -(-len(trainer.train_ds) // trainer.cfg.batch_size)
+        val = -(-len(trainer.val_ds) // trainer.cfg.batch_size)
+        K.reset_launch_counts()
+        trainer.fit(epochs=1, log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expected = expected_launches(sa_group=2 * (steps + val),
+                                     sa_mlp_max_bf16=3 * (steps + val) if fused else 3 * val,
+                                     sa_group_scatter=steps,
+                                     sa_mlp_max_bwd_bf16=3 * steps if fused else 0)
+        losses = trainer.step_losses
+        f32_state = all(p.dtype == torch.float32 for p in trainer.model.parameters()) and all(
+            t.dtype == torch.float32 for st in trainer.optimizer.state.values()
+            for t in st.values() if t.dim())
+        emit("train_bf16", mode=mode, train_steps=steps, val_batches=val, step_losses=losses,
+             val_loss=trainer.history["val"][0], launches=launches, expected_launches=expected,
+             params_and_adam_f32=f32_state, timings=trainer.timings)
+        if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                and math.isfinite(trainer.history["val"][0])):
+            fail(f"train bf16 {mode}: losses {losses}, val {trainer.history['val']}")
+        if launches != expected or not f32_state:
+            fail(f"train bf16 {mode}: launches {launches}, expected {expected}, "
+                 f"f32 state {f32_state}")
+
+        state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+        check = (bf16_bwd_calls(trainer, batch, valid) if fused
+                 else bf16_grads_vs_autograd(trainer, batch, valid))
+        trainer.model.load_state_dict(state)
+        emit("train_bf16_check", mode=mode, tol=BF16_GRAD_TOL[mode], **check)
+        if not check["ok"]:
+            fail(f"train bf16 {mode}: gradient check {check}")
+        out[mode] = {"trainer": trainer, "launches": launches, "steps": steps}
+    return out
+
+
+def _norm_rel(got, want) -> float:
+    a = torch.cat([x.reshape(-1) for x in got])
+    b = torch.cat([x.reshape(-1) for x in want])
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def bf16_grads_vs_autograd(trainer, batch, valid) -> dict:
+    """The default bf16 step's gradients through the kernels against the
+    same step with the grouping's explicit backward (the scatter kernel and
+    the cast of its result to bf16) replaced by autograd through the plain
+    grouping: the whole gradient, but the Dense biases that feed a
+    BatchNorm, relative in norm."""
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    got = step_grads(trainer, batch, valid, SEED)
+    trainer.model.load_state_dict(state)
+
+    def group(xyz, feats, cidx, nsample):
+        return K.sa_group_plain(xyz, feats.to(xyz.dtype), cidx, nsample)
+
+    with mock.patch.object(K.SAGroupFeatsFn, "apply", group):
+        want = step_grads(trainer, batch, valid, SEED)
+    names = [n for n in want if not _zero_in_exact_arithmetic(n)]
+    err = _norm_rel([got[n] for n in names], [want[n] for n in names])
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    return {"norm_rel_err": err, "finite": finite,
+            "ok": finite and err <= BF16_GRAD_TOL["default"]}
+
+
+def bf16_bwd_calls(trainer, batch, valid) -> dict:
+    """Each bf16 MLP backward kernel call of one fused bf16 step against the
+    bf16 plain version on the same inputs, and the f32 plain version as the
+    control (all outputs as one vector, relative in norm)."""
+    calls = []
+    backward = K.SAMlpMaxFn.backward
+
+    def recording(ctx, dpooled):
+        res = backward(ctx, dpooled)
+        grouped, *flat = ctx.saved_tensors
+        layers = [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+        calls.append((grouped, layers, dpooled.contiguous(), ctx.needs_input_grad[0], ctx.bf16,
+                      ([res[0]] if ctx.needs_input_grad[0] else []) + list(res[2:])))
+        return res
+
+    with mock.patch.object(K.SAMlpMaxFn, "backward", staticmethod(recording)):
+        step_grads(trainer, batch, valid, SEED)
+    errs, controls = [], []
+    with torch.no_grad():
+        for grouped, layers, dpooled, need, bf16, got in calls:
+            for flag, into in ((True, errs), (False, controls)):
+                rdg, rdl = K.sa_mlp_max_bwd_plain(grouped, layers, dpooled, need, flag)
+                into.append(_norm_rel(got, ([rdg] if need else []) + [x for layer in rdl
+                                                                       for x in layer]))
+    ok = (len(calls) == 3 and all(c[4] for c in calls)
+          and max(errs) <= BF16_GRAD_TOL["fused"] < min(controls))
+    return {"calls": len(calls), "bf16": [c[4] for c in calls], "norm_rel_err": errs,
+            "f32_plain_norm_rel_err": controls, "ok": ok}
+
+
+def phase_serve_cls_large(dev) -> dict:
+    """A classifier request at N=40,000 (B=2): FPS above its register limit
+    at sa1, the matmul-form ball query at both stages (N above 20,480 and
+    N=512); against the plain versions."""
+    v = random_flax_variables(SEED, "pointnet_pp_cls", in_channels=CLS_CHANNELS)
+    pred = OrientationPredictor("pointnet_pp_cls", v["params"], v["batch_stats"],
+                                num_points=CLS_LARGE_N, max_batch=2, seed=SEED, device=dev)
+    x = cls_clouds(2, CLS_LARGE_N, np.random.default_rng(SEED + 12))
+    K.reset_launch_counts()
+    out = pred(x)
+    launches = K.launch_counts()
+    lse = np.log(np.exp(out.astype(np.float64)).sum(-1))
+    if out.shape != (2, 40) or not np.isfinite(out).all() or np.abs(lse).max() > LSE_TOL:
+        fail(f"classifier N={CLS_LARGE_N}: output {out.shape}, logsumexp {np.abs(lse).max()}")
+    if launches != expected_launches(fps=2, ball_query=2, sa_mlp_max=3):
+        fail(f"classifier N={CLS_LARGE_N}: launches {launches}")
+    pred.generator.manual_seed(SEED)
+    with_kernels = pred(x)
+    pred.generator.manual_seed(SEED)
+    with mock.patch.object(K, "fps", K.fps_plain), \
+            mock.patch.object(K, "ball_query", K.ball_query_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
+        plain = pred(x)
+    err = float(np.abs(with_kernels - plain).max())
+    ok = bool(np.allclose(with_kernels, plain, rtol=LOGIT_TOL, atol=LOGIT_TOL))
+    emit("serve_cls_large", N=CLS_LARGE_N, B=2, launches=launches, max_abs_err=err,
+         tol=LOGIT_TOL, ok=ok)
+    if not ok:
+        fail(f"classifier N={CLS_LARGE_N}: kernels vs plain versions max abs err {err}")
+    return {"predictor": pred, "clouds": x}
+
+
+def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
+                      cls_large: dict) -> list:
+    """The bf16 kernels beside their f32 variants (CUDA events, bounds at
+    the bf16 rate), then end to end, f32 beside bf16 in this one run:
+    requests at B=64 N=1024 and B=16 N=10,000, train steps at B=16
+    N=10,000 (the preset) and at bench.py's B=64 N=1024, both configurations;
+    and the N=40,000 classifier request."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    per_shape = {"sa_mlp_max_bf16": {}, "sa_mlp_max_bwd_bf16": {}}
+    for name in BF16_MLP_SHAPES:
+        B, Kn, S, widths = SA_MLP_SHAPES[name]
+        g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+        layers = make_layers(widths, gen, dev)
+        ms, host_ms = timed(lambda: K.sa_mlp_max(g, layers, bf16=True))
+        f32_ms = cuda_ms(lambda: K.sa_mlp_max(g, layers))
+        plain_ms = cuda_ms(lambda: K.sa_mlp_max_plain(g, layers, bf16=True))
+        b_ms, b_by = bound_ms(*sa_mlp_cost(B, Kn, S, widths, bf16=True))
+        per_shape["sa_mlp_max_bf16"][name] = dict(
+            ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            share=b_ms / ms, library_ms=None, host_ms=host_ms,
+            max_abs_err=checks["sa_mlp_max_bf16"][name]["max_abs_err"])
+        emit("timing", kernel="sa_mlp_max_bf16", shape=name, **per_shape["sa_mlp_max_bf16"][name])
+    for name, (B, Kn, S, widths) in TRAIN_MLP_SHAPES.items():
+        g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
+        layers = make_layers(widths, gen, dev)
+        dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
+        ms, host_ms = timed(lambda: K.sa_mlp_max_bwd(g, layers, dp, bf16=True), iters=10)
+        f32_ms = cuda_ms(lambda: K.sa_mlp_max_bwd(g, layers, dp), iters=10)
+        plain_ms = cuda_ms(lambda: K.sa_mlp_max_bwd_plain(g, layers, dp, bf16=True), iters=10)
+        nbytes, flops = mlp_bwd_cost(B, Kn, S, widths)
+        products = sum(6 * B * Kn * S * ci * co for ci, co in zip(widths[:-1], widths[1:]))
+        b_ms, b_by = bound_ms(nbytes, flops - products, products)
+        per_shape["sa_mlp_max_bwd_bf16"][name] = dict(
+            ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            share=b_ms / ms, library_ms=None, host_ms=host_ms,
+            **checks["sa_mlp_max_bwd_bf16"][name])
+        emit("timing", kernel="sa_mlp_max_bwd_bf16", shape=name,
+             **per_shape["sa_mlp_max_bwd_bf16"][name])
+
+    # requests, f32 and bf16 alternating (host clock, median of 5 each)
+    rng = np.random.default_rng(SEED + 14)
+    latency = []
+    for n, b in ((1024, 64), (10000, 16)):
+        x = rng.normal(size=(b, n, 3)).astype(np.float32)
+        for rnd in range(2):
+            for dtype, pred in (("float32", serve_bf16["f32"][n]),
+                                ("bfloat16", serve_bf16["predictors"][n])):
+                latency.append({"dtype": dtype, "round": rnd, **request_latency(pred, x)})
+    latency.append({"dtype": "float32", "model": "pointnet_pp_cls",
+                    **request_latency(cls_large["predictor"], cls_large["clouds"])})
+    emit("timing_serve_bf16", requests=latency)
+
+    # train steps, f32 and bf16 in turn, at the preset's shape and bench.py's
+    steps = []
+    for n, b in TIMED_TRAIN_SHAPES:
+        ds = train_bf16["default"]["trainer"].dataset if n == TRAIN_N else OrientationDataset(
+            *synthetic_modelnet(num_points=n, samples_per_class=-(-b * 10 // 42) + 1))
+        for mode in ("default", "fused"):
+            for dtype in (None, "bfloat16"):
+                if n == TRAIN_N and dtype == "bfloat16":
+                    trainer = train_bf16[mode]["trainer"]
+                else:
+                    trainer = Trainer(preset("8dir_kl", num_points=n, batch_size=b,
+                                             compute_dtype=dtype), ds, device=dev,
+                                      fused_mlp_train=mode == "fused")
+                t = step_times(trainer, f"timing_train_bf16 {mode} {dtype} N={n}")
+                steps.append({"N": n, "B": b, "mode": mode, "dtype": dtype or "float32", **t})
+    emit("timing_train_bf16", steps=steps)
+
+    sources = {
+        "sa_mlp_max_bf16": ("pointcloud_orientation_tpu_torch/csrc/sa_mlp_max.cu",
+                            "pointcloud_orientation_tpu/ops/pallas_kernels.py:738",
+                            serve_bf16["launches"]["sa_mlp_max_bf16"],
+                            ("sa1 B=64", "sa2 B=64", "sa3 B=64"),
+                            "one bf16 forward at B=64 N=1024: sa1, sa2, sa3",
+                            "bf16 8-dir serving, N=1024 B=1/13/64/100 and N=10000 B=16"),
+        "sa_mlp_max_bwd_bf16": ("pointcloud_orientation_tpu_torch/csrc/sa_mlp_max_bwd.cu",
+                                "pointcloud_orientation_tpu/ops/pallas_kernels.py:762",
+                                train_bf16["fused"]["launches"]["sa_mlp_max_bwd_bf16"],
+                                tuple(TRAIN_MLP_SHAPES),
+                                "one fused bf16 train step at B=16 N=10000: sa1, sa2, sa3",
+                                "train bf16 fused, one epoch"),
+    }
+    summary = []
+    for kname, (src, replaces, launches, shapes_, per, path) in sources.items():
+        rows = [per_shape[kname][s_] for s_ in shapes_]
+        b_ms = sum(r["bound_ms"] for r in rows)
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        summary.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in per_shape[kname].values()),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": b_ms, "bound_by": "bytes" if by_bytes * 2 >= b_ms else "operations",
+            "library_ms": None, "f32_ms": sum(r["f32_ms"] for r in rows), "per": per,
+            "launches_path": path, "shapes": per_shape[kname],
+        })
+    return summary
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -987,13 +1406,18 @@ def main() -> None:
     checks = phase_kernels(dev)
     checks.update(phase_kernels_select(dev))
     checks.update(phase_kernels_bwd(dev))
+    checks.update(phase_kernels_bf16(dev))
     serve = phase_serve(dev)
+    serve_bf16 = phase_serve_bf16(dev)
     cls = phase_serve_cls(dev)
+    cls_large = phase_serve_cls_large(dev)
     large = phase_large(dev)
     train = phase_train(dev)
+    train_bf16 = phase_train_bf16(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
+    summary += phase_timing_bf16(dev, checks, serve_bf16, train_bf16, cls_large)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

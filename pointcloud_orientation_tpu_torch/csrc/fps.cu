@@ -25,6 +25,13 @@
 // that every warp does for itself; the winners alternate between two shared
 // buffers, so one barrier a step suffices.
 //
+// Clouds above kMaxN = 32,768 points (512 threads of 64 registers each)
+// take a second kernel: the running minima live in a (B, N) device buffer
+// that the caller allocates, the cloud is read from device memory (at
+// 65,536 points 786 KB a cloud, which stays in the 50 MB L2 across the
+// steps), each of 1,024 threads strides over its points, and the argmax is
+// the same two-level butterfly with the lowest index winning ties.
+//
 // Later work: split one cloud over a thread-block cluster and merge the
 // argmax through distributed shared memory, so that a cloud uses several
 // SMs and the steps get shorter.
@@ -41,7 +48,8 @@
 
 namespace {
 
-constexpr int kMaxN = 32768;
+constexpr int kMaxN = 32768;            // the register kernel's largest cloud
+constexpr int kMaxNGlobal = 1 << 30;    // n + blockDim stays within int
 constexpr int kMaxWarps = 32;
 constexpr int kMaxCloudSmem = 232448 - 1024;  // leaves room for the static buffers
 constexpr unsigned kFull = 0xffffffffu;
@@ -130,6 +138,60 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ seeds, int* __
   }
 }
 
+// Clouds above kMaxN: the running minima in dist (B, N), initialised here.
+__global__ void __launch_bounds__(1024)
+fps_global_kernel(const float* __restrict__ xyz, const int* __restrict__ seeds,
+                  int* __restrict__ out, float* __restrict__ dist_all, int N, int npoint) {
+  __shared__ float cand_d[2][kMaxWarps];
+  __shared__ int cand_i[2][kMaxWarps];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const float* pts = xyz + (size_t)b * N * 3;
+  float* dist = dist_all + (size_t)b * N;
+  for (int n = tid; n < N; n += T) dist[n] = 1e10f;
+  int far = seeds[b];
+  far = far < 0 ? 0 : (far >= N ? N - 1 : far);
+  int* o = out + (size_t)b * npoint;
+
+  for (int it = 0;; ++it) {
+    if (tid == 0) o[it] = far;
+    if (it + 1 == npoint) break;
+    const float cx = pts[3 * (size_t)far], cy = pts[3 * (size_t)far + 1],
+                cz = pts[3 * (size_t)far + 2];
+    float best_d = -INFINITY;
+    int best_i = INT_MAX;
+    for (int n = tid; n < N; n += T) {  // each thread sees its own entries only
+      const float dx = __fsub_rn(pts[3 * (size_t)n], cx);
+      const float dy = __fsub_rn(pts[3 * (size_t)n + 1], cy);
+      const float dz = __fsub_rn(pts[3 * (size_t)n + 2], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float m = fminf(dist[n], d);
+      dist[n] = m;
+      if (m > best_d) {  // n rises: equal values keep the lower index
+        best_d = m;
+        best_i = n;
+      }
+    }
+    warp_argmax(best_d, best_i);
+    const int buf = it & 1;
+    if (lane == 0) {
+      cand_d[buf][warp] = best_d;
+      cand_i[buf][warp] = best_i;
+    }
+    __syncthreads();
+    float d = lane < nwarps ? cand_d[buf][lane] : -INFINITY;
+    int i = lane < nwarps ? cand_i[buf][lane] : INT_MAX;
+    warp_argmax(d, i);
+    far = i == INT_MAX ? 0 : i;
+  }
+}
+
 template <int PPT, int MAXT>
 int launch(const float* xyz, const int* seeds, int* out, int B, int N, int npoint,
            cudaStream_t stream) {
@@ -147,11 +209,13 @@ int launch(const float* xyz, const int* seeds, int* out, int B, int N, int npoin
 }  // namespace
 
 // xyz (B,N,3) f32, seeds (B,) i32 start indices in [0, N) -> out (B,npoint)
-// i32. Returns cudaErrorInvalidValue for arguments the kernel does not take,
-// else cudaGetLastError() after the launch.
-extern "C" int pcot_fps_f32(const void* xyz, const void* seeds, void* out, int B, int N,
-                            int npoint, void* stream) {
-  if (B < 1 || N < 1 || N > kMaxN || npoint < 1) return (int)cudaErrorInvalidValue;
+// i32. dist is a (B,N) f32 buffer for N > 32,768 (its contents are
+// overwritten) and may be NULL below that. Returns cudaErrorInvalidValue for
+// arguments the kernels do not take, else cudaGetLastError() after the
+// launch.
+extern "C" int pcot_fps_f32(const void* xyz, const void* seeds, void* out, void* dist, int B,
+                            int N, int npoint, void* stream) {
+  if (B < 1 || N < 1 || N > kMaxNGlobal || npoint < 1) return (int)cudaErrorInvalidValue;
   const float* x = (const float*)xyz;
   const int* s = (const int*)seeds;
   int* o = (int*)out;
@@ -163,5 +227,8 @@ extern "C" int pcot_fps_f32(const void* xyz, const void* seeds, void* out, int B
   if (N <= 4096) return launch<4, 1024>(x, s, o, B, N, npoint, st);
   if (N <= 8192) return launch<8, 1024>(x, s, o, B, N, npoint, st);
   if (N <= 16384) return launch<16, 1024>(x, s, o, B, N, npoint, st);
-  return launch<64, 512>(x, s, o, B, N, npoint, st);
+  if (N <= kMaxN) return launch<64, 512>(x, s, o, B, N, npoint, st);
+  if (!dist) return (int)cudaErrorInvalidValue;
+  fps_global_kernel<<<B, 1024, 0, st>>>(x, s, o, (float*)dist, N, npoint);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// Fused shared MLP + neighbour max-pool for Hopper (sm_90a), f32.
+// Fused shared MLP + neighbour max-pool for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the TPU kernel pointcloud_orientation_tpu/ops/pallas_kernels.py:
 // _sa_mlp_max_fwd_impl / _sa_mlp_max_fwd_kernel / _sa_mlp_fwd_compute
-// (reached through sa_mlp_max_pallas), its f32 (HIGHEST) variant.
+// (reached through sa_mlp_max_pallas), both its f32 (HIGHEST) variant and
+// its bf16=True variant.
 //
 // grouped (B,K,S,C0) neighbour-major -> L <= 4 layers of relu((x @ W) * s + t)
 // -> max over the K neighbours -> (B,S,C_L).
@@ -33,7 +34,18 @@
 // need 417,792 B), they run through all the layers in chunks of 64 rows
 // (221,184 B), each chunk folding its maxima into the same shared maximum;
 // max is associative, so the result does not depend on the chunks.
+//
+// bf16 (the element type T of the shared buffers): as the TPU kernel's
+// bf16 dot, both operands of every product are rounded to bf16 (round to
+// nearest even, __float2bfloat16_rn, as torch's .bfloat16() and XLA round)
+// and the products are accumulated in f32. The tile's activations and the
+// staged W are stored in shared memory as bf16, rounded when they are
+// written; they are widened to f32 for the FMAs, where the product of two
+// bf16 values is exact. Scale, shift, ReLU and the max stay in f32, and the
+// output is f32. Halving the activations' bytes lets the K = 128 group-all
+// tile run in one pass (210,944 B).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +54,41 @@ constexpr int kThreads = 256;
 constexpr int kStage = 32;        // input channels of W staged per step
 constexpr int kMaxLayers = 4;
 constexpr int kMaxPrefetch = 16;  // kStage * 128 columns / kThreads
+
+// Loads and stores of the shared buffers, four consecutive rows at a time.
+template <typename T>
+struct Smem;
+
+template <>
+struct Smem<float> {
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Smem<__nv_bfloat16> {
+  // a bf16 is the top half of the f32 with the same value: widening is a shift
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ unsigned bits(float v) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
+                                                float d) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bits(a) | bits(b) << 16, bits(c) | bits(d) << 16);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
 
 struct MlpParams {
   const float* w[kMaxLayers];  // (c[l], c[l+1]) row-major
@@ -60,25 +107,26 @@ struct Tiling {
   int chunk;       // rows in shared memory at once: a multiple of rt, at most rows_pad
   int ld;          // row stride of the transposed activations (chunk + 4)
   int groups;      // blocks sharing one tile, splitting the last layer's columns
-  int buf0, buf1;  // floats of the two activation buffers
+  int buf0, buf1;  // elements of the two activation buffers
 };
 
 // kChunked: the tile's rows run in chunks of tl.chunk. Without it the one
 // pass starts at row 0 at compile time, so tiles that fit at once run the
-// code they ran before chunks existed.
-template <bool kChunked>
+// code they ran before chunks existed. T: the type of the shared
+// activations and weights, float or __nv_bfloat16 (the bf16 products).
+template <bool kChunked, typename T>
 __global__ void __launch_bounds__(kThreads)
 sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const MlpParams p,
                   const Tiling tl, int K, int S) {
+  using M = Smem<T>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int tyn = tl.rt / 4;       // 16 or 8 row groups
   const int txn = kThreads / tyn;  // 16 or 32 column groups
   const int ct = 4 * txn;          // 64 or 128 columns per pass
-  float* buf0 = smem;              // inputs of layers 0, 2
-  float* buf1 = buf0 + tl.buf0;    // inputs of layers 1, 3
-  float* wS = buf1 + tl.buf1;      // (kStage, ct) staged weights
-  float* pool = wS + kStage * ct;  // (ts, c_last) running maximum
+  T* buf0 = reinterpret_cast<T*>(smem4);  // inputs of layers 0, 2
+  T* buf1 = buf0 + tl.buf0;               // inputs of layers 1, 3
+  T* wS = buf1 + tl.buf1;                 // (kStage, ct) staged weights
+  float* pool = reinterpret_cast<float*>(wS + kStage * ct);  // (ts, c_last) running maximum
   const int c_last = p.c[p.n_layers];
 
   const int tid = threadIdx.x;
@@ -108,13 +156,13 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
         const int sg = s0 + sl;
         if (sg < S) v = g[(((size_t)b * K + (r - sl * K)) * S + sg) * c0 + ch];
       }
-      buf0[ch * ld + rl] = v;
+      M::store(buf0 + ch * ld + rl, v);
     }
     __syncthreads();
 
     for (int l = 0; l < p.n_layers; ++l) {
-      const float* in = (l & 1) ? buf1 : buf0;
-      float* nxt = (l & 1) ? buf0 : buf1;
+      const T* in = (l & 1) ? buf1 : buf0;
+      T* nxt = (l & 1) ? buf0 : buf1;
       const int cin = p.c[l];
       const int cout = p.c[l + 1];
       const bool last = l == p.n_layers - 1;
@@ -158,16 +206,16 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
             __syncthreads();  // every thread is done with the previous stage
 #pragma unroll
             for (int q = 0; q < kMaxPrefetch; ++q)
-              if (q < per_thread) wS[tid + q * kThreads] = pre[q];
+              if (q < per_thread) M::store(wS + tid + q * kThreads, pre[q]);
             __syncthreads();
             if (i0 + kStage < cin) fetch(i0 + kStage);  // in flight during the FMAs
             const int kc = min(kStage, cin - i0);
-            const float* xin = in + (size_t)i0 * ld + r0 + 4 * ty;
-            const float* win = wS + 4 * tx;
+            const T* xin = in + (size_t)i0 * ld + r0 + 4 * ty;
+            const T* win = wS + 4 * tx;
 #pragma unroll 4
             for (int ii = 0; ii < kc; ++ii) {
-              const float4 xv = *reinterpret_cast<const float4*>(xin + ii * ld);
-              const float4 wv = *reinterpret_cast<const float4*>(win + ii * ct);
+              const float4 xv = M::load4(xin + ii * ld);
+              const float4 wv = M::load4(win + ii * ct);
               const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
               const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
@@ -197,8 +245,7 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
 #pragma unroll
             for (int m = 0; m < 4; ++m) y[m] = fmaxf(acc[m][n] * scn + shn, 0.f);
             if (!last) {
-              *reinterpret_cast<float4*>(nxt + (size_t)col * ld + r_local) =
-                  make_float4(y[0], y[1], y[2], y[3]);
+              M::store4(nxt + (size_t)col * ld + r_local, y[0], y[1], y[2], y[3]);
             } else if (one_centroid) {
               const float v = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
               atomicMax(reinterpret_cast<int*>(pool) + (r_first / K) * c_last + col,
@@ -234,9 +281,11 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
 constexpr long kMaxSmemBytes = 232448;  // 227 KB a block can opt into on sm_90
 
 // Tiling for ts centroids per block and chunks of at most max_chunk rows
-// (all rows when max_chunk <= 0); its shared memory in *floats, -1 if a
-// width is out of range.
-Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, long* floats) {
+// (all rows when max_chunk <= 0), with activations and staged weights of
+// elem_bytes each; its shared memory in *bytes, -1 if a width is out of
+// range.
+Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, int elem_bytes,
+                   long* bytes) {
   Tiling tl;
   tl.ts = ts;
   tl.rows = K * ts;
@@ -247,7 +296,7 @@ Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, lon
   tl.groups = 1;
   tl.buf0 = tl.buf1 = 0;
   long b0 = 0, b1 = 0;
-  *floats = -1;
+  *bytes = -1;
   for (int l = 0; l < n_layers; ++l) {
     if (c[l] < 1 || c[l + 1] < 1) return tl;
     const long need = (long)c[l] * tl.ld;
@@ -257,33 +306,17 @@ Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, lon
   tl.buf0 = (int)b0;
   tl.buf1 = (int)b1;
   const int ct = 4 * (kThreads / (tl.rt / 4));
-  *floats = b0 + b1 + (long)kStage * ct + (long)ts * c[n_layers];
+  *bytes = elem_bytes * (b0 + b1 + (long)kStage * ct) + 4L * ts * c[n_layers];
   return tl;
 }
 
-}  // namespace
-
-// grouped (B,K,S,c0) f32 -> out (B,S,c[n_layers]) f32. Layer l reads
-// w_l (c_l, c_{l+1}) row-major, s_l and t_l (c_{l+1},); unused layers pass
-// NULL and width 0. Tiles of ts = min(S, max(1, 64 / K)) centroids, halved
-// until the tile fits in shared memory; a one-centroid tile that still does
-// not fit runs its rows in chunks, halved from all of them down to one pass
-// of rt rows until they fit. Returns cudaErrorInvalidValue for
-// arguments the kernel does not take, else cudaGetLastError() after launch.
-extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K, int S,
-                                   int n_layers,
-                                   const void* w0, const void* s0, const void* t0,
-                                   const void* w1, const void* s1, const void* t1,
-                                   const void* w2, const void* s2, const void* t2,
-                                   const void* w3, const void* s3, const void* t3,
-                                   int c0, int c1, int c2, int c3, int c4, void* stream) {
+template <typename T>
+int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_layers,
+                   const void* const* ws, const void* const* ss, const void* const* tt,
+                   const int* cs, void* stream) {
   if (B < 1 || K < 1 || S < 1 || n_layers < 1 || n_layers > kMaxLayers || B > 65535)
     return (int)cudaErrorInvalidValue;
   MlpParams p;
-  const void* ws[kMaxLayers] = {w0, w1, w2, w3};
-  const void* ss[kMaxLayers] = {s0, s1, s2, s3};
-  const void* tt[kMaxLayers] = {t0, t1, t2, t3};
-  const int cs[kMaxLayers + 1] = {c0, c1, c2, c3, c4};
   for (int l = 0; l < kMaxLayers; ++l) {
     p.w[l] = (const float*)ws[l];
     p.s[l] = (const float*)ss[l];
@@ -294,21 +327,22 @@ extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K,
   for (int l = 0; l < n_layers; ++l)
     if (!p.w[l] || !p.s[l] || !p.t[l]) return (int)cudaErrorInvalidValue;
 
+  const int eb = (int)sizeof(T);
   int ts = K >= 64 ? 1 : 64 / K;
   if (ts > S) ts = S;
-  long floats = 0;
-  Tiling tl = make_tiling(K, ts, 0, n_layers, p.c, &floats);
-  while (floats >= 0 && floats * 4 > kMaxSmemBytes && ts > 1) {
+  long bytes = 0;
+  Tiling tl = make_tiling(K, ts, 0, n_layers, p.c, eb, &bytes);
+  while (bytes >= 0 && bytes > kMaxSmemBytes && ts > 1) {
     ts /= 2;
-    tl = make_tiling(K, ts, 0, n_layers, p.c, &floats);
+    tl = make_tiling(K, ts, 0, n_layers, p.c, eb, &bytes);
   }
-  while (floats >= 0 && floats * 4 > kMaxSmemBytes && tl.chunk > tl.rt) {
+  while (bytes >= 0 && bytes > kMaxSmemBytes && tl.chunk > tl.rt) {
     const int half = (tl.chunk / 2 + tl.rt - 1) / tl.rt * tl.rt;
-    tl = make_tiling(K, ts, half, n_layers, p.c, &floats);
+    tl = make_tiling(K, ts, half, n_layers, p.c, eb, &bytes);
   }
-  if (floats < 0 || floats * 4 > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  const int smem_bytes = (int)(floats * 4);
-  auto kernel = tl.chunk < tl.rows_pad ? sa_mlp_max_kernel<true> : sa_mlp_max_kernel<false>;
+  if (bytes < 0 || bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = (int)bytes;
+  auto kernel = tl.chunk < tl.rows_pad ? sa_mlp_max_kernel<true, T> : sa_mlp_max_kernel<false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -346,4 +380,33 @@ extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K,
   kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)grouped, (float*)out, p, tl, K, S);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// grouped (B,K,S,c0) f32 -> out (B,S,c[n_layers]) f32. Layer l reads
+// w_l (c_l, c_{l+1}) row-major, s_l and t_l (c_{l+1},); unused layers pass
+// NULL and width 0. Tiles of ts = min(S, max(1, 64 / K)) centroids, halved
+// until the tile fits in shared memory; a one-centroid tile that still does
+// not fit runs its rows in chunks, halved from all of them down to one pass
+// of rt rows until they fit. Returns cudaErrorInvalidValue for
+// arguments the kernel does not take, else cudaGetLastError() after launch.
+// bf16 != 0 rounds both operands of every product to bf16 and accumulates
+// in f32 (the TPU kernel's bf16=True); bf16 == 0 multiplies in f32.
+extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K, int S,
+                                   int n_layers,
+                                   const void* w0, const void* s0, const void* t0,
+                                   const void* w1, const void* s1, const void* t1,
+                                   const void* w2, const void* s2, const void* t2,
+                                   const void* w3, const void* s3, const void* t3,
+                                   int c0, int c1, int c2, int c3, int c4, int bf16,
+                                   void* stream) {
+  const void* ws[kMaxLayers] = {w0, w1, w2, w3};
+  const void* ss[kMaxLayers] = {s0, s1, s2, s3};
+  const void* tt[kMaxLayers] = {t0, t1, t2, t3};
+  const int cs[kMaxLayers + 1] = {c0, c1, c2, c3, c4};
+  if (bf16)
+    return run_sa_mlp_max<__nv_bfloat16>(grouped, out, B, K, S, n_layers, ws, ss, tt, cs,
+                                         stream);
+  return run_sa_mlp_max<float>(grouped, out, B, K, S, n_layers, ws, ss, tt, cs, stream);
 }

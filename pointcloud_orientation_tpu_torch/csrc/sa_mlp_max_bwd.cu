@@ -1,9 +1,10 @@
 // Recompute backward of the fused shared MLP + neighbour max-pool for
-// Hopper (sm_90a), f32.
+// Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the TPU kernel pointcloud_orientation_tpu/ops/pallas_kernels.py:
 // _sa_mlp_max_bwd_impl / _sa_mlp_max_bwd_kernel (the VJP of
-// sa_mlp_max_pallas), its f32 (HIGHEST) variant.
+// sa_mlp_max_pallas), both its f32 (HIGHEST) variant and its bf16=True
+// variant.
 //
 // Inputs: grouped (B,K,S,C0) neighbour-major, L <= 4 layers (W (Cin,Cout),
 // scale, shift) with y = (x @ W) * scale + shift, a = relu(y), and the
@@ -40,7 +41,15 @@
 // partials. The input gradient of the first layer is skipped when the
 // caller does not need it (sa1: coordinates carry no parameters).
 // No atomics: every sum runs in a fixed order, so results are bit-stable.
+//
+// bf16, as the TPU kernel's bf16 `mm`: in all three products (the
+// recompute x W, dW = x^T dz and da = dz W^T) both operands are rounded to
+// bf16 (round to nearest even) on their way into the shared stages and
+// accumulated in f32; the rounded values are kept as f32 there, so the
+// FMAs are the f32 kernel's. The forward epilogue, the max/tie split and
+// the dscale/dshift column sums stay f32, as there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,8 +71,15 @@ struct Gemm {  // C(m, n) = sum_k A(m, k) * B(k, n), batched over blockIdx.z
 
 enum { kStore = 0, kForward = 1 };
 
-// kForward: C = z, and c2 (same layout) = relu(z * s + t).
-template <int MODE>
+// The value an operand enters a product with: itself, or rounded to bf16.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// kForward: C = z, and c2 (same layout) = relu(z * s + t). kBf16: both
+// operands rounded to bf16 as they are staged.
+template <int MODE, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const Gemm g, const float* __restrict__ s, const float* __restrict__ t,
             float* __restrict__ c2) {
@@ -91,11 +107,13 @@ gemm_kernel(const Gemm g, const float* __restrict__ s, const float* __restrict__
       int mm, kk;
       if (a_kfast) { mm = e / kBK; kk = e % kBK; } else { kk = e / kBM; mm = e % kBM; }
       const int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < g.M && k < Kz) ? A[(size_t)m * g.sam + (size_t)k * g.sak] : 0.f;
+      As[kk][mm] =
+          (m < g.M && k < Kz) ? operand<kBf16>(A[(size_t)m * g.sam + (size_t)k * g.sak]) : 0.f;
       int nn;
       if (b_nfast) { kk = e / kBN; nn = e % kBN; } else { nn = e / kBK; kk = e % kBK; }
       const int n = n0 + nn, k2 = k0 + kk;
-      Bs[kk][nn] = (n < g.N && k2 < Kz) ? B[(size_t)k2 * g.sbk + (size_t)n * g.sbn] : 0.f;
+      Bs[kk][nn] =
+          (n < g.N && k2 < Kz) ? operand<kBf16>(B[(size_t)k2 * g.sbk + (size_t)n * g.sbn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -191,51 +209,23 @@ bn_bwd_kernel(float* __restrict__ da, const float* __restrict__ a, const float* 
   }
 }
 
-template <int MODE>
+template <int MODE, bool kBf16>
 cudaError_t launch_gemm(const Gemm& g, int batch, const float* s, const float* t, float* c2,
                         cudaStream_t stream) {
   const dim3 grid((unsigned)((g.N + kBN - 1) / kBN), (unsigned)((g.M + kBM - 1) / kBM),
                   (unsigned)batch);
   if (grid.y > 65535u || batch > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<MODE><<<grid, kThreads, 0, stream>>>(g, s, t, c2);
+  gemm_kernel<MODE, kBf16><<<grid, kThreads, 0, stream>>>(g, s, t, c2);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// grouped (B,K,S,c0), dpooled (B,S,c_L), dgrouped (B,K,S,c0) out or NULL; scratch
-// of scratch_floats floats, at least rows * (2 * (c_1 + ... + c_L) + 2 *
-// max(c_1..c_L)) with rows = B*K*S (z and relu(y) of every layer, and two
-// cotangent buffers as wide as the widest layer output); layer l reads w_l
-// (c_l, c_{l+1}) row-major, s_l, t_l (c_{l+1},) and writes dw_l
-// (P, c_l, c_{l+1}), ds_l and dt_l (P, c_{l+1}), P = ceil(rows / chunk_rows)
-// partial sums over consecutive row chunks; unused layers pass NULL and
-// width 0. Returns cudaErrorInvalidValue for arguments the kernels do not
-// take, else the first launch error.
-extern "C" int pcot_sa_mlp_max_bwd_f32(const void* grouped, const void* dpooled, void* dgrouped,
-                                       void* scratch, int scratch_floats, int chunk_rows,
-                                       int B, int K, int S, int n_layers,
-                                       const void* w0, const void* s0, const void* t0,
-                                       const void* w1, const void* s1, const void* t1,
-                                       const void* w2, const void* s2, const void* t2,
-                                       const void* w3, const void* s3, const void* t3,
-                                       void* dw0, void* ds0, void* dt0,
-                                       void* dw1, void* ds1, void* dt1,
-                                       void* dw2, void* ds2, void* dt2,
-                                       void* dw3, void* ds3, void* dt3,
-                                       int c0, int c1, int c2, int c3, int c4, void* stream) {
+template <bool kBf16>
+int run_bwd(const void* grouped, const void* dpooled, void* dgrouped, void* scratch,
+            int scratch_floats, int chunk_rows, int B, int K, int S, int n_layers,
+            const float* const* W, const float* const* Sc, const float* const* Sh,
+            float* const* dW, float* const* dS, float* const* dT, const int* c, void* stream) {
   if (B < 1 || K < 1 || S < 1 || n_layers < 1 || n_layers > kMaxLayers || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int c[kMaxLayers + 1] = {c0, c1, c2, c3, c4};
-  const float* W[kMaxLayers] = {(const float*)w0, (const float*)w1, (const float*)w2,
-                                (const float*)w3};
-  const float* Sc[kMaxLayers] = {(const float*)s0, (const float*)s1, (const float*)s2,
-                                 (const float*)s3};
-  const float* Sh[kMaxLayers] = {(const float*)t0, (const float*)t1, (const float*)t2,
-                                 (const float*)t3};
-  float* dW[kMaxLayers] = {(float*)dw0, (float*)dw1, (float*)dw2, (float*)dw3};
-  float* dS[kMaxLayers] = {(float*)ds0, (float*)ds1, (float*)ds2, (float*)ds3};
-  float* dT[kMaxLayers] = {(float*)dt0, (float*)dt1, (float*)dt2, (float*)dt3};
   for (int l = 0; l < n_layers; ++l) {
     if (c[l] < 1 || c[l + 1] < 1) return (int)cudaErrorInvalidValue;
     if (!W[l] || !Sc[l] || !Sh[l] || !dW[l] || !dS[l] || !dT[l])
@@ -270,7 +260,7 @@ extern "C" int pcot_sa_mlp_max_bwd_f32(const void* grouped, const void* dpooled,
     const float* x = l == 0 ? (const float*)grouped : act[l - 1];
     Gemm g{x, c[l], 1, 0, W[l], c[l + 1], 1, 0, z[l], c[l + 1], 0,
            (int)rows, c[l + 1], c[l], c[l]};
-    if ((err = launch_gemm<kForward>(g, 1, Sc[l], Sh[l], act[l], st)) != cudaSuccess)
+    if ((err = launch_gemm<kForward, kBf16>(g, 1, Sc[l], Sh[l], act[l], st)) != cudaSuccess)
       return (int)err;
   }
   // 2. the max-pool's cotangent, ties split evenly
@@ -295,15 +285,51 @@ extern "C" int pcot_sa_mlp_max_bwd_f32(const void* grouped, const void* dpooled,
     // dW[p] = x[p]^T dz[p] over chunk p's rows (split-K): M = cin, N = cout
     Gemm gw{x, 1, cin, (long)chunk_rows * cin, dz, cout, 1, (long)chunk_rows * cout, dW[l],
             cout, (long)cin * cout, cin, cout, chunk_rows, rows};
-    if ((err = launch_gemm<kStore>(gw, (int)chunks, nullptr, nullptr, nullptr, st)) !=
+    if ((err = launch_gemm<kStore, kBf16>(gw, (int)chunks, nullptr, nullptr, nullptr, st)) !=
         cudaSuccess)
       return (int)err;
     if (l == 0 && !dgrouped) break;  // the caller needs no input gradient
     // da_in = dz W^T: M = rows, N = cin, contraction over cout
     float* da_in = l == 0 ? (float*)dgrouped : dbuf[(l - 1) & 1];
     Gemm ga{dz, cout, 1, 0, W[l], 1, cout, 0, da_in, cin, 0, (int)rows, cin, cout, cout};
-    if ((err = launch_gemm<kStore>(ga, 1, nullptr, nullptr, nullptr, st)) != cudaSuccess)
+    if ((err = launch_gemm<kStore, kBf16>(ga, 1, nullptr, nullptr, nullptr, st)) != cudaSuccess)
       return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// grouped (B,K,S,c0), dpooled (B,S,c_L), dgrouped (B,K,S,c0) out or NULL; scratch
+// of scratch_floats floats, at least rows * (2 * (c_1 + ... + c_L) + 2 *
+// max(c_1..c_L)) with rows = B*K*S (z and relu(y) of every layer, and two
+// cotangent buffers as wide as the widest layer output); layer l reads w_l
+// (c_l, c_{l+1}) row-major, s_l, t_l (c_{l+1},) and writes dw_l
+// (P, c_l, c_{l+1}), ds_l and dt_l (P, c_{l+1}), P = ceil(rows / chunk_rows)
+// partial sums over consecutive row chunks; unused layers pass NULL and
+// width 0. Returns cudaErrorInvalidValue for arguments the kernels do not
+// take, else the first launch error.
+// bf16 != 0 rounds both operands of every product to bf16 and accumulates
+// in f32 (the TPU kernel's bf16=True); bf16 == 0 multiplies in f32.
+extern "C" int pcot_sa_mlp_max_bwd_f32(
+    const void* grouped, const void* dpooled, void* dgrouped, void* scratch, int scratch_floats,
+    int chunk_rows, int B, int K, int S, int n_layers, const void* w0, const void* s0,
+    const void* t0, const void* w1, const void* s1, const void* t1, const void* w2,
+    const void* s2, const void* t2, const void* w3, const void* s3, const void* t3, void* dw0,
+    void* ds0, void* dt0, void* dw1, void* ds1, void* dt1, void* dw2, void* ds2, void* dt2,
+    void* dw3, void* ds3, void* dt3, int c0, int c1, int c2, int c3, int c4, int bf16,
+    void* stream) {
+  const float* W[kMaxLayers] = {(const float*)w0, (const float*)w1, (const float*)w2,
+                                (const float*)w3};
+  const float* Sc[kMaxLayers] = {(const float*)s0, (const float*)s1, (const float*)s2,
+                                 (const float*)s3};
+  const float* Sh[kMaxLayers] = {(const float*)t0, (const float*)t1, (const float*)t2,
+                                 (const float*)t3};
+  float* dW[kMaxLayers] = {(float*)dw0, (float*)dw1, (float*)dw2, (float*)dw3};
+  float* dS[kMaxLayers] = {(float*)ds0, (float*)ds1, (float*)ds2, (float*)ds3};
+  float* dT[kMaxLayers] = {(float*)dt0, (float*)dt1, (float*)dt2, (float*)dt3};
+  const int c[kMaxLayers + 1] = {c0, c1, c2, c3, c4};
+  auto run = bf16 ? run_bwd<true> : run_bwd<false>;
+  return run(grouped, dpooled, dgrouped, scratch, scratch_floats, chunk_rows, B, K, S, n_layers,
+             W, Sc, Sh, dW, dS, dT, c, stream);
 }

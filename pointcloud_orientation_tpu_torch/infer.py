@@ -2,8 +2,10 @@
 
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
 for the models ``pointnet_pp_8dir`` (8-way direction logits) and
-``pointnet_pp_cls`` (ModelNet40 log-probabilities) in eval mode, f32, one
-view, one ensemble member, no quantization, one device. Requests are padded
+``pointnet_pp_cls`` (ModelNet40 log-probabilities) in eval mode, one view,
+one ensemble member, no quantization, one device; f32, or for the 8-dir
+model a bf16 trunk (``dtype="bfloat16"``, the JAX package's
+``**model_kwargs``). Requests are padded
 to power-of-two batch buckets (clamped to ``max_batch``) and to
 ``num_points`` points, exactly as the JAX predictor pads them.
 
@@ -27,7 +29,8 @@ import torch
 
 from .models import MODEL_REGISTRY
 from .ops import DIRS_8
-from .ops.cuda_kernels import f32_matmuls
+from .models.layers import compute_dtype
+from .ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from .utils.jax_weights import cls_kwargs, load_flax_variables
 
 
@@ -42,6 +45,8 @@ class OrientationPredictor:
     and FPS start points are drawn from a ``torch.Generator`` seeded with
     ``seed``; they match the JAX predictor's only in distribution
     (``sampling="first"`` makes the 8-dir model deterministic).
+    ``model_kwargs`` go to the model: ``dtype=torch.bfloat16`` (or
+    ``"bfloat16"``) serves the 8-dir model with a bf16 trunk.
     """
 
     def __init__(
@@ -83,6 +88,8 @@ class OrientationPredictor:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         f32_matmuls()  # the FC funnel runs in cuBLAS; the JAX side is full f32
+        if compute_dtype(model_kwargs.get("dtype")) == torch.bfloat16:
+            bf16_matmuls()  # its bf16 products accumulate in f32, as XLA's
 
     def _bucket(self, b: int) -> int:
         bucket = 1

@@ -18,6 +18,16 @@ package's two train configurations:
   from the ghost rows ``grouped[:, ::GHOST_STRIDE]``, differentiable, folded
   into scale and shift, then the ``sa_mlp_max`` kernel and its recompute
   backward kernel (``cuda_kernels.SAMlpMaxFn``).
+
+``dtype=torch.bfloat16`` is flax's ``dtype=jnp.bfloat16`` (the JAX package's
+``compute_dtype="bfloat16"``). A Dense rounds its input, kernel and bias to
+bf16, rounds the product (accumulated in f32) to bf16 and then adds the bias
+in bf16 (:func:`dense`). A BatchNorm takes its statistics and normalises in
+f32 from the widened bf16 input and returns bf16; parameters and running
+statistics stay f32. The ``sa_mlp_max`` kernel runs its bf16 variant and
+returns f32. So SA outputs are f32 in eval and in the fused train path, bf16
+(the max of bf16 activations) in the default train path; the grouping widens
+bf16 features to f32. The trunk returns f32, and geometry is f32 throughout.
 """
 
 from __future__ import annotations
@@ -38,6 +48,36 @@ BN_MOMENTUM = 0.9  # flax: running = momentum * running + (1 - momentum) * batch
 GHOST_STRIDE = 4
 
 
+# the compute types the port takes, by every name a caller may give them
+_COMPUTE_DTYPES = {None: None, "float32": None, torch.float32: None,
+                   "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def compute_dtype(dtype) -> Optional[torch.dtype]:
+    """None (f32) or ``torch.bfloat16`` from ``None``, ``"float32"``,
+    ``"bfloat16"`` or the torch dtypes; any other raises
+    ``NotImplementedError``."""
+    if dtype not in _COMPUTE_DTYPES:
+        raise NotImplementedError(f"dtype={dtype!r}: the port computes in float32 or bfloat16")
+    return _COMPUTE_DTYPES[dtype]
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16 widened to f32 (flax computes BatchNorm in at least f32); any
+    other type as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``flax.linen.Dense(dtype=dtype)`` with ``lin``'s parameters. In bf16:
+    input, kernel and bias rounded to bf16, the product accumulated in f32
+    and rounded to bf16, then the bias added in bf16 (two roundings, which
+    a fused ``addmm`` would make one). Otherwise ``lin(x)``."""
+    if dtype != torch.bfloat16:
+        return lin(x)
+    return torch.matmul(x.bfloat16(), lin.weight.t().bfloat16()) + lin.bias.bfloat16()
+
+
 def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and the unclamped fast variance ``E[x^2] - E[x]^2`` over every
     leading axis of ``x``."""
@@ -55,13 +95,22 @@ def flax_batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
     gradients through both, and ``bn``'s running statistics updated in place
     as ``0.9 * old + 0.1 * batch`` (``nn.BatchNorm1d``'s own train forward
     would store the unbiased variance). ``moments`` passes in
-    ``batch_moments(x)`` where the caller has them already."""
-    mean, raw_var = batch_moments(x) if moments is None else moments
+    ``batch_moments(x)`` where the caller has them already. A bf16 ``x`` is
+    widened to f32 for the statistics and the normalisation, and the result
+    rounded to bf16, as flax's ``BatchNorm(dtype=bfloat16)``."""
+    mean, raw_var = batch_moments(_widen(x)) if moments is None else moments
     var = torch.clamp_min(raw_var, 0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    y = (_widen(x) - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return y.to(x.dtype)
+
+
+def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """Eval-mode BatchNorm from the running statistics; a bf16 ``x`` is
+    normalised in f32 and the result rounded to bf16."""
+    return bn(_widen(x)).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -80,16 +129,19 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
 class SharedMLP(nn.Module):
     """Pointwise Linear + BatchNorm + ReLU stack fused with the max over the
     neighbour axis: ``(B, K, S, C_in)`` neighbour-major -> ``(B, S, C_out)``.
-    ``fused_mlp_train`` picks the train configuration (module docstring)."""
+    ``fused_mlp_train`` picks the train configuration and ``dtype`` (None or
+    ``torch.bfloat16``) the compute type (module docstring)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         widths = [in_channels, *channels]
         self.linears = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
         self.bns = nn.ModuleList(nn.BatchNorm1d(c, eps=BN_EPS) for c in channels)
         self.fused_mlp_train = fused_mlp_train
+        self.compute_dtype = dtype
+        self.bf16 = dtype == torch.bfloat16
 
     def folded_layers(self) -> List[K.Layer]:
         """``(W (Cin,Cout), scale, shift)`` per layer with the running-stats
@@ -104,12 +156,12 @@ class SharedMLP(nn.Module):
 
     def forward(self, grouped: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return K.sa_mlp_max(grouped.contiguous(), self.folded_layers())
+            return K.sa_mlp_max(grouped.contiguous(), self.folded_layers(), self.bf16)
         if self.fused_mlp_train:
             return self._fused_train(grouped)
         x = grouped
         for lin, bn in zip(self.linears, self.bns):
-            x = torch.relu(flax_batch_norm_train(lin(x), bn))
+            x = torch.relu(flax_batch_norm_train(dense(lin, x, self.compute_dtype), bn))
         return x.amax(dim=1)
 
     def _fused_train(self, grouped: torch.Tensor) -> torch.Tensor:
@@ -123,13 +175,13 @@ class SharedMLP(nn.Module):
         g = grouped[:, ::GHOST_STRIDE]
         flat = []
         for lin, bn in zip(self.linears, self.bns):
-            zg = lin(g)
-            mu, var = batch_moments(zg)
+            zg = dense(lin, g, self.compute_dtype)
+            mu, var = batch_moments(_widen(zg))
             g = torch.relu(flax_batch_norm_train(zg, bn, (mu, var)))
             s = bn.weight * torch.rsqrt(var + bn.eps)
             t = (lin.bias - mu) * s + bn.bias
             flat += [lin.weight.t().contiguous(), s, t]
-        return K.SAMlpMaxFn.apply(grouped.contiguous(), *flat)
+        return K.SAMlpMaxFn.apply(grouped.contiguous(), self.bf16, *flat)
 
 
 class SetAbstraction(nn.Module):
@@ -142,13 +194,13 @@ class SetAbstraction(nn.Module):
     ``"first"``. ``grouping``: ``"knn"`` or ``"ball"`` (the points within
     ``radius``). ``in_channels`` is the grouped width, 3 plus the input
     features'. ``group_all`` pools the whole cloud with uncentered
-    coordinates.
+    coordinates. ``dtype`` is the shared MLP's compute type.
     """
 
     def __init__(self, npoint: Optional[int], nsample: Optional[int], in_channels: int,
                  mlp_channels: Sequence[int], group_all: bool = False,
                  sampling: str = "random", grouping: str = "knn", radius: float = 0.2,
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if sampling not in ("random", "first", "fps"):
             raise NotImplementedError(
@@ -161,7 +213,8 @@ class SetAbstraction(nn.Module):
         self.sampling = sampling
         self.grouping = grouping
         self.radius = radius
-        self.mlp = SharedMLP(in_channels, mlp_channels, fused_mlp_train=fused_mlp_train)
+        self.mlp = SharedMLP(in_channels, mlp_channels, fused_mlp_train=fused_mlp_train,
+                             dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None
@@ -187,13 +240,15 @@ class PointNetPPTrunk(nn.Module):
     sa3 = SA(group_all, [256, 512, 1024]); fc 1024 -> 512 -> 256 with
     BatchNorm and ReLU, then dropout ``p_drop`` in train (the BatchNorm
     trunk of the JAX package: dropout once, after fc2). ``generator`` feeds
-    the centroid sampling and the dropout mask.
+    the centroid sampling and the dropout mask. ``dtype`` (None or
+    ``torch.bfloat16``) is the compute type of the set abstractions' MLPs
+    and of the FC funnel; the output is f32 either way.
     """
 
     def __init__(self, sampling: str = "random", p_drop: float = 0.5,
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        sa = dict(sampling=sampling, fused_mlp_train=fused_mlp_train)
+        sa = dict(sampling=sampling, fused_mlp_train=fused_mlp_train, dtype=dtype)
         self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), **sa)
         self.sa2 = SetAbstraction(32, 32, 3 + 128, (128, 128, 256), **sa)
         self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True, **sa)
@@ -202,9 +257,10 @@ class PointNetPPTrunk(nn.Module):
         self.fc2 = nn.Linear(512, 256)
         self.bn2 = nn.BatchNorm1d(256, eps=BN_EPS)
         self.p_drop = p_drop
+        self.compute_dtype = dtype
 
     def _norm(self, bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-        return flax_batch_norm_train(x, bn) if self.training else bn(x)
+        return flax_batch_norm_train(x, bn) if self.training else batch_norm_eval(x, bn)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
@@ -212,8 +268,8 @@ class PointNetPPTrunk(nn.Module):
         l2_xyz, l2_pts = self.sa2(l1_xyz, l1_pts, generator)
         _, l3_pts = self.sa3(l2_xyz, l2_pts)
         x = l3_pts.reshape(xyz.shape[0], -1)  # (B, 1024)
-        x = F.relu(self._norm(self.bn1, self.fc1(x)))
-        x = F.relu(self._norm(self.bn2, self.fc2(x)))
+        x = F.relu(self._norm(self.bn1, dense(self.fc1, x, self.compute_dtype)))
+        x = F.relu(self._norm(self.bn2, dense(self.fc2, x, self.compute_dtype)))
         if self.training:
             x = dropout(x, self.p_drop, generator)
-        return x
+        return _widen(x)  # the JAX trunk returns float32

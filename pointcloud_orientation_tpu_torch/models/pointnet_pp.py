@@ -9,7 +9,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import BN_EPS, PointNetPPTrunk, SetAbstraction
+from .layers import BN_EPS, PointNetPPTrunk, SetAbstraction, compute_dtype
 
 
 class PointNetPP8Dir(nn.Module):
@@ -17,26 +17,25 @@ class PointNetPP8Dir(nn.Module):
 
     Counterpart of ``pointcloud_orientation_tpu/models/pointnet_pp.py``
     ``PointNetPP8Dir`` (the reference's `models/pointnet_pp_8dir.py:58-85`).
-    Only f32 (``dtype=None``) and the kNN trunk with ``random`` or ``first``
-    centroids are ported. ``fused_mlp_train`` picks the train configuration
-    of the shared MLPs (``models/layers.py``); ``p_drop`` is the trunk's
+    The kNN trunk with ``random`` or ``first`` centroids is ported, in f32
+    (``dtype=None``) or bf16 (``dtype=torch.bfloat16`` or ``"bfloat16"``,
+    flax's ``dtype=jnp.bfloat16``: the trunk computes in bf16 and returns
+    f32, the head is f32; ``models/layers.py``). ``fused_mlp_train`` picks
+    the train configuration of the shared MLPs; ``p_drop`` is the trunk's
     dropout. ``generator`` feeds the centroid sampling and, in train, the
     dropout mask.
     """
 
     def __init__(self, sampling: str = "random", grouping: str = "knn",
-                 dtype: Optional[torch.dtype] = None, fused_mlp_train: bool = False,
-                 p_drop: float = 0.5):
+                 dtype=None, fused_mlp_train: bool = False, p_drop: float = 0.5):
         super().__init__()
         if grouping != "knn":
             raise NotImplementedError(f"grouping={grouping!r}: the 8-dir model takes only 'knn'")
         if sampling not in ("random", "first"):
             raise NotImplementedError(
                 f"sampling={sampling!r}: the 8-dir model takes only 'random' and 'first'")
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError(f"dtype={dtype}: only float32 is ported")
         self.trunk = PointNetPPTrunk(sampling=sampling, p_drop=p_drop,
-                                     fused_mlp_train=fused_mlp_train)
+                                     fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype))
         self.head = nn.Linear(256, 8)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None

@@ -38,19 +38,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # xyz, feats, cidx, new_xyz, grouped, idx, B, N, S, K, D, stream
     "pcot_sa_group_f32": [_P] * 6 + [_I] * 5 + [_P],
-    # grouped, out, B, K, S, n_layers, (w, s, t) x 4, c0..c4, stream
-    "pcot_sa_mlp_max_f32": [_P, _P] + [_I] * 4 + [_P] * 12 + [_I] * 5 + [_P],
+    # grouped, out, B, K, S, n_layers, (w, s, t) x 4, c0..c4, bf16, stream
+    "pcot_sa_mlp_max_f32": [_P, _P] + [_I] * 4 + [_P] * 12 + [_I] * 6 + [_P],
     # idx, dg, out, B, N, S, K, D, row_stride, stream
     "pcot_sa_scatter_f32": [_P] * 3 + [_I] * 6 + [_P],
     # grouped, dpooled, dgrouped, scratch, scratch_floats, chunk_rows, B, K, S,
-    # n_layers, (w, s, t) x 4, (dw, ds, dt) x 4, c0..c4, stream
-    "pcot_sa_mlp_max_bwd_f32": [_P] * 4 + [_I] * 6 + [_P] * 24 + [_I] * 5 + [_P],
+    # n_layers, (w, s, t) x 4, (dw, ds, dt) x 4, c0..c4, bf16, stream
+    "pcot_sa_mlp_max_bwd_f32": [_P] * 4 + [_I] * 6 + [_P] * 24 + [_I] * 6 + [_P],
     # new_xyz, xyz, idx, B, N, S, K, stream
     "pcot_knn_f32": [_P] * 3 + [_I] * 4 + [_P],
-    # xyz, seeds, out, B, N, npoint, stream
-    "pcot_fps_f32": [_P] * 3 + [_I] * 3 + [_P],
-    # new_xyz, xyz, idx, B, N, S, K, radius_sq, stream
-    "pcot_ball_query_f32": [_P] * 3 + [_I] * 4 + [_F, _P],
+    # xyz, seeds, out, dist, B, N, npoint, stream
+    "pcot_fps_f32": [_P] * 4 + [_I] * 3 + [_P],
+    # new_xyz, xyz, idx, B, N, S, K, radius_sq, matmul_form, stream
+    "pcot_ball_query_f32": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
 }
 
 

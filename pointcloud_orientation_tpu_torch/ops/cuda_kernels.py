@@ -14,9 +14,11 @@ FLOPs; one block per centroid keeps the distances in shared memory and each
 pass is a register-and-shuffle reduction (see the source).
 
 ``sa_mlp_max`` (``csrc/sa_mlp_max.cu``) replaces
-``pallas_kernels.py:_sa_mlp_max_fwd_impl`` (``sa_mlp_max_pallas``, f32). It
-is bound by f32 operations; activations stay in shared memory, and the last
-layer is fused with the max so its outputs are never stored.
+``pallas_kernels.py:_sa_mlp_max_fwd_impl`` (``sa_mlp_max_pallas``), in f32
+and, with ``bf16=True``, in its bf16 variant: both operands of every product
+rounded to bf16, f32 accumulation. It runs on the CUDA cores; activations
+stay in shared memory, and the last layer is fused with the max so its
+outputs are never stored.
 
 ``sa_group_scatter`` (``csrc/sa_scatter.cu``) replaces
 ``pallas_kernels.py:_sa_scatter_call``, the VJP of the grouping's feature
@@ -25,19 +27,22 @@ is bound by bytes and deterministic: a counting sort by target row in shared
 memory, then fixed-order sums, no float atomics.
 
 ``sa_mlp_max_bwd`` (``csrc/sa_mlp_max_bwd.cu``) replaces
-``pallas_kernels.py:_sa_mlp_max_bwd_impl`` (f32), the recompute backward of
-the MLP+max; ``SAMlpMaxFn`` wires it in as the backward of ``sa_mlp_max``.
-It is bound by f32 operations; the recomputed activations go to a scratch
-tensor in device memory and every product is a tiled CUDA-core SGEMM.
+``pallas_kernels.py:_sa_mlp_max_bwd_impl``, the recompute backward of the
+MLP+max, in f32 and bf16; ``SAMlpMaxFn`` wires it in as the backward of
+``sa_mlp_max``. The recomputed activations go to a scratch tensor in device
+memory and every product is a tiled CUDA-core SGEMM (in bf16, of operands
+rounded to bf16).
 
 ``knn`` (``csrc/knn.cu``) replaces ``pallas_kernels.py:knn_pallas``, the
 kNN of clouds of 10,240 < N <= 20,480 points; ``fps`` (``csrc/fps.cu``)
 replaces ``fps_pallas`` and ``ball_query`` (``csrc/ball_query.cu``)
 replaces ``ball_query_pallas``, the sampling and grouping of the ModelNet40
 classifier. All three return indices and compute their distances in the
-difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels. kNN and
-FPS are held back by their dependent block-wide argmin/argmax steps; the
-ball query is bound by bytes and stops scanning once it has its points.
+difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels; the ball
+query also takes the matmul form of the JAX package's XLA path, which
+``geometry.ball_query`` picks where the JAX package does. kNN and FPS are
+held back by their dependent block-wide argmin/argmax steps; the ball query
+is bound by bytes and stops scanning once it has its points.
 """
 
 from __future__ import annotations
@@ -53,7 +58,10 @@ Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W (Cin,Cout), scale,
 
 MAX_MLP_LAYERS = 4
 MAX_K = 128
-FPS_MAX_N = 32_768  # 512 threads of 64 points each (csrc/fps.cu)
+# FPS keeps the running minima in registers up to this many points (512
+# threads of 64 each), above it in a device buffer (csrc/fps.cu)
+FPS_REGISTER_MAX_N = 32_768
+FPS_MAX_N = 1 << 30  # the kernel's int point index stays in range
 
 
 def f32_matmuls() -> None:
@@ -61,6 +69,12 @@ def f32_matmuls() -> None:
     no TF32 in cuBLAS or cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def bf16_matmuls() -> None:
+    """bf16 products in cuBLAS accumulated in f32 throughout, as XLA
+    accumulates a bf16 dot: no reduced-precision partial sums."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
@@ -159,14 +173,26 @@ sa_group.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def sa_mlp_max_plain(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
+def _operand(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The value ``x`` enters a product with: itself, or rounded to bf16
+    (to nearest even) and widened back to f32, where the product of two
+    such values is exact."""
+    return x.bfloat16().float() if bf16 else x
+
+
+def sa_mlp_max_plain(grouped: torch.Tensor, layers: Sequence[Layer],
+                     bf16: bool = False) -> torch.Tensor:
     """Plain version of :func:`sa_mlp_max`: ``relu((x @ W) * s + t)`` per
-    layer in full f32, then the max over the neighbour axis."""
+    layer, an f32 matmul (no TF32) of ``x`` and ``W`` as they are or, with
+    ``bf16``, rounded to bf16, then the max over the neighbour axis. The
+    rows are one 2-D product, as :func:`sa_mlp_max_bwd_plain` recomputes
+    them, whether or not autograd records the call."""
     f32_matmuls()
-    x = grouped
+    B, Kn, S, C = grouped.shape
+    x = grouped.reshape(-1, C)
     for w, s, t in layers:
-        x = torch.relu(torch.matmul(x, w) * s + t)
-    return x.amax(dim=1)
+        x = torch.relu(torch.matmul(_operand(x, bf16), _operand(w, bf16)) * s + t)
+    return x.reshape(B, Kn, S, -1).amax(dim=1)
 
 
 def _layer_args(layers: Sequence[Layer], c0: int, dev: torch.device):
@@ -189,18 +215,22 @@ def _layer_args(layers: Sequence[Layer], c0: int, dev: torch.device):
     return widths, ptrs
 
 
-def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
-    """Fused shared MLP + neighbour max-pool, f32.
+def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer],
+               bf16: bool = False) -> torch.Tensor:
+    """Fused shared MLP + neighbour max-pool.
 
-    ``grouped (B,K,S,C)`` neighbour-major; ``layers`` a list of at most 4
-    ``(W (Cin,Cout), scale (Cout,), shift (Cout,))`` with the Dense bias and
-    the BatchNorm folded into scale and shift. Returns ``(B,S,C_last)``.
+    ``grouped (B,K,S,C)`` f32 neighbour-major; ``layers`` a list of at most
+    4 f32 ``(W (Cin,Cout), scale (Cout,), shift (Cout,))`` with the Dense
+    bias and the BatchNorm folded into scale and shift. Returns
+    ``(B,S,C_last)`` f32. ``bf16``: both operands of every product rounded
+    to bf16, f32 accumulation (``sa_mlp_max_pallas(bf16=True)``); scale,
+    shift, ReLU and max in f32 either way.
     """
     if grouped.dtype != torch.float32:
-        raise TypeError(f"sa_mlp_max takes float32 (the bf16 variant is not ported), "
-                        f"got {grouped.dtype}")
+        raise TypeError(f"sa_mlp_max takes float32 grouped features (bf16=True rounds "
+                        f"them inside), got {grouped.dtype}")
     if grouped.device.type == "cpu":
-        return sa_mlp_max_plain(grouped, layers)
+        return sa_mlp_max_plain(grouped, layers, bf16)
     if grouped.device.type != "cuda":
         raise ValueError(f"sa_mlp_max runs on cpu or cuda tensors, got {grouped.device}")
     if grouped.dim() != 4:
@@ -219,16 +249,20 @@ def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer]) -> torch.Tensor:
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pcot_sa_mlp_max_f32(
-            grouped.data_ptr(), out.data_ptr(), B, K, S, n_layers, *ptrs, *widths_arg, stream)
-    _raise_on(err, f"sa_mlp_max launch (B={B}, K={K}, S={S}, widths={widths}); "
+        err = lib.pcot_sa_mlp_max_f32(grouped.data_ptr(), out.data_ptr(), B, K, S, n_layers,
+                                      *ptrs, *widths_arg, int(bf16), stream)
+    _raise_on(err, f"sa_mlp_max launch (B={B}, K={K}, S={S}, widths={widths}, bf16={bf16}); "
                    "error 1 means arguments the kernel does not take, such as a tile "
                    "too wide for shared memory")
-    sa_mlp_max.launches += 1
+    if bf16:
+        sa_mlp_max.launches_bf16 += 1
+    else:
+        sa_mlp_max.launches += 1
     return out
 
 
 sa_mlp_max.launches = 0
+sa_mlp_max.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -301,13 +335,16 @@ class SAGroupFeatsFn(torch.autograd.Function):
     backward scatters the features' part of the grouped cotangent back to
     the source rows through :func:`sa_group_scatter`. ``xyz`` gets zeros
     (coordinates carry no parameters), ``cidx`` and ``idx`` nothing. The
-    counterpart of ``sa_group_feats_pallas`` and its VJP."""
+    counterpart of ``sa_group_feats_pallas`` and its VJP: bf16 ``feats``
+    are widened to the coordinates' type for the kernel (exactly) and their
+    gradient is rounded back to bf16."""
 
     @staticmethod
     def forward(ctx, xyz, feats, cidx, nsample):
-        new_xyz, grouped, idx = sa_group(xyz, feats, cidx, nsample)
+        new_xyz, grouped, idx = sa_group(xyz, feats.to(xyz.dtype), cidx, nsample)
         ctx.save_for_backward(idx)
         ctx.n = feats.shape[1]
+        ctx.feats_dtype = feats.dtype
         ctx.xyz_meta = (xyz.shape, xyz.dtype, xyz.device)
         ctx.mark_non_differentiable(idx)
         return new_xyz, grouped, idx
@@ -321,6 +358,7 @@ class SAGroupFeatsFn(torch.autograd.Function):
             dxyz = torch.zeros(shape, dtype=dtype, device=device)
         if ctx.needs_input_grad[1]:
             dfeats = sa_group_scatter(idx, dgrouped.contiguous()[..., 3:], ctx.n)
+            dfeats = dfeats.to(ctx.feats_dtype)
         return dxyz, dfeats, None, None
 
 
@@ -330,37 +368,59 @@ class SAGroupFeatsFn(torch.autograd.Function):
 
 
 def sa_mlp_max_bwd_plain(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torch.Tensor,
-                         need_dgrouped: bool = True
+                         need_dgrouped: bool = True, bf16: bool = False
                          ) -> Tuple[Optional[torch.Tensor], List[Layer]]:
-    """Plain version of :func:`sa_mlp_max_bwd`: autograd through
-    :func:`sa_mlp_max_plain` (``amax``'s backward splits ties evenly)."""
-    with torch.enable_grad():
-        g = grouped.detach().requires_grad_()
-        flat = [p.detach().requires_grad_() for layer in layers for p in layer]
-        pooled = sa_mlp_max_plain(g, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)])
-        grads = torch.autograd.grad(pooled, [g, *flat], dpooled)
-    dlayers = [tuple(grads[1 + i:4 + i]) for i in range(0, len(flat), 3)]
-    return (grads[0] if need_dgrouped else None), dlayers
+    """Plain version of :func:`sa_mlp_max_bwd`, step by step as the TPU
+    kernel (``_sa_mlp_max_bwd_kernel``): recompute the forward, split
+    ``dpooled`` evenly over the neighbours equal to the maximum, then per
+    layer from the last ``dy = da * (y > 0)``, ``dscale = sum(dy * z)``,
+    ``dshift = sum(dy)``, ``dz = dy * scale``, ``dW = x^T dz`` and
+    ``da = dz W^T``. With ``bf16`` both operands of every product (the
+    recompute, dW and da) are rounded to bf16, which autograd through
+    :func:`sa_mlp_max_plain` would not do for the backward's products."""
+    f32_matmuls()
+    B, Kn, S, C = grouped.shape
+    acts = [grouped.reshape(-1, C)]
+    pre = []
+    for w, s, t in layers:
+        z = torch.matmul(_operand(acts[-1], bf16), _operand(w, bf16))
+        y = z * s + t
+        pre.append((z, y))
+        acts.append(torch.relu(y))
+    a_last = acts[-1].reshape(B, Kn, S, -1)
+    ties = (a_last == a_last.amax(dim=1, keepdim=True)).float()
+    da = (ties * (dpooled / ties.sum(dim=1))[:, None]).reshape(-1, a_last.shape[-1])
+    dlayers: List[Layer] = []
+    for l in range(len(layers) - 1, -1, -1):
+        (z, y), (w, s, _) = pre[l], layers[l]
+        dy = da * (y > 0.0).float()
+        dz = dy * s
+        dw = torch.matmul(_operand(acts[l], bf16).t(), _operand(dz, bf16))
+        dlayers.insert(0, (dw, (dy * z).sum(dim=0), dy.sum(dim=0)))
+        if l > 0 or need_dgrouped:
+            da = torch.matmul(_operand(dz, bf16), _operand(w, bf16).t())
+    return (da.reshape(B, Kn, S, C) if need_dgrouped else None), dlayers
 
 
 BWD_CHUNK_ROWS = 512  # rows per partial sum of dW, dscale, dshift in the kernel
 
 
 def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torch.Tensor,
-                   need_dgrouped: bool = True
+                   need_dgrouped: bool = True, bf16: bool = False
                    ) -> Tuple[Optional[torch.Tensor], List[Layer]]:
-    """Backward of :func:`sa_mlp_max`, f32: recomputes the forward, splits
+    """Backward of :func:`sa_mlp_max`: recomputes the forward, splits
     ``dpooled (B,S,C_last)`` evenly over the neighbours equal to the
-    recomputed maximum, and runs it back through relu, scale/shift and W.
-    Returns ``dgrouped (B,K,S,C)`` (None when ``need_dgrouped`` is false:
-    the kernel then skips that product) and ``[(dW, dscale, dshift)]`` per
-    layer; the partials over row chunks that the kernel writes are summed
-    here."""
+    recomputed maximum, and runs it back through relu, scale/shift and W
+    (``bf16``: every product of operands rounded to bf16, as the forward).
+    Returns ``dgrouped (B,K,S,C)`` f32 (None when ``need_dgrouped`` is
+    false: the kernel then skips that product) and ``[(dW, dscale,
+    dshift)]`` per layer; the partials over row chunks that the kernel
+    writes are summed here."""
     if grouped.dtype != torch.float32:
-        raise TypeError(f"sa_mlp_max_bwd takes float32 (the bf16 variant is not ported), "
-                        f"got {grouped.dtype}")
+        raise TypeError(f"sa_mlp_max_bwd takes float32 grouped features (bf16=True rounds "
+                        f"them inside), got {grouped.dtype}")
     if grouped.device.type == "cpu":
-        return sa_mlp_max_bwd_plain(grouped, layers, dpooled, need_dgrouped)
+        return sa_mlp_max_bwd_plain(grouped, layers, dpooled, need_dgrouped, bf16)
     if grouped.device.type != "cuda":
         raise ValueError(f"sa_mlp_max_bwd runs on cpu or cuda tensors, got {grouped.device}")
     if grouped.dim() != 4:
@@ -398,15 +458,20 @@ def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torc
             grouped.data_ptr(), dpooled.data_ptr(),
             None if dgrouped is None else dgrouped.data_ptr(), scratch.data_ptr(),
             scratch_floats, BWD_CHUNK_ROWS, B, Kn, S, n_layers, *ptrs, *grad_ptrs, *widths_arg,
-            stream)
-    _raise_on(err, f"sa_mlp_max_bwd launch (B={B}, K={Kn}, S={S}, widths={widths})")
-    sa_mlp_max_bwd.launches += 1
+            int(bf16), stream)
+    _raise_on(err, f"sa_mlp_max_bwd launch (B={B}, K={Kn}, S={S}, widths={widths}, "
+                   f"bf16={bf16})")
+    if bf16:
+        sa_mlp_max_bwd.launches_bf16 += 1
+    else:
+        sa_mlp_max_bwd.launches += 1
     # partials summed outside the kernel, as the JAX package sums its
     # kernel's per-cloud partials (at sa2, B=16: 32 chunks x 65,920 floats)
     return dgrouped, [tuple(p.sum(dim=0) for p in layer) for layer in grads]
 
 
 sa_mlp_max_bwd.launches = 0
+sa_mlp_max_bwd.launches_bf16 = 0
 
 
 class SAMlpMaxFn(torch.autograd.Function):
@@ -414,20 +479,21 @@ class SAMlpMaxFn(torch.autograd.Function):
     layer's W, scale and shift (so that scale and shift computed from
     batch statistics carry their gradients on); the backward is
     :func:`sa_mlp_max_bwd`. The counterpart of ``sa_mlp_max_pallas`` and its
-    VJP. Call as ``SAMlpMaxFn.apply(grouped, w0, s0, t0, w1, ...)``."""
+    VJP. Call as ``SAMlpMaxFn.apply(grouped, bf16, w0, s0, t0, w1, ...)``."""
 
     @staticmethod
-    def forward(ctx, grouped, *flat):
+    def forward(ctx, grouped, bf16, *flat):
         ctx.save_for_backward(grouped, *flat)
-        return sa_mlp_max(grouped, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)])
+        ctx.bf16 = bf16
+        return sa_mlp_max(grouped, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)], bf16)
 
     @staticmethod
     def backward(ctx, dpooled):
         grouped, *flat = ctx.saved_tensors
         layers = [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
         dgrouped, dlayers = sa_mlp_max_bwd(grouped, layers, dpooled.contiguous(),
-                                           need_dgrouped=ctx.needs_input_grad[0])
-        return (dgrouped, *[d for layer in dlayers for d in layer])
+                                           need_dgrouped=ctx.needs_input_grad[0], bf16=ctx.bf16)
+        return (dgrouped, None, *[d for layer in dlayers for d in layer])
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +578,8 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
     (B,N,3)`` f32, starting at ``seeds (B,)`` int32 in ``[0, N)``. Each step
     lowers the running minimum squared distance (from 1e10) and moves to its
     largest entry, equal values to the lowest index. The kernel takes
-    ``N <= FPS_MAX_N``."""
+    ``N <= FPS_MAX_N``; above ``FPS_REGISTER_MAX_N`` points the running
+    minima live in a ``(B, N)`` buffer allocated here."""
     _check_points("xyz", "fps", xyz)
     if npoint < 1:
         raise ValueError(f"npoint={npoint} must be >= 1")
@@ -526,11 +593,13 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
     _check_cuda("xyz", xyz, torch.float32, (B, N, 3), dev)
     _check_cuda("seeds", seeds, torch.int32, (B,), dev)
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
+    dist = (torch.empty((B, N), dtype=torch.float32, device=dev)
+            if N > FPS_REGISTER_MAX_N else None)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pcot_fps_f32(xyz.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-                               B, N, npoint, stream)
+                               None if dist is None else dist.data_ptr(), B, N, npoint, stream)
     _raise_on(err, f"fps launch (B={B}, N={N}, npoint={npoint})")
     fps.launches += 1
     return out
@@ -546,11 +615,12 @@ def radius_sq_f32(radius: float) -> float:
 
 
 def ball_query_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
-                     nsample: int) -> torch.Tensor:
+                     nsample: int, matmul_form: bool = False) -> torch.Tensor:
     """Plain version of :func:`ball_query`: the in-radius indices (others
     N), sorted, the first ``nsample``, N replaced by the first, clipped."""
     N = xyz.shape[1]
-    dist = G.diff_square_distance(new_xyz, xyz)
+    distance = G.square_distance if matmul_form else G.diff_square_distance
+    dist = distance(new_xyz, xyz)
     r2 = torch.tensor(radius_sq_f32(radius), dtype=torch.float32, device=xyz.device)
     cols = torch.arange(N, dtype=torch.int32, device=xyz.device)
     cand = torch.where(dist <= r2, cols, torch.full_like(cols, N))
@@ -563,18 +633,20 @@ def ball_query_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
 
 
 def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
-               nsample: int) -> torch.Tensor:
+               nsample: int, matmul_form: bool = False) -> torch.Tensor:
     """Radius ball query: ``(B,S,nsample)`` int32, for each centroid of
     ``new_xyz (B,S,3)`` the smallest indices of ``xyz (B,N,3)`` whose
-    difference-form squared distance is ``<= radius**2`` (squared in double,
-    compared in f32), ascending, short rows padded with the first one found;
-    a centroid with no point in its radius gets ``N - 1`` everywhere."""
+    squared distance is ``<= radius**2`` (squared in double, compared in
+    f32), ascending, short rows padded with the first one found; a centroid
+    with no point in its radius gets ``N - 1`` everywhere. The distance is
+    the difference form, or with ``matmul_form`` the matmul form
+    ``(c2 - 2*cross) + x2`` of :func:`geometry.square_distance`."""
     _check_points("new_xyz", "ball_query", new_xyz)
     _check_points("xyz", "ball_query", xyz)
     if nsample < 1:
         raise ValueError(f"nsample={nsample} must be >= 1")
     if xyz.device.type == "cpu":
-        return ball_query_plain(new_xyz, xyz, radius, nsample)
+        return ball_query_plain(new_xyz, xyz, radius, nsample, matmul_form)
     _cuda_only("ball_query", xyz)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -588,21 +660,27 @@ def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pcot_ball_query_f32(new_xyz.data_ptr(), xyz.data_ptr(), idx.data_ptr(),
-                                      B, N, S, nsample, radius_sq_f32(radius), stream)
-    _raise_on(err, f"ball_query launch (B={B}, N={N}, S={S}, K={nsample})")
+                                      B, N, S, nsample, radius_sq_f32(radius),
+                                      int(matmul_form), stream)
+    _raise_on(err, f"ball_query launch (B={B}, N={N}, S={S}, K={nsample}, "
+                   f"matmul_form={matmul_form})")
     ball_query.launches += 1
     return idx
 
 
 ball_query.launches = 0
 
-_COUNTED = (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query)
+# counter name -> (wrapper, its attribute); the bf16 variants count apart
+_COUNTERS = {fn.__name__: (fn, "launches") for fn in
+             (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query)}
+_COUNTERS["sa_mlp_max_bf16"] = (sa_mlp_max, "launches_bf16")
+_COUNTERS["sa_mlp_max_bwd_bf16"] = (sa_mlp_max_bwd, "launches_bf16")
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED:
-        fn.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}

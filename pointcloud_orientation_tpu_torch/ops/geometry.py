@@ -9,24 +9,20 @@ the fused grouping kernel up to ``FUSED_GROUP_MAX_N`` points, the kNN kernel
 and gathers up to ``KNN_KERNEL_MAX_N``, and above it a stable sort of the
 matmul-form distances (the JAX package's XLA ``top_k`` path; it has no
 kernel there either). FPS and the ball query run through their kernels at
-every size, the classifier's second stage (512 points) included; on the TPU
-that stage (N < 1024) takes the XLA formulations instead, the same FPS and,
-for the ball query, the matmul-form distance.
-
-Two more sizes where the card's path departs from the TPU's. Above
-``KNN_KERNEL_MAX_N`` points the JAX ball query takes the matmul-form
-distance, while the port's kernel keeps the difference form, so a point on
-the radius may be taken on one side and not the other. And the FPS kernel
-takes at most ``cuda_kernels.FPS_MAX_N`` (32,768) points: a larger cloud
-works on the CPU and raises on the card, where the JAX ``fps_pallas``
-serves any size from 1024 points.
+every size. The ball query takes the distance form that the JAX package's
+dispatch gives on the TPU (``ball_query_matmul_form``): the difference form
+of ``ball_query_pallas`` for ``BALL_KERNEL_MIN_N <= N <= KNN_KERNEL_MAX_N``,
+the matmul form of its XLA path elsewhere, the classifier's second stage
+(512 points) among them. FPS below 1024 points takes the XLA loop there,
+whose distances are the kernel's difference form.
 
 Two distance forms, each in one fixed order with every product and sum
 rounded on its own (no ``bmm``, no ``cdist``), so that each kernel and its
 plain version agree bit for bit on the card: ``square_distance``, the
-matmul form ``c2 - 2*c.x + x2`` of the fused grouping kernel, and
-``diff_square_distance``, the difference form ``((dx*dx + dy*dy) + dz*dz)``
-of the kNN, FPS and ball-query kernels (and of their TPU counterparts).
+matmul form ``c2 - 2*c.x + x2`` of the fused grouping kernel and of the
+ball query outside the TPU kernel's sizes, and ``diff_square_distance``,
+the difference form ``((dx*dx + dy*dy) + dz*dz)`` of the kNN, FPS and
+ball-query kernels (and of their TPU counterparts).
 """
 
 from __future__ import annotations
@@ -42,6 +38,9 @@ FUSED_GROUP_MAX_N = 10_240
 # Largest cloud the kNN kernel takes (``_PALLAS_KNN_MAX_N`` there); above it
 # kNN is a sort of the matmul-form distances, in both packages.
 KNN_KERNEL_MAX_N = 20_480
+# Smallest cloud the JAX package sends to its ball-query kernel on the TPU
+# (``_pallas_eligible`` there); smaller clouds take its XLA path.
+BALL_KERNEL_MIN_N = 1024
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -102,15 +101,25 @@ def exact_full_knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> to
     return knn_query(new_xyz, xyz, nsample)
 
 
+def ball_query_matmul_form(n: int) -> bool:
+    """Whether the JAX package's ball query on the TPU measures a cloud of
+    ``n`` points in the matmul form (its XLA path) rather than the
+    difference form (``ball_query_pallas``, ``BALL_KERNEL_MIN_N <= n <=
+    KNN_KERNEL_MAX_N``)."""
+    return not BALL_KERNEL_MIN_N <= n <= KNN_KERNEL_MAX_N
+
+
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor) -> torch.Tensor:
     """Radius ball query ``(B, S, nsample)`` int32 through the ball-query
-    kernel: the smallest in-radius indices, ascending, padded with the
-    first; N - 1 where none lies in the radius. Argument order as in the
-    JAX package."""
+    kernel, in the distance form the JAX package uses on the TPU at this
+    cloud size (:func:`ball_query_matmul_form`): the smallest in-radius
+    indices, ascending, padded with the first; N - 1 where none lies in the
+    radius. Argument order as in the JAX package."""
     from . import cuda_kernels as K
 
-    return K.ball_query(new_xyz.contiguous(), xyz.contiguous(), radius, nsample)
+    return K.ball_query(new_xyz.contiguous(), xyz.contiguous(), radius, nsample,
+                        ball_query_matmul_form(xyz.shape[1]))
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
@@ -168,6 +177,8 @@ def sample_and_group(
     wrapper; otherwise the centroids, the indices (:func:`exact_full_knn`
     or :func:`ball_query`) and the rows are gathered apart, as the JAX
     package does (each wrapper takes its plain version for CPU tensors).
+    bf16 ``points`` are widened to f32 in the grouped tensor, as the JAX
+    package's grouping kernel and its concatenation do.
     """
     from . import cuda_kernels as K  # cuda_kernels imports this module
 
@@ -203,7 +214,7 @@ def sample_and_group(
         idx = ball_query(radius, nsample, xyz, new_xyz)
     grouped = index_points(xyz, idx) - new_xyz[:, :, None, :]  # (B,S,K,3)
     if points is not None:
-        grouped = torch.cat([grouped, index_points(points, idx)], dim=-1)
+        grouped = torch.cat([grouped, index_points(points, idx).to(grouped.dtype)], dim=-1)
     return new_xyz, (grouped.transpose(1, 2) if neighbor_major else grouped)
 
 
@@ -211,10 +222,12 @@ def group_all(
     xyz: torch.Tensor, points: Optional[torch.Tensor]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole cloud as one group: ``(B,1,3)`` zeros and ``(B,1,N,3+D)``
-    with the coordinates NOT centered (the reference's group-all branch)."""
+    with the coordinates NOT centered (the reference's group-all branch);
+    bf16 ``points`` are widened to f32, as the JAX concatenation promotes
+    them."""
     B = xyz.shape[0]
     new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
     grouped = xyz[:, None]
     if points is not None:
-        grouped = torch.cat([grouped, points[:, None]], dim=-1)
+        grouped = torch.cat([grouped, points[:, None].to(xyz.dtype)], dim=-1)
     return new_xyz, grouped

@@ -3,9 +3,10 @@
 Counterpart of ``pointcloud_orientation_tpu/train/config.py`` for the fields
 the 8-direction slice uses and its two presets, ``8dir_kl`` and
 ``8dir_mse`` (PointNetPP8Dir, yaw rotations, the six-class mix, N=10,000,
-B=16, Adam at 1e-3, seed 42). The JAX config's other fields are accepted by
-:func:`preset` and :meth:`TrainConfig.replace` at their default values only;
-any other value raises ``NotImplementedError``.
+B=16, Adam at 1e-3, seed 42), with ``compute_dtype`` None/"float32" or
+"bfloat16" (the trunk's compute type). The JAX config's other fields are
+accepted by :func:`preset` and :meth:`TrainConfig.replace` at their default
+values only; any other value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 SIX_CLASS_MIX: Tuple[str, ...] = ("chair", "toilet", "sofa", "plant", "bowl", "bottle")
 
 PORTED_TASKS = ("8dir_kl", "8dir_mse")
+PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,
 # with their defaults there.
@@ -25,7 +27,6 @@ UNPORTED_DEFAULTS = {
     "optimizer": "adam",
     "lr_schedule": None,
     "warmup_epochs": 0,
-    "compute_dtype": None,
     "lambda_orth": 0.1,
     "axes_gram_schmidt": False,
     "axes_normalize_heads": True,
@@ -63,6 +64,7 @@ class TrainConfig:
     lr: float = 1e-3
     seed: int = 42
     grad_clip: Optional[float] = None
+    compute_dtype: Optional[str] = None  # "bfloat16": the trunk computes in bf16
     # runtime
     out_dir: str = "results"
     checkpoint_every: int = 0  # epochs between checkpoints (0 = off)
@@ -72,6 +74,8 @@ class TrainConfig:
             ("task", self.task in PORTED_TASKS, f"one of {PORTED_TASKS}"),
             ("model", self.model == "pointnet_pp_8dir", "'pointnet_pp_8dir'"),
             ("rotation_mode", self.rotation_mode == "yaw", "'yaw'"),
+            ("compute_dtype", self.compute_dtype in PORTED_COMPUTE_DTYPES,
+             f"one of {PORTED_COMPUTE_DTYPES}"),
         )
         for name, ok, ported in checks:
             if not ok:

@@ -1,9 +1,11 @@
 """Trace train steps on the card: where a step's time goes.
 
-    python -m pointcloud_orientation_tpu_torch.train.profile_step [--out DIR]
+    python -m pointcloud_orientation_tpu_torch.train.profile_step [--out DIR] \
+        [--compute-dtype bfloat16]
 
 Builds the 8dir_kl ``Trainer`` (B=16, N=10,000, full width, initialised
-from the preset's seed) on a synthetic set, warms up, then runs ``STEPS``
+from the preset's seed; the trunk in f32 or, with ``--compute-dtype
+bfloat16``, in bf16) on a synthetic set, warms up, then runs ``STEPS``
 train steps in each train configuration twice: once timed with the host
 clock around synchronised steps, once under ``torch.profiler``. Prints one
 JSON line per configuration: wall ms per step, device busy ms per step (the
@@ -88,14 +90,17 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--compute-dtype", default=None, dest="compute_dtype",
+                    help="trunk compute dtype: float32 (default) or bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
-    cfg = preset("8dir_kl")
+    cfg = preset("8dir_kl", compute_dtype=args.compute_dtype)
     ds = OrientationDataset(*synthetic_modelnet(num_points=cfg.num_points, samples_per_class=8))
+    tag = f"_{cfg.compute_dtype}" if cfg.compute_dtype else ""
     for mode in ("default", "fused"):
         trainer = Trainer(cfg, ds, device="cuda", fused_mlp_train=mode == "fused")
-        print(json.dumps(profile_mode(trainer, STEPS, args.out, mode)), flush=True)
+        print(json.dumps(profile_mode(trainer, STEPS, args.out, mode + tag)), flush=True)
 
 
 if __name__ == "__main__":

@@ -56,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--classes", default=None, help="comma-separated override")
     ap.add_argument("--checkpoint-every", type=int, default=None, dest="checkpoint_every")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--compute-dtype", default=None, dest="compute_dtype",
+                    help="trunk compute dtype: float32 (default) or bfloat16")
     ap.add_argument("--fused-mlp-train", action="store_true", dest="fused_mlp_train",
                     help="train the shared MLPs through the fused MLP+max kernel and its "
                          "backward kernel with ghost-row BatchNorm statistics (the JAX "
@@ -63,7 +65,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     overrides = {k: getattr(args, k) for k in
-                 ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every")
+                 ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every",
+                  "compute_dtype")
                  if getattr(args, k) is not None}
     if args.classes:
         overrides["classes"] = tuple(args.classes.split(","))

@@ -39,7 +39,7 @@ import torch
 
 from ..data import OrientationDataset, augment_batch
 from ..models import PointNetPP8Dir
-from ..ops.cuda_kernels import f32_matmuls
+from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from .config import TrainConfig
 from .metrics import MetricsAccumulator, write_summary_txt
 from .tasks import TASKS
@@ -74,8 +74,10 @@ class Trainer:
     """Builds the model and optimizer for a config on ``device`` ("cuda"
     unless the caller asks for the CPU) and runs the train/val/test
     protocol. ``fused_mlp_train`` selects the shared MLPs' train
-    configuration (``models/layers.py``); ``model_kwargs`` go to
-    ``PointNetPP8Dir`` (tests pass ``sampling="first", p_drop=0.0``)."""
+    configuration (``models/layers.py``) and ``config.compute_dtype`` the
+    trunk's compute type (parameters and Adam state stay f32);
+    ``model_kwargs`` go to ``PointNetPP8Dir`` (tests pass
+    ``sampling="first", p_drop=0.0``)."""
 
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
@@ -93,7 +95,10 @@ class Trainer:
         self.num_points = min(config.num_points, self.dataset.points.shape[1])
 
         f32_matmuls()  # the JAX side computes at HIGHEST f32: no TF32 in cuBLAS/cuDNN
-        self.model = PointNetPP8Dir(fused_mlp_train=fused_mlp_train, **model_kwargs)
+        if config.compute_dtype == "bfloat16":
+            bf16_matmuls()  # cuBLAS's bf16 products accumulate in f32, as XLA's
+        self.model = PointNetPP8Dir(fused_mlp_train=fused_mlp_train,
+                                    dtype=config.compute_dtype, **model_kwargs)
         flax_dense_init_(self.model, torch.Generator().manual_seed(config.seed))
         self.model.to(self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr,

@@ -133,7 +133,7 @@ def test_logits_through_kernels_match_plain_versions_on_card(cuda_device):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
-        "knn": 0, "fps": 0, "ball_query": 0}
+        "knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
         want = pred(clouds)
@@ -222,6 +222,83 @@ def test_mlp_max_bwd_kernel_matches_plain_on_card(cuda_device, stage, dead):
     assert torch.equal(again[0], got[0])  # no atomics: the same bits twice
 
 
+# ---------------------------------------------------------------------------
+# the bf16 variants of the MLP kernels, and the bf16 trunk through them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MLP_CASES))
+def test_sa_mlp_max_bf16_kernel_matches_plain_on_card(cuda_device, case):
+    """bf16 operands, f32 accumulation: on dyadic inputs (every sum exact in
+    any order, so both round the same values to bf16) within 1e-4 of the
+    output's scale."""
+    b, kn, s, widths = MLP_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    g, layers, _ = dyadic_mlp_case(gen, cuda_device, b, kn, s, widths)
+    before = K.launch_counts()
+    got = K.sa_mlp_max(g, layers, bf16=True)
+    want = K.sa_mlp_max_plain(g, layers, bf16=True)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["sa_mlp_max_bf16"] == before["sa_mlp_max_bf16"] + 1
+    assert after["sa_mlp_max"] == before["sa_mlp_max"]
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True], ids=["ties", "all-tied"])
+@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+def test_mlp_max_bwd_bf16_kernel_matches_plain_on_card(cuda_device, stage, dead):
+    """The bf16 backward at B=16, on dyadic inputs: every output within rtol
+    1e-4 and atol 1e-4 of its scale; the same bits twice."""
+    kn, s, widths = SA_WIDTHS[stage]
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    g, layers, dp = dyadic_mlp_case(gen, cuda_device, 16, kn, s, widths, dead)
+    before = K.sa_mlp_max_bwd.launches_bf16
+    got = K.sa_mlp_max_bwd(g, layers, dp, bf16=True)
+    want = K.sa_mlp_max_bwd_plain(g, layers, dp, bf16=True)
+    torch.cuda.synchronize()
+    assert K.sa_mlp_max_bwd.launches_bf16 == before + 1
+    pairs = [(got[0], want[0])] + [(x, y) for a, b in zip(got[1], want[1]) for x, y in zip(a, b)]
+    for a, b in pairs:
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(K.sa_mlp_max_bwd(g, layers, dp, bf16=True)[0], got[0])
+
+
+@pytest.mark.cuda
+def test_bf16_trunk_serves_and_trains_through_the_bf16_kernels_on_card(cuda_device):
+    """A bf16 request: 2 grouping and 3 bf16 MLP launches, logits within
+    0.05 of the f32 predictor's; a fused bf16 train step: 3 bf16 backward
+    launches, a finite loss, f32 parameters."""
+    v = random_flax_variables(3)
+    kw = dict(num_points=1024, max_batch=8, device=cuda_device, sampling="first")
+    clouds = np.random.default_rng(3).normal(size=(5, 700, 3)).astype(np.float32)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                dtype="bfloat16", **kw)
+    before = K.launch_counts()
+    got = pred(clouds)
+    after = K.launch_counts()
+    grown = {k: after[k] - before[k] for k in after}
+    assert grown == {**{k: 0 for k in grown}, "sa_group": 2, "sa_mlp_max_bf16": 3}
+    f32 = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"], **kw)(clouds)
+    assert np.isfinite(got).all() and np.abs(got - f32).max() < 0.05
+    ds = OrientationDataset.synthetic(samples_per_class=4, num_points=1024)
+    trainer = Trainer(preset("8dir_kl", num_points=1024, batch_size=8, compute_dtype="bfloat16"),
+                      ds, device=cuda_device, fused_mlp_train=True)
+    idx, valid, _ = next(trainer.train_ds.batches(8))
+    batch, valid, _ = trainer.device_batch(trainer.train_ds, idx, valid, trainer.generator(0, 0, 0))
+    before = K.launch_counts()
+    loss = float(trainer.train_step(batch, valid, trainer.generator(0, 1, 0))["loss"])
+    after = K.launch_counts()
+    assert math.isfinite(loss)
+    assert after["sa_mlp_max_bwd_bf16"] - before["sa_mlp_max_bwd_bf16"] == 3
+    assert after["sa_mlp_max_bwd"] == before["sa_mlp_max_bwd"]
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+
+
 @pytest.mark.cuda
 def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     dev = cuda_device
@@ -279,13 +356,14 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
     before = K.launch_counts()
     got = _step_grads(trainer, batch, valid, 3)
     grown = {k: v - before[k] for k, v in K.launch_counts().items()}
-    index_kernels = {"knn": 0, "fps": 0, "ball_query": 0}
+    untouched = {"knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0,
+                     "sa_mlp_max_bwd_bf16": 0}
     if fused:
         assert grown == {"sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 1,
-                         "sa_mlp_max_bwd": 3, **index_kernels}, grown
+                         "sa_mlp_max_bwd": 3, **untouched}, grown
     else:
         assert grown == {"sa_group": 2, "sa_mlp_max": 0, "sa_group_scatter": 1,
-                         "sa_mlp_max_bwd": 0, **index_kernels}, grown
+                         "sa_mlp_max_bwd": 0, **untouched}, grown
     trainer.model.load_state_dict(state)
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
@@ -317,8 +395,10 @@ def _unit_cloud(gen, dev, B, N, tiled):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
 @pytest.mark.parametrize("shape", [(64, 1024, 512), (64, 512, 128), (16, 10000, 512),
-                                   (2, 20000, 40), (3, 33, 40)],
-                         ids=["sa1", "sa2", "N=10000", "N=20000", "npoint>N"])
+                                   (2, 20000, 40), (3, 33, 40), (2, 32769, 64),
+                                   (2, 65536, 64)],
+                         ids=["sa1", "sa2", "N=10000", "N=20000", "npoint>N", "N=32769",
+                              "N=65536"])
 def test_fps_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     B, N, npoint = shape
     gen = torch.Generator(device=cuda_device).manual_seed(6)
@@ -334,10 +414,12 @@ def test_fps_kernel_equals_plain_on_card(cuda_device, shape, tiled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("matmul_form", [False, True], ids=["difference", "matmul"])
 @pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
 @pytest.mark.parametrize("shape", [(64, 512, 1024, 32, 0.2), (64, 128, 512, 64, 0.4),
-                                   (2, 7, 50, 80, 0.5)], ids=["sa1", "sa2", "K>N"])
-def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled):
+                                   (2, 7, 50, 80, 0.5), (2, 64, 24576, 32, 0.2)],
+                         ids=["sa1", "sa2", "K>N", "N=24576"])
+def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled, matmul_form):
     B, S, N, KN, radius = shape
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     xyz = _unit_cloud(gen, cuda_device, B, N, tiled)
@@ -345,8 +427,8 @@ def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     new_xyz = new_xyz.contiguous()
     new_xyz[:, 0] = 3.0  # no point within the radius
     before = K.ball_query.launches
-    got = K.ball_query(new_xyz, xyz, radius, KN)
-    want = K.ball_query_plain(new_xyz, xyz, radius, KN)
+    got = K.ball_query(new_xyz, xyz, radius, KN, matmul_form)
+    want = K.ball_query_plain(new_xyz, xyz, radius, KN, matmul_form)
     torch.cuda.synchronize()
     assert K.ball_query.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
@@ -378,8 +460,8 @@ def test_index_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         K.knn(xyz[:, :8], torch.zeros((1, 20481, 3), device=dev), 4)
     with pytest.raises(ValueError):  # more neighbours than points
         K.knn(xyz[:, :8], xyz, 65)
-    with pytest.raises(ValueError):  # beyond the FPS kernel's N
-        K.fps(torch.zeros((1, K.FPS_MAX_N + 1, 3), device=dev),
+    with pytest.raises(ValueError):  # beyond the FPS kernel's int index (refused unread)
+        K.fps(torch.zeros((1, 1, 3), device=dev).expand(1, K.FPS_MAX_N + 1, 3),
               torch.zeros((1,), dtype=torch.int32, device=dev), 4)
     with pytest.raises(TypeError):  # int64 seeds
         K.fps(xyz, torch.zeros((1,), dtype=torch.long, device=dev), 4)
@@ -407,7 +489,7 @@ def test_classifier_through_kernels_matches_plain_versions_on_card(cuda_device):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 0, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
-        "knn": 0, "fps": 2, "ball_query": 2}
+        "knn": 0, "fps": 2, "ball_query": 2, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
     pred.generator.manual_seed(1)
     with mock.patch.object(K, "fps", K.fps_plain), \
             mock.patch.object(K, "ball_query", K.ball_query_plain), \

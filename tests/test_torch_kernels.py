@@ -58,7 +58,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     g = torch.from_numpy(rng.normal(size=(2, 4, 8, 3)).astype(np.float32))
     assert torch.equal(K.sa_mlp_max(g, layers), K.sa_mlp_max_plain(g, layers))
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
-                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0}
+                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
+                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
 
 
 def test_wrappers_refuse_other_dtypes_and_devices():
@@ -66,7 +67,7 @@ def test_wrappers_refuse_other_dtypes_and_devices():
     cidx = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
         K.sa_group(xyz, None, cidx, 4)
-    with pytest.raises(TypeError):  # the bf16 variant is not ported
+    with pytest.raises(TypeError):  # grouped features are f32 in either variant
         K.sa_mlp_max(torch.zeros((1, 4, 8, 3), dtype=torch.bfloat16),
                      [(torch.ones(3, 5), torch.ones(5), torch.zeros(5))])
     with pytest.raises(ValueError):

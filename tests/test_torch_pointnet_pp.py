@@ -111,7 +111,7 @@ def test_train_mode_raises_until_the_training_slice():
     assert out.shape == (2, 8) and torch.isfinite(out).all() and out.requires_grad
 
 
-@pytest.mark.parametrize("kwargs", [{"grouping": "ball"}, {"dtype": torch.bfloat16},
+@pytest.mark.parametrize("kwargs", [{"grouping": "ball"}, {"dtype": torch.float16},
                                     {"sampling": "fps"}])
 def test_model_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):

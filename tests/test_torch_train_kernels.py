@@ -164,7 +164,7 @@ def test_mlp_max_fn_matches_autograd_of_plain_forward(rng, stage):
         out.backward(dp)
         return out.detach(), [gt.grad] + [p.grad for p in flat]
 
-    out1, d1 = grads(lambda gt, flat: K.SAMlpMaxFn.apply(gt, *flat))
+    out1, d1 = grads(lambda gt, flat: K.SAMlpMaxFn.apply(gt, False, *flat))
     out2, d2 = grads(lambda gt, flat: K.sa_mlp_max_plain(
         gt, [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]))
     assert torch.equal(out1, out2)
@@ -181,10 +181,11 @@ def test_backward_wrappers_count_nothing_on_the_cpu(rng):
     assert K.sa_mlp_max_bwd(torch.ones((1, 4, 2, 3)), [layer], torch.ones((1, 2, 5)),
                             need_dgrouped=False)[0] is None
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
-                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0}
+                                 "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
+                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
     with pytest.raises(TypeError):
         K.sa_group_scatter(idx, torch.ones((1, 3, 2, 4), dtype=torch.float64), 5)
-    with pytest.raises(TypeError):  # the bf16 variant is not ported
+    with pytest.raises(TypeError):  # grouped features are f32 in either variant
         K.sa_mlp_max_bwd(torch.ones((1, 4, 2, 3), dtype=torch.bfloat16), [layer],
                          torch.ones((1, 2, 5)))
     with pytest.raises(ValueError):

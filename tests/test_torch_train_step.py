@@ -392,7 +392,7 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
     with pytest.raises(NotImplementedError):
         preset("mvm")
     with pytest.raises(NotImplementedError):
-        preset("8dir_kl", compute_dtype="bfloat16")
+        preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", task="vm_kl")
     with pytest.raises(TypeError):
