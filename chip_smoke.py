@@ -17,9 +17,17 @@ against the plain versions and a checkpoint round trip. The bfloat16 trunk
 (``dtype="bfloat16"``, ``compute_dtype="bfloat16"``) is driven the same way:
 8-dir serving at N=1024 and N=10,000 through the bf16 ``sa_mlp_max`` kernel,
 and one epoch of the 8dir_kl preset in both train configurations (the fused
-one through the bf16 backward kernel). Finally times the kernels, the
-requests and the train steps, f32 beside bf16, with CUDA events and the
-host clock. Prints one
+one through the bf16 backward kernel). The grid-pruned kNN
+(``set_knn_impl("grid")``, the JAX package's ``PCOT_KNN=grid``): its
+``topk_min`` kernel against its plain version, an 8-dir and a vM request at
+B=16, N=10,000 under the grid and the exact dispatch (sa1's neighbour sets
+against the kNN kernel's), and a cloud that fails the certificate. The
+yaw-distribution heads (``pointnet_pp_fwd``, ``pointnet_pp_von_mises``,
+``pointnet_pp_mvm``) served at B=16, N=10,000 against their plain versions,
+and one epoch each of the multi_8dir, vm_kl, mvm_robust and mvm_debug
+presets, vm_kl and mvm_robust again under the grid dispatch. Finally times
+the kernels, the requests and the train steps, f32 beside bf16 and exact
+beside grid, with CUDA events, the profiler and the host clock. Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
 the run's total seconds, and the last line is ``{"ok": true, "device": ...}``.
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -47,6 +56,7 @@ from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
+from pointcloud_orientation_tpu_torch.train.profile_step import device_events
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside
 # the tensor cores, and dense bf16 in the tensor cores (f32 accumulation).
@@ -1398,6 +1408,408 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the grid-pruned kNN (topk_min) and the yaw-distribution heads
+# ---------------------------------------------------------------------------
+
+# topk_min: (B, S, M, K). The 8-dir sa1 grid shape at N=10,000, an M that is
+# not a multiple of 32, M = K, a staged row of 4,096 entries, and the
+# device-memory path (rows beyond the kernel's 12,288 staged entries).
+TOPK_SHAPES = {"sa1 B=16 M=1024": (16, 128, 1024, 32), "M=1000": (16, 128, 1000, 32),
+               "M=K=32": (16, 128, 32, 32), "M=4096": (16, 128, 4096, 32),
+               "M=20000 device memory": (4, 128, 20_000, 32)}
+GRID_N = 10_000
+# the heads served at B=16, N=10,000: (case, model, random_flax_variables options)
+HEAD_CASES = (("fwd", "pointnet_pp_fwd", {}),
+              ("vm tanh", "pointnet_pp_von_mises", {"mu_parameterization": "tanh"}),
+              ("vm atan2", "pointnet_pp_von_mises", {"mu_parameterization": "atan2"}),
+              ("mvm zero", "pointnet_pp_mvm", {"mu_init": "zero"}),
+              ("mvm spread", "pointnet_pp_mvm", {"mu_init": "spread"}))
+UNIT_TOL = 1e-5  # unit vectors and mixture weights summing to 1
+TRAIN_HEADS = ("multi_8dir", "vm_kl", "mvm_robust", "mvm_debug")
+TRAIN_HEADS_GRID = ("vm_kl", "mvm_robust")
+
+
+def topk_min_case(gen, dev, B, S, M, Kn, case):
+    """A candidate tile: "ties" (multiples of 1/8: many exact ties, a row
+    with 5 finite entries, an all-inf row, a row with exactly K) or
+    "random" (uniform distances, the last quarter of each row inf, as a
+    window's empty slots)."""
+    if case == "ties":
+        d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
+        d[0, 0, 5:] = math.inf
+        d[0, 1] = math.inf
+        d[-1, -1, Kn:] = math.inf
+    else:
+        d = torch.rand((B, S, M), generator=gen, device=dev)
+        d[..., max(Kn, 3 * M // 4):] = math.inf
+    return d.contiguous()
+
+
+def topk_min_cost(B, S, M, Kn) -> tuple[float, float]:
+    """Bytes: the tile read once, the indices written once. Operations: one
+    compare per entry (selecting K of M needs on the order of M compares)."""
+    return 4 * (B * S * M + B * S * Kn), B * S * M
+
+
+def phase_kernels_topk_min(dev) -> dict:
+    """The topk_min kernel bit-equal in indices to its plain version at every
+    TOPK_SHAPES shape, on tie-rich tiles with short and empty rows and on
+    random ones."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    results = {}
+    for name, (B, S, M, Kn) in TOPK_SHAPES.items():
+        for case in ("ties", "random"):
+            d = topk_min_case(gen, dev, B, S, M, Kn, case)
+            got = K.topk_min(d, Kn)
+            want = K.topk_min_plain(d, Kn)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+                fail(f"topk_min {name} {case}: {tuple(got.shape)} {got.dtype}, differs in "
+                     f"{int((got != want).sum()) if got.shape == want.shape else 'shape'}")
+            if case == "ties" and (bool(got[0, 1].any()) or bool(got[0, 0, 5:].any())):
+                fail(f"topk_min {name}: a row past its finite entries is not 0: {got[0, :2]}")
+        results[name] = {"max_abs_err": 0.0, "exact": True}
+        emit("kernel_check", kernel="topk_min", shape=name, exact=True, inputs=["ties", "random"])
+    emit("kernels_topk_min", shapes=list(TOPK_SHAPES), exact=True)
+    return {"topk_min": results}
+
+
+def grid_clouds(b, n, rng) -> np.ndarray:
+    """Uniform clouds in [-1, 1]^3 whose first 128 points (the centroids of
+    sampling "first") lie in [-0.5, 0.5]^3: every such centroid's K nearest
+    are inside its cell cube, so the grid certificate holds."""
+    x = rng.uniform(-1, 1, size=(b, n, 3)).astype(np.float32)
+    x[:, :128] *= 0.5
+    return x
+
+
+def two_clusters(b, n, rng) -> np.ndarray:
+    """Two boxes, [2, 3]^3 and [-3, -2]^3, half the points each: a box's
+    points fill a few cells, so a cell cube holds more than the window's
+    1,024 slots and the certificate fails."""
+    x = rng.uniform(2, 3, size=(b, n, 3)).astype(np.float32)
+    x[:, 1::2] *= -1
+    return x
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def max_abs(a, b) -> float:
+    return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for x, y in zip(as_tuple(a), as_tuple(b)))
+
+
+def sets_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Rows whose neighbour sets differ."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def phase_serve_grid(dev) -> dict:
+    """The grid dispatch's serving path: an 8-dir and a vM request at B=16,
+    N=10,000 (sampling "first", certifying clouds) under ``"grid"`` and
+    under ``"exact"``, counters from 0 around each; sa1's neighbour sets
+    against the kNN kernel's; then a cloud that fails the certificate. The
+    dispatch is restored to ``"exact"`` whatever happens."""
+    rng = np.random.default_rng(SEED + 16)
+    x = grid_clouds(16, GRID_N, rng)
+    preds = {name: OrientationPredictor(name, v["params"], v["batch_stats"], num_points=GRID_N,
+                                        max_batch=16, seed=SEED, device=dev, sampling="first")
+             for name, v in (("pointnet_pp_8dir", random_flax_variables(SEED)),
+                             ("pointnet_pp_von_mises",
+                              random_flax_variables(SEED, "pointnet_pp_von_mises")))}
+    out = {"requests": [], "launches": None, "predictor": preds["pointnet_pp_8dir"], "clouds": x}
+    try:
+        G.set_knn_impl("grid")
+        K.reset_launch_counts()
+        grid_out = {name: pred(x) for name, pred in preds.items()}
+        launches = K.launch_counts()
+        out["launches"] = launches
+        if launches != expected_launches(topk_min=2, sa_group=2, sa_mlp_max=6):
+            fail(f"grid requests: launches {launches}")
+        G.set_knn_impl("exact")
+        K.reset_launch_counts()
+        exact_out = {name: pred(x) for name, pred in preds.items()}
+        exact_launches = K.launch_counts()
+        if exact_launches != expected_launches(sa_group=4, sa_mlp_max=6):
+            fail(f"exact requests: launches {exact_launches}")
+
+        # sa1's neighbours: the grid path's sets against the kNN kernel's
+        # (both difference form: equal exactly) and the fused grouping's
+        # (matmul form, the exact dispatch's sa1: near-ties may swap a point)
+        xyz = torch.from_numpy(x).to(dev)
+        c = xyz[:, :128].contiguous()
+        cidx = torch.arange(128, dtype=torch.int32, device=dev).expand(16, 128).contiguous()
+        G.set_knn_impl("grid")
+        grid_idx, ok = G.grid_pruned_core(c, xyz, 32)
+        knn_idx = K.knn(c, xyz, 32)
+        fused_idx = K.sa_group(xyz, None, cidx, 32)[2]
+        vs_knn, vs_fused = sets_differ(grid_idx, knn_idx), sets_differ(grid_idx, fused_idx)
+        if not bool(ok) or vs_knn:
+            fail(f"grid sa1: certificate {bool(ok)}, {vs_knn} rows differ from the kNN kernel")
+        for name in preds:
+            err = max_abs(grid_out[name], exact_out[name])
+            shapes = [np.shape(o) for o in as_tuple(grid_out[name])]
+            finite = all(np.isfinite(o).all() for o in as_tuple(grid_out[name]))
+            ok_out = err <= LOGIT_TOL and finite
+            out["requests"].append({"model": name, "shapes": shapes,
+                                    "max_abs_err_vs_exact": err, "ok": ok_out})
+            if not ok_out:
+                fail(f"grid request {name}: {err} from the exact dispatch (rows whose sa1 set "
+                     f"differs from the fused grouping's: {vs_fused}), finite {finite}")
+        emit("serve_grid", B=16, N=GRID_N, launches=launches, exact_launches=exact_launches,
+             certificate=bool(ok), sa1_rows_differing_from_knn=vs_knn,
+             sa1_rows_differing_from_fused_grouping=vs_fused, requests=out["requests"],
+             tol=LOGIT_TOL)
+
+        # a cloud that fails the certificate: the grid stage falls back to
+        # the full exact kNN (the kNN kernel), once
+        y = two_clusters(16, GRID_N, rng)
+        pred = preds["pointnet_pp_8dir"]
+        K.reset_launch_counts()
+        got = pred(y)
+        fb_launches = K.launch_counts()
+        if fb_launches != expected_launches(topk_min=1, knn=1, sa_group=1, sa_mlp_max=3):
+            fail(f"grid fallback request: launches {fb_launches}")
+        yt = torch.from_numpy(y).to(dev)
+        cy = yt[:, :128].contiguous()
+        fb_ok = bool(G.grid_pruned_core(cy, yt, 32)[1])
+        fb_idx = G.grid_pruned_knn(cy, yt, 32)
+        knn_y = K.knn(cy, yt, 32)
+        if fb_ok or not torch.equal(fb_idx, knn_y):
+            fail(f"grid fallback: certificate {fb_ok}, indices equal to the kNN kernel's "
+                 f"{torch.equal(fb_idx, knn_y)}")
+        # the exact path the fallback takes: sa1 through the kNN kernel
+        G.set_knn_impl("exact")
+        with mock.patch.object(G, "FUSED_GROUP_MAX_N", GRID_N - 1):
+            want = pred(y)
+        err = max_abs(got, want)
+        default = pred(y)
+        vs_fused_y = sets_differ(knn_y, K.sa_group(yt, None, cidx, 32)[2])
+        emit("serve_grid_fallback", B=16, N=GRID_N, launches=fb_launches, certificate=fb_ok,
+             max_abs_err_vs_exact_knn_path=err,
+             max_abs_diff_vs_exact_dispatch=max_abs(got, default),
+             sa1_rows_knn_vs_fused_grouping=vs_fused_y, tol=LOGIT_TOL)
+        if err > LOGIT_TOL:
+            fail(f"grid fallback request: {err} from the exact kNN path")
+    finally:
+        G.set_knn_impl("exact")
+    return out
+
+
+def phase_serve_heads(dev) -> dict:
+    """The heads' serving path at B=16, N=10,000 (random centroids from the
+    predictor's seed), counters from 0 around each request: through the
+    kernels against the plain versions (same generator state), unit
+    forward vectors, mixture weights summing to 1, kappa in range."""
+    rng = np.random.default_rng(SEED + 17)
+    x = rng.normal(size=(16, GRID_N, 3)).astype(np.float32)
+    rows, preds = [], {}
+    for case, name, kw in HEAD_CASES:
+        v = random_flax_variables(SEED, name, **kw)
+        pred = OrientationPredictor(name, v["params"], v["batch_stats"], num_points=GRID_N,
+                                    max_batch=16, seed=SEED, device=dev)
+        K.reset_launch_counts()
+        got = pred(x)
+        launches = K.launch_counts()
+        if launches != expected_launches(sa_group=2, sa_mlp_max=3):
+            fail(f"{case} request: launches {launches}")
+        pred.generator.manual_seed(SEED)
+        with_kernels = pred(x)
+        pred.generator.manual_seed(SEED)
+        with mock.patch.object(K, "sa_group", K.sa_group_plain), \
+                mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
+            plain = pred(x)
+        err = max_abs(with_kernels, plain)
+        outs = as_tuple(got)
+        checks = {"finite": all(np.isfinite(o).all() for o in outs),
+                  "batch": all(o.shape[0] == 16 for o in outs)}
+        if name == "pointnet_pp_fwd":
+            checks["unit"] = bool(np.abs(np.linalg.norm(outs[0], axis=-1) - 1).max() <= UNIT_TOL)
+        elif name == "pointnet_pp_von_mises":
+            checks["mu_in_range"] = bool((np.abs(outs[0]) <= math.pi + 1e-6).all())
+            checks["kappa_nonnegative"] = bool((outs[1] >= 0).all())
+        else:
+            mu, kappa, w = outs
+            checks["weights_sum_to_1"] = bool(np.abs(w.sum(-1) - 1).max() <= UNIT_TOL)
+            checks["kappa_in_range"] = bool(((kappa > 0) & (kappa <= 80.0)).all())
+            checks["shapes"] = mu.shape == kappa.shape == w.shape == (16, 4)
+        fwd = pred.forward_vectors(x)
+        checks["forward_vectors_unit"] = bool(
+            fwd.shape == (16, 3) and np.abs(np.linalg.norm(fwd, axis=-1) - 1).max() <= UNIT_TOL)
+        ok = err <= LOGIT_TOL and all(checks.values())
+        rows.append({"case": case, "model": name, "launches": launches,
+                     "max_abs_err_vs_plain": err, "checks": checks, "ok": ok})
+        if not ok:
+            fail(f"{case} request: {err} from the plain versions (tol {LOGIT_TOL}), {checks}")
+        preds[case] = pred
+    emit("serve_heads", B=16, N=GRID_N, requests=rows, tol=LOGIT_TOL, unit_tol=UNIT_TOL)
+    return {"predictors": preds, "clouds": x}
+
+
+def heads_dataset(cfg) -> OrientationDataset:
+    """48 clouds of the preset's classes: 3 train steps and 1 val batch."""
+    return OrientationDataset(*synthetic_modelnet(
+        num_points=TRAIN_N, samples_per_class=48 // len(cfg.classes),
+        class_names=list(cfg.classes)))
+
+
+def train_epoch(name: str, dev, out_dir: str, grid: bool) -> dict:
+    """One epoch of a preset at B=16, N=10,000, counters from 0: finite
+    losses, f32 parameters and Adam state, and its launches (under the grid
+    dispatch one topk_min per forward at sa1, and the kNN kernel whenever
+    the certificate fails)."""
+    cfg = preset(name, epochs=1, out_dir=out_dir)
+    trainer = Trainer(cfg, heads_dataset(cfg), device=dev)
+    steps = -(-len(trainer.train_ds) // cfg.batch_size)
+    val = -(-len(trainer.val_ds) // cfg.batch_size)
+    K.reset_launch_counts()
+    trainer.fit(epochs=1, log_every=0)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    forwards = steps + val
+    if grid:
+        fallbacks = launches["knn"]
+        expected = expected_launches(topk_min=forwards, knn=fallbacks, sa_group=forwards,
+                                     sa_mlp_max=3 * val, sa_group_scatter=steps)
+        count_ok = launches == expected and fallbacks <= forwards
+    else:
+        expected = expected_launches(sa_group=2 * forwards, sa_mlp_max=3 * val,
+                                     sa_group_scatter=steps)
+        count_ok = launches == expected
+    losses = trainer.step_losses
+    f32_state = all(p.dtype == torch.float32 for p in trainer.model.parameters()) and all(
+        t.dtype == torch.float32 for st in trainer.optimizer.state.values()
+        for t in st.values() if t.dim())
+    finite = (len(losses) == steps and all(math.isfinite(v) for v in losses)
+              and math.isfinite(trainer.history["val"][0]))
+    row = {"preset": name, "knn_impl": "grid" if grid else "exact", "train_steps": steps,
+           "val_batches": val, "step_losses": losses, "val_loss": trainer.history["val"][0],
+           "val_angular_deg": trainer.history["val_ang"][0], "launches": launches,
+           "expected_launches": expected, "params_and_adam_f32": f32_state,
+           "timings": trainer.timings}
+    emit("train_heads", **row)
+    if not (finite and f32_state and count_ok):
+        fail(f"train {name} ({row['knn_impl']}): losses {losses}, val {trainer.history['val']}, "
+             f"f32 {f32_state}, launches {launches}, expected {expected}")
+    return {"trainer": trainer, "launches": launches, "steps": steps}
+
+
+def phase_train_heads(dev) -> dict:
+    """One epoch of multi_8dir, vm_kl, mvm_robust and mvm_debug (its
+    debug_log.txt in a temporary directory), then vm_kl and mvm_robust under
+    the grid dispatch (restored to "exact" whatever happens)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in TRAIN_HEADS:
+            out[name] = train_epoch(name, dev, d, grid=False)
+        log = os.path.join(d, "debug_log.txt")
+        lines = open(log).read().splitlines() if os.path.exists(log) else []
+        emit("train_heads_debug_log", lines=len(lines), first=lines[:1])
+        if not lines or not lines[0].startswith("epoch=1 batch=0 loss="):
+            fail(f"mvm_debug wrote no debug_log.txt entry: {lines[:2]}")
+        try:
+            G.set_knn_impl("grid")
+            for name in TRAIN_HEADS_GRID:
+                out[f"{name} grid"] = train_epoch(name, dev, d, grid=True)
+        finally:
+            G.set_knn_impl("exact")
+    return out
+
+
+def profiled_ms(fn, iters: int = 5) -> float:
+    """Device time per call of ``fn`` from the profiler's kernel, copy and
+    fill durations, over ``iters`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for _, us in device_events(prof)) / 1e3 / iters
+
+
+def phase_timing_grid(dev, checks: dict, serve_grid: dict, serve_heads: dict,
+                      train_heads: dict) -> list:
+    """topk_min at its shapes (CUDA events after a device sleep, bound, plain
+    version, ``torch.topk``); the grid stage at sa1 (B=16, N=10,000) split
+    into index build, window gather and topk_min from the profiler's device
+    durations, beside the whole stage and the exact path's sa1; a request
+    and a vm_kl train step, exact and grid in alternating pairs, and a
+    request of each head (host clock, medians of 5)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    per_shape = {}
+    for name, (B, S, M, Kn) in TOPK_SHAPES.items():
+        d = topk_min_case(gen, dev, B, S, M, Kn, "random")
+        ms, host_ms = timed(lambda: K.topk_min(d, Kn))
+        plain_ms = cuda_ms(lambda: K.topk_min_plain(d, Kn))
+        library_ms = cuda_ms(lambda: torch.topk(d, Kn, dim=-1, largest=False, sorted=True))
+        b_ms, b_by = bound_ms(*topk_min_cost(B, S, M, Kn))
+        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                               bound_by=b_by, share=b_ms / ms, host_ms=host_ms,
+                               **checks["topk_min"][name])
+        emit("timing", kernel="topk_min", shape=name, **per_shape[name])
+
+    # the grid stage at sa1 of a B=16, N=10,000 request, part by part
+    xyz = torch.from_numpy(serve_grid["clouds"]).to(dev)
+    c = xyz[:, :128].contiguous()
+    g, r, m = G._KNN_GRID_G, G._KNN_GRID_R, min(G._KNN_GRID_M, GRID_N)
+    lo, h, order, pts_s, starts = G.grid_bins(xyz, g)
+    _, _, _, dist = G.grid_window(c, lo, h, starts, pts_s, g, r, m)
+    parts = {
+        "index build (grid_bins)": lambda: G.grid_bins(xyz, g),
+        "window gather (grid_window)": lambda: G.grid_window(c, lo, h, starts, pts_s, g, r, m),
+        "topk_min": lambda: K.topk_min(dist, 32),
+        "whole stage (grid_pruned_knn)": lambda: G.grid_pruned_knn(c, xyz, 32),
+        "exact stage (kNN kernel)": lambda: K.knn(c, xyz, 32),
+        "exact dispatch's sa1 (sa_group)": lambda: K.sa_group(
+            xyz, None, torch.arange(128, dtype=torch.int32, device=dev).expand(16, 128)
+            .contiguous(), 32),
+    }
+    stage = {name: profiled_ms(fn) for name, fn in parts.items()}
+    emit("timing_grid_stage", B=16, N=GRID_N, device_ms=stage)
+
+    latency, steps = [], []
+    pred, x = serve_grid["predictor"], serve_grid["clouds"]
+    trainer = train_heads["vm_kl"]["trainer"]
+    try:
+        for rnd in range(2):
+            for impl in ("exact", "grid"):
+                G.set_knn_impl(impl)
+                latency.append({"knn_impl": impl, "round": rnd, **request_latency(pred, x)})
+                K.reset_launch_counts()
+                t = step_times(trainer, f"timing_grid vm_kl {impl}")
+                steps.append({"knn_impl": impl, "round": rnd, "launches": K.launch_counts(), **t})
+    finally:
+        G.set_knn_impl("exact")
+    emit("timing_grid", request=latency, vm_kl_step=steps)
+    heads = [{"case": case, **request_latency(pred, serve_heads["clouds"])}
+             for case, pred in serve_heads["predictors"].items()]
+    emit("timing_serve_heads", requests=heads)
+
+    rows = [per_shape["sa1 B=16 M=1024"]]
+    return [{
+        "name": "topk_min", "route": "cuda",
+        "source": "pointcloud_orientation_tpu_torch/csrc/topk_min.cu",
+        "replaces": "pointcloud_orientation_tpu/ops/pallas_kernels.py:878",
+        "launches": serve_grid["launches"]["topk_min"],
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
+        "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": rows[0]["bound_by"],
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "per": "one grid stage: sa1 of an 8-dir request at B=16 N=10000 (S=128, M=1024, K=32)",
+        "launches_path": "grid serving: one 8-dir and one vM request at B=16 N=10000",
+        "library_call": "torch.topk(d, K, largest=False, sorted=True); its order among "
+                        "equal values is not guaranteed",
+        "shapes": per_shape,
+    }]
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -1414,10 +1826,15 @@ def main() -> None:
     large = phase_large(dev)
     train = phase_train(dev)
     train_bf16 = phase_train_bf16(dev)
+    checks.update(phase_kernels_topk_min(dev))
+    serve_grid = phase_serve_grid(dev)
+    serve_heads = phase_serve_heads(dev)
+    train_heads = phase_train_heads(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
     summary += phase_timing_bf16(dev, checks, serve_bf16, train_bf16, cls_large)
+    summary += phase_timing_grid(dev, checks, serve_grid, serve_heads, train_heads)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

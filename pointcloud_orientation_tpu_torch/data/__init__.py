@@ -1,5 +1,5 @@
 """Data of the port: synthetic clouds, the packed dataset, the on-device
-batch pipeline and the 8-direction targets."""
+batch pipeline and the yaw targets (8-direction, von Mises, mixture)."""
 
 from .dataset import OrientationDataset, split_indices
 from .gt import (
@@ -10,6 +10,8 @@ from .gt import (
     UNIFORM_CLASSES,
     class_masks,
     eight_dir_gt,
+    mvm_gt,
+    single_peak_gt,
 )
 from .hdf5 import synthetic_modelnet
 from .pipeline import augment_batch, subsample_by_uniform, subsample_points
@@ -24,6 +26,8 @@ __all__ = [
     "augment_batch",
     "class_masks",
     "eight_dir_gt",
+    "mvm_gt",
+    "single_peak_gt",
     "split_indices",
     "subsample_by_uniform",
     "subsample_points",

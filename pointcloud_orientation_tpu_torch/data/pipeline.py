@@ -1,11 +1,10 @@
-"""Batch pipeline on the device: subsample -> rotate -> 8-direction targets.
+"""Batch pipeline on the device: subsample -> rotate -> every yaw target.
 
-Counterpart of ``pointcloud_orientation_tpu/data/pipeline.py`` for the
-targets of the 8-direction tasks. ``augment_batch`` returns ``points``,
-``rotation``, ``axes``, ``forward`` and ``probs_8dir``; the von Mises and
-MvM targets come with their heads (ROADMAP.md queue 1). Random draws come
-from an explicit ``torch.Generator``: subsample uniforms first, then the
-yaw angles.
+Counterpart of ``pointcloud_orientation_tpu/data/pipeline.py``: one function
+produces the augmented clouds and all orientation targets (axes, forward,
+8-direction soft label, single-peak von Mises, mixture of von Mises). Random
+draws come from an explicit ``torch.Generator``: subsample uniforms first,
+then the yaw angles.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import torch
 
 from ..ops.geometry import topk_of_uniform
 from ..ops.rotations import axes_gt_from_rotation, random_yaw_matrix, rotate_points
-from .gt import eight_dir_gt
+from .gt import KAPPA_DEFAULT, eight_dir_gt, mvm_gt, single_peak_gt
 
 
 def subsample_by_uniform(pts: torch.Tensor, u: torch.Tensor, num_points: int) -> torch.Tensor:
@@ -42,14 +41,18 @@ def subsample_points(generator: torch.Generator, pts: torch.Tensor, num_points: 
 
 
 def augment_batch(generator: torch.Generator, pts: torch.Tensor, uniform_mask: torch.Tensor,
-                  num_points: int, rotation_mode: str = "yaw") -> Dict[str, torch.Tensor]:
-    """Subsample, rotate, and synthesize the 8-direction targets.
+                  symm_mask: torch.Tensor, k_spec: torch.Tensor, num_points: int,
+                  rotation_mode: str = "yaw", kappa_default: float = KAPPA_DEFAULT,
+                  max_k: int = 4) -> Dict[str, torch.Tensor]:
+    """Subsample, rotate, and synthesize every yaw target.
 
-    ``pts (B, M, 3)`` canonical clouds, ``uniform_mask (B,)`` bool (see
-    :func:`.gt.class_masks`). ``rotation_mode``: ``"yaw"`` (``"so3"`` and
-    ``"none"`` are not ported). Returns ``points (B,N,3)``, ``rotation
-    (B,3,3)``, ``axes (B,3,3)`` (side, up, forward rows), ``forward (B,3)``
-    and ``probs_8dir (B,8)``.
+    ``pts (B, M, 3)`` canonical clouds; ``uniform_mask``, ``symm_mask``
+    (bool) and ``k_spec`` (int) ``(B,)``, the per-sample class behaviour
+    (see :func:`.gt.class_masks`). ``rotation_mode``: ``"yaw"`` (``"so3"``
+    and ``"none"`` are not ported). Returns ``points (B,N,3)``, ``rotation
+    (B,3,3)``, ``axes (B,3,3)`` (side, up, forward rows), ``forward (B,3)``,
+    ``probs_8dir (B,8)``, ``vm_mu``/``vm_kappa (B,)``,
+    ``mvm_mu``/``mvm_kappa``/``mvm_weight (B, max_k)`` and ``mvm_k (B,)``.
     """
     B = pts.shape[0]
     pts = subsample_points(generator, pts, num_points)
@@ -58,11 +61,19 @@ def augment_batch(generator: torch.Generator, pts: torch.Tensor, uniform_mask: t
     rot = random_yaw_matrix(generator, B, pts.device)
     pts = rotate_points(pts, rot)
     axes = axes_gt_from_rotation(rot)
-    forward = axes[:, 2]
+    side, forward = axes[:, 0], axes[:, 2]
+    vm_mu, vm_kappa = single_peak_gt(forward, symm_mask, kappa_default)
+    mvm_mu, mvm_kappa, mvm_w, mvm_k = mvm_gt(side, forward, k_spec, kappa_default, max_k)
     return {
         "points": pts,
         "rotation": rot,
         "axes": axes,
         "forward": forward,
         "probs_8dir": eight_dir_gt(forward, uniform_mask),
+        "vm_mu": vm_mu,
+        "vm_kappa": vm_kappa,
+        "mvm_mu": mvm_mu,
+        "mvm_kappa": mvm_kappa,
+        "mvm_weight": mvm_w,
+        "mvm_k": mvm_k,
     }

@@ -1,13 +1,15 @@
 """Batched serving of the PointNet++ models on the card.
 
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
-for the models ``pointnet_pp_8dir`` (8-way direction logits) and
-``pointnet_pp_cls`` (ModelNet40 log-probabilities) in eval mode, one view,
-one ensemble member, no quantization, one device; f32, or for the 8-dir
-model a bf16 trunk (``dtype="bfloat16"``, the JAX package's
-``**model_kwargs``). Requests are padded
-to power-of-two batch buckets (clamped to ``max_batch``) and to
-``num_points`` points, exactly as the JAX predictor pads them.
+for the models ``pointnet_pp_8dir`` (8-way direction logits),
+``pointnet_pp_fwd`` (unit forward vectors), ``pointnet_pp_von_mises`` ((mu,
+kappa)), ``pointnet_pp_mvm`` ((mu, kappa, weight)) and ``pointnet_pp_cls``
+(ModelNet40 log-probabilities) in eval mode, one view, one ensemble member,
+no quantization, one device; f32, or a bf16 trunk (``dtype="bfloat16"``,
+the JAX package's ``**model_kwargs``; not for the MvM head's LayerNorm
+trunk). Requests are padded to power-of-two batch buckets (clamped to
+``max_batch``) and to ``num_points`` points, exactly as the JAX predictor
+pads them.
 
 Example
 -------
@@ -22,7 +24,7 @@ Example
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,22 +33,26 @@ from .models import MODEL_REGISTRY
 from .ops import DIRS_8
 from .models.layers import compute_dtype
 from .ops.cuda_kernels import bf16_matmuls, f32_matmuls
-from .utils.jax_weights import cls_kwargs, load_flax_variables
+from .utils.jax_weights import load_flax_variables, model_kwargs as tree_kwargs
+
+Output = Union[np.ndarray, Tuple[np.ndarray, ...]]
 
 
 class OrientationPredictor:
-    """Bucketed predictor over the port's ``PointNetPP8Dir`` or
-    ``PointNetPPCls``.
+    """Bucketed predictor over one of the port's PointNet++ models
+    (``MODEL_REGISTRY``).
 
     ``params``/``batch_stats`` are the JAX package's flax trees as numpy
-    arrays (see :mod:`.utils.jax_weights`); the classifier's input width (3,
-    or 6 with normals) and class count are read from them. Runs on
+    arrays (see :mod:`.utils.jax_weights`); what the tree fixes is read from
+    it (the classifier's input width and class count, the vM head's mu
+    parameterisation, the MvM head's ``max_K``). Runs on
     ``device`` ("cuda" unless the caller asks for the CPU). Random centroids
     and FPS start points are drawn from a ``torch.Generator`` seeded with
     ``seed``; they match the JAX predictor's only in distribution
     (``sampling="first"`` makes the 8-dir model deterministic).
     ``model_kwargs`` go to the model: ``dtype=torch.bfloat16`` (or
-    ``"bfloat16"``) serves the 8-dir model with a bf16 trunk.
+    ``"bfloat16"``) serves a BatchNorm trunk in bf16; ``sampling``, and the
+    MvM head's ``temp``, ``kappa_max`` and ``weight_floor``.
     """
 
     def __init__(
@@ -79,8 +85,7 @@ class OrientationPredictor:
         self.model_name = model_name
         self.num_points = num_points
         self.max_batch = max_batch
-        if model_name == "pointnet_pp_cls":
-            model_kwargs = {**cls_kwargs(params), **model_kwargs}
+        model_kwargs = {**tree_kwargs(model_name, params), **model_kwargs}
         model = MODEL_REGISTRY[model_name](**model_kwargs)
         self.channels = getattr(model, "in_channels", 3)
         load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
@@ -112,30 +117,42 @@ class OrientationPredictor:
         return clouds
 
     @torch.inference_mode()
-    def __call__(self, clouds: np.ndarray) -> np.ndarray:
-        """The model's output for ``(B, N, C)`` clouds, any B and N, C the
-        model's input width: logits ``(B, 8)`` (8-dir) or log-probabilities
-        ``(B, num_classes)`` (classifier); above ``max_batch`` the request
-        is served in chunks of ``max_batch``."""
+    def __call__(self, clouds: np.ndarray) -> Output:
+        """The model's native output for ``(B, N, C)`` clouds, any B and N, C
+        the model's input width, for the original B: logits ``(B, 8)``
+        (8-dir), unit vectors ``(B, 3)`` (forward), the tuple ``(mu (B,),
+        kappa (B,))`` (vM) or ``(mu, kappa, weight)``, each ``(B, max_K)``
+        (MvM), log-probabilities ``(B, num_classes)`` (classifier); above
+        ``max_batch`` the request is served in chunks of ``max_batch``."""
         clouds = np.asarray(clouds, np.float32)
         c = self.channels
         if clouds.ndim != 3 or clouds.shape[-1] != c or clouds.shape[0] < 1 or clouds.shape[1] < 1:
             raise ValueError(f"clouds must be (B>=1, N>=1, {c}), got {clouds.shape}")
         b = clouds.shape[0]
         if b > self.max_batch:
-            return np.concatenate(
-                [self(clouds[i: i + self.max_batch]) for i in range(0, b, self.max_batch)],
-                axis=0)
+            chunks = [self(clouds[i: i + self.max_batch]) for i in range(0, b, self.max_batch)]
+            if isinstance(chunks[0], tuple):
+                return tuple(np.concatenate(xs, axis=0) for xs in zip(*chunks))
+            return np.concatenate(chunks, axis=0)
         pts = torch.from_numpy(np.ascontiguousarray(self._pad(clouds))).to(self.device)
         out = self.model(pts, self.generator)
+        if isinstance(out, tuple):
+            return tuple(o[:b].cpu().numpy() for o in out)
         return out[:b].cpu().numpy()
 
     def forward_vectors(self, clouds: np.ndarray) -> np.ndarray:
-        """The JAX predictor's decode, normalized: for 8-dir the softmax of
-        the logits times ``DIRS_8`` (unit forward vectors ``(B, 3)``); any
-        other model's output as it is (for the classifier ``(B,
-        num_classes)``, as the JAX package's fall-through branch does)."""
+        """The JAX predictor's decode to unit forward vectors ``(B, 3)``: for
+        8-dir the softmax of the logits times ``DIRS_8``; for vM ``(sin mu,
+        0, -cos mu)``; for MvM the same of the heaviest component's mu; the
+        forward head's output as it is (and the classifier's ``(B,
+        num_classes)``, as the JAX package's fall-through branch does);
+        normalised."""
         out = self(clouds)
         if self.model_name == "pointnet_pp_8dir":
             out = (torch.softmax(torch.from_numpy(out), dim=-1) @ DIRS_8).numpy()
+        elif self.model_name in ("pointnet_pp_von_mises", "pointnet_pp_mvm"):
+            mu = out[0]
+            if self.model_name == "pointnet_pp_mvm":
+                mu = np.take_along_axis(mu, np.argmax(out[2], -1)[:, None], 1)[:, 0]
+            out = np.stack([np.sin(mu), np.zeros_like(mu), -np.cos(mu)], -1)
         return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)

@@ -42,6 +42,7 @@ from ..ops import cuda_kernels as K
 from ..ops import geometry as G
 
 BN_EPS = 1e-5
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
 BN_MOMENTUM = 0.9  # flax: running = momentum * running + (1 - momentum) * batch
 # Every GHOST_STRIDE-th neighbour slot gives the fused train path's BatchNorm
 # statistics (``SharedMLP.ghost_stride`` in the JAX package's layers.py:51).
@@ -105,6 +106,16 @@ def flax_batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
         bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
     y = (_widen(x) - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     return y.to(x.dtype)
+
+
+def flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """``flax.linen.LayerNorm`` over the last axis with ``ln``'s scale and
+    bias: mean and the fast variance ``max(0, E[x^2] - E[x]^2)`` per row,
+    then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the same in
+    train and eval."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    return (x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
@@ -237,29 +248,46 @@ class PointNetPPTrunk(nn.Module):
     """Three set abstractions and the FC funnel to a 256-d feature.
 
     sa1 = SA(128, 32, [64, 64, 128]); sa2 = SA(32, 32, [128, 128, 256]);
-    sa3 = SA(group_all, [256, 512, 1024]); fc 1024 -> 512 -> 256 with
-    BatchNorm and ReLU, then dropout ``p_drop`` in train (the BatchNorm
-    trunk of the JAX package: dropout once, after fc2). ``generator`` feeds
-    the centroid sampling and the dropout mask. ``dtype`` (None or
-    ``torch.bfloat16``) is the compute type of the set abstractions' MLPs
-    and of the FC funnel; the output is f32 either way.
+    sa3 = SA(group_all, [256, 512, 1024]); fc 1024 -> 512 -> 256, each with
+    its norm and ReLU, then dropout ``p_drop`` in train. ``fc_norm``:
+    ``"batch"`` (the BatchNorm trunk, ``bn1``/``bn2``) or ``"layer"`` (the
+    MvM head's LayerNorm trunk, ``ln1``/``ln2``, f32 only);
+    ``drop_each_fc`` adds dropout after fc1 as well (the MvM trunk; the
+    BatchNorm trunk drops once, after fc2). ``generator`` feeds the centroid
+    sampling and the dropout masks. ``dtype`` (None or ``torch.bfloat16``)
+    is the compute type of the set abstractions' MLPs and of the FC funnel;
+    the output is f32 either way.
     """
 
     def __init__(self, sampling: str = "random", p_drop: float = 0.5,
-                 fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None):
+                 fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None,
+                 fc_norm: str = "batch", drop_each_fc: bool = False):
         super().__init__()
+        if fc_norm not in ("batch", "layer"):
+            raise ValueError(f"fc_norm={fc_norm!r}: 'batch' or 'layer'")
+        if fc_norm == "layer" and dtype == torch.bfloat16:
+            raise NotImplementedError("a bf16 LayerNorm funnel is not ported (ROADMAP.md)")
         sa = dict(sampling=sampling, fused_mlp_train=fused_mlp_train, dtype=dtype)
         self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), **sa)
         self.sa2 = SetAbstraction(32, 32, 3 + 128, (128, 128, 256), **sa)
         self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True, **sa)
         self.fc1 = nn.Linear(1024, 512)
-        self.bn1 = nn.BatchNorm1d(512, eps=BN_EPS)
         self.fc2 = nn.Linear(512, 256)
-        self.bn2 = nn.BatchNorm1d(256, eps=BN_EPS)
+        if fc_norm == "batch":
+            self.bn1 = nn.BatchNorm1d(512, eps=BN_EPS)
+            self.bn2 = nn.BatchNorm1d(256, eps=BN_EPS)
+        else:
+            self.ln1 = nn.LayerNorm(512, eps=LN_EPS)
+            self.ln2 = nn.LayerNorm(256, eps=LN_EPS)
+        self.fc_norm = fc_norm
+        self.drop_each_fc = drop_each_fc
         self.p_drop = p_drop
         self.compute_dtype = dtype
 
-    def _norm(self, bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self.fc_norm == "layer":
+            return flax_layer_norm(x, getattr(self, f"ln{i}"))
+        bn = getattr(self, f"bn{i}")
         return flax_batch_norm_train(x, bn) if self.training else batch_norm_eval(x, bn)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -268,8 +296,10 @@ class PointNetPPTrunk(nn.Module):
         l2_xyz, l2_pts = self.sa2(l1_xyz, l1_pts, generator)
         _, l3_pts = self.sa3(l2_xyz, l2_pts)
         x = l3_pts.reshape(xyz.shape[0], -1)  # (B, 1024)
-        x = F.relu(self._norm(self.bn1, dense(self.fc1, x, self.compute_dtype)))
-        x = F.relu(self._norm(self.bn2, dense(self.fc2, x, self.compute_dtype)))
+        x = F.relu(self._norm(1, dense(self.fc1, x, self.compute_dtype)))
+        if self.training and self.drop_each_fc:
+            x = dropout(x, self.p_drop, generator)
+        x = F.relu(self._norm(2, dense(self.fc2, x, self.compute_dtype)))
         if self.training:
             x = dropout(x, self.p_drop, generator)
         return _widen(x)  # the JAX trunk returns float32

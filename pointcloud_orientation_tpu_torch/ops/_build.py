@@ -51,6 +51,8 @@ SIGNATURES = {
     "pcot_fps_f32": [_P] * 4 + [_I] * 3 + [_P],
     # new_xyz, xyz, idx, B, N, S, K, radius_sq, matmul_form, stream
     "pcot_ball_query_f32": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
+    # d, idx, rows, M, K, stream
+    "pcot_topk_min_f32": [_P, _P] + [_I] * 3 + [_P],
 }
 
 

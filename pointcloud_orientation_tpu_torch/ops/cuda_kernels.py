@@ -43,6 +43,11 @@ query also takes the matmul form of the JAX package's XLA path, which
 ``geometry.ball_query`` picks where the JAX package does. kNN and FPS are
 held back by their dependent block-wide argmin/argmax steps; the ball query
 is bound by bytes and stops scanning once it has its points.
+
+``topk_min`` (``csrc/topk_min.cu``) replaces ``pallas_kernels.py:topk_min_pallas``,
+the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):
+one warp per row, K dependent warp reductions, the row staged in shared
+memory while it fits.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ MAX_K = 128
 # threads of 64 each), above it in a device buffer (csrc/fps.cu)
 FPS_REGISTER_MAX_N = 32_768
 FPS_MAX_N = 1 << 30  # the kernel's int point index stays in range
+TOPK_MIN_MAX_K = 64
+TOPK_MIN_MAX_M = 1 << 24  # the kernel's limit on a row's entries
 
 
 def f32_matmuls() -> None:
@@ -670,9 +677,60 @@ def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
 
 ball_query.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K8: K smallest of a candidate tile (the grid-pruned kNN's selection)
+# ---------------------------------------------------------------------------
+
+
+def topk_min_plain(d: torch.Tensor, nsample: int) -> torch.Tensor:
+    """Plain version of :func:`topk_min`: the first ``nsample`` positions of
+    a stable sort of each row, and 0 wherever the sorted value is ``+inf``
+    (``topk_min_pallas`` evicts each winner to ``+inf``, so once the finite
+    entries are taken every pass picks position 0)."""
+    srt = torch.sort(d, dim=-1, stable=True)
+    idx = srt.indices[..., :nsample]
+    return torch.where(srt.values[..., :nsample] == float("inf"), torch.zeros_like(idx),
+                       idx).to(torch.int32)
+
+
+def topk_min(d: torch.Tensor, nsample: int) -> torch.Tensor:
+    """Positions ``(B,S,nsample)`` int32 of the ``nsample`` smallest entries
+    of each row of ``d (B,S,M)`` f32, nearest first, equal values to the
+    lowest position. Entries are finite or ``+inf`` (an empty slot); past a
+    row's finite entries the positions are 0, as ``topk_min_pallas`` gives
+    them. The kernel takes ``nsample <= TOPK_MIN_MAX_K`` and ``M <=
+    TOPK_MIN_MAX_M``."""
+    if d.dtype != torch.float32:
+        raise TypeError(f"topk_min takes float32 distances, got {d.dtype}")
+    if d.dim() != 3:
+        raise ValueError(f"d must be (B, S, M), got {tuple(d.shape)}")
+    B, S, M = d.shape
+    if not 1 <= nsample <= min(M, TOPK_MIN_MAX_K):
+        raise ValueError(f"nsample={nsample} must lie in [1, min(M={M}, {TOPK_MIN_MAX_K})]")
+    if d.device.type == "cpu":
+        return topk_min_plain(d, nsample)
+    _cuda_only("topk_min", d)
+    if M > TOPK_MIN_MAX_M or B * S > 2 ** 31 - 1:
+        raise ValueError(f"M={M} must be at most {TOPK_MIN_MAX_M} and B*S={B * S} below 2^31")
+    dev = d.device
+    _check_cuda("d", d, torch.float32, (B, S, M), dev)
+    idx = torch.empty((B, S, nsample), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pcot_topk_min_f32(d.data_ptr(), idx.data_ptr(), B * S, M, nsample, stream)
+    _raise_on(err, f"topk_min launch (B={B}, S={S}, M={M}, K={nsample})")
+    topk_min.launches += 1
+    return idx
+
+
+topk_min.launches = 0
+
 # counter name -> (wrapper, its attribute); the bf16 variants count apart
 _COUNTERS = {fn.__name__: (fn, "launches") for fn in
-             (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query)}
+             (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query,
+              topk_min)}
 _COUNTERS["sa_mlp_max_bf16"] = (sa_mlp_max, "launches_bf16")
 _COUNTERS["sa_mlp_max_bwd_bf16"] = (sa_mlp_max_bwd, "launches_bf16")
 

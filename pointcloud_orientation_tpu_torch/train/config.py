@@ -1,12 +1,16 @@
 """Training configuration of the port.
 
 Counterpart of ``pointcloud_orientation_tpu/train/config.py`` for the fields
-the 8-direction slice uses and its two presets, ``8dir_kl`` and
-``8dir_mse`` (PointNetPP8Dir, yaw rotations, the six-class mix, N=10,000,
-B=16, Adam at 1e-3, seed 42), with ``compute_dtype`` None/"float32" or
-"bfloat16" (the trunk's compute type). The JAX config's other fields are
-accepted by :func:`preset` and :meth:`TrainConfig.replace` at their default
-values only; any other value raises ``NotImplementedError``.
+the yaw tasks use and their presets: ``8dir_kl`` and ``8dir_mse``
+(PointNetPP8Dir), ``multi_8dir`` (PointNetPPFwd), ``vm_kl`` and
+``vm_kl_atan2`` (PointNetPPVonMises), and ``mvm``, ``mvm_guarded``,
+``mvm_spread``, ``mvm_robust`` and ``mvm_debug`` (PointNetPPMvM, the twelve
+MvM categories, 100 epochs, gradient clip 1.0): yaw rotations, N=10,000,
+B=16, Adam at 1e-3, seed 42, with ``compute_dtype`` None/"float32" or
+"bfloat16" (the trunk's compute type; the MvM trunk is f32 only). The JAX
+config's other fields are accepted by :func:`preset` and
+:meth:`TrainConfig.replace` at their default values only; any other value
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,15 @@ from typing import Optional, Sequence, Tuple
 
 SIX_CLASS_MIX: Tuple[str, ...] = ("chair", "toilet", "sofa", "plant", "bowl", "bottle")
 
-PORTED_TASKS = ("8dir_kl", "8dir_mse")
+# The 12-category MvM scope.
+MVM_CLASSES: Tuple[str, ...] = (
+    "cone", "bowl", "chair", "bottle", "plant", "car",
+    "sofa", "toilet", "door", "curtain", "bathtub", "glass_box",
+)
+
+PORTED_TASKS = ("8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm")
+PORTED_MODELS = ("pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
+                 "pointnet_pp_mvm")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,
@@ -35,16 +47,9 @@ UNPORTED_DEFAULTS = {
     "moe_aux_weight": 0.01,
     "moe_dispatch": "masked",
     "moe_capacity_factor": 1.25,
-    "mvm_unmatched_penalty": 0.0,
-    "mvm_weight_floor": 0.0,
-    "mvm_mu_init": "zero",
-    "vm_mu_parameterization": "tanh",
     "async_checkpoint": False,
-    "debug_checks": False,
     "host_resident": False,
     "bn_sync_axis": None,
-    "kappa_default": 8.0,
-    "max_k": 4,
     "keep_best": True,
 }
 
@@ -65,17 +70,29 @@ class TrainConfig:
     seed: int = 42
     grad_clip: Optional[float] = None
     compute_dtype: Optional[str] = None  # "bfloat16": the trunk computes in bf16
+    # distribution heads
+    kappa_default: float = 8.0
+    max_k: int = 4
+    # the JAX package's improvements over the reference (0/"zero"/"tanh" = parity)
+    mvm_unmatched_penalty: float = 0.0  # guard against the weight-collapse minimum
+    mvm_weight_floor: float = 0.0  # w = (1-f)*softmax + f/K
+    mvm_mu_init: str = "zero"  # "spread": component mus start around the circle
+    vm_mu_parameterization: str = "tanh"  # "atan2": the wrap-free mu head
     # runtime
     out_dir: str = "results"
     checkpoint_every: int = 0  # epochs between checkpoints (0 = off)
+    debug_checks: bool = False  # per-step finite checks and debug_log.txt in out_dir
 
     def __post_init__(self):
         checks = (
             ("task", self.task in PORTED_TASKS, f"one of {PORTED_TASKS}"),
-            ("model", self.model == "pointnet_pp_8dir", "'pointnet_pp_8dir'"),
+            ("model", self.model in PORTED_MODELS, f"one of {PORTED_MODELS}"),
             ("rotation_mode", self.rotation_mode == "yaw", "'yaw'"),
             ("compute_dtype", self.compute_dtype in PORTED_COMPUTE_DTYPES,
              f"one of {PORTED_COMPUTE_DTYPES}"),
+            ("vm_mu_parameterization", self.vm_mu_parameterization in ("tanh", "atan2"),
+             "'tanh' or 'atan2'"),
+            ("mvm_mu_init", self.mvm_mu_init in ("zero", "spread"), "'zero' or 'spread'"),
         )
         for name, ok, ported in checks:
             if not ok:
@@ -104,6 +121,35 @@ PRESETS = {
     # train_8dir_KL.py: 8-dir soft-label KL, 6-class mix
     "8dir_kl": TrainConfig(task="8dir_kl", rotation_mode="yaw", classes=SIX_CLASS_MIX,
                            num_points=10_000),
+    # train_multi_8dir.py: unit-forward head projected to 8-dir, MSE
+    "multi_8dir": TrainConfig(task="multi_8dir", model="pointnet_pp_fwd", rotation_mode="yaw",
+                              classes=SIX_CLASS_MIX, num_points=10_000),
+    # train_single_peak_vonMises_KL.py: single-peak vM KL, 6-class mix
+    "vm_kl": TrainConfig(task="vm_kl", model="pointnet_pp_von_mises", rotation_mode="yaw",
+                         classes=SIX_CLASS_MIX, num_points=10_000),
+    # the same with the wrap-free atan2 mu head
+    "vm_kl_atan2": TrainConfig(task="vm_kl", model="pointnet_pp_von_mises", rotation_mode="yaw",
+                               classes=SIX_CLASS_MIX, num_points=10_000,
+                               vm_mu_parameterization="atan2"),
+    # matched MvM with the unmatched-weight penalty
+    "mvm_guarded": TrainConfig(task="mvm", model="pointnet_pp_mvm", rotation_mode="yaw",
+                               classes=MVM_CLASSES, epochs=100, grad_clip=1.0,
+                               num_points=10_000, mvm_unmatched_penalty=1.0),
+    # matched MvM, component mus initialised around the circle
+    "mvm_spread": TrainConfig(task="mvm", model="pointnet_pp_mvm", rotation_mode="yaw",
+                              classes=MVM_CLASSES, epochs=100, grad_clip=1.0,
+                              num_points=10_000, mvm_mu_init="spread"),
+    # matched MvM with a weight floor and the spread init
+    "mvm_robust": TrainConfig(task="mvm", model="pointnet_pp_mvm", rotation_mode="yaw",
+                              classes=MVM_CLASSES, epochs=100, grad_clip=1.0,
+                              num_points=10_000, mvm_weight_floor=0.1, mvm_mu_init="spread"),
+    # train_multi_peaks_vonMises_KL.py: matched MvM KL, 12 categories
+    "mvm": TrainConfig(task="mvm", model="pointnet_pp_mvm", rotation_mode="yaw",
+                       classes=MVM_CLASSES, epochs=100, grad_clip=1.0, num_points=10_000),
+    # train_multi_peaks_vonMises_KL_debug.py: the same with per-step finite checks
+    "mvm_debug": TrainConfig(task="mvm", model="pointnet_pp_mvm", rotation_mode="yaw",
+                             classes=MVM_CLASSES, epochs=100, grad_clip=1.0,
+                             num_points=10_000, debug_checks=True),
 }
 
 

@@ -1,11 +1,12 @@
 """Trace train steps on the card: where a step's time goes.
 
     python -m pointcloud_orientation_tpu_torch.train.profile_step [--out DIR] \
-        [--compute-dtype bfloat16]
+        [--preset NAME] [--compute-dtype bfloat16]
 
-Builds the 8dir_kl ``Trainer`` (B=16, N=10,000, full width, initialised
-from the preset's seed; the trunk in f32 or, with ``--compute-dtype
-bfloat16``, in bf16) on a synthetic set, warms up, then runs ``STEPS``
+Builds the ``Trainer`` of a preset (``8dir_kl`` by default, or any other of
+``train/config.py``: B=16, N=10,000, full width, initialised from the
+preset's seed; the trunk in f32 or, with ``--compute-dtype bfloat16``, in
+bf16) on a synthetic set of the preset's classes, warms up, then runs ``STEPS``
 train steps in each train configuration twice: once timed with the host
 clock around synchronised steps, once under ``torch.profiler``. Prints one
 JSON line per configuration: wall ms per step, device busy ms per step (the
@@ -27,13 +28,13 @@ from collections import defaultdict
 import torch
 
 from ..data import OrientationDataset, synthetic_modelnet
-from .config import preset
+from .config import PRESETS, preset
 from .trainer import Trainer
 
 STEPS = 5
 
 
-def _device_events(prof):
+def device_events(prof):
     """(name, microseconds) of every kernel, copy and fill that ran on the
     card (not the annotations that span them)."""
     out = []
@@ -67,7 +68,7 @@ def profile_mode(trainer: Trainer, steps: int, out_dir: str, mode: str) -> dict:
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"train_step_{mode}.json"))
-    events = _device_events(prof)
+    events = device_events(prof)
     busy_ms = sum(us for _, us in events) / 1e3 / steps
     by_name = defaultdict(float)
     for name, us in events:
@@ -90,14 +91,17 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--preset", default="8dir_kl", choices=sorted(PRESETS))
     ap.add_argument("--compute-dtype", default=None, dest="compute_dtype",
                     help="trunk compute dtype: float32 (default) or bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
-    cfg = preset("8dir_kl", compute_dtype=args.compute_dtype)
-    ds = OrientationDataset(*synthetic_modelnet(num_points=cfg.num_points, samples_per_class=8))
-    tag = f"_{cfg.compute_dtype}" if cfg.compute_dtype else ""
+    cfg = preset(args.preset, compute_dtype=args.compute_dtype)
+    ds = OrientationDataset(*synthetic_modelnet(num_points=cfg.num_points, samples_per_class=8,
+                                                class_names=list(cfg.classes)))
+    tag = (f"_{args.preset}" if args.preset != "8dir_kl" else "") + (
+        f"_{cfg.compute_dtype}" if cfg.compute_dtype else "")
     for mode in ("default", "fused"):
         trainer = Trainer(cfg, ds, device="cuda", fused_mlp_train=mode == "fused")
         print(json.dumps(profile_mode(trainer, STEPS, args.out, mode + tag)), flush=True)

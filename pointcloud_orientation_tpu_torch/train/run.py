@@ -1,14 +1,20 @@
 """CLI: ``python -m pointcloud_orientation_tpu_torch.train.run``.
 
 Counterpart of ``pointcloud_orientation_tpu/train/run.py`` for the flags
-this slice supports. Trains a preset on the card (``--device cuda``, the
-default) or the CPU, tests the best-val weights and writes ``metrics.json``
-and ``summary.txt`` to ``--out``.
+the port supports. Trains a preset (``8dir_kl``, ``8dir_mse``,
+``multi_8dir``, ``vm_kl``, ``vm_kl_atan2``, ``mvm``, ``mvm_guarded``,
+``mvm_spread``, ``mvm_robust``, ``mvm_debug``) on the card (``--device
+cuda``, the default) or the CPU, tests the best-val weights and writes
+``metrics.json`` and ``summary.txt`` (and, for ``mvm_debug``,
+``debug_log.txt``) to ``--out``.
 
-    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \\
-        --data synthetic --epochs 5 --device cuda --out results/torch_8dir_kl
+    python -m pointcloud_orientation_tpu_torch.train.run --preset vm_kl \\
+        --data synthetic --epochs 5 --device cuda --out results/torch_vm_kl
 
 Data: ``synthetic`` only (the HDF5 and PLY sources are not ported yet).
+The grid-pruned kNN is reached through ``PCOT_KNN=grid``, as in the JAX
+package (whose ``--knn`` flag offers only ``exact`` and the unported
+``approx``).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ def main(argv=None):
     cfg = preset(args.preset, **overrides)
     dataset = load_dataset(args.data, cfg.num_points, classes=cfg.classes)
     out_dir = args.out or os.path.join(cfg.out_dir, "torch_" + args.preset)
+    cfg = cfg.replace(out_dir=out_dir)  # debug_checks log beside the run's artifacts
     t0 = time.time()
     run_single(cfg, dataset, out_dir, args.device, args.fused_mlp_train)
     print(f"done in {(time.time() - t0) / 60:.1f} min; artifacts in {out_dir}", flush=True)

@@ -1,8 +1,8 @@
-"""Task adapters of the 8-direction tasks: (logits, batch, cfg) -> per-sample
-loss and per-sample angular error in degrees (NaN where undefined).
+"""Task adapters of the yaw tasks: (outputs, batch, cfg) -> per-sample loss
+and per-sample angular error in degrees (NaN where undefined).
 
-Counterpart of the ``8dir_kl`` and ``8dir_mse`` entries of
-``pointcloud_orientation_tpu/train/tasks.py``.
+Counterpart of the ``8dir_kl``, ``8dir_mse``, ``multi_8dir``, ``vm_kl`` and
+``mvm`` entries of ``pointcloud_orientation_tpu/train/tasks.py``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,11 @@ import torch
 
 from .. import losses as L
 from ..ops.dirs8 import DIRS_8
+from ..ops.matching import hungarian_small
 from ..ops.rotations import forward_to_mu, wrap_angle
+from ..ops.von_mises import kl_von_mises
+
+_DEG = 180.0 / math.pi
 
 
 def _unit(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -25,7 +29,7 @@ def _unit(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def _horizontal_angle_deg(pred_forward: torch.Tensor, gt_forward: torch.Tensor) -> torch.Tensor:
     """Yaw-only angular error between the horizontal projections."""
     d = wrap_angle(forward_to_mu(pred_forward) - forward_to_mu(gt_forward))
-    return torch.abs(d) * (180.0 / math.pi)
+    return torch.abs(d) * _DEG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,15 +38,21 @@ class TaskAdapter:
     angular_error: Optional[Callable] = None  # (outputs, batch, cfg) -> (B,) degrees
 
 
+def _nan_where(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, torch.full_like(x, math.nan), x)
+
+
+def _uniform_target(batch) -> torch.Tensor:
+    target = batch["probs_8dir"]
+    return target.amax(dim=-1) - target.amin(dim=-1) < 1e-6
+
+
 def _8dir_ang(outputs, batch, cfg):
     """Angle between the probability-weighted compass direction and the
     ground-truth forward; NaN for uniform-target categories."""
     probs = torch.softmax(outputs, dim=-1)
     pred = _unit(probs @ DIRS_8.to(probs.device, probs.dtype))
-    ang = _horizontal_angle_deg(pred, batch["forward"])
-    target = batch["probs_8dir"]
-    uniform = target.amax(dim=-1) - target.amin(dim=-1) < 1e-6
-    return torch.where(uniform, torch.full_like(ang, math.nan), ang)
+    return _nan_where(_uniform_target(batch), _horizontal_angle_deg(pred, batch["forward"]))
 
 
 def _8dir_kl(outputs, batch, cfg):
@@ -53,7 +63,53 @@ def _8dir_mse(outputs, batch, cfg):
     return L.softmax_mse_8dir_loss(outputs, batch["probs_8dir"])[1]
 
 
+def _multi_8dir(outputs, batch, cfg):
+    return L.projected_probs_mse_loss(outputs, batch["probs_8dir"])[1]
+
+
+def _multi_8dir_ang(outputs, batch, cfg):
+    return _nan_where(_uniform_target(batch), _horizontal_angle_deg(outputs, batch["forward"]))
+
+
+def _vm_kl(outputs, batch, cfg):
+    mu, kappa = outputs
+    return kl_von_mises(mu, kappa, batch["vm_mu"], batch["vm_kappa"])
+
+
+def _vm_ang(outputs, batch, cfg):
+    """|wrapped mu error| in degrees; NaN for symmetric categories."""
+    mu, _ = outputs
+    ang = torch.abs(wrap_angle(mu - batch["vm_mu"])) * _DEG
+    return _nan_where(~(batch["vm_kappa"] > 0), ang)
+
+
+def _mvm(outputs, batch, cfg):
+    mu, kappa, w = outputs
+    return L.mvm_matched_loss(mu, kappa, w, batch["mvm_mu"], batch["mvm_kappa"], batch["mvm_k"],
+                              unmatched_penalty=getattr(cfg, "mvm_unmatched_penalty", 0.0))[1]
+
+
+def _mvm_ang(outputs, batch, cfg):
+    """Mean matched peak angular error over the first ``k`` components, for
+    categories with concentrated peaks (kappa > 0); NaN otherwise."""
+    mu, kappa, _ = outputs
+    k = batch["mvm_k"]
+    cost = kl_von_mises(mu[:, :, None], kappa[:, :, None],
+                        batch["mvm_mu"][:, None, :], batch["mvm_kappa"][:, None, :])
+    cost = torch.nan_to_num(cost, nan=1e6, posinf=1e6, neginf=1e6)
+    col, _ = hungarian_small(cost, k)
+    matched_gt_mu = torch.gather(batch["mvm_mu"], 1, col.long())
+    ang = torch.abs(wrap_angle(mu - matched_gt_mu)) * _DEG
+    valid = (torch.arange(mu.shape[1], device=mu.device)[None] < k[:, None]) & (
+        batch["mvm_kappa"].amax(-1, keepdim=True) > 0)
+    mean = torch.where(valid, ang, torch.zeros_like(ang)).sum(-1) / valid.sum(-1).clamp_min(1)
+    return _nan_where(~valid.any(-1), mean)
+
+
 TASKS: Dict[str, TaskAdapter] = {
     "8dir_kl": TaskAdapter(_8dir_kl, _8dir_ang),
     "8dir_mse": TaskAdapter(_8dir_mse, _8dir_ang),
+    "multi_8dir": TaskAdapter(_multi_8dir, _multi_8dir_ang),
+    "vm_kl": TaskAdapter(_vm_kl, _vm_ang),
+    "mvm": TaskAdapter(_mvm, _mvm_ang),
 }

@@ -1,4 +1,5 @@
-"""Single-GPU trainer of the port: the 8-direction tasks on PointNetPP8Dir.
+"""Single-GPU trainer of the port: the yaw tasks on the PointNet++ heads
+(8-dir, unit forward, von Mises, mixture of von Mises).
 
 Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
 step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
@@ -9,9 +10,10 @@ optax's ``clip_by_global_norm``. The loss of a step is the masked mean
 ``sum(per * valid) / max(sum(valid), 1)`` over a batch whose tail is padded
 by wrapping. Every random draw comes from a ``torch.Generator`` keyed by the
 run's seed and the absolute epoch and step, so that a resumed run
-reproduces an uninterrupted one. Not ported yet (ROADMAP.md): the
-whole-epoch scan and block paths, meshes, asynchronous checkpoints,
-preemption, debug checks, host-resident streaming.
+reproduces an uninterrupted one. ``debug_checks`` runs the JAX package's
+per-step finite checks and ``debug_log.txt`` (:meth:`Trainer.debug_check`).
+Not ported yet (ROADMAP.md): the whole-epoch scan and block paths, meshes,
+asynchronous checkpoints, preemption, host-resident streaming.
 
 Example
 -------
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from ..data import OrientationDataset, augment_batch
-from ..models import PointNetPP8Dir
+from ..models import MODEL_REGISTRY
 from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from .config import TrainConfig
 from .metrics import MetricsAccumulator, write_summary_txt
@@ -70,14 +72,31 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
 
+def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
+    """The model's constructor arguments that the config sets, as the JAX
+    package's ``Trainer._build_model`` sets them."""
+    kwargs: Dict[str, Any] = {"dtype": config.compute_dtype}
+    if config.model == "pointnet_pp_mvm":
+        kwargs.update(max_K=config.max_k, weight_floor=config.mvm_weight_floor,
+                      mu_init=config.mvm_mu_init)
+    if config.model == "pointnet_pp_von_mises":
+        kwargs["mu_parameterization"] = config.vm_mu_parameterization
+    return kwargs
+
+
+def _outputs_tuple(outputs) -> tuple:
+    return outputs if isinstance(outputs, tuple) else (outputs,)
+
+
 class Trainer:
     """Builds the model and optimizer for a config on ``device`` ("cuda"
     unless the caller asks for the CPU) and runs the train/val/test
     protocol. ``fused_mlp_train`` selects the shared MLPs' train
     configuration (``models/layers.py``) and ``config.compute_dtype`` the
     trunk's compute type (parameters and Adam state stay f32);
-    ``model_kwargs`` go to ``PointNetPP8Dir`` (tests pass
-    ``sampling="first", p_drop=0.0``)."""
+    ``model_kwargs`` go to the model after the config's own
+    (:func:`config_model_kwargs`; tests pass ``sampling="first",
+    p_drop=0.0``)."""
 
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
@@ -97,9 +116,11 @@ class Trainer:
         f32_matmuls()  # the JAX side computes at HIGHEST f32: no TF32 in cuBLAS/cuDNN
         if config.compute_dtype == "bfloat16":
             bf16_matmuls()  # cuBLAS's bf16 products accumulate in f32, as XLA's
-        self.model = PointNetPP8Dir(fused_mlp_train=fused_mlp_train,
-                                    dtype=config.compute_dtype, **model_kwargs)
+        kwargs = {**config_model_kwargs(config), **model_kwargs}
+        self.model = MODEL_REGISTRY[config.model](fused_mlp_train=fused_mlp_train, **kwargs)
         flax_dense_init_(self.model, torch.Generator().manual_seed(config.seed))
+        if hasattr(self.model, "reset_head_parameters"):  # the MvM heads' zero inits
+            self.model.reset_head_parameters()
         self.model.to(self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -130,42 +151,99 @@ class Trainer:
                      generator: torch.Generator):
         """Gather a batch on the host, move it to the device and augment it
         there (subsample, yaw rotation, targets)."""
-        pts, labels, uniform, _, _ = ds.gather_host(idx)
+        pts, labels, uniform, symm, k_spec = ds.gather_host(idx)
         pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
-        uniform = torch.from_numpy(np.asarray(uniform)).to(self.device)
-        batch = augment_batch(generator, pts, uniform, self.num_points, self.cfg.rotation_mode)
+        uniform, symm, k_spec = (torch.from_numpy(np.asarray(a)).to(self.device)
+                                 for a in (uniform, symm, k_spec))
+        batch = augment_batch(generator, pts, uniform, symm, k_spec, self.num_points,
+                              self.cfg.rotation_mode, self.cfg.kappa_default, self.cfg.max_k)
         return batch, torch.from_numpy(np.asarray(valid, np.float32)).to(self.device), labels
 
     # ---------- steps ----------
 
-    def _metrics(self, logits, batch, per, valid) -> Dict[str, torch.Tensor]:
+    def _metrics(self, outputs, batch, per, valid) -> Dict[str, Any]:
         scalar = (per * valid).sum() / valid.sum().clamp_min(1.0)
-        ang = self.adapter.angular_error(logits, batch, self.cfg)
-        return {"loss": scalar, "per_sample": per, "angular": ang}
+        ang = self.adapter.angular_error(outputs, batch, self.cfg)
+        metrics = {"loss": scalar, "per_sample": per, "angular": ang}
+        if self.cfg.debug_checks:  # the raw outputs, for debug_check's dump
+            metrics["outputs"] = tuple(o.detach() for o in _outputs_tuple(outputs))
+        return metrics
 
     def train_step(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor,
-                   generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator]) -> Dict[str, Any]:
         """One optimizer step on a batch; ``generator`` feeds the centroid
         sampling and dropout. Returns detached loss, per-sample losses and
-        angular errors."""
+        angular errors; with ``debug_checks`` also the outputs and, per
+        parameter, whether its gradient is finite (before clipping)."""
         self.model.train()
-        logits = self.model(batch["points"], generator)
-        per = self.adapter.loss(logits, batch, self.cfg)
-        metrics = self._metrics(logits, batch, per, valid)
+        outputs = self.model(batch["points"], generator)
+        per = self.adapter.loss(outputs, batch, self.cfg)
+        metrics = self._metrics(outputs, batch, per, valid)
         self.optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        if self.cfg.debug_checks:
+            named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
+            finite = torch.stack([torch.isfinite(g).all() for _, g in named])
+            metrics["grad_finite"] = dict(zip((n for n, _ in named), finite))
         if self.cfg.grad_clip is not None:
             clip_by_global_norm_(self.model.parameters(), self.cfg.grad_clip)
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor,
-                  generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+                  generator: Optional[torch.Generator]) -> Dict[str, Any]:
         self.model.eval()
-        logits = self.model(batch["points"], generator)
-        return self._metrics(logits, batch, self.adapter.loss(logits, batch, self.cfg), valid)
+        outputs = self.model(batch["points"], generator)
+        return self._metrics(outputs, batch, self.adapter.loss(outputs, batch, self.cfg), valid)
+
+    def debug_check(self, metrics: Dict[str, Any], epoch: int, batch_idx: int) -> None:
+        """The JAX package's per-step finite checks (``Trainer._debug_check``),
+        in its order: each model output must be finite; then one
+        ``debug_log.txt`` entry in ``cfg.out_dir`` (loss, per-sample losses,
+        the outputs of width <= 32, the gradients' finiteness); then the
+        loss must be finite, then every parameter's gradient. Raises
+        ``FloatingPointError`` naming the first non-finite value. Reads the
+        step's results on the host: one device sync per step. (The JAX
+        check also tests ``i0e``/``i1e`` of an output whose pytree path
+        names "kappa"; the heads' tuple paths are "[0]", "[1]", ..., so it
+        never runs there, and both are finite for a finite kappa.)"""
+        loss = float(metrics["loss"])
+        per = metrics["per_sample"].cpu().numpy()
+        where = f"at epoch {epoch} batch {batch_idx}"
+        outs = metrics.get("outputs")
+        out_lines = []
+        if outs is not None:
+            # the JAX pytree paths: "out" for one array, "[i]" for a tuple's entries
+            names = ["out"] if len(outs) == 1 else [f"[{i}]" for i in range(len(outs))]
+            for name, leaf in zip(names, outs):
+                arr = leaf.cpu().numpy()
+                if not np.isfinite(arr).all():
+                    raise FloatingPointError(f"non-finite model output {name} {where}: {arr}")
+                if arr.ndim == 2 and arr.shape[1] <= 32:
+                    out_lines.append(
+                        f"  {name}={np.array2string(arr, precision=4, max_line_width=200)}")
+        grad_finite = {n: bool(v) for n, v in metrics.get("grad_finite", {}).items()}
+        try:
+            os.makedirs(self.cfg.out_dir, exist_ok=True)
+            with open(os.path.join(self.cfg.out_dir, "debug_log.txt"), "a") as f:
+                f.write(f"epoch={epoch} batch={batch_idx} loss={loss:.6f} "
+                        f"per_sample={np.array2string(per, precision=4, max_line_width=200)}\n")
+                for line in out_lines:
+                    f.write(line + "\n")
+                if "grad_finite" in metrics:
+                    bad = [n for n, ok in grad_finite.items() if not ok]
+                    f.write(f"  grads: {len(grad_finite)} params, "
+                            f"non-finite: {bad if bad else 'none'}\n")
+        except OSError:
+            pass
+        if not np.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss {where}: loss={loss}, per-sample={per}")
+        for name, ok in grad_finite.items():
+            if not ok:
+                raise FloatingPointError(
+                    f"non-finite grad in param {name} {where} (loss itself finite: {loss})")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -173,7 +251,8 @@ class Trainer:
 
     def run_phase(self, ds: OrientationDataset, train: bool, epoch: int) -> MetricsAccumulator:
         """One pass over ``ds``. Per-step results stay on the device until
-        the pass ends, so the host does not wait on the device every step."""
+        the pass ends, so the host does not wait on the device every step
+        (unless ``debug_checks`` reads them after each step)."""
         acc = MetricsAccumulator(self.class_names)
         pending = []
         n_clouds = 0.0
@@ -184,6 +263,8 @@ class Trainer:
             batch, valid_dev, labels = self.device_batch(ds, idx, valid, gen)
             step = self.train_step if train else self.eval_step
             m = step(batch, valid_dev, gen)
+            if self.cfg.debug_checks:
+                self.debug_check(m, epoch, bi)
             pending.append((m["loss"], m["per_sample"], m["angular"], labels, valid))
             n_clouds += float(valid.sum())
         self._sync()

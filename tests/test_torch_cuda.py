@@ -133,7 +133,8 @@ def test_logits_through_kernels_match_plain_versions_on_card(cuda_device):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
-        "knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
+        "knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
+        "topk_min": 0}
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
         want = pred(clouds)
@@ -357,7 +358,7 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
     got = _step_grads(trainer, batch, valid, 3)
     grown = {k: v - before[k] for k, v in K.launch_counts().items()}
     untouched = {"knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0,
-                     "sa_mlp_max_bwd_bf16": 0}
+                     "sa_mlp_max_bwd_bf16": 0, "topk_min": 0}
     if fused:
         assert grown == {"sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 1,
                          "sa_mlp_max_bwd": 3, **untouched}, grown
@@ -489,7 +490,8 @@ def test_classifier_through_kernels_matches_plain_versions_on_card(cuda_device):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 0, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
-        "knn": 0, "fps": 2, "ball_query": 2, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
+        "knn": 0, "fps": 2, "ball_query": 2, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
+        "topk_min": 0}
     pred.generator.manual_seed(1)
     with mock.patch.object(K, "fps", K.fps_plain), \
             mock.patch.object(K, "ball_query", K.ball_query_plain), \
@@ -521,3 +523,68 @@ def test_large_clouds_serve_on_card(cuda_device, n):
             mock.patch.object(K, "knn", K.knn_plain):
         want = pred(clouds)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def topk_min_case(gen, dev, B, S, M, Kn):
+    """Candidate tiles as the grid path makes them, with many exact ties
+    (multiples of 1/8), a row with 5 finite entries, an all-inf row and a
+    row with exactly K finite entries."""
+    d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
+    d[0, 0, 5:] = math.inf
+    d[0, 1] = math.inf
+    d[-1, -1, Kn:] = math.inf
+    return d.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128, 1024, 32), (16, 128, 1000, 32), (16, 128, 32, 32),
+                                   (16, 128, 4096, 32), (4, 128, 20000, 32), (2, 3, 70, 64)],
+                         ids=["sa1-grid", "M=1000", "M=K", "M=4096", "M=20000-device-memory",
+                              "K=64"])
+def test_topk_min_kernel_equals_plain_on_card(cuda_device, shape):
+    """Bit-equal indices, on tiles with ties and short rows and on random
+    distances, at the shapes chip_smoke.py checks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    B, S, M, Kn = shape
+    for d in (topk_min_case(gen, cuda_device, *shape),
+              torch.rand((B, S, M), generator=gen, device=cuda_device)):
+        before = K.topk_min.launches
+        got = K.topk_min(d, Kn)
+        torch.cuda.synchronize()
+        assert K.topk_min.launches == before + 1
+        assert torch.equal(got, K.topk_min_plain(d, Kn))
+
+
+@pytest.mark.cuda
+def test_topk_min_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    d = torch.zeros((1, 2, 100), device=cuda_device)
+    with pytest.raises(ValueError):
+        K.topk_min(d, 65)
+    with pytest.raises(ValueError):
+        K.topk_min(torch.zeros((1, 2, K.TOPK_MIN_MAX_M + 1), device=cuda_device), 4)
+    with pytest.raises(ValueError):
+        K.topk_min(d[..., ::2], 4)  # not contiguous
+
+
+@pytest.mark.cuda
+def test_grid_request_launches_topk_min_and_matches_exact_on_card(cuda_device):
+    """An 8-dir request at B=4, N=10,000 under the grid dispatch on a cloud
+    whose first 128 points (the centroids, sampling "first") lie inside:
+    one topk_min launch, no kNN (the certificate holds), sa_group at sa2
+    only; logits within 1e-4 of the exact dispatch."""
+    v = random_flax_variables(9)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=10_000, max_batch=4, device=cuda_device,
+                                sampling="first")
+    clouds = np.random.default_rng(9).uniform(-1, 1, size=(4, 10_000, 3)).astype(np.float32)
+    clouds[:, :128] *= 0.5
+    try:
+        TG.set_knn_impl("grid")
+        before = K.launch_counts()
+        got = pred(clouds)
+        after = K.launch_counts()
+    finally:
+        TG.set_knn_impl("exact")
+    grown = {k: after[k] - before[k] for k in after}
+    assert grown == {**{k: 0 for k in grown}, "topk_min": 1, "sa_group": 1, "sa_mlp_max": 3}
+    np.testing.assert_allclose(got, pred(clouds), rtol=1e-4, atol=1e-4)

@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py run where JAX is absent (serving both
-models, one train step in each train configuration, the training CLI), and
-chip_smoke.py refuses to run without a card."""
+"""The port and chip_smoke.py run where JAX is absent (serving the 8-dir,
+classifier, vM and MvM models, one train step in each train configuration
+and one of the MvM task, the training CLI), and chip_smoke.py refuses to
+run without a card."""
 
 import os
 import shutil
@@ -69,6 +70,17 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
             batch, valid, _ = t.device_batch(ds, idx, valid, t.generator(0, 1, 0))
             loss = float(t.train_step(batch, valid, t.generator(0, 1, 0))["loss"])
             assert np.isfinite(loss), loss
+        # the distribution heads: served, and one CPU step of the MvM task
+        for name, kw in (("pointnet_pp_von_mises", {"mu_parameterization": "atan2"}),
+                         ("pointnet_pp_mvm", {"mu_init": "spread"})):
+            v = port.random_flax_variables(0, name, **kw)
+            p = port.OrientationPredictor(name, v["params"], v["batch_stats"], num_points=128,
+                                          max_batch=2, device="cpu")
+            out = p(np.random.default_rng(0).normal(size=(3, 100, 3)).astype(np.float32))
+            assert isinstance(out, tuple) and all(o.shape[0] == 3 for o in out)
+        t = Trainer(preset("mvm_robust", batch_size=4, num_points=160), ds, device="cpu")
+        batch, valid, _ = t.device_batch(ds, idx, valid.cpu().numpy(), t.generator(0, 1, 0))
+        assert np.isfinite(float(t.train_step(batch, valid, t.generator(0, 1, 0))["loss"]))
         main(["--preset", "8dir_kl", "--epochs", "1", "--num-points", "128",
               "--batch-size", "16", "--device", "cpu", "--out", sys.argv[1]])
         print("IMPORTED", len(names))

@@ -59,7 +59,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     assert torch.equal(K.sa_mlp_max(g, layers), K.sa_mlp_max_plain(g, layers))
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
                                  "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
-                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
+                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
+                                 "topk_min": 0}
 
 
 def test_wrappers_refuse_other_dtypes_and_devices():
@@ -91,7 +92,7 @@ def test_build_flags_and_signatures():
     assert "arch=compute_90a,code=sm_90a" in flags and "-Xptxas -v" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == ["ball_query.cu", "fps.cu", "knn.cu", "sa_group.cu", "sa_mlp_max.cu",
-                       "sa_mlp_max_bwd.cu", "sa_scatter.cu"]
+                       "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu"]
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text

@@ -13,6 +13,9 @@ from pointcloud_orientation_tpu_torch.models import (
     MODEL_REGISTRY,
     PointNetPP8Dir,
     PointNetPPCls,
+    PointNetPPFwd,
+    PointNetPPMvM,
+    PointNetPPVonMises,
     SharedMLP,
 )
 from pointcloud_orientation_tpu_torch.utils import load_flax_variables, random_flax_variables
@@ -120,6 +123,9 @@ def test_model_refuses_what_is_not_ported(kwargs):
 
 def test_registry_holds_the_ported_model():
     assert MODEL_REGISTRY == {"pointnet_pp_8dir": PointNetPP8Dir,
+                              "pointnet_pp_fwd": PointNetPPFwd,
+                              "pointnet_pp_von_mises": PointNetPPVonMises,
+                              "pointnet_pp_mvm": PointNetPPMvM,
                               "pointnet_pp_cls": PointNetPPCls}
 
 

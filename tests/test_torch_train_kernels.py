@@ -182,7 +182,8 @@ def test_backward_wrappers_count_nothing_on_the_cpu(rng):
                             need_dgrouped=False)[0] is None
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
                                  "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
-                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0}
+                                 "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
+                                 "topk_min": 0}
     with pytest.raises(TypeError):
         K.sa_group_scatter(idx, torch.ones((1, 3, 2, 4), dtype=torch.float64), 5)
     with pytest.raises(TypeError):  # grouped features are f32 in either variant

@@ -314,9 +314,12 @@ def test_pipeline_pieces_match_jax(rng):
 def test_augment_batch_is_seeded_and_consistent():
     pts = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 200, 3)).astype(np.float32))
     uniform = torch.tensor([False, True, False])
+    symm = torch.tensor([False, True, False])
+    k_spec = torch.tensor([1, 0, 2], dtype=torch.int32)
 
     def run(seed):
-        return D.augment_batch(torch.Generator().manual_seed(seed), pts, uniform, 64)
+        return D.augment_batch(torch.Generator().manual_seed(seed), pts, uniform, symm, k_spec,
+                               64)
 
     a, b, c = run(1), run(1), run(2)
     assert all(torch.equal(a[k], b[k]) for k in a)
@@ -390,11 +393,11 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
     assert preset("8dir_mse").task == "8dir_mse"
     assert preset("8dir_kl", compute_dtype=None).task == "8dir_kl"  # a default is fine
     with pytest.raises(NotImplementedError):
-        preset("mvm")
+        preset("axes_all_labels")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
-        preset("8dir_kl", task="vm_kl")
+        preset("8dir_kl", task="axes")
     with pytest.raises(TypeError):
         preset("8dir_kl", no_such_field=1)
 
