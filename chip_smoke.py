@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``pointcloud_orientation_tpu_torch/csrc``
 with nvcc and holds each kernel against its plain PyTorch version at the
-shapes its path gives it. Then drives the main paths at full width, random
+shapes its path gives it (the f32 MLP kernel, 3xTF32 on the tensor cores,
+also against a float64 product beside the plain f32 version). Then drives the main paths at full width, random
 weights from a seed, each with the launch counters set to 0 just before and
 read just after: serving through ``OrientationPredictor`` (PointNet++ 8-dir)
 at N=1024 and N=10,000; serving the ModelNet40 classifier
@@ -59,12 +60,17 @@ from pointcloud_orientation_tpu_torch.train import Trainer, preset
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside
-# the tensor cores, and dense bf16 in the tensor cores (f32 accumulation).
-# The bound of a kernel is the larger of its bytes and its operations over
-# these (a bf16 kernel's products at the bf16 rate, the rest at the f32 one).
+# the tensor cores, and dense bf16 and TF32 in the tensor cores (f32
+# accumulation). The bound of a kernel is the larger of its bytes and its
+# operations over these: a bf16 kernel's products at the bf16 rate; the
+# products of an f32 MLP kernel (forward and backward) at the least time the
+# card takes for f32-grade products, three TF32 products each (3xTF32), a
+# third of the TF32 rate; the rest at the f32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_PRODUCT_FLOPS = PEAK_TF32_FLOPS / 3
 TIMING_ITERS = 20
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's SM clock: a sleep at least this long
 SEED = 0
@@ -91,6 +97,7 @@ SA_MLP_SHAPES = {
 BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
                  "sa_mlp_max": ("sa1 B=64", "sa2 B=64", "sa3 B=64")}
 MLP_TOL = 1e-4  # rtol and atol: the kernel sums in another order than cuBLAS
+F64_REL_FLOOR = 1e-3  # outputs held to a relative error against float64, of the largest
 LOGIT_TOL = 1e-4
 SERVE_KERNELS = ("sa_group", "sa_mlp_max")
 # bf16 variants of the MLP kernels, at the 8-dir serving shapes and the K=128
@@ -209,12 +216,15 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
     return timed(fn, iters, warmup)[0]
 
 
-def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0,
+             f32_products: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes' time and the operations' time: ``flops`` at
     the f32 peak, ``bf16_flops`` (products of bf16 operands) at the bf16
-    tensor-core peak."""
+    tensor-core peak, ``f32_products`` (f32 matrix products) at a third of
+    the TF32 tensor-core peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+             + f32_products / PEAK_F32_PRODUCT_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,17 +237,16 @@ def sa_group_cost(B, N, S, Kn, D) -> tuple[float, float]:
     return nbytes, flops
 
 
-def sa_mlp_cost(B, Kn, S, widths, bf16=False) -> tuple[float, ...]:
-    """Bytes (grouped, the layers and the output once, all f32) and
-    operations: the products, then 3 per activation (scale, shift, ReLU)
-    and the max. With ``bf16`` the products are returned apart, as bf16
-    operations."""
+def sa_mlp_cost(B, Kn, S, widths) -> tuple[float, float, float]:
+    """Bytes (grouped, the layers and the output once, all f32), the
+    elementwise operations (3 per activation: scale, shift, ReLU; and the
+    max) and the products' operations, apart."""
     rows = B * Kn * S
     pairs = list(zip(widths[:-1], widths[1:]))
     nbytes = 4 * (rows * widths[0] + sum(ci * co + 2 * co for ci, co in pairs) + B * S * widths[-1])
     products = sum(2 * rows * ci * co for ci, co in pairs)
     rest = sum(3 * rows * co for ci, co in pairs) + rows * widths[-1]
-    return (nbytes, rest, products) if bf16 else (nbytes, products + rest)
+    return nbytes, rest, products
 
 
 def fps_cost(B, N, npoint) -> tuple[float, float]:
@@ -326,6 +335,28 @@ def sa_group_inputs(shape, gen, dev, tiled: bool):
     return xyz, feats, cidx
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds finite values."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mlp_max_3xtf32(grouped, layers):
+    """The f32 MLP kernel's split in plain PyTorch: every product as
+    lo*hi + hi*lo + hi*hi of TF32 halves (hi = rna(x), lo = rna(x - hi)),
+    each product exact in f32 and summed by an f32 GEMM (cuBLAS with TF32
+    off, PyTorch's default), so its error against float64 is the split's
+    alone, without the tensor cores' accumulation (the copy in
+    tests/test_torch_kernels.py holds it to the Pallas kernel on the CPU)."""
+    B, Kn, S, C = grouped.shape
+    x = grouped.reshape(-1, C)
+    for w, s, t in layers:
+        xh, wh = tf32_rna(x), tf32_rna(w)
+        z = (tf32_rna(x - xh) @ wh + xh @ tf32_rna(w - wh)) + xh @ wh
+        x = torch.relu(z * s + t)
+    return x.reshape(B, Kn, S, -1).amax(dim=1)
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -358,11 +389,26 @@ def phase_kernels(dev) -> dict:
         max_abs = float(err.max())
         max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
         ok = bool(torch.allclose(got, ref, rtol=MLP_TOL, atol=MLP_TOL))
+        # the kernel (3xTF32), the plain f32 version and the kernel's split
+        # emulated with f32 GEMMs, each against the same function in
+        # float64: the largest error relative to the output's largest entry,
+        # and relative per output over the outputs of at least F64_REL_FLOOR
+        # of it (a pooled output near 0 has no meaningful relative error)
+        ref64 = K.sa_mlp_max_plain(g.double(), [tuple(x.double() for x in layer)
+                                                for layer in layers])
+        scale64 = float(ref64.abs().max())
+        big = ref64.abs() >= F64_REL_FLOOR * scale64
+        vs_f64 = {}
+        for label, x in (("kernel", got), ("plain_f32", ref),
+                         ("emulated_3xtf32", mlp_max_3xtf32(g, layers))):
+            e64 = (x.double() - ref64).abs()
+            vs_f64[label] = {"max_abs_err_over_scale": float(e64.max()) / scale64,
+                             "max_rel_err": float((e64[big] / ref64.abs()[big]).max())}
         emit("kernel_check", kernel="sa_mlp_max", shape=name, max_abs_err=max_abs,
-             max_rel_err=max_rel, tol=MLP_TOL, ok=ok)
+             max_rel_err=max_rel, tol=MLP_TOL, ok=ok, vs_f64=vs_f64)
         if not ok or not torch.isfinite(got).all():
             fail(f"sa_mlp_max {name}: max abs err {max_abs} beyond rtol=atol={MLP_TOL}")
-        results["sa_mlp_max"][name] = {"max_abs_err": max_abs}
+        results["sa_mlp_max"][name] = {"max_abs_err": max_abs, "vs_f64": vs_f64}
     return results
 
 
@@ -628,7 +674,8 @@ def phase_timing(dev, checks: dict, serve: dict) -> list:
         layers = make_layers(widths, gen, dev)
         ms, host_ms = timed(lambda: K.sa_mlp_max(g, layers))
         plain_ms = cuda_ms(lambda: K.sa_mlp_max_plain(g, layers))
-        b_ms, b_by = bound_ms(*sa_mlp_cost(B, Kn, S, widths))
+        nbytes, rest, products = sa_mlp_cost(B, Kn, S, widths)
+        b_ms, b_by = bound_ms(nbytes, rest, f32_products=products)
         per_shape["sa_mlp_max"][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                              bound_by=b_by, host_ms=host_ms,
                                              **checks["sa_mlp_max"][name])
@@ -755,17 +802,19 @@ def scatter_cost(B, N, S, Kn, D) -> tuple[float, float]:
     return 4 * (B * Kn * S * D + B * S * Kn + B * N * D), B * S * Kn * D
 
 
-def mlp_bwd_cost(B, Kn, S, widths) -> tuple[float, float]:
+def mlp_bwd_cost(B, Kn, S, widths) -> tuple[float, float, float]:
     """Bytes: grouped, the layers and dpooled read once; dgrouped and the
-    summed dW, dscale, dshift written once. Operations: the recompute, dW
-    and da products (6 * rows * sum Cin*Cout) and ~12 elementwise per
-    activation (affine, relu, max/tie split, mask, dscale/dshift sums)."""
+    summed dW, dscale, dshift written once. Operations, apart: ~12
+    elementwise per activation (affine, relu, max/tie split, mask,
+    dscale/dshift sums), and the recompute, dW and da products (6 * rows *
+    sum Cin*Cout)."""
     rows = B * Kn * S
     pairs = list(zip(widths[:-1], widths[1:]))
     params = sum(ci * co + 2 * co for ci, co in pairs)
     nbytes = 4 * (rows * widths[0] + params + B * S * widths[-1]) + 4 * (rows * widths[0] + params)
-    flops = sum(6 * rows * ci * co + 12 * rows * co for ci, co in pairs)
-    return nbytes, flops
+    rest = sum(12 * rows * co for ci, co in pairs)
+    products = sum(6 * rows * ci * co for ci, co in pairs)
+    return nbytes, rest, products
 
 
 def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
@@ -1017,7 +1066,8 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
         dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
         ms, host_ms = timed(lambda: K.sa_mlp_max_bwd(g, layers, dp), iters=10)
         plain_ms = cuda_ms(lambda: K.sa_mlp_max_bwd_plain(g, layers, dp), iters=10)
-        b_ms, b_by = bound_ms(*mlp_bwd_cost(B, Kn, S, widths))
+        nbytes, rest, products = mlp_bwd_cost(B, Kn, S, widths)
+        b_ms, b_by = bound_ms(nbytes, rest, f32_products=products)
         per_shape["sa_mlp_max_bwd"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                                  bound_ms=b_ms, bound_by=b_by, host_ms=host_ms,
                                                  **checks["sa_mlp_max_bwd"][name])
@@ -1324,7 +1374,7 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
         ms, host_ms = timed(lambda: K.sa_mlp_max(g, layers, bf16=True))
         f32_ms = cuda_ms(lambda: K.sa_mlp_max(g, layers))
         plain_ms = cuda_ms(lambda: K.sa_mlp_max_plain(g, layers, bf16=True))
-        b_ms, b_by = bound_ms(*sa_mlp_cost(B, Kn, S, widths, bf16=True))
+        b_ms, b_by = bound_ms(*sa_mlp_cost(B, Kn, S, widths))
         per_shape["sa_mlp_max_bf16"][name] = dict(
             ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             share=b_ms / ms, library_ms=None, host_ms=host_ms,
@@ -1337,9 +1387,7 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
         ms, host_ms = timed(lambda: K.sa_mlp_max_bwd(g, layers, dp, bf16=True), iters=10)
         f32_ms = cuda_ms(lambda: K.sa_mlp_max_bwd(g, layers, dp), iters=10)
         plain_ms = cuda_ms(lambda: K.sa_mlp_max_bwd_plain(g, layers, dp, bf16=True), iters=10)
-        nbytes, flops = mlp_bwd_cost(B, Kn, S, widths)
-        products = sum(6 * B * Kn * S * ci * co for ci, co in zip(widths[:-1], widths[1:]))
-        b_ms, b_by = bound_ms(nbytes, flops - products, products)
+        b_ms, b_by = bound_ms(*mlp_bwd_cost(B, Kn, S, widths))
         per_shape["sa_mlp_max_bwd_bf16"][name] = dict(
             ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             share=b_ms / ms, library_ms=None, host_ms=host_ms,
@@ -1413,11 +1461,13 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
 # ---------------------------------------------------------------------------
 
 # topk_min: (B, S, M, K). The 8-dir sa1 grid shape at N=10,000, an M that is
-# not a multiple of 32, M = K, a staged row of 4,096 entries, and the
-# device-memory path (rows beyond the kernel's 12,288 staged entries).
+# not a multiple of 32, M = K, rows of 4,096 (the window of
+# PCOT_KNN_GRID_M=4096) and 20,000 entries, both staged in shared memory, and
+# the device-memory path (rows beyond the kernel's 57,344 staged entries).
 TOPK_SHAPES = {"sa1 B=16 M=1024": (16, 128, 1024, 32), "M=1000": (16, 128, 1000, 32),
                "M=K=32": (16, 128, 32, 32), "M=4096": (16, 128, 4096, 32),
-               "M=20000 device memory": (4, 128, 20_000, 32)}
+               "M=20000": (4, 128, 20_000, 32),
+               "M=230000 device memory": (1, 16, 230_000, 32)}
 GRID_N = 10_000
 # the heads served at B=16, N=10,000: (case, model, random_flax_variables options)
 HEAD_CASES = (("fwd", "pointnet_pp_fwd", {}),
@@ -1432,11 +1482,16 @@ TRAIN_HEADS_GRID = ("vm_kl", "mvm_robust")
 
 def topk_min_case(gen, dev, B, S, M, Kn, case):
     """A candidate tile: "ties" (multiples of 1/8: many exact ties, a row
-    with 5 finite entries, an all-inf row, a row with exactly K) or
-    "random" (uniform distances, the last quarter of each row inf, as a
-    window's empty slots)."""
-    if case == "ties":
-        d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
+    with 5 finite entries, an all-inf row, a row with exactly K), "signed"
+    (the same rows, the ties drawn from negative values, -0.0 beside 0.0 and
+    positive ones) or "random" (uniform distances, the last quarter of each
+    row inf, as a window's empty slots)."""
+    if case in ("ties", "signed"):
+        if case == "signed":
+            values = torch.tensor([-2.5, -1.0, -0.0, 0.0, 0.125, 3.0], device=dev)
+            d = values[torch.randint(0, len(values), (B, S, M), generator=gen, device=dev)]
+        else:
+            d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
         d[0, 0, 5:] = math.inf
         d[0, 1] = math.inf
         d[-1, -1, Kn:] = math.inf
@@ -1454,13 +1509,13 @@ def topk_min_cost(B, S, M, Kn) -> tuple[float, float]:
 
 def phase_kernels_topk_min(dev) -> dict:
     """The topk_min kernel bit-equal in indices to its plain version at every
-    TOPK_SHAPES shape, on tie-rich tiles with short and empty rows and on
-    random ones."""
+    TOPK_SHAPES shape, on tie-rich tiles with short and empty rows (also with
+    negative values and -0.0 beside 0.0) and on random ones."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 15)
     results = {}
     for name, (B, S, M, Kn) in TOPK_SHAPES.items():
-        for case in ("ties", "random"):
+        for case in ("ties", "signed", "random"):
             d = topk_min_case(gen, dev, B, S, M, Kn, case)
             got = K.topk_min(d, Kn)
             want = K.topk_min_plain(d, Kn)
@@ -1468,10 +1523,11 @@ def phase_kernels_topk_min(dev) -> dict:
             if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
                 fail(f"topk_min {name} {case}: {tuple(got.shape)} {got.dtype}, differs in "
                      f"{int((got != want).sum()) if got.shape == want.shape else 'shape'}")
-            if case == "ties" and (bool(got[0, 1].any()) or bool(got[0, 0, 5:].any())):
+            if case != "random" and (bool(got[0, 1].any()) or bool(got[0, 0, 5:].any())):
                 fail(f"topk_min {name}: a row past its finite entries is not 0: {got[0, :2]}")
         results[name] = {"max_abs_err": 0.0, "exact": True}
-        emit("kernel_check", kernel="topk_min", shape=name, exact=True, inputs=["ties", "random"])
+        emit("kernel_check", kernel="topk_min", shape=name, exact=True,
+             inputs=["ties", "signed", "random"])
     emit("kernels_topk_min", shapes=list(TOPK_SHAPES), exact=True)
     return {"topk_min": results}
 
@@ -1735,7 +1791,8 @@ def profiled_ms(fn, iters: int = 5) -> float:
 
 def phase_timing_grid(dev, checks: dict, serve_grid: dict, serve_heads: dict,
                       train_heads: dict) -> list:
-    """topk_min at its shapes (CUDA events after a device sleep, bound, plain
+    """topk_min at its shapes on random distances, and on the tie-rich
+    "ties" and "signed" tiles (CUDA events after a device sleep, bound, plain
     version, ``torch.topk``); the grid stage at sa1 (B=16, N=10,000) split
     into index build, window gather and topk_min from the profiler's device
     durations, beside the whole stage and the exact path's sa1; a request
@@ -1745,14 +1802,17 @@ def phase_timing_grid(dev, checks: dict, serve_grid: dict, serve_heads: dict,
     gen.manual_seed(SEED + 18)
     per_shape = {}
     for name, (B, S, M, Kn) in TOPK_SHAPES.items():
-        d = topk_min_case(gen, dev, B, S, M, Kn, "random")
-        ms, host_ms = timed(lambda: K.topk_min(d, Kn))
-        plain_ms = cuda_ms(lambda: K.topk_min_plain(d, Kn))
-        library_ms = cuda_ms(lambda: torch.topk(d, Kn, dim=-1, largest=False, sorted=True))
         b_ms, b_by = bound_ms(*topk_min_cost(B, S, M, Kn))
-        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                               bound_by=b_by, share=b_ms / ms, host_ms=host_ms,
-                               **checks["topk_min"][name])
+        per_case = {}
+        for case in ("random", "ties", "signed"):
+            d = topk_min_case(gen, dev, B, S, M, Kn, case)
+            ms, host_ms = timed(lambda: K.topk_min(d, Kn))
+            plain_ms = cuda_ms(lambda: K.topk_min_plain(d, Kn))
+            library_ms = cuda_ms(lambda: torch.topk(d, Kn, dim=-1, largest=False, sorted=True))
+            per_case[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  share=b_ms / ms, host_ms=host_ms)
+        per_shape[name] = dict(**per_case.pop("random"), bound_ms=b_ms, bound_by=b_by,
+                               **per_case, **checks["topk_min"][name])
         emit("timing", kernel="topk_min", shape=name, **per_shape[name])
 
     # the grid stage at sa1 of a B=16, N=10,000 request, part by part

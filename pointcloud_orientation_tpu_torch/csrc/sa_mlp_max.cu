@@ -1,4 +1,5 @@
-// Fused shared MLP + neighbour max-pool for Hopper (sm_90a), f32 and bf16.
+// Fused shared MLP + neighbour max-pool for Hopper (sm_90a) on the tensor
+// cores, f32 (as 3xTF32) and bf16.
 //
 // Replaces the TPU kernel pointcloud_orientation_tpu/ops/pallas_kernels.py:
 // _sa_mlp_max_fwd_impl / _sa_mlp_max_fwd_kernel / _sa_mlp_fwd_compute
@@ -9,84 +10,222 @@
 // -> max over the K neighbours -> (B,S,C_L).
 //
 // Bound on this card: operations. sa3 alone is 2*32*(259*256 + 256*512 +
-// 512*1024) = 46 MFLOP per cloud against ~37 KB read, far above the f32
-// ridge. The JAX side runs full f32, so this kernel uses f32 FMA on the CUDA
-// cores (no TF32, no tensor cores).
+// 512*1024) = 46 MFLOP per cloud against ~37 KB read. bf16 products run at
+// the tensor cores' 989 TFLOP/s; f32-grade products as three TF32 products
+// each, 495/3 = 165 TFLOP/s.
 //
-// Design. One block per (cloud, tile of TS centroids, group of output
-// columns of the last layer). The tile's rows (centroid-major: row
-// r = centroid * K + neighbour) live in shared memory, transposed
-// (act[channel * ld + row]), as a ping-pong pair of buffers, so no layer's
-// activations touch device memory. Each layer is an SGEMM over the tile:
-// 256 threads each own a 4x4 register tile of a 64x64 (or 32x128) output
-// tile; the weights are staged through shared memory 32 input channels at a
-// time (coalesced loads, the next stage prefetched into registers while the
-// current one is used), so the inner step is two 16-byte shared loads for
-// 16 FMAs. The last layer is fused with the max: its outputs go straight
-// into a per-tile (TS, C_L) shared maximum through integer atomicMax, which
-// orders non-negative floats like their bit patterns (they are all >= 0
-// after the relu), so they are never stored. When the clouds alone give too
-// few blocks to fill the card (sa3: one centroid per cloud), the last
-// layer's columns are split over a few blocks that each recompute the
-// earlier layers; the host picks the split from the occupancy it queries.
-// When a one-centroid tile's rows do not fit at once (the classifier's
-// group-all stage: K = 128 rows of 259 -> 256 -> 512 -> 1024 channels would
-// need 417,792 B), they run through all the layers in chunks of 64 rows
-// (221,184 B), each chunk folding its maxima into the same shared maximum;
-// max is associative, so the result does not depend on the chunks.
+// Products. bf16 (T = __nv_bfloat16): mma.sync m16n8k16 bf16 with f32
+// accumulation; both operands rounded to bf16 to nearest even
+// (__float2bfloat16_rn, as torch's .bfloat16() and XLA round), as the TPU
+// kernel's bf16 dot. f32 (T = float): mma.sync m16n8k8 tf32, each operand
+// split as hi = rna(x), lo = rna(x - hi), rna the rounding of
+// cvt.rna.tf32.f32 (to TF32, ties away from zero), and the product taken as
+// lo*hi + hi*lo + hi*hi in the f32 accumulator (3xTF32), the card's
+// counterpart of the TPU's HIGHEST f32 dot, itself several bf16 passes of
+// its matrix unit; one TF32 pass alone keeps about three decimal digits.
 //
-// bf16 (the element type T of the shared buffers): as the TPU kernel's
-// bf16 dot, both operands of every product are rounded to bf16 (round to
-// nearest even, __float2bfloat16_rn, as torch's .bfloat16() and XLA round)
-// and the products are accumulated in f32. The tile's activations and the
-// staged W are stored in shared memory as bf16, rounded when they are
-// written; they are widened to f32 for the FMAs, where the product of two
-// bf16 values is exact. Scale, shift, ReLU and the max stay in f32, and the
-// output is f32. Halving the activations' bytes lets the K = 128 group-all
-// tile run in one pass (210,944 B).
+// Design. One block of 8 warps per (tile of ts centroids, group of the last
+// layer's columns), at most 128 registers a thread so that two blocks share
+// an SM. Centroids are numbered q = b * S + s over the whole batch, so a
+// tile may span clouds (sa3 and the group-all stage have one centroid a
+// cloud). The tile's rows (centroid-major: row r = centroid * K +
+// neighbour) sit in shared memory as a row-major ping-pong pair of
+// activation buffers, in T, so no layer's output touches device memory;
+// their row strides are padded so that ldmatrix loads the A fragments
+// without bank conflicts, and input widths are zero-padded to the MMA depth
+// (c0 = 3, 131, 259, ragged widths). The inputs are staged with 16 loads in
+// flight a lane. A layer runs in passes of rc rows x nb columns (rc * nb =
+// 8192: 32 x 256, 64 x 128 or 128 x 64), a 32 x 32 warp tile each (2 x 4
+// MMA tiles, 32 f32 accumulators a thread). W is staged as f32 through
+// cp.async, kStage input channels a stage, in a ring of two or three stages
+// that runs over the block's whole sequence of (chunk, layer, pass, stage),
+// so the copies stay ahead across passes and layers, with one barrier a
+// stage; the B fragments are read from it with conflict-free 32-bit loads
+// and split (f32) or rounded to bf16 (bf16) in registers. Every index the
+// ring needs is fixed once a block (no division in the stage loop). Scale,
+// shift and ReLU run on the accumulators in f32. The last layer is fused
+// with the max: each MMA tile's column maximum is taken in registers and
+// across the 8 row groups of the warp by shuffles, then one shared
+// atomicMax per (centroid, column) per warp folds it into a per-tile
+// (ts, C_L) maximum; integer atomicMax orders non-negative floats like their
+// bit patterns (they are all >= 0 after the ReLU). A tile whose rows do not
+// fit at once (the f32 group-all stage: K = 128 rows of 259 -> 256 -> 512 ->
+// 1024 channels) runs through all the layers in chunks of rc rows, each
+// folding into the same maximum; max is associative, so the result does not
+// depend on the chunks. When the tiles alone give too few blocks to fill the
+// card (sa3), the last layer's columns are split over a few blocks that
+// each recompute the earlier layers; the host picks the split from the
+// occupancy it queries.
+//
+// What holds it back (measured on the H100, PERF.md): 16 warps an SM and
+// short stages leave each stage's latency (the copies, ldmatrix, the
+// products' dependent sums, the barrier) exposed, so the products run far
+// below the tensor cores' rate; f32 also spends integer ALU time on the
+// operand splits. wgmma with 64-row warpgroup tiles is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStage = 32;        // input channels of W staged per step
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 4;
-constexpr int kMaxPrefetch = 16;  // kStage * 128 columns / kThreads
+constexpr int kWarpRows = 32;                               // 2 MMA tiles of 16 rows
+constexpr int kWarpCols = 32;                               // 4 MMA tiles of 8 columns
+constexpr int kPassOut = kWarps * kWarpRows * kWarpCols;    // rc * nb
+constexpr unsigned kFull = 0xffffffffu;
 
-// Loads and stores of the shared buffers, four consecutive rows at a time.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cvt.rna.tf32.f32 (to 10 mantissa bits, ties away from zero) for finite x,
+// as two integer operations at the ALU's full rate: add half a TF32 ulp to
+// the magnitude and clear the 13 low bits. The conversion instruction runs
+// at a quarter of that rate and, two per operand, held the products to
+// about a third of the tensor cores' TF32 rate.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32 values (the low 13 bits zero)
+__device__ __forceinline__ void split_tf32(unsigned x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(__uint_as_float(x));
+  lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as a bf16 pair, the first in the low half (round to nearest even)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// What differs between the element types: the MMA, its depth, the stage
+// depth, the row strides, and the stores into the activation buffers.
+// step() adds one MMA depth of products to the warp's 32 x 32 tile: a points
+// at this lane's ldmatrix row of A (channel k), a_mt the distance to the
+// second 16-row tile; w at this lane's first B element of the W stage.
 template <typename T>
-struct Smem;
+struct Mma;
 
 template <>
-struct Smem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  }
+struct Mma<float> {
+  static constexpr int kK = 8;       // depth of one m16n8k8
+  static constexpr int kStage = 32;  // input channels of W a stage
+  static constexpr int kPadW = 8;    // W stage stride nb + 8: conflict-free B loads
+  static constexpr int kWRow = 1;    // B fragment rows: lane & 3, + 4
+  // act stride: 8-row ldmatrix reads of 16 bytes hit distinct bank groups
+  static __host__ int ld(int w) { return (w + 7) / 8 * 8 + 4; }
+  static __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 4; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ void step(float (&acc)[2][4][4], const float* a, int a_mt,
+                                              const float* w, int ldw) {
+    unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      unsigned r[4];
+      ldmatrix_x4(r, a + mt * a_mt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(r[i], ahi[mt][i], alo[mt][i]);
+    }
+    unsigned bhi[4][2], blo[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      split_tf32(__float_as_uint(w[nt * 8]), bhi[nt][0], blo[nt][0]);
+      split_tf32(__float_as_uint(w[4 * ldw + nt * 8]), bhi[nt][1], blo[nt][1]);
+    }
+    // the small terms first; each sweep is 8 independent accumulators
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt][0], blo[nt][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt][0], bhi[nt][1]);
+  }
 };
 
 template <>
-struct Smem<__nv_bfloat16> {
-  // a bf16 is the top half of the f32 with the same value: widening is a shift
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-  }
-  static __device__ __forceinline__ unsigned bits(float v) {
-    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
-                                                float d) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(bits(a) | bits(b) << 16, bits(c) | bits(d) << 16);
-  }
+struct Mma<__nv_bfloat16> {
+  static constexpr int kK = 16;      // depth of one m16n8k16
+  static constexpr int kStage = 64;
+  static constexpr int kPadW = 4;    // W stage stride nb + 4: conflict-free pairs of rows
+  static constexpr int kWRow = 2;    // B fragment rows: 2 (lane & 3), + 1, + 8, + 9
+  static __host__ int ld(int w) { return (w + 15) / 16 * 16 + 8; }
+  static __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ void step(float (&acc)[2][4][4], const __nv_bfloat16* a,
+                                              int a_mt, const float* w, int ldw) {
+    unsigned r[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(r[mt], a + mt * a_mt);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* wc = w + nt * 8;
+      const unsigned b0 = pack_bf16(wc[0], wc[ldw]);
+      const unsigned b1 = pack_bf16(wc[8 * ldw], wc[9 * ldw]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], r[mt], b0, b1);
+    }
   }
 };
 
@@ -95,220 +234,360 @@ struct MlpParams {
   const float* s[kMaxLayers];  // (c[l+1],)
   const float* t[kMaxLayers];  // (c[l+1],)
   int c[kMaxLayers + 1];
+  int vec[kMaxLayers];         // W's rows can be copied 16 bytes at a time
+  int wout[kMaxLayers];        // columns a layer produces (the next one's zero-padded depth)
+  int passes[kMaxLayers];      // passes of nb columns over them
+  int ksteps[kMaxLayers];      // W stages over the input channels
   int n_layers;
 };
 
 // Geometry of one launch, fixed by the host.
 struct Tiling {
-  int ts;          // centroids per block
-  int rows;        // K * ts real rows
-  int rows_pad;    // rows rounded up to rt
-  int rt;          // rows per pass: 32 or 64
-  int chunk;       // rows in shared memory at once: a multiple of rt, at most rows_pad
-  int ld;          // row stride of the transposed activations (chunk + 4)
-  int groups;      // blocks sharing one tile, splitting the last layer's columns
-  int buf0, buf1;  // elements of the two activation buffers
+  int ts;                // centroids per tile
+  int rows;              // ts * K
+  int rc;                // rows per chunk and per pass: 32, 64 or 128
+  int nb;                // columns per pass: kPassOut / rc
+  int ld0, ld1;          // row strides (elements) of the two activation buffers
+  int ldw;               // row stride (floats) of a W stage
+  int nst;               // W stages in flight: 2 or 3
+  int groups;            // blocks sharing one tile, splitting the last layer's columns
+  int off1, offw, offp;  // byte offsets of buffer 1, the W stages and the maximum
 };
 
-// kChunked: the tile's rows run in chunks of tl.chunk. Without it the one
-// pass starts at row 0 at compile time, so tiles that fit at once run the
-// code they ran before chunks existed. T: the type of the shared
-// activations and weights, float or __nv_bfloat16 (the bf16 products).
-template <bool kChunked, typename T>
-__global__ void __launch_bounds__(kThreads)
-sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const MlpParams p,
-                  const Tiling tl, int K, int S) {
-  using M = Smem<T>;
-  extern __shared__ float4 smem4[];
-  const int tyn = tl.rt / 4;       // 16 or 8 row groups
-  const int txn = kThreads / tyn;  // 16 or 32 column groups
-  const int ct = 4 * txn;          // 64 or 128 columns per pass
-  T* buf0 = reinterpret_cast<T*>(smem4);  // inputs of layers 0, 2
-  T* buf1 = buf0 + tl.buf0;               // inputs of layers 1, 3
-  T* wS = buf1 + tl.buf1;                 // (kStage, ct) staged weights
-  float* pool = reinterpret_cast<float*>(wS + kStage * ct);  // (ts, c_last) running maximum
-  const int c_last = p.c[p.n_layers];
+// Which part of a W stage this thread copies: one column (4 columns with
+// 16-byte copies) and every step-th row from row0. nb divides kThreads.
+struct WCopy {
+  int col, row0, step;
+};
 
+// Stage kStage rows (from k0) x nb columns (from n0) of W, zero outside it,
+// in 16-byte copies where W's rows allow them (vec), else 4-byte ones (4-byte
+// copies alone ran 1.2-2.3x slower on the H100).
+template <int kStage>
+__device__ __forceinline__ void load_w_stage(const float* __restrict__ W, int cin, int cout,
+                                             bool vec, const WCopy& cv, const WCopy& cs,
+                                             int k0, int n0, float* dst, int ldw) {
+  const WCopy& c = vec ? cv : cs;
+  const bool in_col = n0 + c.col < cout;  // vec: cout % 4 == 0, the whole 16 bytes lie inside
+  const float* src = W + (size_t)(k0 + c.row0) * cout + n0 + c.col;
+  const size_t src_step = (size_t)c.step * cout;
+  float* dp = dst + c.row0 * ldw + c.col;
+  const int dst_step = c.step * ldw;
+  for (int kk = c.row0; kk < kStage; kk += c.step, src += src_step, dp += dst_step) {
+    const bool in = in_col && k0 + kk < cin;
+    if (vec) {
+      if (in)
+        cp_async16(dp, src);
+      else
+        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (in)
+        cp_async4(dp, src);
+      else
+        *dp = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max_rows(float v) {  // over the 8 row groups
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 8));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 16));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const MlpParams p,
+                  const Tiling tl, int K, int S, int BS) {
+  using X = Mma<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf0 = reinterpret_cast<T*>(smem);             // inputs of layers 0, 2
+  T* buf1 = reinterpret_cast<T*>(smem + tl.off1);   // inputs of layers 1, 3
+  float* wst = reinterpret_cast<float*>(smem + tl.offw);
+  float* pool = reinterpret_cast<float*>(smem + tl.offp);  // (ts, c_last) running maximum
+  int* pool_bits = reinterpret_cast<int*>(pool);
+  __shared__ long long row_off[128];                       // a chunk's rows in grouped
+  const int n_layers = p.n_layers;
+  const int c_last = p.c[n_layers];
   const int tid = threadIdx.x;
-  const int ty = tid / txn;
-  const int tx = tid - ty * txn;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps_m = tl.rc / kWarpRows;
+  const int wm = warp % warps_m;
+  const int wn = warp / warps_m;
   const int tile = blockIdx.x / tl.groups;
   const int grp = blockIdx.x - tile * tl.groups;
-  const int b = blockIdx.y;
-  const int s0 = tile * tl.ts;
-  const int ld = tl.ld;
+  const int q0 = tile * tl.ts;
+  const int stage_floats = X::kStage * tl.ldw;
+  const int gi = lane >> 2;  // row group of the MMA fragments
+  const int ti = lane & 3;   // column pair
+  // this lane's B element in a W stage, and its rows of A
+  const int w_lane = X::kWRow * ti * tl.ldw + wn * kWarpCols + gi;
+  const int a_row = wm * kWarpRows + (lane & 15);
+  const WCopy cv = {(tid % (tl.nb / 4)) * 4, tid / (tl.nb / 4), kThreads / (tl.nb / 4)};
+  const WCopy cs = {tid % tl.nb, tid / tl.nb, kThreads / tl.nb};
+  // this group's share of the last layer's passes (never empty)
+  const int per = (p.passes[n_layers - 1] + tl.groups - 1) / tl.groups;
+  const int last_pb = min(p.passes[n_layers - 1], grp * per);
+  const int last_pe = min(p.passes[n_layers - 1], last_pb + per);
 
-  const int c0 = p.c[0];
   for (int e = tid; e < tl.ts * c_last; e += kThreads) pool[e] = 0.f;
 
-  const int n_chunks = kChunked ? (tl.rows_pad + tl.chunk - 1) / tl.chunk : 1;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int cr0 = kChunked ? ci * tl.chunk : 0;  // first row of the chunk
-    // rows of the chunk, a multiple of rt
-    const int crows = kChunked ? min(tl.chunk, tl.rows_pad - cr0) : tl.rows_pad;
-    for (int e = tid; e < crows * c0; e += kThreads) {
-      const int rl = e / c0;
-      const int ch = e - rl * c0;
-      const int r = cr0 + rl;
-      float v = 0.f;
-      if (r < tl.rows) {
-        const int sl = r / K;
-        const int sg = s0 + sl;
-        if (sg < S) v = g[(((size_t)b * K + (r - sl * K)) * S + sg) * c0 + ch];
+  // The W stages run as one ring over the block's whole sequence (chunk,
+  // layer, pass, stage of kStage input channels): the producer stays nst - 1
+  // stages ahead across passes, layers and chunks, and the one barrier of a
+  // stage also orders a pass's epilogue before the next layer reads it.
+  const int n_chunks = (tl.rows + tl.rc - 1) / tl.rc;
+  int pr_chunk = 0, pr_l = 0, pr_ks = 0;  // the producer's stage
+  int pr_pc = n_layers == 1 ? last_pb : 0;
+  int pr_pe = n_layers == 1 ? last_pe : p.passes[0];
+  int slot_w = 0;  // the ring slot the producer fills next
+  auto issue = [&]() {
+    if (pr_chunk < n_chunks) {
+      load_w_stage<X::kStage>(p.w[pr_l], p.c[pr_l], p.c[pr_l + 1], p.vec[pr_l] != 0, cv, cs,
+                              pr_ks * X::kStage, pr_pc * tl.nb, wst + slot_w * stage_floats,
+                              tl.ldw);
+      if (++pr_ks == p.ksteps[pr_l]) {
+        pr_ks = 0;
+        if (++pr_pc == pr_pe) {
+          if (++pr_l == n_layers) {
+            pr_l = 0;
+            ++pr_chunk;
+          }
+          const bool lst = pr_l == n_layers - 1;
+          pr_pc = lst ? last_pb : 0;
+          pr_pe = lst ? last_pe : p.passes[pr_l];
+        }
       }
-      M::store(buf0 + ch * ld + rl, v);
     }
-    __syncthreads();
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+    if (++slot_w == tl.nst) slot_w = 0;
+  };
+  for (int st = 0; st < tl.nst - 1; ++st) issue();
+  int slot_r = 0;  // the ring slot the consumer reads next
 
-    for (int l = 0; l < p.n_layers; ++l) {
+  const int c0 = p.c[0];
+  const int w0 = (c0 + X::kK - 1) / X::kK * X::kK;
+  const int lanes_row = w0 <= 8 ? 8 : w0 <= 16 ? 16 : 32;  // lanes loading one input row
+  const int rows_warp = 32 / lanes_row;
+  const int lane_row = lane / lanes_row;
+  const int lane_ch = lane % lanes_row;
+  for (int cr0 = 0; cr0 < tl.rows; cr0 += tl.rc) {  // chunks of the tile's rows
+    // the chunk's inputs, a warp a row, zero in padded channels, rows and
+    // centroids (-1: a row past the tile or the batch)
+    if (tid < tl.rc) {
+      const int r = cr0 + tid;
+      long long off = -1;
+      if (r < tl.rows && q0 + r / K < BS) {
+        const int q = q0 + r / K;
+        const int b = q / S;
+        off = (((long long)b * K + (r % K)) * S + (q - b * S)) * c0;
+      }
+      row_off[tid] = off;
+    }
+    __syncthreads();  // the row offsets; every warp is done with the last chunk's buffers
+    // lanes_row lanes a row (w0 is a multiple of 8), each loading 4 rows x 4
+    // channels, all 16 loads in flight before the first store
+    for (int cb = 0; cb < w0; cb += 4 * lanes_row) {
+      for (int rb = warp * rows_warp; rb < tl.rc; rb += 4 * kWarps * rows_warp) {
+        float v[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int rl = rb + u * kWarps * rows_warp + lane_row;
+          const long long off = rl < tl.rc ? row_off[rl] : -1;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ch = cb + lane_ch + i * lanes_row;
+            v[u][i] = off >= 0 && ch < c0 ? __ldg(g + off + ch) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int rl = rb + u * kWarps * rows_warp + lane_row;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ch = cb + lane_ch + i * lanes_row;
+            if (rl < tl.rc && ch < w0) X::store(buf0 + rl * tl.ld0 + ch, v[u][i]);
+          }
+        }
+      }
+    }
+    // the centroid of each of this warp's MMA tiles when its 16 rows are
+    // real rows of one centroid, else -1 (warp-uniform)
+    const int rw = cr0 + wm * kWarpRows;  // the warp's first row in the tile
+    int cen[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int ra = rw + mt * 16;
+      const int rb = ra + 15;
+      cen[mt] = rb < tl.rows && ra / K == rb / K && q0 + rb / K < BS ? ra / K : -1;
+    }
+    const bool merged = cen[0] >= 0 && cen[0] == cen[1];
+
+    for (int l = 0; l < n_layers; ++l) {
       const T* in = (l & 1) ? buf1 : buf0;
+      const int ldi = (l & 1) ? tl.ld1 : tl.ld0;
       T* nxt = (l & 1) ? buf0 : buf1;
+      const int ldn = (l & 1) ? tl.ld0 : tl.ld1;
       const int cin = p.c[l];
       const int cout = p.c[l + 1];
-      const bool last = l == p.n_layers - 1;
-      const float* __restrict__ W = p.w[l];
+      const bool last = l == n_layers - 1;
+      const int wout = p.wout[l];
       const float* __restrict__ sc = p.s[l];
       const float* __restrict__ sh = p.t[l];
-      const int passes = (cout + ct - 1) / ct;
-      int p_begin = 0, p_end = passes;
-      if (last) {
-        const int per = (passes + tl.groups - 1) / tl.groups;
-        p_begin = min(passes, grp * per);
-        p_end = min(passes, p_begin + per);
-      }
-      const int per_thread = kStage * ct / kThreads;  // 8 or 16 staged weights
+      const int p_begin = last ? last_pb : 0;
+      const int p_end = last ? last_pe : p.passes[l];
+      const int ksteps = p.ksteps[l];
+      const T* a_lane = in + a_row * ldi + X::a_col(lane);
 
-      for (int r0 = 0; r0 < crows; r0 += tl.rt) {  // rows of this chunk
-        for (int pc = p_begin; pc < p_end; ++pc) {
-          const int q0 = pc * ct;
-          float acc[4][4];
+      for (int pc = p_begin; pc < p_end; ++pc) {
+        const int wc0 = pc * tl.nb + wn * kWarpCols;  // this warp's first column
+        const bool active = wc0 < wout;
+        float acc[2][4][4];
 #pragma unroll
-          for (int m = 0; m < 4; ++m)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-          float pre[kMaxPrefetch];
-          auto fetch = [&](int i0) {
+        for (int ks = 0, k0 = 0; ks < ksteps; ++ks, k0 += X::kStage) {
+          if (tl.nst == 3)
+            cp_async_wait<1>();
+          else
+            cp_async_wait<0>();
+          // this stage has landed; every warp is done with the stage before
+          // it, with the last epilogue and (first stage) with the inputs
+          __syncthreads();
+          issue();
+          if (active) {
+            const float* w = wst + slot_r * stage_floats + w_lane;
+            if (k0 + X::kStage <= cin) {  // a full stage: no guard between the steps
 #pragma unroll
-            for (int q = 0; q < kMaxPrefetch; ++q) {
-              if (q < per_thread) {
-                const int e = tid + q * kThreads;
-                const int ii = e / ct;
-                const int col = q0 + (e - ii * ct);
-                pre[q] = (i0 + ii < cin && col < cout)
-                             ? __ldg(W + (size_t)(i0 + ii) * cout + col)
-                             : 0.f;
-              }
-            }
-          };
-          fetch(0);
-          for (int i0 = 0; i0 < cin; i0 += kStage) {
-            __syncthreads();  // every thread is done with the previous stage
-#pragma unroll
-            for (int q = 0; q < kMaxPrefetch; ++q)
-              if (q < per_thread) M::store(wS + tid + q * kThreads, pre[q]);
-            __syncthreads();
-            if (i0 + kStage < cin) fetch(i0 + kStage);  // in flight during the FMAs
-            const int kc = min(kStage, cin - i0);
-            const T* xin = in + (size_t)i0 * ld + r0 + 4 * ty;
-            const T* win = wS + 4 * tx;
-#pragma unroll 4
-            for (int ii = 0; ii < kc; ++ii) {
-              const float4 xv = M::load4(xin + ii * ld);
-              const float4 wv = M::load4(win + ii * ct);
-              const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-              const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-              for (int m = 0; m < 4; ++m)
-#pragma unroll
-                for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(xs[m], ws[n], acc[m][n]);
-            }
-          }
-
-          const int r_local = r0 + 4 * ty;
-          const int r_first = cr0 + r_local;
-          // rows of this thread that belong to real centroids of the tile
-          bool valid[4];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int r = r_first + m;
-            valid[m] = r < tl.rows && s0 + r / K < S;
-          }
-          const bool one_centroid = valid[0] && valid[3] && r_first / K == (r_first + 3) / K;
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int col = q0 + 4 * tx + n;
-            if (col >= cout) continue;
-            const float scn = sc[col];
-            const float shn = sh[col];
-            float y[4];
-#pragma unroll
-            for (int m = 0; m < 4; ++m) y[m] = fmaxf(acc[m][n] * scn + shn, 0.f);
-            if (!last) {
-              M::store4(nxt + (size_t)col * ld + r_local, y[0], y[1], y[2], y[3]);
-            } else if (one_centroid) {
-              const float v = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
-              atomicMax(reinterpret_cast<int*>(pool) + (r_first / K) * c_last + col,
-                        __float_as_int(v));
+              for (int kk = 0; kk < X::kStage; kk += X::kK)
+                X::step(acc, a_lane + k0 + kk, 16 * ldi, w + kk * tl.ldw, tl.ldw);
             } else {
 #pragma unroll
-              for (int m = 0; m < 4; ++m)
-                if (valid[m])
-                  atomicMax(reinterpret_cast<int*>(pool) + ((r_first + m) / K) * c_last + col,
-                            __float_as_int(y[m]));
+              for (int kk = 0; kk < X::kStage; kk += X::kK)
+                if (k0 + kk < cin) X::step(acc, a_lane + k0 + kk, 16 * ldi, w + kk * tl.ldw, tl.ldw);
+            }
+          }
+          if (++slot_r == tl.nst) slot_r = 0;
+        }
+        if (!active) continue;
+
+        if (!last) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = wc0 + nt * 8 + 2 * ti;
+            if (col >= wout) continue;  // wout is even: col + 1 < wout too
+            const float s0 = col < cout ? __ldg(sc + col) : 0.f;
+            const float s1 = col + 1 < cout ? __ldg(sc + col + 1) : 0.f;
+            const float t0 = col < cout ? __ldg(sh + col) : 0.f;
+            const float t1 = col + 1 < cout ? __ldg(sh + col + 1) : 0.f;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const int r = wm * kWarpRows + mt * 16 + gi;
+              const float* a = acc[mt][nt];
+              X::store2(nxt + r * ldn + col, fmaxf(a[0] * s0 + t0, 0.f),
+                        fmaxf(a[1] * s1 + t1, 0.f));
+              X::store2(nxt + (r + 8) * ldn + col, fmaxf(a[2] * s0 + t0, 0.f),
+                        fmaxf(a[3] * s1 + t1, 0.f));
+            }
+          }
+          continue;
+        }
+
+        // last layer: fold into the maximum (the shuffles run on every lane)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = wc0 + nt * 8 + 2 * ti + j;
+            const bool in_col = col < cout;
+            const float scj = in_col ? __ldg(sc + col) : 0.f;
+            const float shj = in_col ? __ldg(sh + col) : 0.f;
+            float y[2][2];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                y[mt][h] = fmaxf(acc[mt][nt][2 * h + j] * scj + shj, 0.f);
+            if (merged) {
+              const float v =
+                  warp_max_rows(fmaxf(fmaxf(y[0][0], y[0][1]), fmaxf(y[1][0], y[1][1])));
+              if (gi == 0 && in_col)
+                atomicMax(pool_bits + cen[0] * c_last + col, __float_as_int(v));
+              continue;
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              if (cen[mt] >= 0) {
+                const float v = warp_max_rows(fmaxf(y[mt][0], y[mt][1]));
+                if (gi == 0 && in_col)
+                  atomicMax(pool_bits + cen[mt] * c_last + col, __float_as_int(v));
+              } else if (in_col) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int r = rw + mt * 16 + gi + 8 * h;
+                  if (r < tl.rows && q0 + r / K < BS)
+                    atomicMax(pool_bits + (r / K) * c_last + col, __float_as_int(y[mt][h]));
+                }
+              }
             }
           }
         }
       }
-      __syncthreads();
     }
   }
+  __syncthreads();  // the maximum is complete
 
   // this block's columns of the last layer
-  const int passes = (c_last + ct - 1) / ct;
-  const int per = (passes + tl.groups - 1) / tl.groups;
-  const int col_begin = min(c_last, grp * per * ct);
-  const int col_end = min(c_last, col_begin + per * ct);
+  const int col_begin = min(c_last, last_pb * tl.nb);
+  const int col_end = min(c_last, last_pe * tl.nb);
   const int width = col_end - col_begin;
   for (int e = tid; e < tl.ts * width; e += kThreads) {
     const int sl = e / width;
     const int col = col_begin + (e - sl * width);
-    const int sg = s0 + sl;
-    if (sg < S) out[((size_t)b * S + sg) * c_last + col] = pool[sl * c_last + col];
+    const int q = q0 + sl;
+    if (q < BS) out[(size_t)q * c_last + col] = pool[sl * c_last + col];
   }
 }
 
-constexpr long kMaxSmemBytes = 232448;  // 227 KB a block can opt into on sm_90
+// dynamic shared memory: 227 KB a block can opt into on sm_90, and half the
+// SM's 228 KB less the 1 KB reserved a block, each less row_off's 1 KB
+constexpr long kMaxSmemBytes = 232448 - 1024;
+constexpr long kTwoPerSm = 115712 - 1024;
 
-// Tiling for ts centroids per block and chunks of at most max_chunk rows
-// (all rows when max_chunk <= 0), with activations and staged weights of
-// elem_bytes each; its shared memory in *bytes, -1 if a width is out of
-// range.
-Tiling make_tiling(int K, int ts, int max_chunk, int n_layers, const int* c, int elem_bytes,
-                   long* bytes) {
-  Tiling tl;
-  tl.ts = ts;
-  tl.rows = K * ts;
-  tl.rt = tl.rows <= 32 ? 32 : 64;
-  tl.rows_pad = (tl.rows + tl.rt - 1) / tl.rt * tl.rt;
-  tl.chunk = max_chunk > 0 && max_chunk < tl.rows_pad ? max_chunk : tl.rows_pad;
-  tl.ld = tl.chunk + 4;
-  tl.groups = 1;
-  tl.buf0 = tl.buf1 = 0;
-  long b0 = 0, b1 = 0;
-  *bytes = -1;
+long align16(long n) { return (n + 15) / 16 * 16; }
+
+// The tiling for ts centroids a tile, chunks of rc rows and nst W stages;
+// returns its shared memory in bytes.
+template <typename T>
+long make_tiling(Tiling* tl, int K, int ts, int rc, int nst, int n_layers, const int* c) {
+  using X = Mma<T>;
+  tl->ts = ts;
+  tl->rows = ts * K;
+  tl->rc = rc;
+  tl->nb = kPassOut / rc;
+  tl->nst = nst;
+  tl->groups = 1;
+  int wd[2] = {0, 0};
   for (int l = 0; l < n_layers; ++l) {
-    if (c[l] < 1 || c[l + 1] < 1) return tl;
-    const long need = (long)c[l] * tl.ld;
-    if (l % 2 == 0) b0 = need > b0 ? need : b0;
-    else b1 = need > b1 ? need : b1;
+    const int w = (c[l] + X::kK - 1) / X::kK * X::kK;
+    wd[l & 1] = w > wd[l & 1] ? w : wd[l & 1];
   }
-  tl.buf0 = (int)b0;
-  tl.buf1 = (int)b1;
-  const int ct = 4 * (kThreads / (tl.rt / 4));
-  *bytes = elem_bytes * (b0 + b1 + (long)kStage * ct) + 4L * ts * c[n_layers];
-  return tl;
+  tl->ld0 = X::ld(wd[0]);
+  tl->ld1 = wd[1] ? X::ld(wd[1]) : 0;
+  tl->ldw = tl->nb + X::kPadW;
+  const long e = (long)sizeof(T);
+  tl->off1 = (int)align16((long)rc * tl->ld0 * e);
+  tl->offw = tl->off1 + (int)align16((long)rc * tl->ld1 * e);
+  tl->offp = tl->offw + (int)((long)nst * X::kStage * tl->ldw * 4);
+  return tl->offp + 4L * ts * c[n_layers];
 }
+
+int chunk_rows(int rows) { return rows <= 32 ? 32 : rows <= 64 ? 64 : 128; }
 
 template <typename T>
 int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_layers,
@@ -316,6 +595,8 @@ int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_la
                    const int* cs, void* stream) {
   if (B < 1 || K < 1 || S < 1 || n_layers < 1 || n_layers > kMaxLayers || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if ((long)B * S > (1L << 30)) return (int)cudaErrorInvalidValue;
+  const int BS = B * S;
   MlpParams p;
   for (int l = 0; l < kMaxLayers; ++l) {
     p.w[l] = (const float*)ws[l];
@@ -324,27 +605,45 @@ int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_la
   }
   for (int l = 0; l <= kMaxLayers; ++l) p.c[l] = cs[l];
   p.n_layers = n_layers;
-  for (int l = 0; l < n_layers; ++l)
-    if (!p.w[l] || !p.s[l] || !p.t[l]) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < kMaxLayers; ++l) p.vec[l] = p.wout[l] = p.passes[l] = p.ksteps[l] = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    if (!p.w[l] || !p.s[l] || !p.t[l] || p.c[l] < 1 || p.c[l + 1] < 1)
+      return (int)cudaErrorInvalidValue;
+    p.vec[l] = p.c[l + 1] % 4 == 0 && ((uintptr_t)p.w[l] & 15) == 0;
+  }
 
-  const int eb = (int)sizeof(T);
-  int ts = K >= 64 ? 1 : 64 / K;
-  if (ts > S) ts = S;
-  long bytes = 0;
-  Tiling tl = make_tiling(K, ts, 0, n_layers, p.c, eb, &bytes);
-  while (bytes >= 0 && bytes > kMaxSmemBytes && ts > 1) {
-    ts /= 2;
-    tl = make_tiling(K, ts, 0, n_layers, p.c, eb, &bytes);
+  // Tiles of about 128 rows, halved while they leave fewer than two blocks
+  // an SM (shared memory); failing that the largest that fits; failing that
+  // one centroid a tile in chunks of 64 or 32 rows.
+  int ts0 = K >= 128 ? 1 : 128 / K;
+  if (ts0 > BS) ts0 = BS;
+  Tiling tl;
+  long bytes = -1;
+  const long limits[2] = {kTwoPerSm, kMaxSmemBytes};
+  for (long limit : limits) {
+    for (int ts = ts0; ts >= 1 && bytes < 0; ts /= 2) {
+      for (int nst = 3; nst >= 2 && bytes < 0; --nst) {
+        const long b = make_tiling<T>(&tl, K, ts, chunk_rows(ts * K), nst, n_layers, p.c);
+        if (b <= limit) bytes = b;
+      }
+    }
+    if (bytes >= 0) break;
   }
-  while (bytes >= 0 && bytes > kMaxSmemBytes && tl.chunk > tl.rt) {
-    const int half = (tl.chunk / 2 + tl.rt - 1) / tl.rt * tl.rt;
-    tl = make_tiling(K, ts, half, n_layers, p.c, eb, &bytes);
+  for (int rc = 64; rc >= 32 && bytes < 0; rc /= 2) {
+    const long b = make_tiling<T>(&tl, K, 1, rc, 2, n_layers, p.c);
+    if (b <= kMaxSmemBytes) bytes = b;
   }
-  if (bytes < 0 || bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
   const int smem_bytes = (int)bytes;
-  auto kernel = tl.chunk < tl.rows_pad ? sa_mlp_max_kernel<true, T> : sa_mlp_max_kernel<false, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  for (int l = 0; l < n_layers; ++l) {  // the next layer reads its input zero-padded
+    const int kk = Mma<T>::kK;
+    p.wout[l] = l == n_layers - 1 ? p.c[l + 1] : (p.c[l + 1] + kk - 1) / kk * kk;
+    p.passes[l] = (p.wout[l] + tl.nb - 1) / tl.nb;
+    p.ksteps[l] = (p.c[l] + Mma<T>::kStage - 1) / Mma<T>::kStage;
+  }
+  auto kernel = sa_mlp_max_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
 
   // Split the last layer's columns over more blocks when the tiles alone
@@ -359,14 +658,14 @@ int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_la
                                                            smem_bytes)) != cudaSuccess)
     return (int)err;
   if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-  const long tiles = (long)B * ((S + ts - 1) / ts);
+  const long tiles = (BS + tl.ts - 1) / tl.ts;
   double early = 0.0;
   for (int l = 0; l + 1 < n_layers; ++l) early += (double)p.c[l] * p.c[l + 1];
   const double last = (double)p.c[n_layers - 1] * p.c[n_layers];
-  const int ct = 4 * (kThreads / (tl.rt / 4));
-  const int passes_last = (p.c[n_layers] + ct - 1) / ct;
+  const int passes_last = p.passes[n_layers - 1];
   double best = -1.0;
   for (int groups = 1; groups <= passes_last; groups *= 2) {
+    if ((groups - 1) * ((passes_last + groups - 1) / groups) >= passes_last) continue;
     const long slots = (long)sms * occ;
     const long waves = (tiles * groups + slots - 1) / slots;
     const double est = waves * (early + last / groups);
@@ -376,9 +675,9 @@ int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_la
     }
   }
 
-  const dim3 grid((unsigned)((S + ts - 1) / ts * tl.groups), B);
+  const dim3 grid((unsigned)(tiles * tl.groups));
   kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)grouped, (float*)out, p, tl, K, S);
+      (const float*)grouped, (float*)out, p, tl, K, S, BS);
   return (int)cudaGetLastError();
 }
 
@@ -386,13 +685,14 @@ int run_sa_mlp_max(const void* grouped, void* out, int B, int K, int S, int n_la
 
 // grouped (B,K,S,c0) f32 -> out (B,S,c[n_layers]) f32. Layer l reads
 // w_l (c_l, c_{l+1}) row-major, s_l and t_l (c_{l+1},); unused layers pass
-// NULL and width 0. Tiles of ts = min(S, max(1, 64 / K)) centroids, halved
-// until the tile fits in shared memory; a one-centroid tile that still does
-// not fit runs its rows in chunks, halved from all of them down to one pass
-// of rt rows until they fit. Returns cudaErrorInvalidValue for
-// arguments the kernel does not take, else cudaGetLastError() after launch.
-// bf16 != 0 rounds both operands of every product to bf16 and accumulates
-// in f32 (the TPU kernel's bf16=True); bf16 == 0 multiplies in f32.
+// NULL and width 0. Tiles of about 128 rows (ts = min(B*S, max(1, 128 / K))
+// centroids), halved while fewer than two blocks fit on an SM, then while
+// the tile does not fit in shared memory; a one-centroid tile that still
+// does not fit runs its rows in chunks of 64 or 32. Returns
+// cudaErrorInvalidValue for arguments the kernel does not take, else
+// cudaGetLastError() after launch. bf16 != 0 rounds both operands of every
+// product to bf16 and accumulates in f32 (the TPU kernel's bf16=True);
+// bf16 == 0 multiplies f32 as 3xTF32.
 extern "C" int pcot_sa_mlp_max_f32(const void* grouped, void* out, int B, int K, int S,
                                    int n_layers,
                                    const void* w0, const void* s0, const void* t0,

@@ -16,9 +16,10 @@ pass is a register-and-shuffle reduction (see the source).
 ``sa_mlp_max`` (``csrc/sa_mlp_max.cu``) replaces
 ``pallas_kernels.py:_sa_mlp_max_fwd_impl`` (``sa_mlp_max_pallas``), in f32
 and, with ``bf16=True``, in its bf16 variant: both operands of every product
-rounded to bf16, f32 accumulation. It runs on the CUDA cores; activations
-stay in shared memory, and the last layer is fused with the max so its
-outputs are never stored.
+rounded to bf16, f32 accumulation. It runs on the tensor cores (``mma.sync``;
+f32 as 3xTF32, three TF32 products of split operands, within 1e-4 of an
+f32 product); activations stay in shared memory, and the last layer is
+fused with the max so its outputs are never stored.
 
 ``sa_group_scatter`` (``csrc/sa_scatter.cu``) replaces
 ``pallas_kernels.py:_sa_scatter_call``, the VJP of the grouping's feature
@@ -46,8 +47,9 @@ is bound by bytes and stops scanning once it has its points.
 
 ``topk_min`` (``csrc/topk_min.cu``) replaces ``pallas_kernels.py:topk_min_pallas``,
 the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):
-one warp per row, K dependent warp reductions, the row staged in shared
-memory while it fits.
+a radix select of the K-th smallest (value, position) key, 8 bits a pass
+over a shared-memory histogram, then a sort of the K candidates; one block
+per row, the row staged in shared memory while it fits.
 """
 
 from __future__ import annotations

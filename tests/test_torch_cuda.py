@@ -80,6 +80,9 @@ MLP_CASES = {
     # rows in three chunks with a ragged last one
     "cls-group-all-K=128": (64, 128, 1, (259, 256, 512, 1024)),
     "K=150-chunked": (2, 150, 1, (259, 256, 512, 1024)),
+    # no width a multiple of 8 or 16 (every layer's W copied 4 bytes at a
+    # time, every depth zero-padded) and K*S = 91 rows, not a multiple of 16
+    "ragged-widths": (3, 13, 7, (11, 37, 21, 75, 19)),
 }
 
 
@@ -525,29 +528,50 @@ def test_large_clouds_serve_on_card(cuda_device, n):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def topk_min_case(gen, dev, B, S, M, Kn):
+def topk_min_case(gen, dev, B, S, M, Kn, signed=False):
     """Candidate tiles as the grid path makes them, with many exact ties
     (multiples of 1/8), a row with 5 finite entries, an all-inf row and a
-    row with exactly K finite entries."""
-    d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
+    row with exactly K finite entries. ``signed``: the ties drawn from
+    negative values, -0.0 beside 0.0 (one key: a stable sort keeps them in
+    position order) and positive ones."""
+    if signed:
+        values = torch.tensor([-2.5, -1.0, -0.0, 0.0, 0.125, 3.0], device=dev)
+        d = values[torch.randint(0, len(values), (B, S, M), generator=gen, device=dev)]
+    else:
+        d = torch.randint(0, 64, (B, S, M), generator=gen, device=dev).float() / 8
     d[0, 0, 5:] = math.inf
     d[0, 1] = math.inf
     d[-1, -1, Kn:] = math.inf
     return d.contiguous()
 
 
+# (B, S, M, K): the grid path's shapes, then M from staged rows past 12,288
+# entries to rows past the kernel's 57,344 staged entries, read from device
+# memory (230,000), each at K = 1, 31 and 64
+TOPK_CASES = {
+    "sa1-grid": (16, 128, 1024, 32), "M=1000": (16, 128, 1000, 32), "M=K": (16, 128, 32, 32),
+    "M=4096": (16, 128, 4096, 32), "M=20000": (4, 128, 20000, 32), "K=64": (2, 3, 70, 64),
+    **{f"M={m}-K={k}": (b, 4, m, k) for m, b in ((4096, 4), (12288, 2), (12289, 2), (20000, 2),
+                                                 (230_000, 1)) for k in (1, 31, 64)},
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 128, 1024, 32), (16, 128, 1000, 32), (16, 128, 32, 32),
-                                   (16, 128, 4096, 32), (4, 128, 20000, 32), (2, 3, 70, 64)],
-                         ids=["sa1-grid", "M=1000", "M=K", "M=4096", "M=20000-device-memory",
-                              "K=64"])
-def test_topk_min_kernel_equals_plain_on_card(cuda_device, shape):
-    """Bit-equal indices, on tiles with ties and short rows and on random
-    distances, at the shapes chip_smoke.py checks."""
+@pytest.mark.parametrize("case", list(TOPK_CASES))
+def test_topk_min_kernel_equals_plain_on_card(cuda_device, case):
+    """Bit-equal indices, on tiles with ties and short rows (non-negative,
+    and signed with -0.0 beside 0.0), on random distances, and on random
+    distances in a contiguous view whose base is not 16-byte aligned (a
+    storage offset of one entry)."""
     gen = torch.Generator(device=cuda_device).manual_seed(8)
+    shape = TOPK_CASES[case]
     B, S, M, Kn = shape
-    for d in (topk_min_case(gen, cuda_device, *shape),
-              torch.rand((B, S, M), generator=gen, device=cuda_device)):
+    tiles = [topk_min_case(gen, cuda_device, *shape),
+             topk_min_case(gen, cuda_device, *shape, signed=True),
+             torch.rand((B, S, M), generator=gen, device=cuda_device)]
+    offset = torch.empty(1 + tiles[-1].numel(), device=cuda_device)[1:].view(B, S, M)
+    tiles.append(offset.copy_(tiles[-1]))
+    for d in tiles:
         before = K.topk_min.launches
         got = K.topk_min(d, Kn)
         torch.cuda.synchronize()

@@ -46,6 +46,55 @@ def test_sa_mlp_max_matches_pallas(rng, stage):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds finite values: half a TF32 ulp added to
+    the magnitude's bits, then the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mlp_max_tf32(grouped, layers, passes):
+    """The f32 MLP kernel's numerics in plain PyTorch: every product of the
+    layers as ``passes`` TF32 products summed in f32. 3 (the kernel's
+    3xTF32): lo*hi + hi*lo + hi*hi with hi = rna(x), lo = rna(x - hi) for
+    both operands; 1: hi*hi alone, one TF32 pass. A product of two TF32
+    values is exact in f32, so only the sums round."""
+    B, Kn, S, C = grouped.shape
+    x = grouped.reshape(-1, C)
+    for w, s, t in layers:
+        xh, wh = _tf32_rna(x), _tf32_rna(w)
+        z = xh @ wh
+        if passes == 3:
+            z = (_tf32_rna(x - xh) @ wh + xh @ _tf32_rna(w - wh)) + z
+        x = torch.relu(z * s + t)
+    return x.reshape(B, Kn, S, -1).amax(dim=1)
+
+
+@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+def test_3xtf32_mlp_max_matches_pallas_f32(rng, stage):
+    """The f32 MLP kernel multiplies as 3xTF32 on the card's tensor cores;
+    emulated here at the trunk's widths, it lies within 1e-4 (the kernel's
+    f32 gate on the card, chip_smoke.py MLP_TOL) of sa_mlp_max_pallas in
+    interpret mode (HIGHEST f32): the split keeps about 21 of f32's 24 bits
+    of each operand and drops only lo*lo (~2^-22 relative), so the error is
+    of the order of f32 rounding in sums of up to 512 products. One TF32
+    pass is printed beside it, not asserted: it keeps about three decimal
+    digits, which is why the kernel splits."""
+    kn, s, widths = SA_WIDTHS[stage]
+    g = rng.normal(size=(2, kn, s, widths[0])).astype(np.float32)
+    layers = _layers_np(rng, widths)
+    want = np.asarray(sa_mlp_max_pallas(
+        jnp.asarray(g), [tuple(map(jnp.asarray, layer)) for layer in layers], False, True))
+    tg = torch.from_numpy(g)
+    tl = [tuple(map(torch.from_numpy, layer)) for layer in layers]
+    got = _mlp_max_tf32(tg, tl, 3).numpy()
+    one_pass = _mlp_max_tf32(tg, tl, 1).numpy()
+    print(f"{stage}: max abs err against the Pallas f32 kernel: 3xTF32 "
+          f"{np.abs(got - want).max():.2e}, one TF32 pass {np.abs(one_pass - want).max():.2e}")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     K.reset_launch_counts()
     xyz = torch.from_numpy(rng.normal(size=(2, 64, 3)).astype(np.float32))
