@@ -4,8 +4,10 @@
 
 Builds the port's CUDA kernels from ``pointcloud_orientation_tpu_torch/csrc``
 with nvcc and holds each kernel against its plain PyTorch version at the
-shapes its path gives it (the f32 MLP kernel, 3xTF32 on the tensor cores,
-also against a float64 product beside the plain f32 version). Then drives the main paths at full width, random
+shapes its path gives it (the f32 MLP kernels, forward and backward, 3xTF32
+on the tensor cores, also against float64 beside the plain f32 version; the
+backward's device kernels per fused train step; FPS on thread-block
+clusters up to the N=40,000 request's shape). Then drives the main paths at full width, random
 weights from a seed, each with the launch counters set to 0 just before and
 read just after: serving through ``OrientationPredictor`` (PointNet++ 8-dir)
 at N=1024 and N=10,000; serving the ModelNet40 classifier
@@ -131,13 +133,15 @@ BF16_GRAD_TOL = {"default": 1e-3, "fused": 1e-2}
 # at B=64 N=1024 and a 10,000-point cloud. Ball query: (B, S, N, K, radius),
 # the classifier's two stages. kNN: (B, S, N, K), the 8-dir sa1 above the
 # fused grouping's 10,240 points, up to the kernel's 20,480.
-# FPS above 32,768 points keeps its running minima in device memory.
+# FPS: one block a cloud at the classifier's N <= 1024, a cloud over a
+# thread-block cluster from about 10,000 points (B=2 N=40,000: the N=40,000
+# classifier request's sa1).
 # Ball query: the matmul form (last entry) where the JAX package's TPU
 # dispatch takes it (N=512 at the classifier's sa2, N above 20,480), and the
 # difference form at sa2 too, for its time beside the matmul form's.
 FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 128),
-              "B=16 N=10000": (16, 10000, 512), "B=4 N=40000": (4, 40_000, 512),
-              "B=4 N=65536": (4, 65_536, 512)}
+              "B=16 N=10000": (16, 10000, 512), "B=2 N=40000": (2, 40_000, 512),
+              "B=4 N=40000": (4, 40_000, 512), "B=4 N=65536": (4, 65_536, 512)}
 BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2, False),
                "sa2 B=64": (64, 128, 512, 64, 0.4, True),
                "sa2 B=64 difference form": (64, 128, 512, 64, 0.4, False),
@@ -796,6 +800,25 @@ def phase_timing_select(dev, checks: dict, cls: dict, large: dict) -> list:
     return summary
 
 
+def device_kernels(fn) -> int:
+    """How many kernels (with copies and fills) one call of ``fn`` runs on
+    the card, from the profiler's device events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return len(device_events(prof))
+
+
+def bwd_device_kernels(g, layers, dp, name, bf16=False) -> int:
+    """Device kernels of one backward call as a fused train step makes it:
+    sa1's grouped input (coordinates) needs no gradient."""
+    return device_kernels(lambda: K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16,
+                                                   need_dgrouped=not name.startswith("sa1")))
+
+
 def scatter_cost(B, N, S, Kn, D) -> tuple[float, float]:
     """Bytes: the cotangents and indices read once, the rows written once;
     operations: one add per cotangent."""
@@ -847,14 +870,34 @@ def bwd_outputs(res):
     return out
 
 
+def vs_f64(got, plain, g, layers, dp) -> dict:
+    """The f32 backward kernel (3xTF32) and the plain f32 version, each
+    against the plain version in float64 on the same inputs: the largest
+    error over each output's scale, and the error in norm, worst over the
+    outputs."""
+    ref = K.sa_mlp_max_bwd_plain(g.double(), [tuple(x.double() for x in layer)
+                                              for layer in layers], dp.double())
+    out = {}
+    for label, res in (("kernel", got), ("plain_f32", plain)):
+        scale_err = norm_err = 0.0
+        for (_, x), (_, y) in zip(bwd_outputs(res), bwd_outputs(ref)):
+            scale_err = max(scale_err, float((x.double() - y).abs().max())
+                            / max(float(y.abs().max()), 1e-300))
+            norm_err = max(norm_err, float((x.double() - y).norm() / y.norm().clamp_min(1e-300)))
+        out[label] = {"max_abs_err_over_scale": scale_err, "max_norm_rel_err": norm_err}
+    return out
+
+
 def check_mlp_bwd(gen, dev, name, shape, cases, bf16=False) -> dict:
     """``sa_mlp_max_bwd`` against its plain version at ``shape``: on dyadic
     inputs (``ties``, ``all-tied``) every output within BWD_TOL of its
     scale, on normal random inputs within BWD_RANDOM_NORM_TOL in norm; two
-    launches bit-equal; finite."""
+    launches bit-equal; finite. On random inputs the f32 kernel's error
+    against float64 is printed beside the plain f32 version's."""
     B, Kn, S, widths = shape
     kernel = "sa_mlp_max_bwd_bf16" if bf16 else "sa_mlp_max_bwd"
     worst = worst_abs = 0.0
+    out = {}
     for case in cases:
         if case == "random":
             g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
@@ -885,7 +928,8 @@ def check_mlp_bwd(gen, dev, name, shape, cases, bf16=False) -> dict:
         if case == "all-tied":
             ok = ok and not bool(got[0].any())
         rel_to_scale = max(f["max_abs_err"] / f["scale"] for f in fields.values())
-        emit("kernel_check", kernel=kernel, shape=name, case=case, ok=ok,
+        extra = {"vs_f64": vs_f64(got, want, g, layers, dp)} if case == "random" and not bf16 else {}
+        emit("kernel_check", kernel=kernel, shape=name, case=case, ok=ok, **extra,
              tol=BWD_TOL if case != "random" else BWD_RANDOM_NORM_TOL,
              max_abs_err_over_scale=rel_to_scale,
              max_norm_rel_err=max(f["norm_rel_err"] for f in fields.values()),
@@ -896,7 +940,8 @@ def check_mlp_bwd(gen, dev, name, shape, cases, bf16=False) -> dict:
             fail(f"{kernel} {name} {case}: {fields}")
         worst = max(worst, rel_to_scale)
         worst_abs = max([worst_abs] + [f["max_abs_err"] for f in fields.values()])
-    return {"max_abs_err": worst_abs, "max_abs_err_over_scale": worst}
+        out.update(extra)
+    return {"max_abs_err": worst_abs, "max_abs_err_over_scale": worst, **out}
 
 
 def phase_kernels_bwd(dev) -> dict:
@@ -1070,6 +1115,8 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
         b_ms, b_by = bound_ms(nbytes, rest, f32_products=products)
         per_shape["sa_mlp_max_bwd"][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                                  bound_ms=b_ms, bound_by=b_by, host_ms=host_ms,
+                                                 device_kernels=bwd_device_kernels(g, layers, dp,
+                                                                                   name),
                                                  **checks["sa_mlp_max_bwd"][name])
         emit("timing", kernel="sa_mlp_max_bwd", shape=name, **per_shape["sa_mlp_max_bwd"][name])
 
@@ -1101,6 +1148,8 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
             "bound_ms": b_ms, "bound_by": "bytes" if by_bytes * 2 >= b_ms else "operations",
             "library_ms": None if None in lib else sum(lib),
             "per": per, "launches_path": f"train {mode}, one epoch", "shapes": per_shape[kname],
+            **({"device_kernels_per_fused_step": sum(r["device_kernels"] for r in rows)}
+               if kname == "sa_mlp_max_bwd" else {}),
         })
     return summary
 
@@ -1391,6 +1440,7 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
         per_shape["sa_mlp_max_bwd_bf16"][name] = dict(
             ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             share=b_ms / ms, library_ms=None, host_ms=host_ms,
+            device_kernels=bwd_device_kernels(g, layers, dp, name, bf16=True),
             **checks["sa_mlp_max_bwd_bf16"][name])
         emit("timing", kernel="sa_mlp_max_bwd_bf16", shape=name,
              **per_shape["sa_mlp_max_bwd_bf16"][name])
@@ -1452,6 +1502,8 @@ def phase_timing_bf16(dev, checks: dict, serve_bf16: dict, train_bf16: dict,
             "bound_ms": b_ms, "bound_by": "bytes" if by_bytes * 2 >= b_ms else "operations",
             "library_ms": None, "f32_ms": sum(r["f32_ms"] for r in rows), "per": per,
             "launches_path": path, "shapes": per_shape[kname],
+            **({"device_kernels_per_fused_step": sum(r["device_kernels"] for r in rows)}
+               if kname == "sa_mlp_max_bwd_bf16" else {}),
         })
     return summary
 

@@ -30,13 +30,17 @@ memory, then fixed-order sums, no float atomics.
 ``sa_mlp_max_bwd`` (``csrc/sa_mlp_max_bwd.cu``) replaces
 ``pallas_kernels.py:_sa_mlp_max_bwd_impl``, the recompute backward of the
 MLP+max, in f32 and bf16; ``SAMlpMaxFn`` wires it in as the backward of
-``sa_mlp_max``. The recomputed activations go to a scratch tensor in device
-memory and every product is a tiled CUDA-core SGEMM (in bf16, of operands
-rounded to bf16).
+``sa_mlp_max``. Every product runs on the tensor cores (``mma.sync``: bf16,
+and f32 as 3xTF32); only each layer's pre-activation z goes to a scratch
+tensor in device memory, the BatchNorm backward and the max/tie split are
+folded into the products' epilogues, and the partial sums over row chunks
+are summed inside the library in a fixed order.
 
 ``knn`` (``csrc/knn.cu``) replaces ``pallas_kernels.py:knn_pallas``, the
 kNN of clouds of 10,240 < N <= 20,480 points; ``fps`` (``csrc/fps.cu``)
-replaces ``fps_pallas`` and ``ball_query`` (``csrc/ball_query.cu``)
+replaces ``fps_pallas`` (one block a cloud for the classifier's small
+clouds, from about 10,000 points a cloud over a thread-block cluster whose
+blocks merge their winners through distributed shared memory) and ``ball_query`` (``csrc/ball_query.cu``)
 replaces ``ball_query_pallas``, the sampling and grouping of the ModelNet40
 classifier. All three return indices and compute their distances in the
 difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels; the ball
@@ -65,9 +69,11 @@ Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W (Cin,Cout), scale,
 
 MAX_MLP_LAYERS = 4
 MAX_K = 128
-# FPS keeps the running minima in registers up to this many points (512
-# threads of 64 each), above it in a device buffer (csrc/fps.cu)
+# FPS: one block holds this many points' running minima in registers (512
+# threads of 64 each); a cloud over a cluster of 16 blocks holds 16 times as
+# many, above that they live in a device buffer (csrc/fps.cu)
 FPS_REGISTER_MAX_N = 32_768
+FPS_CLUSTER_MAX_N = 16 * FPS_REGISTER_MAX_N
 FPS_MAX_N = 1 << 30  # the kernel's int point index stays in range
 TOPK_MIN_MAX_K = 64
 TOPK_MIN_MAX_M = 1 << 24  # the kernel's limit on a row's entries
@@ -411,7 +417,31 @@ def sa_mlp_max_bwd_plain(grouped: torch.Tensor, layers: Sequence[Layer], dpooled
     return (da.reshape(B, Kn, S, C) if need_dgrouped else None), dlayers
 
 
-BWD_CHUNK_ROWS = 512  # rows per partial sum of dW, dscale, dshift in the kernel
+BWD_TILE_ROWS = 64  # rows of the kernel's product tile: one dscale/dshift partial each
+# blocks the kernel's split-K dW aims at for its smallest layer: two an SM of
+# the H100 (chip_sweep.py times one and four an SM beside it, PERF.md)
+BWD_CHUNK_BLOCKS = 264
+
+
+def _bwd_chunk_rows(rows: int, widths: Sequence[int]) -> int:
+    """Rows per chunk of the kernel's split-K dW = x^T dz: BWD_CHUNK_BLOCKS
+    blocks for the layer with the fewest 64 x 64 output tiles, chunks a
+    multiple of 32 rows (the kernel's stage). A function of the shapes
+    alone, so the partials are summed in the same order every launch."""
+    tiles = min(-(-ci // 64) * -(-co // 64) for ci, co in zip(widths[:-1], widths[1:]))
+    chunks = max(1, min(-(-BWD_CHUNK_BLOCKS // tiles), rows // 32))
+    per_chunk = -(-rows // chunks)
+    return -(-per_chunk // 32) * 32
+
+
+def _bwd_scratch_floats(rows: int, widths: Sequence[int], chunk_rows: int) -> int:
+    """The kernel's scratch: z of every layer, then per layer the dW
+    partials (one per row chunk) and the dscale and dshift partials (one per
+    tile of BWD_TILE_ROWS rows)."""
+    chunks = -(-rows // chunk_rows)
+    tiles = -(-rows // BWD_TILE_ROWS)
+    pairs = list(zip(widths[:-1], widths[1:]))
+    return rows * sum(widths[1:]) + sum(chunks * ci * co + 2 * tiles * co for ci, co in pairs)
 
 
 def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torch.Tensor,
@@ -423,8 +453,7 @@ def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torc
     (``bf16``: every product of operands rounded to bf16, as the forward).
     Returns ``dgrouped (B,K,S,C)`` f32 (None when ``need_dgrouped`` is
     false: the kernel then skips that product) and ``[(dW, dscale,
-    dshift)]`` per layer; the partials over row chunks that the kernel
-    writes are summed here."""
+    dshift)]`` per layer, summed inside the kernel's library."""
     if grouped.dtype != torch.float32:
         raise TypeError(f"sa_mlp_max_bwd takes float32 grouped features (bf16=True rounds "
                         f"them inside), got {grouped.dtype}")
@@ -443,18 +472,16 @@ def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torc
     grads, grad_ptrs = [], []
     _check_cuda("dpooled", dpooled, torch.float32, (B, S, widths[-1]), dev)
     rows = B * Kn * S
-    chunks = -(-rows // BWD_CHUNK_ROWS)
-    if chunks > 65535:
-        raise ValueError(f"B*K*S={rows} rows exceed the kernel's {65535 * BWD_CHUNK_ROWS}")
+    chunk_rows = _bwd_chunk_rows(rows, widths)
     for cin, cout in zip(widths[:-1], widths[1:]):
-        dw = torch.empty((chunks, cin, cout), dtype=torch.float32, device=dev)
-        ds = torch.empty((chunks, cout), dtype=torch.float32, device=dev)
-        dt = torch.empty((chunks, cout), dtype=torch.float32, device=dev)
+        dw = torch.empty((cin, cout), dtype=torch.float32, device=dev)
+        ds = torch.empty((cout,), dtype=torch.float32, device=dev)
+        dt = torch.empty((cout,), dtype=torch.float32, device=dev)
         grads.append((dw, ds, dt))
         grad_ptrs += [dw.data_ptr(), ds.data_ptr(), dt.data_ptr()]
     n_layers = len(layers)
     grad_ptrs += [None] * (3 * (MAX_MLP_LAYERS - n_layers))
-    scratch_floats = rows * (2 * sum(widths[1:]) + 2 * max(widths[1:]))
+    scratch_floats = _bwd_scratch_floats(rows, widths, chunk_rows)
     if scratch_floats >= 2 ** 31:
         raise ValueError(f"scratch of {scratch_floats} floats exceeds the kernel's int range")
     scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=dev)
@@ -466,7 +493,7 @@ def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torc
         err = lib.pcot_sa_mlp_max_bwd_f32(
             grouped.data_ptr(), dpooled.data_ptr(),
             None if dgrouped is None else dgrouped.data_ptr(), scratch.data_ptr(),
-            scratch_floats, BWD_CHUNK_ROWS, B, Kn, S, n_layers, *ptrs, *grad_ptrs, *widths_arg,
+            scratch_floats, chunk_rows, B, Kn, S, n_layers, *ptrs, *grad_ptrs, *widths_arg,
             int(bf16), stream)
     _raise_on(err, f"sa_mlp_max_bwd launch (B={B}, K={Kn}, S={S}, widths={widths}, "
                    f"bf16={bf16})")
@@ -474,9 +501,7 @@ def sa_mlp_max_bwd(grouped: torch.Tensor, layers: Sequence[Layer], dpooled: torc
         sa_mlp_max_bwd.launches_bf16 += 1
     else:
         sa_mlp_max_bwd.launches += 1
-    # partials summed outside the kernel, as the JAX package sums its
-    # kernel's per-cloud partials (at sa2, B=16: 32 chunks x 65,920 floats)
-    return dgrouped, [tuple(p.sum(dim=0) for p in layer) for layer in grads]
+    return dgrouped, [tuple(layer) for layer in grads]
 
 
 sa_mlp_max_bwd.launches = 0
@@ -587,7 +612,7 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
     (B,N,3)`` f32, starting at ``seeds (B,)`` int32 in ``[0, N)``. Each step
     lowers the running minimum squared distance (from 1e10) and moves to its
     largest entry, equal values to the lowest index. The kernel takes
-    ``N <= FPS_MAX_N``; above ``FPS_REGISTER_MAX_N`` points the running
+    ``N <= FPS_MAX_N``; above ``FPS_CLUSTER_MAX_N`` points the running
     minima live in a ``(B, N)`` buffer allocated here."""
     _check_points("xyz", "fps", xyz)
     if npoint < 1:
@@ -603,7 +628,7 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
     _check_cuda("seeds", seeds, torch.int32, (B,), dev)
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
     dist = (torch.empty((B, N), dtype=torch.float32, device=dev)
-            if N > FPS_REGISTER_MAX_N else None)
+            if N > FPS_CLUSTER_MAX_N else None)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -198,16 +198,24 @@ def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
     return g.float().contiguous(), layers, dp
 
 
+# (B, K, S, MLP widths) of the backward's card tests: B=16 at each set
+# abstraction, and ragged shapes whose rows and widths end inside the
+# kernel's 64 x 64 product tiles and its 32-deep stages
+BWD_CASES = {**{stage: (16, kn, s, widths) for stage, (kn, s, widths) in SA_WIDTHS.items()},
+             "ragged-3": (5, 7, 9, (3, 20, 36)), "ragged-131": (5, 7, 9, (131, 40, 72))}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dead", [False, True], ids=["ties", "all-tied"])
-@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+@pytest.mark.parametrize("stage", sorted(BWD_CASES))
 def test_mlp_max_bwd_kernel_matches_plain_on_card(cuda_device, stage, dead):
-    """B=16 at each set abstraction's shapes: dgrouped, dW, dscale and
-    dshift within rtol 1e-4 and atol 1e-4 times the output's largest entry
-    (the backward sums over up to 65,536 rows run in another order)."""
-    kn, s, widths = SA_WIDTHS[stage]
+    """B=16 at each set abstraction's shapes, and two ragged shapes:
+    dgrouped, dW, dscale and dshift within rtol 1e-4 and atol 1e-4 times
+    the output's largest entry (the backward sums over up to 65,536 rows run
+    in another order)."""
+    b, kn, s, widths = BWD_CASES[stage]
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    g, layers, dp = dyadic_mlp_case(gen, cuda_device, 16, kn, s, widths, dead)
+    g, layers, dp = dyadic_mlp_case(gen, cuda_device, b, kn, s, widths, dead)
     before = K.sa_mlp_max_bwd.launches
     got = K.sa_mlp_max_bwd(g, layers, dp)
     want = K.sa_mlp_max_bwd_plain(g, layers, dp)
@@ -253,13 +261,14 @@ def test_sa_mlp_max_bf16_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dead", [False, True], ids=["ties", "all-tied"])
-@pytest.mark.parametrize("stage", sorted(SA_WIDTHS))
+@pytest.mark.parametrize("stage", sorted(BWD_CASES))
 def test_mlp_max_bwd_bf16_kernel_matches_plain_on_card(cuda_device, stage, dead):
-    """The bf16 backward at B=16, on dyadic inputs: every output within rtol
-    1e-4 and atol 1e-4 of its scale; the same bits twice."""
-    kn, s, widths = SA_WIDTHS[stage]
+    """The bf16 backward at B=16 and the ragged shapes, on dyadic inputs:
+    every output within rtol 1e-4 and atol 1e-4 of its scale; the same bits
+    twice."""
+    b, kn, s, widths = BWD_CASES[stage]
     gen = torch.Generator(device=cuda_device).manual_seed(10)
-    g, layers, dp = dyadic_mlp_case(gen, cuda_device, 16, kn, s, widths, dead)
+    g, layers, dp = dyadic_mlp_case(gen, cuda_device, b, kn, s, widths, dead)
     before = K.sa_mlp_max_bwd.launches_bf16
     got = K.sa_mlp_max_bwd(g, layers, dp, bf16=True)
     want = K.sa_mlp_max_bwd_plain(g, layers, dp, bf16=True)
@@ -400,9 +409,10 @@ def _unit_cloud(gen, dev, B, N, tiled):
 @pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
 @pytest.mark.parametrize("shape", [(64, 1024, 512), (64, 512, 128), (16, 10000, 512),
                                    (2, 20000, 40), (3, 33, 40), (2, 32769, 64),
-                                   (2, 65536, 64)],
+                                   (2, 65536, 64), (2, 40000, 512), (1, 300000, 512),
+                                   (1, 600000, 64), (200, 1024, 512)],
                          ids=["sa1", "sa2", "N=10000", "N=20000", "npoint>N", "N=32769",
-                              "N=65536"])
+                              "N=65536", "N=40000", "N=300000", "N=600000", "B=200"])
 def test_fps_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     B, N, npoint = shape
     gen = torch.Generator(device=cuda_device).manual_seed(6)

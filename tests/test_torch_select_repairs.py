@@ -152,8 +152,9 @@ def test_ball_query_in_the_kernel_sizes_keeps_the_difference_form(rng):
 
 @pytest.mark.parametrize("n", [32_769, 40_000])
 def test_fps_plain_above_32768_points_equals_fps_pallas(rng, n):
-    """Above the FPS kernel's register limit (32,768 points) the port still
-    samples as ``fps_pallas`` does, which serves any N from 1024 points:
+    """Above one block's register limit (32,768 points; the kernel then
+    splits the cloud over a thread-block cluster) the port still samples as
+    ``fps_pallas`` does, which serves any N from 1024 points:
     exact indices from random start seeds (B=2, npoint=16; interpret mode)."""
     x = rng.normal(size=(2, n, 3))
     xyz = (x / np.linalg.norm(x, axis=-1).max(axis=1)[:, None, None]).astype(np.float32)
