@@ -30,7 +30,12 @@ yaw-distribution heads (``pointnet_pp_fwd``, ``pointnet_pp_von_mises``,
 and one epoch each of the multi_8dir, vm_kl, mvm_robust and mvm_debug
 presets, vm_kl and mvm_robust again under the grid dispatch. Finally times
 the kernels, the requests and the train steps, f32 beside bf16 and exact
-beside grid, with CUDA events, the profiler and the host clock. Prints one
+beside grid, with CUDA events, the profiler and the host clock. Besides: the
+MLP forward against its backward's recompute (the pooled value reproduced
+bit for bit, f32 and bf16, every stage's widths); the five selection
+micro-benchmark kernels (``benchmarks/profile_vpu_select.py``) bit for bit
+against their plain versions, then their benchmark as its own main path.
+Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
 the run's total seconds, and the last line is ``{"ok": true, "device": ...}``.
@@ -54,6 +59,9 @@ import numpy as np
 import torch
 
 from pointcloud_orientation_tpu_torch import OrientationPredictor, random_flax_variables
+from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+from pointcloud_orientation_tpu_torch.benchmarks.roofline import bound_ms, timed
+from pointcloud_orientation_tpu_torch.benchmarks.roofline import device_ms as cuda_ms
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
@@ -61,20 +69,12 @@ from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside
-# the tensor cores, and dense bf16 and TF32 in the tensor cores (f32
-# accumulation). The bound of a kernel is the larger of its bytes and its
-# operations over these: a bf16 kernel's products at the bf16 rate; the
-# products of an f32 MLP kernel (forward and backward) at the least time the
-# card takes for f32-grade products, three TF32 products each (3xTF32), a
-# third of the TF32 rate; the rest at the f32 rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_PRODUCT_FLOPS = PEAK_TF32_FLOPS / 3
+# The card's peaks and the bound formula (roofline.bound_ms): a bf16
+# kernel's products at the bf16 tensor-core rate; the products of an f32 MLP
+# kernel (forward and backward) at the least time the card takes for
+# f32-grade products, three TF32 products each (3xTF32); the rest at the f32
+# rate.
 TIMING_ITERS = 20
-SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's SM clock: a sleep at least this long
 SEED = 0
 
 # The kernels' shapes on the serving path. K1: (B, N, S, K, D); K2: (B, K, S,
@@ -187,49 +187,6 @@ def emit(phase: str, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def timed(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, host ms) per call of ``fn`` over ``iters`` back-to-back
-    calls. The host ms is the time the host takes to enqueue one call. For
-    the device time the card first sleeps for twice the host's enqueue time
-    of all the calls, so that the calls queue up and run back to back: a
-    kernel shorter than its wrapper's host overhead is then timed on the
-    device, not at the host's launch rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2.0 * host_s * SLEEP_CYCLES_PER_S) + 1000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters, host_s * 1e3 / iters
-
-
-def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    return timed(fn, iters, warmup)[0]
-
-
-def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0,
-             f32_products: float = 0.0) -> tuple[float, str]:
-    """The larger of the bytes' time and the operations' time: ``flops`` at
-    the f32 peak, ``bf16_flops`` (products of bf16 operands) at the bf16
-    tensor-core peak, ``f32_products`` (f32 matrix products) at a third of
-    the TF32 tensor-core peak."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
-             + f32_products / PEAK_F32_PRODUCT_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sa_group_cost(B, N, S, Kn, D) -> tuple[float, float]:
@@ -1922,6 +1879,158 @@ def phase_timing_grid(dev, checks: dict, serve_grid: dict, serve_heads: dict,
     }]
 
 
+# ---------------------------------------------------------------------------
+# the MLP forward against the backward's recompute, and the selection
+# micro-benchmarks
+# ---------------------------------------------------------------------------
+
+# (K, widths) of every stage the MLP kernels run: the 8-dir trunk's three and
+# the classifier's three (K=64 at sa2, the group-all's 128 rows)
+RECOMPUTE_STAGES = {name: (kn, widths) for name, (_, kn, _, widths) in SA_MLP_SHAPES.items()}
+RECOMPUTE_SEEDS = 4
+RECOMPUTE_COLUMNS = 12  # pooled columns sampled a seed
+# the neighbours of a near-tie centroid: one row plus this much noise, relative
+# (bf16 rounds its inputs to 8 bits, so its rows differ more)
+RECOMPUTE_SPREAD = {False: 2.0 ** -12, True: 2.0 ** -6}
+
+
+def affine_f32(z: float, s: float, t: float) -> np.float32:
+    """y = z * s + t in f32, each operation rounded (the kernels' affine)."""
+    return np.float32(np.float32(np.float32(z) * np.float32(s)) + np.float32(t))
+
+
+def mlp_recompute_check(dev, bf16: bool, seeds: int = RECOMPUTE_SEEDS,
+                        columns: int = RECOMPUTE_COLUMNS) -> dict:
+    """Does ``sa_mlp_max_bwd``'s recompute reproduce ``sa_mlp_max``'s pooled
+    value bit for bit? One centroid (B = S = 1) whose K neighbours are near
+    ties (one random row plus a little noise), random layers; for sampled
+    columns c with a positive pooled value, ``dpooled`` one-hot at c. Where
+    the backward routes that cotangent to a single neighbour (one row of
+    ``dgrouped`` is non-zero), the last layer's ``dscale[c]`` is the
+    recomputed z at the recomputed maximum, and ``relu(affine(z, s, t))``
+    must be the pooled value's bits. Returns the counts per stage."""
+    gen = torch.Generator(device=dev)
+    out = {}
+    for name, (kn, widths) in RECOMPUTE_STAGES.items():
+        checked = differ = shared = 0
+        for seed in range(seeds):
+            gen.manual_seed(SEED + 30 + seed)
+            base = torch.randn((widths[0],), generator=gen, device=dev)
+            noise = torch.randn((1, kn, 1, widths[0]), generator=gen, device=dev)
+            g = (base * (1 + RECOMPUTE_SPREAD[bf16] * noise)).contiguous()
+            layers = make_layers(widths, gen, dev)
+            pooled = K.sa_mlp_max(g, layers, bf16=bf16)[0, 0]
+            live = torch.nonzero(pooled > 0).flatten()
+            pick = live[torch.randperm(len(live), generator=gen, device=dev)[:columns]]
+            for c in pick.tolist():
+                dp = torch.zeros((1, 1, widths[-1]), device=dev)
+                dp[0, 0, c] = 1.0
+                dg, dl = K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16)
+                if int((dg[0, :, 0] != 0).any(dim=-1).sum()) != 1:
+                    shared += 1  # the recomputed maximum is tied: dscale mixes rows
+                    continue
+                y = max(affine_f32(float(dl[-1][1][c]), float(layers[-1][1][c]),
+                                   float(layers[-1][2][c])), np.float32(0.0))
+                checked += 1
+                differ += int(np.float32(y).view(np.int32)
+                              != np.float32(float(pooled[c])).view(np.int32))
+        out[name] = {"checked": checked, "differ": differ, "tied_maximum_skipped": shared}
+    return out
+
+
+def phase_mlp_recompute(dev) -> None:
+    """The repair's check: the MLP backward's recomputed maximum reproduces
+    the forward's pooled value bit for bit, f32 and bf16, at every stage's
+    widths (``mlp_recompute_check``)."""
+    for bf16 in (False, True):
+        res = mlp_recompute_check(dev, bf16)
+        ok = all(r["checked"] > 0 and r["differ"] == 0 for r in res.values())
+        emit("mlp_recompute", dtype="bfloat16" if bf16 else "float32", stages=res, ok=ok)
+        if not ok:
+            fail(f"sa_mlp_max vs the backward's recompute ({'bf16' if bf16 else 'f32'}): {res}")
+
+
+def select_tile(gen, dev, shape, case) -> torch.Tensor:
+    """Uniform distances (B, S, N) in [0, 1); "ties": each row a quarter of
+    its values cycled to N, as ``unit_cloud(tiled=True)`` builds clouds."""
+    b, s, n, _ = shape
+    if case == "ties":
+        base = torch.rand((b, s, max(1, n // 4)), generator=gen, device=dev)
+        return base.repeat(1, 1, -(-n // base.shape[-1]))[..., :n].contiguous()
+    return torch.rand((b, s, n), generator=gen, device=dev)
+
+
+def phase_kernels_vpu_select(dev) -> dict:
+    """The five micro-benchmark kernels bit for bit against their plain
+    versions: ``ew`` in f32, bf16 and int16 at the JAX file's shape, 32
+    rounds (overflow, wrapping) and 3; the four selections at the shapes
+    they are timed at (``profile_vpu_select.SELECT_SHAPES``) on random and
+    tie-rich rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    results = {}
+    shape = (PV.B, PV.S, PV.N)
+    for dtype in PV.EW_DTYPES:
+        x = PV.ew_input(dtype, shape, gen)
+        for reps in (PV.REPS, 3):
+            got, want = PV.ew(x, reps), PV.ew_plain(x, reps)
+            torch.cuda.synchronize()
+            view = torch.int32 if dtype == torch.float32 else torch.int16
+            if got.dtype != want.dtype or not torch.equal(got.view(view), want.view(view)):
+                fail(f"ew {dtype} reps={reps}: differs from the plain version in "
+                     f"{int((got.view(view) != want.view(view)).sum())} elements")
+        emit("kernel_check", kernel="ew", dtype=str(dtype), exact=True, reps=[PV.REPS, 3])
+    results["ew"] = {"max_abs_err": 0.0, "exact": True}
+    for fn in PV.SELECTIONS:
+        for name, sel_shape in PV.SELECT_SHAPES.items():
+            for case in ("random", "ties"):
+                d = select_tile(gen, dev, sel_shape, case)
+                got, want = fn(d, sel_shape[3]), PV.PLAIN[fn](d, sel_shape[3])
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"{fn.__name__} {name} {case}: differs from the plain version")
+            emit("kernel_check", kernel=fn.__name__, shape=name, exact=True,
+                 inputs=["random", "ties"])
+        results[fn.__name__] = {"max_abs_err": 0.0, "exact": True}
+    return results
+
+
+def phase_vpu_select(dev, checks: dict) -> list:
+    """The micro-benchmarks' main path: ``profile_vpu_select.benchmark``,
+    the module's ``main`` without its printing, with its launch counters
+    set to 0 just before and read just after; every kernel must have run.
+    Its rows are the five kernels' timing rows."""
+    PV.reset_launch_counts()
+    rows = PV.benchmark(dev)
+    launches = PV.launch_counts()
+    emit("vpu_select", launches=launches)
+    if min(launches.values()) == 0:
+        fail(f"a micro-benchmark kernel was never launched: {launches}")
+    for row in rows:
+        emit("timing", **row)
+    src = "pointcloud_orientation_tpu_torch/csrc/vpu_select.cu"
+    summary = []
+    for fn in PV.KERNELS:
+        name = fn.__name__
+        mine = [r for r in rows if r["kernel"] == name]
+        head = mine[0]  # ew: f32; a selection: the JAX file's B=64 N=1024
+        summary.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"benchmarks/profile_vpu_select.py{PV.REPLACES[fn]}",
+            "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "per": ("one call at (64, 128, 1024) f32, 32 rounds" if name == "ew"
+                    else "one call at B=64 S=128 N=1024 K=32"),
+            "launches_path": "profile_vpu_select.benchmark (the module's main)",
+            "rows": mine,
+            **({"library_call": "torch.topk(d, K, largest=False); its order among equal "
+                                "values is not guaranteed"} if name == "count_emit" else {}),
+        })
+    return summary
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -1931,6 +2040,8 @@ def main() -> None:
     checks.update(phase_kernels_select(dev))
     checks.update(phase_kernels_bwd(dev))
     checks.update(phase_kernels_bf16(dev))
+    phase_mlp_recompute(dev)
+    checks.update(phase_kernels_vpu_select(dev))
     serve = phase_serve(dev)
     serve_bf16 = phase_serve_bf16(dev)
     cls = phase_serve_cls(dev)
@@ -1947,6 +2058,7 @@ def main() -> None:
     summary += phase_timing_select(dev, checks, cls, large)
     summary += phase_timing_bf16(dev, checks, serve_bf16, train_bf16, cls_large)
     summary += phase_timing_grid(dev, checks, serve_grid, serve_heads, train_heads)
+    summary += phase_vpu_select(dev, checks)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

@@ -1,27 +1,36 @@
-"""Design measurements behind the FPS and MLP-backward kernels, on one NVIDIA card.
+"""Design measurements behind the port's kernels, on one NVIDIA card.
 
-    python3 chip_sweep.py
+    python3 chip_sweep.py [select] [mlp]
 
-Builds, beside the shipped library, variants of the shipped sources that
-differ in one choice each, and times them on the same inputs in turns:
+(no argument: both). Builds, beside the shipped library, variants of the
+shipped sources that differ in one choice each (one nvcc per variant,
+started together, into ``build/sweep/``), and times them on the same inputs
+in turns:
 
-- ``csrc/fps.cu``'s shape choice: at the classifier's first stage (N=1024,
-  B=64) one block of 256 threads a cloud against 128, 64 and 32 threads
-  (one warp) a cloud and against a cluster of 2 blocks; at B=16 N=10,000 the
-  cluster of 8 against clusters of 1, 2 and 4; at B=2 N=40,000 the cluster
-  of 16 against 8. Every variant's indices are held equal to ``fps_plain``.
-- ``csrc/sa_mlp_max_bwd.cu``'s accumulation: the shipped kernel (each MMA
-  step into a zeroed accumulator, added to the running sum in f32) against
-  the MMAs chaining their own accumulation: kernel times at the training
-  shapes, the f32 kernel's error against float64 beside the plain f32
-  version's, and ``chip_smoke.py``'s per-call check of a fused bf16 train
-  step over 12 trajectories (6 seeds, 2 batches each).
-- ``cuda_kernels.BWD_CHUNK_BLOCKS``, the blocks the backward's split-K dW
-  aims at: 132, 264 and 528.
+- ``select``: the selection of ``csrc/sa_group.cu`` and ``csrc/knn.cu``.
+  On the same distance tiles (the grouping's shapes: sa1 B=64 N=1024, sa1
+  B=16 N=10,000, sa2 B=64 N=128, and the kNN kernel's B=16 N=16,384 and
+  N=20,480; S=128 or 32, K=32) the four micro-benchmark selections of
+  ``csrc/vpu_select.cu`` (``sel_argmin`` is the K-pass design the grouping
+  used before), ``topk_min``'s threshold select, and the shipped
+  ``sa_group``/``knn`` kernels on the clouds the tiles come from
+  (``sa_group`` also in its block design at every N, without the warp
+  design it takes up to N=1,024, and with its warp design held to 3 or 4
+  blocks an SM).
+- ``mlp``: ``csrc/sa_mlp_max.cu`` with the backward's arithmetic (shipped)
+  against the forward before it (the tensor cores' accumulation chained over
+  the contraction, ``a * s + t`` contracted to an FMA) and against the
+  repair's first form (the f32 step's B fragments split up front): times at
+  every forward shape of ``chip_smoke.py``, f32 and bf16, and
+  ``chip_smoke.mlp_recompute_check`` on both, the cases where the backward's
+  recomputed maximum does not reproduce the pooled value.
 
-Prints one JSON line per measurement, the card's name and power limit, and
-``{"ok": true}`` last. Imports only the port, torch, numpy and
-``chip_smoke``. Exits non-zero when no CUDA device is visible.
+A variant is the shipped source with a few lines replaced by their text, so
+it is made only when its sweep runs, and that sweep stops (naming the line)
+once the shipped source no longer holds the text. Importing this module
+reads no source. Prints one JSON line per measurement, the card's name and
+power limit, and ``{"ok": true}`` last. Imports only the port, torch, numpy
+and ``chip_smoke``. Exits non-zero when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -36,12 +45,12 @@ from unittest import mock
 import torch
 
 import chip_smoke as CS
+from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
-from pointcloud_orientation_tpu_torch.train import Trainer, preset
+from pointcloud_orientation_tpu_torch.ops import geometry as G
 
 OUT = _build.BUILD_ROOT.parent / "sweep"
-FPS_SRC = (_build.CSRC / "fps.cu").read_text()
-BWD_SRC = (_build.CSRC / "sa_mlp_max_bwd.cu").read_text()
+SWEEPS = ("select", "mlp")
 
 
 def patched(text: str, *edits: tuple[str, str]) -> str:
@@ -52,52 +61,113 @@ def patched(text: str, *edits: tuple[str, str]) -> str:
     return text
 
 
-def fps_dispatch(line: str) -> tuple[str, str]:
-    """The dispatch line for slices of up to 1,024 points, replaced."""
-    return ("if (slice <= 1024) return launch_block<4, 256>", f"if (slice <= 1024) return {line}")
+# sa_mlp_max.cu's f32 step as shipped: B split a column tile at a time, each
+# tile's MMAs into a zeroed part added to the sum
+SHIPPED_F32_STEP = """#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      unsigned bhi[2], blo[2];
+      split_tf32(__float_as_uint(w[nt * 8]), bhi[0], blo[0]);
+      split_tf32(__float_as_uint(w[4 * ldw + nt * 8]), bhi[1], blo[1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, alo[mt], bhi[0], bhi[1]);
+        mma_tf32(part, ahi[mt], blo[0], blo[1]);
+        mma_tf32(part, ahi[mt], bhi[0], bhi[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }
+    }"""
+# every B fragment split up front, as before the repair
+SPLIT_B_UP_FRONT = """    unsigned bhi[4][2], blo[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      split_tf32(__float_as_uint(w[nt * 8]), bhi[nt][0], blo[nt][0]);
+      split_tf32(__float_as_uint(w[4 * ldw + nt * 8]), bhi[nt][1], blo[nt][1]);
+    }
+"""
 
 
-def min_slice(n: int) -> tuple[str, str]:
-    return ("constexpr int kMinSlice = 1024;", f"constexpr int kMinSlice = {n};")
+def mlp_variants(fwd: str) -> dict:
+    """The forward's variants of the ``mlp`` sweep, from its shipped text."""
+    # the repaired arithmetic with every B fragment split up front (the first
+    # form of the repair: 84 bytes of spills at 128 registers)
+    repair_up_front = patched(fwd, (SHIPPED_F32_STEP, SPLIT_B_UP_FRONT + """#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, alo[mt], bhi[nt][0], bhi[nt][1]);
+        mma_tf32(part, ahi[mt], blo[nt][0], blo[nt][1]);
+        mma_tf32(part, ahi[mt], bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }"""))
+    # the forward before its repair: each MMA chaining the tensor cores' own
+    # accumulation over the contraction, and y = a * s + t, which nvcc
+    # contracts to an FMA (the backward forms it in two roundings)
+    old_forward = patched(
+        fwd,
+        (SHIPPED_F32_STEP, SPLIT_B_UP_FRONT + """#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt][0], blo[nt][1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt][0], bhi[nt][1]);"""),
+        ("""      for (int mt = 0; mt < 2; ++mt) {  // as the f32 step: a zeroed part, then an f32 add
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, r[mt], b0, b1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }""",
+         "      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], r[mt], b0, b1);"),
+        ("affine(a[0], s0, t0)", "a[0] * s0 + t0"), ("affine(a[1], s1, t1)", "a[1] * s1 + t1"),
+        ("affine(a[2], s0, t0)", "a[2] * s0 + t0"), ("affine(a[3], s1, t1)", "a[3] * s1 + t1"),
+        ("affine(acc[mt][nt][2 * h + j], scj, shj)", "acc[mt][nt][2 * h + j] * scj + shj"))
+    return {"old forward": old_forward, "repair, B split up front": repair_up_front}
 
 
-FPS_VARIANTS = {
-    "shipped": FPS_SRC,
-    "128 threads": patched(FPS_SRC, fps_dispatch("launch_block<8, 256>")),
-    "64 threads": patched(FPS_SRC, fps_dispatch("launch_block<16, 256>")),
-    "one warp": patched(FPS_SRC, fps_dispatch("launch_block<32, 256>")),
-    "cluster 2 at N=1024": patched(FPS_SRC, min_slice(256)),
-    "min slice 2500": patched(FPS_SRC, min_slice(2500)),
-    "min slice 5000": patched(FPS_SRC, min_slice(5000)),
-    "no cluster below the registers' need": patched(FPS_SRC, min_slice(1 << 29)),
-}
-# (B, N, npoint) and the variants timed there (the shipped kernel always)
-FPS_SWEEP = {
-    (64, 1024, 512): ("128 threads", "64 threads", "one warp", "cluster 2 at N=1024"),
-    (16, 10000, 512): ("min slice 2500", "min slice 5000", "no cluster below the registers' need"),
-    (2, 40000, 512): ("min slice 2500",),
-}
-
-CHAINED_BWD = patched(
-    BWD_SRC,
-    ("float part[4] = {0.f, 0.f, 0.f, 0.f};", "float (&part)[4] = acc[mt][nt];"),
-    ("#pragma unroll\n          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];\n", ""))
+def group_variants(group: str) -> dict:
+    """The grouping's variants of the ``select`` sweep: its block design (one
+    block a centroid) at every N, in place of one warp a centroid up to
+    N=1,024; and the warp design held to fewer registers, for 3 or 4 blocks
+    an SM."""
+    out = {"sa_group block design": patched(group, ("constexpr int kWarpMaxN = 1024;",
+                                                    "constexpr int kWarpMaxN = 0;"))}
+    for blocks in (3, 4):
+        out[f"sa_group warp design, {blocks} blocks an SM"] = patched(
+            group, ("__launch_bounds__(kThreads)\nsa_group_warp_kernel",
+                    f"__launch_bounds__(kThreads, {blocks})\nsa_group_warp_kernel"))
+    return out
 
 
-def build_all() -> dict:
-    """One nvcc per FPS variant and one for the whole library with the
-    chained backward, all started together."""
+def build_all(sweeps) -> dict:
+    """One nvcc for the whole library with each variant of a library source
+    the chosen sweeps need, all started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build.nvcc_path()
+    variants = {}  # name -> (file, text)
+    if "mlp" in sweeps:
+        fwd = (_build.CSRC / "sa_mlp_max.cu").read_text()
+        variants.update({name: ("sa_mlp_max.cu", text) for name, text in mlp_variants(fwd).items()})
+    if "select" in sweeps:
+        group = (_build.CSRC / "sa_group.cu").read_text()
+        variants.update({name: ("sa_group.cu", text)
+                         for name, text in group_variants(group).items()})
     jobs = {}
-    for name, text in FPS_VARIANTS.items():
-        src = OUT / f"fps_{len(jobs)}.cu"
-        src.write_text(text)
-        jobs[name] = (src.with_suffix(".so"), [str(src)])
-    chained = OUT / "sa_mlp_max_bwd.cu"
-    chained.write_text(CHAINED_BWD)
-    others = [str(p) for p in sorted(_build.CSRC.glob("*.cu")) if p.name != "sa_mlp_max_bwd.cu"]
-    jobs["chained backward"] = (OUT / "lib_chained.so", others + [str(chained)])
+    for name, (file, text) in variants.items():
+        variant = OUT / name.replace(" ", "_").replace(",", "") / file
+        variant.parent.mkdir(parents=True, exist_ok=True)
+        variant.write_text(text)
+        others = [str(p) for p in sorted(_build.CSRC.glob("*.cu")) if p.name != file]
+        # csrc/ on the include path: a variant finds the shipped headers there
+        jobs[name] = (variant.parent / "lib.so", ["-I", str(_build.CSRC), *others, str(variant)])
     procs = {name: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(so), *srcs],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, (so, srcs) in jobs.items()}
@@ -116,103 +186,99 @@ def build_all() -> dict:
     return libs
 
 
-def fps_call(cdll, xyz, seeds, npoint):
-    B, N, _ = xyz.shape
-    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    err = cdll.pcot_fps_f32(xyz.data_ptr(), seeds.data_ptr(), out.data_ptr(), None, B, N, npoint,
-                            torch.cuda.current_stream().cuda_stream)
-    if err:
-        CS.fail(f"fps variant: CUDA error {err} at {(B, N, npoint)}")
-    return out
+# (B, S, N, K, D, distance form) of the selection sweep: the grouping's
+# (matmul form; D feature channels gathered) and the kNN kernel's
+# (difference form)
+SELECT_SWEEP = {"sa1 B=64 N=1024": (64, 128, 1024, 32, 0, "matmul"),
+                "sa1 B=16 N=10000": (16, 128, 10_000, 32, 0, "matmul"),
+                "sa2 B=64 N=128": (64, 32, 128, 32, 128, "matmul"),
+                "knn B=16 N=16384": (16, 128, 16_384, 32, 0, "difference"),
+                "knn B=16 N=20480": (16, 128, 20_480, 32, 0, "difference")}
 
 
-def sweep_fps(dev, libs) -> None:
-    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 20)
-    for shape, names in FPS_SWEEP.items():
-        B, N, npoint = shape
-        xyz = CS.unit_cloud(B, N, gen, dev, False)
-        seeds = torch.zeros((B,), dtype=torch.int32, device=dev)
-        want = K.fps_plain(xyz, seeds, npoint)
-        ms = {name: [] for name in ("shipped", *names)}
-        for rnd in range(2):  # in turns, the order reversed in the second round
-            for name in (list(ms) if rnd == 0 else list(ms)[::-1]):
-                cdll = libs[name]
-                if not torch.equal(fps_call(cdll, xyz, seeds, npoint), want):
-                    CS.fail(f"fps variant {name} differs from fps_plain at {shape}")
-                ms[name].append(CS.cuda_ms(lambda: fps_call(cdll, xyz, seeds, npoint), iters=10))
-        CS.emit("sweep_fps", shape=list(shape), ms=ms, equal_to_plain=True)
+def sweep_select(dev, libs) -> None:
+    """Each selection on the same distance tile, in turns (two rounds, the
+    order reversed in the second), and the shipped grouping or kNN kernel
+    on the cloud the tile comes from (the grouping also in its block design
+    at every N). Tiles are clamped at 0 (the radix kernels order
+    non-negative bit patterns); the threshold select's indices are held
+    equal to the K-pass kernel's, and both groupings' to the plain
+    version's."""
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 22)
+    for name, (b, s, n, k, dim, form) in SELECT_SWEEP.items():
+        xyz = CS.unit_cloud(b, n, gen, dev, False)
+        feats = torch.randn((b, n, dim), generator=gen, device=dev) if dim else None
+        cidx = G.random_sample_indices(gen, b, n, s, dev).to(torch.int32).contiguous()
+        new_xyz = G.index_points(xyz, cidx).contiguous()
+        distance = G.square_distance if form == "matmul" else G.diff_square_distance
+        d = distance(new_xyz, xyz).clamp_min(0.0).contiguous()
+        if not torch.equal(K.topk_min(d, k), PV.sel_argmin(d, k).transpose(1, 2)):
+            CS.fail(f"select sweep {name}: topk_min and the K argmin passes differ")
+        fns = {fn.__name__: (lambda fn=fn: fn(d, k)) for fn in PV.SELECTIONS}
+        fns["topk_min"] = lambda: K.topk_min(d, k)
+        if form == "matmul":
+            want = K.sa_group_plain(xyz, feats, cidx, k)[2]
+            fns["sa_group (shipped, whole kernel)"] = lambda: K.sa_group(xyz, feats, cidx, k)
+            for label in [v for v in libs if v.startswith("sa_group")]:
+                def grouping(lib=libs[label]):
+                    with mock.patch.object(K, "load_library", lambda: lib):
+                        return K.sa_group(xyz, feats, cidx, k)
+
+                fns[f"{label} (whole kernel)"] = grouping
+            for label, fn in fns.items():
+                if label.startswith("sa_group") and not torch.equal(fn()[2], want):
+                    CS.fail(f"select sweep {name}: {label} differs from the plain grouping")
+        else:
+            fns["knn (shipped, whole kernel)"] = lambda: K.knn(new_xyz, xyz, k)
+        ms = {label: [] for label in fns}
+        for rnd in range(2):
+            for label in (list(fns) if rnd == 0 else list(fns)[::-1]):
+                ms[label].append(CS.cuda_ms(fns[label]))
+        CS.emit("sweep_select", shape=name, B=b, S=s, N=n, K=k, D=dim, distance_form=form,
+                ms=ms)
 
 
-def bwd_times(dev, cases) -> dict:
-    out = {}
-    for name, (g, layers, dp) in cases.items():
-        for bf16 in (False, True):
-            out[f"{name} {'bf16' if bf16 else 'f32'}"] = CS.cuda_ms(
-                lambda: K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16), iters=10)
-    return out
-
-
-def fused_bf16_checks(dev) -> list:
-    """chip_smoke's per-call check of a fused bf16 step (each backward call
-    against the bf16 plain version on its inputs) after one epoch, over 6
-    seeds and 2 batches each."""
-    ds = CS.train_dataset()
-    errs = []
-    for seed in (42, 1, 2, 3, 4, 5):
-        trainer = Trainer(preset("8dir_kl", epochs=1, compute_dtype="bfloat16", seed=seed), ds,
-                          device=dev, fused_mlp_train=True)
-        trainer.fit(epochs=1, log_every=0)
-        for batch_seed in (1, 2):
-            state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-            idx, valid, _ = next(ds.batches(16, shuffle=True, seed=batch_seed))
-            batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
-            errs.append(CS.bf16_bwd_calls(trainer, batch, valid)["norm_rel_err"])
-            trainer.model.load_state_dict(state)
-    return errs
-
-
-def sweep_bwd(dev, libs) -> None:
-    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 21)
-    cases = {}
-    for name, (B, Kn, S, widths) in CS.TRAIN_MLP_SHAPES.items():
-        cases[name] = (torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev),
-                       CS.make_layers(widths, gen, dev),
-                       torch.randn((B, S, widths[-1]), generator=gen, device=dev))
-    shipped = _build.load_library()
-    variants = {"shipped": shipped, "chained": libs["chained backward"]}
+def sweep_mlp(dev, libs) -> None:
+    """The shipped forward against the one before its repair: times at
+    every SA_MLP_SHAPES shape, f32 and bf16, in turns (two rounds), then
+    the recompute check on each."""
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 23)
+    cases = {name: (torch.randn((b, kn, s, w[0]), generator=gen, device=dev),
+                    CS.make_layers(w, gen, dev))
+             for name, (b, kn, s, w) in CS.SA_MLP_SHAPES.items()}
+    variants = {"shipped": _build.load_library(), "old forward": libs["old forward"],
+                "repair, B split up front": libs["repair, B split up front"]}
     for rnd in range(2):
-        for name in (variants if rnd == 0 else list(variants)[::-1]):
-            with mock.patch.object(K, "load_library", lambda lib=variants[name]: lib):
-                CS.emit("sweep_bwd_ms", accumulation=name, round=rnd, ms=bwd_times(dev, cases))
-    for name, cdll in variants.items():
-        with mock.patch.object(K, "load_library", lambda lib=cdll: lib):
-            vs = {shape: CS.vs_f64(K.sa_mlp_max_bwd(g, layers, dp),
-                                   K.sa_mlp_max_bwd_plain(g, layers, dp), g, layers, dp)
-                  for shape, (g, layers, dp) in cases.items()}
-            errs = fused_bf16_checks(dev)
-        CS.emit("sweep_bwd_accuracy", accumulation=name, f32_vs_f64=vs,
-                fused_bf16_step_norm_rel_err=errs, gate=CS.BF16_GRAD_TOL["fused"],
-                calls_over_gate=[sum(e[i] > CS.BF16_GRAD_TOL["fused"] for e in errs)
-                                 for i in range(3)],
-                largest_by_call=[max(e[i] for e in errs) for i in range(3)])
-    for rnd in range(2):
-        targets = (132, 264, 528) if rnd == 0 else (528, 264, 132)
-        for blocks in targets:
-            with mock.patch.object(K, "BWD_CHUNK_BLOCKS", blocks):
-                CS.emit("sweep_bwd_chunks", blocks=blocks, round=rnd, ms=bwd_times(dev, cases))
+        for label in (variants if rnd == 0 else list(variants)[::-1]):
+            with mock.patch.object(K, "load_library", lambda lib=variants[label]: lib):
+                ms = {f"{name} {'bf16' if bf16 else 'f32'}":
+                      CS.cuda_ms(lambda: K.sa_mlp_max(g, layers, bf16=bf16))
+                      for name, (g, layers) in cases.items() for bf16 in (False, True)}
+            CS.emit("sweep_mlp_ms", forward=label, round=rnd, ms=ms)
+    for label in ("shipped", "old forward"):
+        with mock.patch.object(K, "load_library", lambda lib=variants[label]: lib):
+            for bf16 in (False, True):
+                CS.emit("sweep_mlp_recompute", forward=label,
+                        dtype="bfloat16" if bf16 else "float32",
+                        stages=CS.mlp_recompute_check(dev, bf16))
 
 
-def main() -> None:
+def main(argv) -> None:
+    sweeps = argv or SWEEPS
+    if set(sweeps) - set(SWEEPS):
+        CS.fail(f"unknown sweeps {sorted(set(sweeps) - set(SWEEPS))}; choose from {SWEEPS}")
     info = CS.phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    libs = build_all()
-    sweep_fps(dev, libs)
-    sweep_bwd(dev, libs)
+    libs = build_all(sweeps)
+    if "select" in sweeps:
+        sweep_select(dev, libs)
+    if "mlp" in sweeps:
+        sweep_mlp(dev, libs)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True}), flush=True)
 
 
 if __name__ == "__main__":
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
-    main()
+    main(sys.argv[1:])

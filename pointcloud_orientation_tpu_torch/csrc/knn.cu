@@ -12,115 +12,56 @@
 //
 // Bound on this card: at B=16, S=128, N=16,384, K=32 the distances are
 // ~2.7e8 operations and selecting K of N needs about one compare per point,
-// ~3e8 in all, ~0.0045 ms at the f32 peak; the bytes are a few MB. What
-// holds a simple kernel back is neither: it is the K dependent selection
-// passes, each a block-wide argmin with two barriers. Design: one block per centroid, the N distances in
-// dynamic shared memory (N <= 20,480 gives at most 80 KB, above the 48 KB
-// default, so the host opts in with cudaFuncSetAttribute). Each thread keeps
-// the minimum of its own strided slice in registers, so a pass is one
-// warp-shuffle reduction plus a shared-memory merge of the warp winners, and
-// only the thread that owned the winner rescans its slice (the selection of
-// csrc/sa_group.cu).
+// ~3e8 in all, ~0.0045 ms at the f32 peak; the bytes are a few MB. Design:
+// one block per centroid, the N distances staged in dynamic shared memory
+// as order keys (N <= 20,480 gives at most 80 KB, above the 48 KB default,
+// so the host opts in with cudaFuncSetAttribute), then the exact threshold
+// select of csrc/threshold_select.cuh (the selection of csrc/sa_group.cu):
+// a few 8-bit radix passes over unique (distance, index) keys and a rank
+// sort of the K winners, in place of K dependent block-wide argmin passes
+// with two barriers each (chip_sweep.py, PERF.md).
 //
 // Exactness: the differences, products and sums go through the _rn
 // intrinsics, which nvcc never contracts into FMAs, so the distances are
-// bit-equal to the plain PyTorch version (ops/cuda_kernels.py knn_plain) and
-// the indices are equal exactly, ties included.
+// bit-equal to the plain PyTorch version (ops/cuda_kernels.py knn_plain),
+// and the keys are unique, so the indices are equal exactly, ties
+// included. NaN distances are never selected before a number; past the
+// numbers the index is 0.
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
+#include "threshold_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 128;
-constexpr int kMaxN = 20480;  // N floats of dynamic shared memory: 80 KB
-constexpr unsigned kFull = 0xffffffffu;
-
-// (d, i) < (od, oi) lexicographically. NaN never compares less, so slots
-// marked taken (NaN) are never picked again.
-__device__ __forceinline__ bool key_less(float d, int i, float od, int oi) {
-  return d < od || (d == od && i < oi);
-}
-
-__device__ __forceinline__ void warp_argmin(float& d, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_down_sync(kFull, d, off);
-    const int oi = __shfl_down_sync(kFull, i, off);
-    if (key_less(od, oi, d, i)) {
-      d = od;
-      i = oi;
-    }
-  }
-}
+constexpr int kMaxN = 20480;  // N keys of dynamic shared memory: 80 KB
 
 __global__ void __launch_bounds__(kThreads)
 knn_kernel(const float* __restrict__ new_xyz, const float* __restrict__ xyz,
-           int* __restrict__ idx_out, int N, int S, int K) {
-  extern __shared__ float dist[];  // N floats
-  __shared__ float red_d[kWarps];
-  __shared__ int red_i[kWarps];
+           int* __restrict__ idx_out, int N, int S, int K, int pbits) {
+  extern __shared__ unsigned keys[];  // N order keys
+  __shared__ pcot_select::Shared<kMaxK> sh;
   __shared__ int winners[kMaxK];
 
   const int s = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const float* pts = xyz + (size_t)b * N * 3;
   const float* c = new_xyz + ((size_t)b * S + s) * 3;
   const float cx = c[0], cy = c[1], cz = c[2];
 
-  float best_d = INFINITY;
-  int best_i = INT_MAX;
   for (int n = tid; n < N; n += kThreads) {
     const float dx = __fsub_rn(cx, pts[3 * n]);
     const float dy = __fsub_rn(cy, pts[3 * n + 1]);
     const float dz = __fsub_rn(cz, pts[3 * n + 2]);
     const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                               __fmul_rn(dz, dz));
-    dist[n] = d;
-    if (key_less(d, n, best_d, best_i)) {
-      best_d = d;
-      best_i = n;
-    }
+    keys[n] = pcot_select::order_key(d);
   }
-
-  for (int k = 0; k < K; ++k) {
-    float d = best_d;
-    int i = best_i;
-    warp_argmin(d, i);
-    if (lane == 0) {
-      red_d[warp] = d;
-      red_i[warp] = i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      d = lane < kWarps ? red_d[lane] : INFINITY;
-      i = lane < kWarps ? red_i[lane] : INT_MAX;
-      warp_argmin(d, i);
-      // INT_MAX: no candidate left, which only NaN coordinates can cause;
-      // index 0 keeps a later gather in bounds.
-      if (lane == 0) winners[k] = i == INT_MAX ? 0 : i;
-    }
-    __syncthreads();
-    const int w = winners[k];
-    if (w % kThreads == tid) {  // the owner of the winner rescans its slice
-      dist[w] = NAN;
-      best_d = INFINITY;
-      best_i = INT_MAX;
-      for (int n = tid; n < N; n += kThreads) {
-        const float dn = dist[n];
-        if (key_less(dn, n, best_d, best_i)) {
-          best_d = dn;
-          best_i = n;
-        }
-      }
-    }
-  }
+  __syncthreads();
+  pcot_select::select_sorted<kMaxK>(keys, N, K, pbits, sh, winners);
   if (tid < K) idx_out[((size_t)b * S + s) * K + tid] = winners[tid];
 }
 
@@ -133,11 +74,12 @@ extern "C" int pcot_knn_f32(const void* new_xyz, const void* xyz, void* idx, int
                             int S, int K, void* stream) {
   if (B < 1 || S < 1 || K < 1 || K > kMaxK || N < K || N > kMaxN || S > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int smem = N * (int)sizeof(float);
+  const int smem = N * (int)sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(knn_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   knn_kernel<<<dim3(S, B), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)new_xyz, (const float*)xyz, (int*)idx, N, S, K);
+      (const float*)new_xyz, (const float*)xyz, (int*)idx, N, S, K,
+      pcot_select::position_bits(N));
   return (int)cudaGetLastError();
 }

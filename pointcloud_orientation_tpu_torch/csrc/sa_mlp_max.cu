@@ -20,9 +20,40 @@
 // kernel's bf16 dot. f32 (T = float): mma.sync m16n8k8 tf32, each operand
 // split as hi = rna(x), lo = rna(x - hi), rna the rounding of
 // cvt.rna.tf32.f32 (to TF32, ties away from zero), and the product taken as
-// lo*hi + hi*lo + hi*hi in the f32 accumulator (3xTF32), the card's
-// counterpart of the TPU's HIGHEST f32 dot, itself several bf16 passes of
-// its matrix unit; one TF32 pass alone keeps about three decimal digits.
+// lo*hi + hi*lo + hi*hi (3xTF32), the card's counterpart of the TPU's
+// HIGHEST f32 dot, itself several bf16 passes of its matrix unit; one TF32
+// pass alone keeps about three decimal digits. In both types each MMA step
+// (k8 tf32, k16 bf16) of each 16 x 8 tile goes into a zeroed accumulator
+// and reaches the running sum through an f32 add rounded to nearest, in
+// ascending contraction order; y = z * s + t is formed by two roundings
+// (affine, no FMA).
+//
+// Agreement with the backward. csrc/sa_mlp_max_bwd.cu recomputes this
+// forward and routes dpooled to the neighbours equal to ITS maximum, so the
+// two must compute the same z, y and maximum bit for bit, or a gradient can
+// go to a neighbour whose forward value was not the pooled one. They agree
+// because every value that enters an output takes the same operations:
+// - the operands: layer 0's input as f32 (or rounded to bf16 to nearest
+//   even), a hidden layer's input relu(affine(z, s, t)) in f32 (or rounded
+//   to bf16 to nearest even, from that f32 value), W as f32 (or rounded to
+//   bf16); the f32 splits hi = rna(x), lo = rna(x - hi) of the same values;
+// - the MMA steps: the same fragment positions (A (g, t), (g+8, t),
+//   (g, t+4), (g+8, t+4); B (t, g), (t+4, g) in contraction words), the
+//   same steps (every step of the MMA depth that starts below the layer's
+//   input width, from 0 upwards; the padded tail of the last step holds
+//   zeros in A and W on both sides), each into a zeroed part, f32 in the
+//   order lo*hi, hi*lo, hi*hi, then acc += part in ascending order;
+// - the epilogue: affine, then fmaxf(y, 0); the maximum over the K rows
+//   of a centroid is exact whatever its order (max is exact; the atomicMax
+//   here, the fmaxf loop there);
+// - an output row does not depend on the other rows: the row tiles here
+//   (centroid-major chunks, a split over column groups) and there (64-row
+//   tiles of the (b, k, s) rows) group rows differently, which changes no
+//   row's sum.
+// The products run through the same mma.sync instructions on both sides; a
+// tensor core's result depends only on its operands, not on the fragment
+// slot a row or column occupies. chip_smoke.py checks the agreement on the
+// card at every stage's widths (phase mlp_recompute).
 //
 // Design. One block of 8 warps per (tile of ts centroids, group of the last
 // layer's columns), at most 128 registers a thread so that two blocks share
@@ -146,6 +177,12 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// y = z * s + t in two roundings, never contracted to an FMA: the
+// backward's affine (csrc/sa_mlp_max_bwd.cu), which recomputes this y
+__device__ __forceinline__ float affine(float z, float s, float t) {
+  return __fadd_rn(__fmul_rn(z, s), t);
+}
+
 // What differs between the element types: the MMA, its depth, the stage
 // depth, the row strides, and the stores into the activation buffers.
 // step() adds one MMA depth of products to the warp's 32 x 32 tile: a points
@@ -177,25 +214,25 @@ struct Mma<float> {
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_tf32(r[i], ahi[mt][i], alo[mt][i]);
     }
-    unsigned bhi[4][2], blo[4][2];
+    // each tile's products of this step go into a zeroed accumulator, the
+    // small terms first, and reach the running sum through an f32 add
+    // rounded to nearest (csrc/sa_mlp_max_bwd.cu mma_stage, term for term);
+    // B is split one column tile at a time, which keeps 12 registers free
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      split_tf32(__float_as_uint(w[nt * 8]), bhi[nt][0], blo[nt][0]);
-      split_tf32(__float_as_uint(w[4 * ldw + nt * 8]), bhi[nt][1], blo[nt][1]);
+      unsigned bhi[2], blo[2];
+      split_tf32(__float_as_uint(w[nt * 8]), bhi[0], blo[0]);
+      split_tf32(__float_as_uint(w[4 * ldw + nt * 8]), bhi[1], blo[1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, alo[mt], bhi[0], bhi[1]);
+        mma_tf32(part, ahi[mt], blo[0], blo[1]);
+        mma_tf32(part, ahi[mt], bhi[0], bhi[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }
     }
-    // the small terms first; each sweep is 8 independent accumulators
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt][0], bhi[nt][1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt][0], blo[nt][1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt][0], bhi[nt][1]);
   }
 };
 
@@ -224,7 +261,12 @@ struct Mma<__nv_bfloat16> {
       const unsigned b0 = pack_bf16(wc[0], wc[ldw]);
       const unsigned b1 = pack_bf16(wc[8 * ldw], wc[9 * ldw]);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], r[mt], b0, b1);
+      for (int mt = 0; mt < 2; ++mt) {  // as the f32 step: a zeroed part, then an f32 add
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, r[mt], b0, b1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }
     }
   }
 };
@@ -489,10 +531,10 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
             for (int mt = 0; mt < 2; ++mt) {
               const int r = wm * kWarpRows + mt * 16 + gi;
               const float* a = acc[mt][nt];
-              X::store2(nxt + r * ldn + col, fmaxf(a[0] * s0 + t0, 0.f),
-                        fmaxf(a[1] * s1 + t1, 0.f));
-              X::store2(nxt + (r + 8) * ldn + col, fmaxf(a[2] * s0 + t0, 0.f),
-                        fmaxf(a[3] * s1 + t1, 0.f));
+              X::store2(nxt + r * ldn + col, fmaxf(affine(a[0], s0, t0), 0.f),
+                        fmaxf(affine(a[1], s1, t1), 0.f));
+              X::store2(nxt + (r + 8) * ldn + col, fmaxf(affine(a[2], s0, t0), 0.f),
+                        fmaxf(affine(a[3], s1, t1), 0.f));
             }
           }
           continue;
@@ -512,7 +554,7 @@ sa_mlp_max_kernel(const float* __restrict__ g, float* __restrict__ out, const Ml
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
               for (int h = 0; h < 2; ++h)
-                y[mt][h] = fmaxf(acc[mt][nt][2 * h + j] * scj + shj, 0.f);
+                y[mt][h] = fmaxf(affine(acc[mt][nt][2 * h + j], scj, shj), 0.f);
             if (merged) {
               const float v =
                   warp_max_rows(fmaxf(fmaxf(y[0][0], y[0][1]), fmaxf(y[1][0], y[1][1])));

@@ -1,6 +1,7 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
+One ``nvcc`` call compiles every ``csrc/*.cu`` (with the ``csrc/*.cuh``
+headers they include) into one shared library with
 a plain C interface (no PyTorch headers, so it builds in seconds). The
 library lands in ``build/pcot_torch_kernels/<hash>/libpcot_kernels.so`` at
 the root of the checkout, keyed by the sources, the flags and
@@ -53,6 +54,11 @@ SIGNATURES = {
     "pcot_ball_query_f32": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
     # d, idx, rows, M, K, stream
     "pcot_topk_min_f32": [_P, _P] + [_I] * 3 + [_P],
+    # x, out, n, kind (0 f32, 1 bf16, 2 int16), reps, stream
+    "pcot_vpu_ew": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    # d, out, B, S, N, K, stream (each of the four selections)
+    **{f"pcot_vpu_{name}": [_P, _P] + [_I] * 4 + [_P]
+       for name in ("sel_argmin", "sel_mintie", "radix_count", "count_emit")},
 }
 
 
@@ -98,7 +104,7 @@ class _Library:
         if not sources:
             raise BuildError(f"no CUDA sources under {CSRC}")
         h = hashlib.sha256(ver.stdout.encode() + " ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
             h.update(src.name.encode() + src.read_bytes())
         out_dir = BUILD_ROOT / h.hexdigest()[:16]
         lib = out_dir / LIB_NAME

@@ -8,10 +8,11 @@ and nothing else.
 
 ``sa_group`` (``csrc/sa_group.cu``) replaces the TPU kernel
 ``pointcloud_orientation_tpu/ops/pallas_kernels.py:_sa_group_call``
-(``sa_group_coords_pallas`` / ``sa_group_feats_pallas``). On this card it is
-held back by its K dependent block-wide argmin passes, not by bytes or
-FLOPs; one block per centroid keeps the distances in shared memory and each
-pass is a register-and-shuffle reduction (see the source).
+(``sa_group_coords_pallas`` / ``sa_group_feats_pallas``). It selects by an
+exact threshold select over unique (distance, index) keys
+(``csrc/threshold_select.cuh``, the radix select of ``topk_min``): one warp
+a centroid with its keys in registers up to 1,024 points, one block a
+centroid with its keys in shared memory above.
 
 ``sa_mlp_max`` (``csrc/sa_mlp_max.cu``) replaces
 ``pallas_kernels.py:_sa_mlp_max_fwd_impl`` (``sa_mlp_max_pallas``), in f32
@@ -19,7 +20,9 @@ and, with ``bf16=True``, in its bf16 variant: both operands of every product
 rounded to bf16, f32 accumulation. It runs on the tensor cores (``mma.sync``;
 f32 as 3xTF32, three TF32 products of split operands, within 1e-4 of an
 f32 product); activations stay in shared memory, and the last layer is
-fused with the max so its outputs are never stored.
+fused with the max so its outputs are never stored. Its arithmetic is the
+backward's recompute, operation for operation, so :func:`sa_mlp_max_bwd`
+finds the pooled neighbours the forward found.
 
 ``sa_group_scatter`` (``csrc/sa_scatter.cu``) replaces
 ``pallas_kernels.py:_sa_scatter_call``, the VJP of the grouping's feature
@@ -45,9 +48,10 @@ replaces ``ball_query_pallas``, the sampling and grouping of the ModelNet40
 classifier. All three return indices and compute their distances in the
 difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels; the ball
 query also takes the matmul form of the JAX package's XLA path, which
-``geometry.ball_query`` picks where the JAX package does. kNN and FPS are
-held back by their dependent block-wide argmin/argmax steps; the ball query
-is bound by bytes and stops scanning once it has its points.
+``geometry.ball_query`` picks where the JAX package does. kNN selects as
+``sa_group`` does (one block a centroid); FPS is held back by its dependent
+block-wide argmax steps; the ball query is bound by bytes and stops scanning
+once it has its points.
 
 ``topk_min`` (``csrc/topk_min.cu``) replaces ``pallas_kernels.py:topk_min_pallas``,
 the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):

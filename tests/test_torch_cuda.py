@@ -53,8 +53,12 @@ def _sa_group_case(gen, dev, B, N, S, KN, D, tiled):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
 @pytest.mark.parametrize("shape", [(64, 1024, 128, 32, 0), (16, 10000, 128, 32, 0),
-                                   (64, 128, 32, 32, 128), (3, 40, 5, 40, 7)],
-                         ids=["sa1-1024", "sa1-10000", "sa2", "K=N"])
+                                   (64, 128, 32, 32, 128), (3, 40, 5, 40, 7),
+                                   (2, 1000, 9, 1, 0), (2, 777, 6, 32, 4), (2, 10240, 3, 128, 0),
+                                   (2, 200, 9, 32, 5), (2, 400, 17, 64, 0), (2, 1024, 3, 128, 0),
+                                   (2, 1025, 5, 32, 0)],
+                         ids=["sa1-1024", "sa1-10000", "sa2", "K=N", "K=1", "N=777", "K=128",
+                              "N=200", "N=400", "N=1024-K=128", "N=1025"])
 def test_sa_group_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     xyz, feats, cidx = _sa_group_case(gen, cuda_device, *shape, tiled)
@@ -452,7 +456,8 @@ def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled, matmu
 @pytest.mark.cuda
 @pytest.mark.parametrize("tiled", [False, True], ids=["random", "tiled"])
 @pytest.mark.parametrize("shape", [(16, 128, 16384, 32), (16, 128, 20480, 32),
-                                   (2, 5, 10300, 128)], ids=["N=16384", "N=20480", "K=128"])
+                                   (2, 5, 10300, 128), (2, 7, 10241, 1), (2, 3, 100, 100)],
+                         ids=["N=16384", "N=20480", "K=128", "K=1", "K=N"])
 def test_knn_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     B, S, N, KN = shape
     gen = torch.Generator(device=cuda_device).manual_seed(8)
@@ -464,6 +469,32 @@ def test_knn_kernel_equals_plain_on_card(cuda_device, shape, tiled):
     torch.cuda.synchronize()
     assert K.knn.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_grouping_and_knn_keep_their_nan_behaviour_on_card(cuda_device):
+    """A NaN point is never selected while numbers are left (as the plain
+    versions' sort puts NaN last); a centroid with NaN coordinates has only
+    NaN distances and gets index 0 in every slot, as the argmin passes gave
+    it. The matmul form's distances that round below zero (a centroid to
+    itself) sort first, as in the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    for n, kn in ((1024, 32), (12_000, 32)):
+        xyz = _unit_cloud(gen, cuda_device, 2, n, False) * 40.0
+        xyz[0, 7] = float("nan")
+        xyz[1, 3] = float("nan")  # a centroid below
+        cidx = torch.tensor([[0, 5, 9], [3, 1, 2]], dtype=torch.int32, device=cuda_device)
+        new_xyz = TG.index_points(xyz, cidx).contiguous()
+        if n <= TG.FUSED_GROUP_MAX_N:
+            got = K.sa_group(xyz, None, cidx, kn)[2]
+            want = K.sa_group_plain(xyz, None, cidx, kn)[2]
+        else:
+            got = K.knn(new_xyz, xyz, kn)
+            want = K.knn_plain(new_xyz, xyz, kn)
+        torch.cuda.synchronize()
+        assert not bool((got[0] == 7).any())
+        assert torch.equal(got[1, 0], torch.zeros_like(got[1, 0]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1, 1:], want[1, 1:])
 
 
 @pytest.mark.cuda
@@ -590,6 +621,23 @@ def test_topk_min_kernel_equals_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1024, 230_000])
+def test_topk_min_orders_nan_after_inf_on_card(cuda_device, M):
+    """NaN of either sign sorts after +inf, as in the stable sort of
+    ``topk_min_plain``, and keeps its position (only +inf gives 0); staged
+    rows and rows read from device memory."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    d = torch.rand((2, 3, M), generator=gen, device=cuda_device)
+    d[0, 0, 40:] = math.inf
+    d[0, 0, 7] = float("nan")
+    d[0, 1, :] = -float("nan")
+    d[1, 2, 3:10] = math.inf
+    d[1, 2, 10:] = float("nan")
+    for Kn in (1, 33, 64):
+        assert torch.equal(K.topk_min(d, Kn), K.topk_min_plain(d, Kn))
+
+
+@pytest.mark.cuda
 def test_topk_min_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     d = torch.zeros((1, 2, 100), device=cuda_device)
     with pytest.raises(ValueError):
@@ -622,3 +670,120 @@ def test_grid_request_launches_topk_min_and_matches_exact_on_card(cuda_device):
     grown = {k: after[k] - before[k] for k in after}
     assert grown == {**{k: 0 for k in grown}, "topk_min": 1, "sa_group": 1, "sa_mlp_max": 3}
     np.testing.assert_allclose(got, pred(clouds), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the MLP forward against its backward's recompute
+# ---------------------------------------------------------------------------
+
+# (K, widths) of every stage the MLP kernels run: the 8-dir trunk's and the
+# classifier's (K=64 at its sa2, 128 rows at its group-all)
+RECOMPUTE_STAGES = {"sa1": (32, (3, 64, 64, 128)), "sa2": (32, (131, 128, 128, 256)),
+                    "sa3": (32, (259, 256, 512, 1024)), "cls-sa1": (32, (6, 64, 64, 128)),
+                    "cls-sa2": (64, (131, 128, 128, 256)),
+                    "cls-group-all": (128, (259, 256, 512, 1024))}
+
+
+def _affine_f32(z, s, t):
+    return np.float32(np.float32(np.float32(z) * np.float32(s)) + np.float32(t))
+
+
+def _random_layers(widths, gen, dev):
+    return [(torch.randn((ci, co), generator=gen, device=dev) / math.sqrt(ci),
+             torch.rand((co,), generator=gen, device=dev) + 0.5,
+             0.1 * torch.randn((co,), generator=gen, device=dev))
+            for ci, co in zip(widths[:-1], widths[1:])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("stage", list(RECOMPUTE_STAGES))
+def test_backward_recompute_reproduces_the_pooled_value_on_card(cuda_device, stage, bf16):
+    """One centroid whose neighbours are near ties, dpooled one-hot at a
+    column with a positive pooled value: where the backward routes it to one
+    neighbour, its last dscale is the recomputed z at the recomputed
+    maximum, and relu(z * s + t) (two roundings) is the forward's pooled
+    value bit for bit."""
+    kn, widths = RECOMPUTE_STAGES[stage]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    checked = 0
+    for _ in range(2):
+        base = torch.randn((widths[0],), generator=gen, device=cuda_device)
+        noise = torch.randn((1, kn, 1, widths[0]), generator=gen, device=cuda_device)
+        g = (base * (1 + (2.0 ** -6 if bf16 else 2.0 ** -12) * noise)).contiguous()
+        layers = _random_layers(widths, gen, cuda_device)
+        pooled = K.sa_mlp_max(g, layers, bf16=bf16)[0, 0]
+        for c in torch.nonzero(pooled > 0).flatten()[:8].tolist():
+            dp = torch.zeros((1, 1, widths[-1]), device=cuda_device)
+            dp[0, 0, c] = 1.0
+            dg, dl = K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16)
+            if int((dg[0, :, 0] != 0).any(dim=-1).sum()) != 1:
+                continue  # a tied maximum: dscale mixes the tied rows
+            y = max(_affine_f32(float(dl[-1][1][c]), float(layers[-1][1][c]),
+                                float(layers[-1][2][c])), np.float32(0.0))
+            assert np.float32(y).view(np.int32) == np.float32(float(pooled[c])).view(np.int32)
+            checked += 1
+    assert checked > 0
+
+
+# ---------------------------------------------------------------------------
+# the selection micro-benchmarks (csrc/vpu_select.cu)
+# ---------------------------------------------------------------------------
+
+# (B, S, N, K): the JAX file's shape, the training grouping's, K=1, K=N, N
+# not a multiple of 32, and a row of the kNN kernel's size
+VPU_SELECT_CASES = {"B=64-N=1024": (64, 128, 1024, 32), "B=16-N=10000": (16, 128, 10_000, 32),
+                    "K=1": (2, 8, 300, 1), "K=N": (2, 8, 40, 40), "N=1000": (3, 5, 1000, 7),
+                    "N=20480": (2, 4, 20_480, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("case", list(VPU_SELECT_CASES))
+@pytest.mark.parametrize("name", ["sel_argmin", "sel_mintie", "radix_count", "count_emit"])
+def test_vpu_select_kernels_equal_plain_on_card(cuda_device, name, case, tiled):
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    b, s, n, kn = VPU_SELECT_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    if tiled:  # each row a quarter of its values cycled: every value four times
+        base = torch.rand((b, s, max(1, n // 4)), generator=gen, device=cuda_device)
+        d = base.repeat(1, 1, -(-n // base.shape[-1]))[..., :n].contiguous()
+    else:
+        d = torch.rand((b, s, n), generator=gen, device=cuda_device)
+    fn = getattr(PV, name)
+    before = fn.launches
+    got = fn(d, kn)
+    want = PV.PLAIN[fn](d, kn)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [3, 32])
+@pytest.mark.parametrize("shape", [(64, 128, 1024), (3, 5, 37)], ids=["jax-shape", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int16],
+                         ids=["f32", "bf16", "int16"])
+def test_vpu_ew_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, shape, reps):
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = PV.ew_input(dtype, shape, gen)
+    before = PV.ew.launches
+    got = PV.ew(x, reps)
+    want = PV.ew_plain(x, reps)
+    torch.cuda.synchronize()
+    assert PV.ew.launches == before + 1
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    assert got.dtype == dtype and torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.cuda
+def test_vpu_select_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    d = torch.rand((1, 2, PV.MAX_N + 1), device=cuda_device)
+    with pytest.raises(ValueError):
+        PV.sel_argmin(d, 4)  # a row past shared memory
+    with pytest.raises(ValueError):
+        PV.count_emit(torch.rand((1, 4, 64), device=cuda_device)[:, ::2], 4)  # not contiguous
+    with pytest.raises(ValueError):
+        PV.ew(torch.ones(9, device=cuda_device)[1:])  # not 16-byte aligned

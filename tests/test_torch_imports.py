@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py run where JAX is absent (serving the 8-dir,
+"""The port, chip_smoke.py and chip_sweep.py run where JAX is absent (the
+port's modules, the selection micro-benchmarks among them, import; serving the 8-dir,
 classifier, vM and MvM models, one train step in each train configuration
 and one of the MvM task, the training CLI), and chip_smoke.py refuses to
 run without a card."""
@@ -14,12 +15,13 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# A process in which jax, flax, optax, orbax, h5py, matplotlib and the JAX
-# package cannot be imported, as on the card's machine.
+# A process in which jax, flax, optax, orbax, h5py, matplotlib, the JAX
+# package and the root benchmarks folder (the JAX package's micro-benchmarks)
+# cannot be imported, as on the card's machine.
 _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py", "matplotlib",
-               "pointcloud_orientation_tpu"}
+               "pointcloud_orientation_tpu", "benchmarks"}
 
     class Blocker(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -45,8 +47,10 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
         names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        assert "pointcloud_orientation_tpu_torch.benchmarks.profile_vpu_select" in names
         import chip_smoke  # noqa: F401
-        for name in ("jax", "flax", "pointcloud_orientation_tpu"):
+        import chip_sweep  # noqa: F401
+        for name in ("jax", "flax", "pointcloud_orientation_tpu", "benchmarks"):
             assert name not in sys.modules, name
         v = port.random_flax_variables(0)
         p = port.OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
@@ -89,9 +93,10 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "IMPORTED" in r.stdout
     assert (tmp_path / "run" / "summary.txt").read_text().splitlines()[-1].startswith("Overall")
-    # the blocker itself works: the JAX package cannot come in
-    r = _run(_BLOCKER + "import pointcloud_orientation_tpu.ops.dirs8")
-    assert r.returncode != 0 and "blocked" in r.stderr
+    # the blocker itself works: the JAX package and its benchmarks cannot come in
+    for module in ("pointcloud_orientation_tpu.ops.dirs8", "benchmarks.profile_vpu_select"):
+        r = _run(_BLOCKER + f"import {module}")
+        assert r.returncode != 0 and "blocked" in r.stderr
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

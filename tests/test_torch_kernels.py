@@ -141,7 +141,8 @@ def test_build_flags_and_signatures():
     assert "arch=compute_90a,code=sm_90a" in flags and "-Xptxas -v" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == ["ball_query.cu", "fps.cu", "knn.cu", "sa_group.cu", "sa_mlp_max.cu",
-                       "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu"]
+                       "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu", "vpu_select.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["threshold_select.cuh"]
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text
