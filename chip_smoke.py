@@ -1950,14 +1950,10 @@ def phase_mlp_recompute(dev) -> None:
             fail(f"sa_mlp_max vs the backward's recompute ({'bf16' if bf16 else 'f32'}): {res}")
 
 
-def select_tile(gen, dev, shape, case) -> torch.Tensor:
-    """Uniform distances (B, S, N) in [0, 1); "ties": each row a quarter of
-    its values cycled to N, as ``unit_cloud(tiled=True)`` builds clouds."""
-    b, s, n, _ = shape
-    if case == "ties":
-        base = torch.rand((b, s, max(1, n // 4)), generator=gen, device=dev)
-        return base.repeat(1, 1, -(-n // base.shape[-1]))[..., :n].contiguous()
-    return torch.rand((b, s, n), generator=gen, device=dev)
+# The redesigned selections' edges (B, S, N, K): a warp a row up to N=1,024
+# (a lane's words: 1 to 32), a block a row above; K=1 and K=N
+VPU_EDGE_SHAPES = [(2, 3, n, k) for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000)
+                   for k in sorted({1, n})]
 
 
 def phase_kernels_vpu_select(dev) -> dict:
@@ -1965,7 +1961,9 @@ def phase_kernels_vpu_select(dev) -> dict:
     versions: ``ew`` in f32, bf16 and int16 at the JAX file's shape, 32
     rounds (overflow, wrapping) and 3; the four selections at the shapes
     they are timed at (``profile_vpu_select.SELECT_SHAPES``) on random and
-    tie-rich rows."""
+    tie-rich rows; ``sel_mintie`` and ``count_emit`` also at
+    ``VPU_EDGE_SHAPES`` on every kind of ``profile_vpu_select.ROW_KINDS``
+    (``+inf`` runs, all-equal rows, -0.0 and negative values)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 19)
     results = {}
@@ -1982,15 +1980,20 @@ def phase_kernels_vpu_select(dev) -> dict:
         emit("kernel_check", kernel="ew", dtype=str(dtype), exact=True, reps=[PV.REPS, 3])
     results["ew"] = {"max_abs_err": 0.0, "exact": True}
     for fn in PV.SELECTIONS:
-        for name, sel_shape in PV.SELECT_SHAPES.items():
-            for case in ("random", "ties"):
-                d = select_tile(gen, dev, sel_shape, case)
-                got, want = fn(d, sel_shape[3]), PV.PLAIN[fn](d, sel_shape[3])
-                torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.equal(got, want):
-                    fail(f"{fn.__name__} {name} {case}: differs from the plain version")
-            emit("kernel_check", kernel=fn.__name__, shape=name, exact=True,
-                 inputs=["random", "ties"])
+        cases = [(name, sel_shape, kind) for name, sel_shape in PV.SELECT_SHAPES.items()
+                 for kind in ("random", "ties")]
+        if fn in (PV.sel_mintie, PV.count_emit):
+            cases += [(f"B={b} S={s} N={n} K={k}", (b, s, n, k), kind)
+                      for b, s, n, k in VPU_EDGE_SHAPES for kind in PV.ROW_KINDS]
+        for name, (b, s, n, k), kind in cases:
+            d = PV.select_rows(kind, (b, s, n), gen)
+            got, want = fn(d, k), PV.PLAIN[fn](d, k)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail(f"{fn.__name__} {name} {kind}: differs from the plain version")
+        emit("kernel_check", kernel=fn.__name__, exact=True, cases=len(cases),
+             shapes=sorted({name for name, _, _ in cases}),
+             inputs=sorted({kind for _, _, kind in cases}))
         results[fn.__name__] = {"max_abs_err": 0.0, "exact": True}
     return results
 

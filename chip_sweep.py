@@ -16,7 +16,8 @@ in turns:
   ``sa_group``/``knn`` kernels on the clouds the tiles come from
   (``sa_group`` also in its block design at every N, without the warp
   design it takes up to N=1,024, and with its warp design held to 3 or 4
-  blocks an SM).
+  blocks an SM), and the variants of ``count_emit`` and ``sel_mintie``
+  (``vpu_variants``).
 - ``mlp``: ``csrc/sa_mlp_max.cu`` with the backward's arithmetic (shipped)
   against the forward before it (the tensor cores' accumulation chained over
   the contraction, ``a * s + t`` contracted to an FMA) and against the
@@ -147,6 +148,54 @@ def group_variants(group: str) -> dict:
     return out
 
 
+def vpu_variants(vpu: str) -> dict:
+    """The redesigned micro-benchmark kernels' variants of the ``select``
+    sweep, each named by its kernel first. ``count_emit``: R = 1 to 4 bits
+    of its threshold a count pass over the row (the warp and the block
+    designs alike), R = 1, 3, 4 over the bucket's list, the lists' caps
+    halved and doubled, one count chain a candidate in place of two (no
+    spill, more registers), and no list (passes over the row to the last
+    bit).
+    ``sel_mintie``: 1 (a rescan after each win), 2, 3, 4 or 6 least keys a
+    thread, in both designs."""
+    def consts(**values):
+        return [(f"constexpr int {name} = ", f"constexpr int {name} = {value}; //")
+                for name, value in values.items()]
+
+    out = {}
+    for bits in (1, 2, 3, 4):
+        out[f"count_emit R={bits}"] = patched(vpu, *consts(kEmitBitsWarp=bits, kEmitBitsBlock=bits))
+    for bits in (1, 3, 4):
+        out[f"count_emit list R={bits}"] = patched(vpu, *consts(kEmitBitsList=bits))
+    out["count_emit caps halved"] = patched(vpu, *consts(kEmitCapWarp=32, kEmitCapBlock=256))
+    out["count_emit caps doubled"] = patched(vpu, *consts(kEmitCapWarp=128, kEmitCapBlock=1024))
+    out["count_emit one count chain"] = patched(
+        vpu, ("        c1[j] += x1 < cand[j];", "        c0[j] += x1 < cand[j];"))
+    out["count_emit no list"] = patched(
+        vpu, ("threshold_passes<R, kRowWarps>(v, K, 0, kCap, s, red);",
+              "threshold_passes<R, kRowWarps>(v, K, 0, -1, s, red);"))
+    for keep in (1, 2, 3, 4, 6):
+        out[f"sel_mintie keep={keep}"] = patched(
+            vpu, *consts(kMintieKeepWarp=keep, kMintieKeepBlock=keep))
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel of a build's ``ptxas -v`` lines: "<n> registers, <m>
+    bytes spilled" (spill stores)."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out[name] = f"{regs} registers, {spill} bytes spilled"
+            name = None
+    return out
+
+
 def build_all(sweeps) -> dict:
     """One nvcc for the whole library with each variant of a library source
     the chosen sweeps need, all started together."""
@@ -160,12 +209,17 @@ def build_all(sweeps) -> dict:
         group = (_build.CSRC / "sa_group.cu").read_text()
         variants.update({name: ("sa_group.cu", text)
                          for name, text in group_variants(group).items()})
+        vpu = (_build.CSRC / "vpu_select.cu").read_text()
+        variants.update({name: ("vpu_select.cu", text)
+                         for name, text in vpu_variants(vpu).items()})
     jobs = {}
     for name, (file, text) in variants.items():
         variant = OUT / name.replace(" ", "_").replace(",", "") / file
         variant.parent.mkdir(parents=True, exist_ok=True)
         variant.write_text(text)
-        others = [str(p) for p in sorted(_build.CSRC.glob("*.cu")) if p.name != file]
+        # vpu_select.cu stands alone: its variants build without the rest
+        others = [] if file == "vpu_select.cu" else [
+            str(p) for p in sorted(_build.CSRC.glob("*.cu")) if p.name != file]
         # csrc/ on the include path: a variant finds the shipped headers there
         jobs[name] = (variant.parent / "lib.so", ["-I", str(_build.CSRC), *others, str(variant)])
     procs = {name: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(so), *srcs],
@@ -177,6 +231,8 @@ def build_all(sweeps) -> dict:
         log = p.communicate()[0]
         if p.returncode != 0:
             CS.fail(f"nvcc failed for the variant {name}:\n{log[-4000:]}")
+        if variants[name][0] == "vpu_select.cu":
+            CS.emit("sweep_build", variant=name, ptxas=ptxas_summary(log))
         cdll = ctypes.CDLL(str(jobs[name][0]))
         for fn_name, argtypes in _build.SIGNATURES.items():
             if hasattr(cdll, fn_name):
@@ -215,6 +271,16 @@ def sweep_select(dev, libs) -> None:
         if not torch.equal(K.topk_min(d, k), PV.sel_argmin(d, k).transpose(1, 2)):
             CS.fail(f"select sweep {name}: topk_min and the K argmin passes differ")
         fns = {fn.__name__: (lambda fn=fn: fn(d, k)) for fn in PV.SELECTIONS}
+        for label in [v for v in libs if v.split()[0] in ("count_emit", "sel_mintie")]:
+            fn = getattr(PV, label.split()[0])
+
+            def variant(fn=fn, lib=libs[label]):
+                with mock.patch.object(PV, "load_library", lambda: lib):
+                    return fn(d, k)
+
+            if not torch.equal(variant(), fn(d, k)):
+                CS.fail(f"select sweep {name}: {label} differs from the shipped kernel")
+            fns[label] = variant
         fns["topk_min"] = lambda: K.topk_min(d, k)
         if form == "matmul":
             want = K.sa_group_plain(xyz, feats, cidx, k)[2]

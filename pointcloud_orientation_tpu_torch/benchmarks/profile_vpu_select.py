@@ -295,6 +295,36 @@ def ew_input(dtype: torch.dtype, shape, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
+ROW_KINDS = ("random", "ties", "inf", "equal", "signed")
+
+
+def select_rows(kind: str, shape, gen: torch.Generator) -> torch.Tensor:
+    """(B, S, N) f32 rows of a kind the selections are checked on:
+    "random" uniform in [0, 1), as the JAX file draws them; "ties" a quarter
+    of each row's values cycled to N, so each value repeats; "inf" runs of
+    7 ``+inf`` entries in every 21 (a row of 7 or fewer entries is all
+    ``+inf``); "equal" every entry 0.5; "signed" uniform in (-1, 1) with a
+    quarter of the entries -0.0 and a quarter +0.0 (bit patterns below zero
+    for the radix kernels, equal values for the K-pass ones)."""
+    b, s, n = shape
+    dev = gen.device
+    if kind == "ties":
+        base = torch.rand((b, s, max(1, n // 4)), generator=gen, device=dev)
+        return base.repeat(1, 1, -(-n // base.shape[-1]))[..., :n].contiguous()
+    if kind == "equal":
+        return torch.full((b, s, n), 0.5, device=dev)
+    d = torch.rand((b, s, n), generator=gen, device=dev)
+    if kind == "inf":
+        return d.masked_fill(torch.arange(n, device=dev) // 7 % 3 == 0, float("inf"))
+    if kind == "signed":
+        zero = torch.randint(0, 4, (b, s, n), generator=gen, device=dev)
+        d = torch.where(zero == 0, -0.0, torch.where(zero == 1, 0.0, 2 * d - 1))
+        return d.contiguous()
+    if kind != "random":
+        raise ValueError(f"unknown row kind {kind!r}; choose from {ROW_KINDS}")
+    return d
+
+
 def benchmark(dev: torch.device, iters: int = 20, seed: int = 0) -> List[dict]:
     """Every kernel at its shapes on ``dev`` (a CUDA device): device ms,
     bound, plain ms and the library call's ms, one dict each. ``ew`` at the

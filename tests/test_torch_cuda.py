@@ -731,25 +731,29 @@ def test_backward_recompute_reproduces_the_pooled_value_on_card(cuda_device, sta
 # ---------------------------------------------------------------------------
 
 # (B, S, N, K): the JAX file's shape, the training grouping's, K=1, K=N, N
-# not a multiple of 32, and a row of the kNN kernel's size
+# not a multiple of 32, and a row of the kNN kernel's size; then the edges
+# of sel_mintie's and count_emit's designs (a warp a row up to N=1,024, a
+# lane's words 1 to 32; a block a row above), each at K=1 and K=N
 VPU_SELECT_CASES = {"B=64-N=1024": (64, 128, 1024, 32), "B=16-N=10000": (16, 128, 10_000, 32),
                     "K=1": (2, 8, 300, 1), "K=N": (2, 8, 40, 40), "N=1000": (3, 5, 1000, 7),
-                    "N=20480": (2, 4, 20_480, 32)}
+                    "N=20480": (2, 4, 20_480, 32),
+                    **{f"N={n}-K={k}": (2, 3, n, k)
+                       for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000) for k in sorted({1, n})}}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiled", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("rows", ["random", "ties", "inf", "equal", "signed"])
 @pytest.mark.parametrize("case", list(VPU_SELECT_CASES))
 @pytest.mark.parametrize("name", ["sel_argmin", "sel_mintie", "radix_count", "count_emit"])
-def test_vpu_select_kernels_equal_plain_on_card(cuda_device, name, case, tiled):
+def test_vpu_select_kernels_equal_plain_on_card(cuda_device, name, case, rows):
+    """Each selection bit for bit against its plain version, on random and
+    tie-rich rows, rows with +inf runs, all-equal rows, and signed rows
+    (-0.0 beside +0.0, negative values: bit patterns below zero for the
+    radix kernels)."""
     from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
     b, s, n, kn = VPU_SELECT_CASES[case]
     gen = torch.Generator(device=cuda_device).manual_seed(12)
-    if tiled:  # each row a quarter of its values cycled: every value four times
-        base = torch.rand((b, s, max(1, n // 4)), generator=gen, device=cuda_device)
-        d = base.repeat(1, 1, -(-n // base.shape[-1]))[..., :n].contiguous()
-    else:
-        d = torch.rand((b, s, n), generator=gen, device=cuda_device)
+    d = PV.select_rows(rows, (b, s, n), gen)
     fn = getattr(PV, name)
     before = fn.launches
     got = fn(d, kn)

@@ -6,7 +6,10 @@ bit against the five Pallas kernels of the JAX package's
 The JAX file is loaded by path, unchanged; its kernels read the module
 globals ``K`` (neighbours) and ``REPS`` (elementwise rounds), which the
 tests set on the loaded copy. Shapes: B=2, S=8, N=256 (the count-and-emit
-kernel emits in chunks of 256 lanes), K=6.
+kernel emits in chunks of 256 lanes), K=6; and, for the two kernels whose
+card designs change with N (``sel_mintie``, ``count_emit``), N from 1 to 512
+(``sel_mintie`` also at N not a multiple of 32) with K=1 and K=N, on rows
+with ``+inf`` runs, equal values, and -0.0 beside +0.0 and negative values.
 """
 
 import importlib.util
@@ -46,14 +49,15 @@ def jax_bench():
 
 
 def _pallas_select(mod, kernel_name, rows, d: np.ndarray) -> np.ndarray:
-    """The JAX file's selection kernel over (B, S, N), as its ``sel`` calls
-    it, in interpret mode."""
+    """The JAX file's selection kernel over d (B, S, N), as its ``sel``
+    calls it, in interpret mode."""
+    b, s, n = d.shape
     out = pl.pallas_call(
-        getattr(mod, kernel_name), grid=(B,),
-        in_specs=[pl.BlockSpec((None, S, N), lambda b: (b, 0, 0))],
-        out_specs=pl.BlockSpec((None, rows, S), lambda b: (b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((B, rows, S), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((S, N), jnp.float32)], interpret=True)(jnp.asarray(d))
+        getattr(mod, kernel_name), grid=(b,),
+        in_specs=[pl.BlockSpec((None, s, n), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((None, rows, s), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, rows, s), jnp.int32),
+        scratch_shapes=[pltpu.VMEM((s, n), jnp.float32)], interpret=True)(jnp.asarray(d))
     return np.asarray(out)
 
 
@@ -75,6 +79,27 @@ def _distances(case: str, seed: int) -> np.ndarray:
         base = rng.uniform(size=(B, S, N // 4)).astype(np.float32)
         return np.tile(base, (1, 1, 4))
     return rng.uniform(size=(B, S, N)).astype(np.float32)
+
+
+def _edge_rows(kind: str, n: int, seed: int) -> np.ndarray:
+    """(B, S, n) rows of ``profile_vpu_select.ROW_KINDS``' kinds, drawn with
+    numpy: "inf" runs of 7 +inf in every 21 entries, "equal" every entry
+    0.5, "signed" uniform in (-1, 1) with a quarter -0.0 and a quarter
+    +0.0, "ties" and "random" as ``_distances``."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        base = rng.uniform(size=(B, S, max(1, n // 4))).astype(np.float32)
+        return np.tile(base, (1, 1, -(-n // base.shape[-1])))[..., :n].copy()
+    if kind == "equal":
+        return np.full((B, S, n), 0.5, np.float32)
+    d = rng.uniform(size=(B, S, n)).astype(np.float32)
+    if kind == "inf":
+        d[..., np.arange(n) // 7 % 3 == 0] = np.inf
+    elif kind == "signed":
+        zero = rng.integers(0, 4, size=d.shape)
+        d = np.where(zero == 0, np.float32(-0.0),
+                     np.where(zero == 1, np.float32(0.0), 2 * d - 1)).astype(np.float32)
+    return d
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -116,6 +141,53 @@ def test_selection_plain_bit_equal_to_pallas(jax_bench, name, case):
     got = wrapper(torch.from_numpy(d.copy()), K)
     assert got.dtype == torch.int32 and tuple(got.shape) == (B, rows, S)
     assert np.array_equal(got.numpy(), want)
+
+
+# (N, K) of the edge rows: K=1 and K=N; for sel_mintie N not a multiple of
+# 32. The JAX file's count-and-emit kernel takes N in whole 256-lane chunks
+# of its emission (or N=1), so its edge rows are those
+EDGE_SHAPES = {"sel_mintie": {"N=1": (1, 1), "N=31-K=1": (31, 1), "N=31-K=N": (31, 31),
+                              "N=33-K=1": (33, 1), "N=33-K=N": (33, 33), "N=70-K=6": (70, 6)},
+               "count_emit": {"N=1": (1, 1), "N=256-K=1": (256, 1), "N=256-K=N": (256, 256),
+                              "N=512-K=40": (512, 40)}}
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "inf", "equal", "signed"])
+@pytest.mark.parametrize("name,case", [(name, case) for name, cases in EDGE_SHAPES.items()
+                                       for case in cases])
+def test_edge_rows_plain_bit_equal_to_pallas(jax_bench, monkeypatch, name, case, kind):
+    """The semantics the card's kernels reproduce: past the finite entries
+    sel_mintie takes the lowest +inf lane again and -0.0 ties with +0.0;
+    count_emit orders the int32 bit patterns, so -0.0 and negative values
+    lie below every other entry."""
+    wrapper, kernel_name, _ = SELECT[name]
+    n, k = EDGE_SHAPES[name][case]
+    monkeypatch.setattr(jax_bench, "K", k)
+    d = _edge_rows(kind, n, seed=4)
+    want = _pallas_select(jax_bench, kernel_name, k, d)
+    got = wrapper(torch.from_numpy(d.copy()), k)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, k, S)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", PV.ROW_KINDS)
+def test_select_rows_build_the_rows_the_card_checks_use(kind):
+    """``select_rows``, which ``chip_smoke.py`` and the card tests draw
+    their rows from, gives each kind's edge: +inf runs, one value, -0.0
+    beside +0.0 and negatives, repeats."""
+    d = PV.select_rows(kind, (2, 3, 50), torch.Generator().manual_seed(5))
+    assert d.dtype == torch.float32 and tuple(d.shape) == (2, 3, 50) and d.is_contiguous()
+    bits = d.view(torch.int32)
+    has = {"inf": bool(torch.isinf(d).any()), "negative": bool((bits < 0).any()),
+           "one value": bool((d == d[..., :1]).all()),
+           "repeats": bool((d[..., :12] == d[..., 12:24]).all())}
+    want = {"inf": kind == "inf", "negative": kind == "signed", "one value": kind == "equal",
+            "repeats": kind in ("ties", "equal")}
+    assert has == want
+    if kind == "signed":  # -0.0 beside +0.0: equal floats, bit patterns apart
+        assert bool((bits == -2 ** 31).any()) and bool((bits == 0).any())
+    if kind == "inf":
+        assert torch.isinf(d[..., :7]).all() and not torch.isinf(d[..., 7:21]).any()
 
 
 @pytest.mark.parametrize("case", ["random", "ties"])
