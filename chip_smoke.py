@@ -138,14 +138,16 @@ BF16_GRAD_TOL = {"default": 1e-3, "fused": 1e-2}
 # classifier request's sa1).
 # Ball query: the matmul form (last entry) where the JAX package's TPU
 # dispatch takes it (N=512 at the classifier's sa2, N above 20,480), and the
-# difference form at sa2 too, for its time beside the matmul form's.
+# difference form at sa2 too, for its time beside the matmul form's; B=2
+# N=40,000 is the N=40,000 classifier request's sa1.
 FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 128),
               "B=16 N=10000": (16, 10000, 512), "B=2 N=40000": (2, 40_000, 512),
               "B=4 N=40000": (4, 40_000, 512), "B=4 N=65536": (4, 65_536, 512)}
 BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2, False),
                "sa2 B=64": (64, 128, 512, 64, 0.4, True),
                "sa2 B=64 difference form": (64, 128, 512, 64, 0.4, False),
-               "B=4 N=24576": (4, 128, 24_576, 32, 0.2, True)}
+               "B=4 N=24576": (4, 128, 24_576, 32, 0.2, True),
+               "B=2 N=40000": (2, 512, 40_000, 32, 0.2, True)}
 KNN_SHAPES = {"sa1 B=16 N=16384": (16, 128, 16384, 32), "sa1 B=16 N=20480": (16, 128, 20480, 32)}
 CLS_FORWARD = {"fps": ("sa1 B=64 N=1024", "sa2 B=64 N=512"), "ball_query": ("sa1 B=64", "sa2 B=64")}
 CLS_CHANNELS = 6  # xyz and normals

@@ -1,8 +1,8 @@
 """Design measurements behind the port's kernels, on one NVIDIA card.
 
-    python3 chip_sweep.py [select] [mlp]
+    python3 chip_sweep.py [select] [mlp] [ball] [scatter]
 
-(no argument: both). Builds, beside the shipped library, variants of the
+(no argument: all four). Builds, beside the shipped library, variants of the
 shipped sources that differ in one choice each (one nvcc per variant,
 started together, into ``build/sweep/``), and times them on the same inputs
 in turns:
@@ -25,6 +25,15 @@ in turns:
   every forward shape of ``chip_smoke.py``, f32 and bf16, and
   ``chip_smoke.mlp_recompute_check`` on both, the cases where the backward's
   recomputed maximum does not reproduce the pooled value.
+- ``ball``: ``csrc/ball_query.cu`` at every ``chip_smoke.BALL_SHAPES``
+  shape: the staged path's centroids a block (4, 8 or 32 warps, a
+  centroid each) and the 32-point groups a warp tests at once, the split
+  scan taken nowhere and everywhere, its warps a block and groups a round.
+- ``scatter``: ``csrc/sa_scatter.cu`` at ``chip_smoke.SCATTER_SHAPE``, on
+  the grouped cotangent's column slice (row stride 131: scalar loads) and
+  on a contiguous cotangent (float4 loads): the slots whose loads are in
+  flight together, a cloud's rows over 4 blocks or 16, and scalar loads
+  where float4 loads apply.
 
 A variant is the shipped source with a few lines replaced by their text, so
 it is made only when its sweep runs, and that sweep stops (naming the line)
@@ -51,7 +60,9 @@ from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 
 OUT = _build.BUILD_ROOT.parent / "sweep"
-SWEEPS = ("select", "mlp")
+SWEEPS = ("select", "mlp", "ball", "scatter")
+# sources whose variants build alone: their wrappers call no other entry point
+STANDALONE = ("vpu_select.cu", "ball_query.cu", "sa_scatter.cu")
 
 
 def patched(text: str, *edits: tuple[str, str]) -> str:
@@ -158,10 +169,6 @@ def vpu_variants(vpu: str) -> dict:
     bit).
     ``sel_mintie``: 1 (a rescan after each win), 2, 3, 4 or 6 least keys a
     thread, in both designs."""
-    def consts(**values):
-        return [(f"constexpr int {name} = ", f"constexpr int {name} = {value}; //")
-                for name, value in values.items()]
-
     out = {}
     for bits in (1, 2, 3, 4):
         out[f"count_emit R={bits}"] = patched(vpu, *consts(kEmitBitsWarp=bits, kEmitBitsBlock=bits))
@@ -177,6 +184,47 @@ def vpu_variants(vpu: str) -> dict:
     for keep in (1, 2, 3, 4, 6):
         out[f"sel_mintie keep={keep}"] = patched(
             vpu, *consts(kMintieKeepWarp=keep, kMintieKeepBlock=keep))
+    return out
+
+
+def consts(**values) -> list:
+    """Edits that give each named ``constexpr int`` its value (the rest of
+    the shipped line becomes a comment)."""
+    return [(f"constexpr int {name} = ", f"constexpr int {name} = {v}; //")
+            for name, v in values.items()]
+
+
+def ball_variants(ball: str) -> dict:
+    """``csrc/ball_query.cu``'s variants of the ``ball`` sweep."""
+    split_rule = "if (N > kTileMax && centroids < (long)kSplitCentroidsPerSm * sms) {"
+    out = {}
+    for cpb in (4, 8, 32):
+        out[f"ball staged, {cpb} a block"] = patched(
+            ball, *consts(kWarpCentroids=cpb, kStagedThreads=max(512, 32 * cpb)))
+    for groups in (2, 4):
+        out[f"ball staged, {groups} groups at once"] = patched(
+            ball, *consts(kWarpGroups=groups))
+    out["ball split nowhere"] = patched(ball, (split_rule, "if (false) {"))
+    out["ball split everywhere"] = patched(ball, (split_rule, "if (true) {"))
+    for warps in (8, 32):
+        out[f"ball split {warps} warps"] = patched(ball, *consts(kSplitWarps=warps))
+    for groups in (2, 8):
+        out[f"ball split {groups} groups"] = patched(ball, *consts(kSplitGroups=groups))
+    out["ball split 32 warps, 2 groups"] = patched(ball, *consts(kSplitWarps=32, kSplitGroups=2))
+    return out
+
+
+def scatter_variants(scatter: str) -> dict:
+    """``csrc/sa_scatter.cu``'s variants of the ``scatter`` sweep."""
+    out = {}
+    for unroll in (1, 2, 8):
+        out[f"scatter {unroll} slots in flight"] = patched(scatter, *consts(kUnroll=unroll))
+    out["scatter rows over 4 blocks"] = patched(scatter, *consts(kBlocksTarget=64))
+    out["scatter rows over 16 blocks"] = patched(
+        scatter, *consts(kBlocksTarget=528, kMaxRowGroups=16))
+    out["scatter scalar loads"] = patched(
+        scatter, ("const int vec4 = row_stride % 4 == 0",
+                  "const int vec4 = 0 && row_stride % 4 == 0"))
     return out
 
 
@@ -212,13 +260,17 @@ def build_all(sweeps) -> dict:
         vpu = (_build.CSRC / "vpu_select.cu").read_text()
         variants.update({name: ("vpu_select.cu", text)
                          for name, text in vpu_variants(vpu).items()})
+    for sweep, file, make in (("ball", "ball_query.cu", ball_variants),
+                              ("scatter", "sa_scatter.cu", scatter_variants)):
+        if sweep in sweeps:
+            text = (_build.CSRC / file).read_text()
+            variants.update({name: (file, t) for name, t in make(text).items()})
     jobs = {}
     for name, (file, text) in variants.items():
         variant = OUT / name.replace(" ", "_").replace(",", "") / file
         variant.parent.mkdir(parents=True, exist_ok=True)
         variant.write_text(text)
-        # vpu_select.cu stands alone: its variants build without the rest
-        others = [] if file == "vpu_select.cu" else [
+        others = [] if file in STANDALONE else [
             str(p) for p in sorted(_build.CSRC.glob("*.cu")) if p.name != file]
         # csrc/ on the include path: a variant finds the shipped headers there
         jobs[name] = (variant.parent / "lib.so", ["-I", str(_build.CSRC), *others, str(variant)])
@@ -231,7 +283,7 @@ def build_all(sweeps) -> dict:
         log = p.communicate()[0]
         if p.returncode != 0:
             CS.fail(f"nvcc failed for the variant {name}:\n{log[-4000:]}")
-        if variants[name][0] == "vpu_select.cu":
+        if variants[name][0] in STANDALONE:
             CS.emit("sweep_build", variant=name, ptxas=ptxas_summary(log))
         cdll = ctypes.CDLL(str(jobs[name][0]))
         for fn_name, argtypes in _build.SIGNATURES.items():
@@ -329,6 +381,68 @@ def sweep_mlp(dev, libs) -> None:
                         stages=CS.mlp_recompute_check(dev, bf16))
 
 
+def in_turns(fns: dict, rounds: int = 2) -> dict:
+    """Each function's CUDA-event time, ms, in turns: the order reversed
+    every other round."""
+    ms = {label: [] for label in fns}
+    for rnd in range(rounds):
+        for label in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+            ms[label].append(CS.cuda_ms(fns[label]))
+    return ms
+
+
+def with_library(fn, lib):
+    """``fn`` run with ``lib`` in place of the shipped library."""
+    def run():
+        with mock.patch.object(K, "load_library", lambda: lib):
+            return fn()
+    return run
+
+
+def sweep_ball(dev, libs) -> None:
+    """The shipped ball query and its variants at every BALL_SHAPES shape
+    (random clouds): each index for index equal to the plain version, then
+    timed in turns (two rounds)."""
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 24)
+    for name, shape in CS.BALL_SHAPES.items():
+        args = CS.select_inputs("ball_query", shape, gen, dev, "random")
+        want = K.ball_query_plain(*args)
+        fns = {"shipped": lambda: K.ball_query(*args)}
+        fns.update({label: with_library(lambda: K.ball_query(*args), lib)
+                    for label, lib in libs.items() if label.startswith("ball ")})
+        for label, fn in fns.items():
+            if not torch.equal(fn(), want):
+                CS.fail(f"ball sweep {name}: {label} differs from the plain version")
+        CS.emit("sweep_ball", shape=name, B=shape[0], S=shape[1], N=shape[2], K=shape[3],
+                matmul_form=shape[5], ms=in_turns(fns))
+
+
+def sweep_scatter(dev, libs) -> None:
+    """The shipped scatter and its variants at SCATTER_SHAPE on the
+    grouping's indices, on the grouped cotangent's column slice and on a
+    contiguous cotangent: every variant bit-equal to the shipped kernel
+    (one summation order), the shipped one within 1e-5 of the plain
+    version; then timed in turns (two rounds)."""
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 25)
+    B, N, S, Kn, D = CS.SCATTER_SHAPE
+    xyz, feats, cidx = CS.sa_group_inputs(CS.SCATTER_SHAPE, gen, dev, tiled=False)
+    idx = K.sa_group(xyz, feats, cidx, Kn)[2]
+    full = torch.randn((B, Kn, S, 3 + D), generator=gen, device=dev)
+    for layout, dg in (("column slice, row stride 131", full[..., 3:]),
+                       ("contiguous", full[..., 3:].contiguous())):
+        shipped = K.sa_group_scatter(idx, dg, N)
+        if not torch.allclose(shipped, K.sa_group_scatter_plain(idx, dg, N),
+                              rtol=CS.SCATTER_TOL, atol=CS.SCATTER_TOL):
+            CS.fail(f"scatter sweep {layout}: the shipped kernel is off the plain version")
+        fns = {"shipped": lambda: K.sa_group_scatter(idx, dg, N)}
+        fns.update({label: with_library(lambda: K.sa_group_scatter(idx, dg, N), lib)
+                    for label, lib in libs.items() if label.startswith("scatter ")})
+        for label, fn in fns.items():
+            if not torch.equal(fn(), shipped):
+                CS.fail(f"scatter sweep {layout}: {label} differs from the shipped kernel")
+        CS.emit("sweep_scatter", layout=layout, B=B, N=N, S=S, K=Kn, D=D, ms=in_turns(fns))
+
+
 def main(argv) -> None:
     sweeps = argv or SWEEPS
     if set(sweeps) - set(SWEEPS):
@@ -341,6 +455,10 @@ def main(argv) -> None:
         sweep_select(dev, libs)
     if "mlp" in sweeps:
         sweep_mlp(dev, libs)
+    if "ball" in sweeps:
+        sweep_ball(dev, libs)
+    if "scatter" in sweeps:
+        sweep_scatter(dev, libs)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True}), flush=True)
 

@@ -27,8 +27,9 @@ finds the pooled neighbours the forward found.
 ``sa_group_scatter`` (``csrc/sa_scatter.cu``) replaces
 ``pallas_kernels.py:_sa_scatter_call``, the VJP of the grouping's feature
 gather; ``SAGroupFeatsFn`` wires it in as the backward of ``sa_group``. It
-is bound by bytes and deterministic: a counting sort by target row in shared
-memory, then fixed-order sums, no float atomics.
+is bound by bytes and deterministic: a stable counting sort by target row in
+shared memory (warp primitives, no atomics), then each row summed in
+ascending slot order, no float atomics.
 
 ``sa_mlp_max_bwd`` (``csrc/sa_mlp_max_bwd.cu``) replaces
 ``pallas_kernels.py:_sa_mlp_max_bwd_impl``, the recompute backward of the
@@ -50,8 +51,10 @@ difference form ``((dx*dx + dy*dy) + dz*dz)`` of the TPU kernels; the ball
 query also takes the matmul form of the JAX package's XLA path, which
 ``geometry.ball_query`` picks where the JAX package does. kNN selects as
 ``sa_group`` does (one block a centroid); FPS is held back by its dependent
-block-wide argmax steps; the ball query is bound by bytes and stops scanning
-once it has its points.
+block-wide argmax steps; the ball query stages the cloud in shared memory
+(a warp a centroid), or splits one centroid's scan over a block's warps
+when the centroids are few and the cloud large, and stops scanning once it
+has its points.
 
 ``topk_min`` (``csrc/topk_min.cu``) replaces ``pallas_kernels.py:topk_min_pallas``,
 the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):

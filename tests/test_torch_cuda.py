@@ -179,6 +179,71 @@ def test_scatter_kernel_is_deterministic_and_matches_plain_on_card(cuda_device, 
     torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
 
 
+def _ordered_scatter(idx, dg, n):
+    """The scatter summed in ascending slot order (s * K + k), one slot at a
+    time in f32: what the kernel computes, to the bit."""
+    B, S, KN = idx.shape
+    out = torch.zeros((B, n, dg.shape[-1]), dtype=torch.float32, device=dg.device)
+    rows = torch.arange(B, device=dg.device)
+    for s in range(S):
+        for k in range(KN):
+            out[rows, idx[:, s, k].long()] += dg[:, k, s]
+    return out
+
+
+# (B, N, S, K, D, columns before the slice, case)
+SCATTER_EDGES = {
+    "rows-with-no-slot": (16, 128, 32, 32, 128, 3, "few"),
+    "one-row-takes-every-slot": (4, 128, 32, 32, 128, 3, "one"),
+    "row-stride>D": (8, 64, 16, 32, 64, 5, "random"),
+    "D=7": (3, 13, 5, 7, 7, 0, "random"),
+    "D=130": (2, 37, 4, 16, 130, 3, "random"),
+    "D=96-float4": (16, 128, 32, 32, 96, 0, "random"),
+    "B=40-6-row-groups": (40, 128, 32, 32, 128, 3, "random"),
+    "B=300-1-row-group": (300, 64, 8, 16, 32, 3, "random"),
+    "N=10000": (1, 10000, 32, 32, 16, 3, "random"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SCATTER_EDGES.values()), ids=list(SCATTER_EDGES))
+def test_scatter_kernel_edges_on_card(cuda_device, shape):
+    """Two launches bit-equal, bit-equal to the slots summed one at a time
+    in ascending slot order, and within 1e-5 of the plain version
+    (index_add_, another order): rows with no slot (0), one row that takes
+    every slot, row strides above D (odd: scalar loads), D off any
+    multiple of 4 or 32, float4 loads where D and the stride allow, a
+    cloud's rows over 6 blocks (each sorting the cloud's slots) and over one
+    block, and a cloud of 10,000 rows (fewer sorting warps). Where rows take hundreds of slots
+    ("few", "one"), f32 sums of random values in two orders differ by up to
+    ~5e-5, so there the plain version is held to the kernel on dyadic
+    cotangents (multiples of 1/8 in [-1, 1]: every sum exact in any
+    order)."""
+    B, N, S, KN, D, extra, case = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    if case == "one":
+        idx = torch.full((B, S, KN), 5, dtype=torch.int32, device=cuda_device)
+    else:
+        hi = 3 if case == "few" else N
+        idx = torch.randint(0, hi, (B, S, KN), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+    dg = torch.randn((B, KN, S, extra + D), generator=gen, device=cuda_device)[..., extra:]
+    a = K.sa_group_scatter(idx, dg, N)
+    b = K.sa_group_scatter(idx, dg, N)
+    ordered = _ordered_scatter(idx, dg, N)
+    if case in ("few", "one"):
+        dg = (dg * 8).round().clamp(-8, 8) / 8
+        got, want = K.sa_group_scatter(idx, dg, N), K.sa_group_scatter_plain(idx, dg, N)
+    else:
+        got, want = a, K.sa_group_scatter_plain(idx, dg, N)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, ordered)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if case == "few":
+        assert (a[:, 3:] == 0).all()
+
+
 def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
     """Inputs on which every forward product and sum is exact in f32 in any
     order: grouped in multiples of 1/8 within [-1, 1], W in {-1, 0, 1},
@@ -451,6 +516,68 @@ def test_ball_query_kernel_equals_plain_on_card(cuda_device, shape, tiled, matmu
     assert K.ball_query.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert bool((got[:, 0] == N - 1).all())
+
+
+# (B, S, N, K, radius, case). The kernel stages a cloud in 4,096-point tiles
+# and splits a centroid's scan over a block's warps where B * S is under 256
+# centroids an SM (33,792 on the H100's 132) and N is above one tile.
+BALL_EDGES = {
+    "N=1000": (3, 100, 1000, 32, 0.2, "random"),
+    "N=5000-split": (2, 64, 5000, 32, 0.2, "random"),
+    "N=40000-split": (2, 512, 40_000, 32, 0.2, "random"),
+    "N=65536-split": (1, 128, 65_536, 32, 0.1, "random"),
+    "N=8192-split": (2, 64, 8192, 32, 0.1, "random"),
+    "N=8192-staged-2-tiles": (2, 16_896, 8192, 32, 0.1, "random"),
+    "N=5000-staged-K=200": (2, 16_896, 5000, 200, 0.3, "random"),
+    "K=300>N": (2, 9, 100, 300, 0.5, "random"),
+    "K>N-split": (1, 5, 5000, 6000, 0.2, "random"),
+    "all-empty": (4, 128, 1024, 32, 0.2, "empty"),
+    "all-empty-split": (2, 64, 40_000, 32, 0.2, "empty"),
+    "all-inside": (4, 128, 1024, 32, 10.0, "random"),
+    "all-inside-split": (2, 64, 24_576, 64, 10.0, "random"),
+    "on-radius": (4, 128, 2048, 32, 0.2, "radius"),
+    "on-radius-split": (2, 64, 24_576, 32, 0.2, "radius"),
+}
+
+
+def _ball_edge_case(gen, dev, B, S, N, radius, case):
+    xyz = _unit_cloud(gen, dev, B, N, False)
+    new_xyz = TG.index_points(xyz, TG.random_sample_indices(gen, B, N, S, dev)).contiguous()
+    if case == "empty":
+        new_xyz.fill_(3.0)
+    elif case == "radius":  # a third of the points at radius * (1 + e), |e| <= 2e-6
+        n_near = N // 3
+        owner = torch.randint(0, S, (B, n_near), generator=gen, device=dev)
+        u = torch.randn((B, n_near, 3), generator=gen, device=dev)
+        u = u / u.norm(dim=-1, keepdim=True)
+        e = (torch.rand((B, n_near, 1), generator=gen, device=dev) * 2 - 1) * 2e-6
+        at = torch.randperm(N, generator=gen, device=dev)[:n_near]
+        xyz[:, at] = TG.index_points(new_xyz, owner) + radius * (1 + e) * u
+    return new_xyz, xyz.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_form", [False, True], ids=["difference", "matmul"])
+@pytest.mark.parametrize("shape", list(BALL_EDGES.values()), ids=list(BALL_EDGES))
+def test_ball_query_kernel_edges_on_card(cuda_device, shape, matmul_form):
+    """Index for index equal to the plain version in both distance forms:
+    N off any multiple of 32 and of the tile, N past one tile (the split
+    scan at few centroids, the staged path's tiles at many), nsample of 200
+    and above N (in both paths), every centroid empty, every point inside (nsample reached in
+    the first group), points on the radius."""
+    B, S, N, KN, radius, case = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    new_xyz, xyz = _ball_edge_case(gen, cuda_device, B, S, N, radius, case)
+    before = K.ball_query.launches
+    got = K.ball_query(new_xyz, xyz, radius, KN, matmul_form)
+    want = K.ball_query_plain(new_xyz, xyz, radius, KN, matmul_form)
+    torch.cuda.synchronize()
+    assert K.ball_query.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if case == "empty":
+        assert bool((got == N - 1).all())
+    if radius >= 10.0:
+        assert bool((got == torch.arange(KN, dtype=torch.int32, device=cuda_device)).all())
 
 
 @pytest.mark.cuda
