@@ -1952,10 +1952,12 @@ def phase_mlp_recompute(dev) -> None:
             fail(f"sa_mlp_max vs the backward's recompute ({'bf16' if bf16 else 'f32'}): {res}")
 
 
-# The redesigned selections' edges (B, S, N, K): a warp a row up to N=1,024
-# (a lane's words: 1 to 32), a block a row above; K=1 and K=N
-VPU_EDGE_SHAPES = [(2, 3, n, k) for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000)
-                   for k in sorted({1, n})]
+# The selections' edges (B, S, N, K): a warp a row up to N=1,024 (a lane's
+# words: 1 to 32), a block a row above, K=1 and K=N; the last row in
+# registers, the first in shared memory and the longest, K=1 and K=32
+VPU_EDGE_SHAPES = ([(2, 3, n, k) for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000)
+                    for k in sorted({1, n})]
+                   + [(2, 3, n, k) for n in (16_384, 16_385, PV.MAX_N) for k in (1, 32)])
 
 
 def phase_kernels_vpu_select(dev) -> dict:
@@ -1963,9 +1965,9 @@ def phase_kernels_vpu_select(dev) -> dict:
     versions: ``ew`` in f32, bf16 and int16 at the JAX file's shape, 32
     rounds (overflow, wrapping) and 3; the four selections at the shapes
     they are timed at (``profile_vpu_select.SELECT_SHAPES``) on random and
-    tie-rich rows; ``sel_mintie`` and ``count_emit`` also at
-    ``VPU_EDGE_SHAPES`` on every kind of ``profile_vpu_select.ROW_KINDS``
-    (``+inf`` runs, all-equal rows, -0.0 and negative values)."""
+    tie-rich rows, and at ``VPU_EDGE_SHAPES`` on every kind of
+    ``profile_vpu_select.ROW_KINDS`` (``+inf`` runs, all-equal rows, -0.0
+    and negative values)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 19)
     results = {}
@@ -1984,9 +1986,8 @@ def phase_kernels_vpu_select(dev) -> dict:
     for fn in PV.SELECTIONS:
         cases = [(name, sel_shape, kind) for name, sel_shape in PV.SELECT_SHAPES.items()
                  for kind in ("random", "ties")]
-        if fn in (PV.sel_mintie, PV.count_emit):
-            cases += [(f"B={b} S={s} N={n} K={k}", (b, s, n, k), kind)
-                      for b, s, n, k in VPU_EDGE_SHAPES for kind in PV.ROW_KINDS]
+        cases += [(f"B={b} S={s} N={n} K={k}", (b, s, n, k), kind)
+                  for b, s, n, k in VPU_EDGE_SHAPES for kind in PV.ROW_KINDS]
         for name, (b, s, n, k), kind in cases:
             d = PV.select_rows(kind, (b, s, n), gen)
             got, want = fn(d, k), PV.PLAIN[fn](d, k)

@@ -16,7 +16,7 @@ in turns:
   ``sa_group``/``knn`` kernels on the clouds the tiles come from
   (``sa_group`` also in its block design at every N, without the warp
   design it takes up to N=1,024, and with its warp design held to 3 or 4
-  blocks an SM), and the variants of ``count_emit`` and ``sel_mintie``
+  blocks an SM), and the variants of the four selections
   (``vpu_variants``).
 - ``mlp``: ``csrc/sa_mlp_max.cu`` with the backward's arithmetic (shipped)
   against the forward before it (the tensor cores' accumulation chained over
@@ -160,18 +160,23 @@ def group_variants(group: str) -> dict:
 
 
 def vpu_variants(vpu: str) -> dict:
-    """The redesigned micro-benchmark kernels' variants of the ``select``
-    sweep, each named by its kernel first. ``count_emit``: R = 1 to 4 bits
-    of its threshold a count pass over the row (the warp and the block
-    designs alike), R = 1, 3, 4 over the bucket's list, the lists' caps
-    halved and doubled, one count chain a candidate in place of two (no
-    spill, more registers), and no list (passes over the row to the last
-    bit).
+    """The micro-benchmark selections' variants of the ``select`` sweep,
+    each named by its kernel first (``build_all`` builds a text that two
+    kernels share once). ``count_emit`` and ``radix_count``: R = 1 to 4
+    bits of the threshold a count pass over the row (the warp and the block
+    designs alike). ``count_emit`` also: R = 1, 3, 4 over the bucket's
+    list, the lists' caps halved and doubled, one count chain a candidate
+    in place of two (no spill, more registers), and no list (passes over
+    the row to the last bit). ``radix_count`` also: the TPU kernel's
+    formulation, 31 one-bit passes over the whole row and no list.
     ``sel_mintie``: 1 (a rescan after each win), 2, 3, 4 or 6 least keys a
-    thread, in both designs."""
+    thread, in both designs, and ``sel_argmin`` the same and with
+    ``sel_mintie``'s two reductions a pass in place of the packed argmin."""
     out = {}
     for bits in (1, 2, 3, 4):
-        out[f"count_emit R={bits}"] = patched(vpu, *consts(kEmitBitsWarp=bits, kEmitBitsBlock=bits))
+        for kernel in ("count_emit", "radix_count"):
+            out[f"{kernel} R={bits}"] = patched(
+                vpu, *consts(kEmitBitsWarp=bits, kEmitBitsBlock=bits))
     for bits in (1, 3, 4):
         out[f"count_emit list R={bits}"] = patched(vpu, *consts(kEmitBitsList=bits))
     out["count_emit caps halved"] = patched(vpu, *consts(kEmitCapWarp=32, kEmitCapBlock=256))
@@ -181,9 +186,17 @@ def vpu_variants(vpu: str) -> dict:
     out["count_emit no list"] = patched(
         vpu, ("threshold_passes<R, kRowWarps>(v, K, 0, kCap, s, red);",
               "threshold_passes<R, kRowWarps>(v, K, 0, -1, s, red);"))
+    out["radix_count TPU 31 one-bit passes, no list"] = patched(
+        vpu, *consts(kEmitBitsWarp=1, kEmitBitsBlock=1),
+        ("threshold_passes<R, kRowWarps>(v, K, 0, kCap, s, red);",
+         "threshold_passes<R, kRowWarps>(v, K, 0, -1, s, red);"))
     for keep in (1, 2, 3, 4, 6):
-        out[f"sel_mintie keep={keep}"] = patched(
-            vpu, *consts(kMintieKeepWarp=keep, kMintieKeepBlock=keep))
+        for kernel in ("sel_mintie", "sel_argmin"):
+            out[f"{kernel} keep={keep}"] = patched(
+                vpu, *consts(kMintieKeepWarp=keep, kMintieKeepBlock=keep))
+    out["sel_argmin two reductions"] = patched(
+        vpu, ("using ArgminKernels = KPassKernels<true>;",
+              "using ArgminKernels = KPassKernels<false>;"))
     return out
 
 
@@ -265,8 +278,10 @@ def build_all(sweeps) -> dict:
         if sweep in sweeps:
             text = (_build.CSRC / file).read_text()
             variants.update({name: (file, t) for name, t in make(text).items()})
-    jobs = {}
+    jobs, first = {}, {}  # first: (file, text) -> the variant that builds it
     for name, (file, text) in variants.items():
+        if first.setdefault((file, text), name) != name:
+            continue  # built once, under its first name
         variant = OUT / name.replace(" ", "_").replace(",", "") / file
         variant.parent.mkdir(parents=True, exist_ok=True)
         variant.write_text(text)
@@ -278,7 +293,7 @@ def build_all(sweeps) -> dict:
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, (so, srcs) in jobs.items()}
     _build.load_library()  # the shipped library, meanwhile
-    libs = {}
+    built = {}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
@@ -290,8 +305,8 @@ def build_all(sweeps) -> dict:
             if hasattr(cdll, fn_name):
                 fn = getattr(cdll, fn_name)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = cdll
-    return libs
+        built[name] = cdll
+    return {name: built[first[variant]] for name, variant in variants.items()}
 
 
 # (B, S, N, K, D, distance form) of the selection sweep: the grouping's
@@ -323,7 +338,7 @@ def sweep_select(dev, libs) -> None:
         if not torch.equal(K.topk_min(d, k), PV.sel_argmin(d, k).transpose(1, 2)):
             CS.fail(f"select sweep {name}: topk_min and the K argmin passes differ")
         fns = {fn.__name__: (lambda fn=fn: fn(d, k)) for fn in PV.SELECTIONS}
-        for label in [v for v in libs if v.split()[0] in ("count_emit", "sel_mintie")]:
+        for label in [v for v in libs if v.split()[0] in {f.__name__ for f in PV.SELECTIONS}]:
             fn = getattr(PV, label.split()[0])
 
             def variant(fn=fn, lib=libs[label]):

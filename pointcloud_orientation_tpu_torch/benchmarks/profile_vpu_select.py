@@ -20,7 +20,8 @@ distance tiles:
   row's K nearest, nearest first, lowest lane on ties (a stable sort's first
   K on rows without NaN);
 - :func:`radix_count` the bit pattern of each row's K-th smallest value by
-  31 count passes, ``(B, 1, S)`` int32 (``d >= 0``);
+  count passes (on the TPU 31, one a bit), ``(B, 1, S)`` int32
+  (``d >= 0``);
 - :func:`count_emit` the count passes, then the lanes below that threshold
   and the first ties, ``(B, K, S)`` int32 in ascending lane order.
 
@@ -268,7 +269,7 @@ def cost(name: str, b: int, s: int, n: int, k: int = K,
     once; ``ew`` 3 operations a round an element (bf16 at the non-tensor bf16
     rate; f32 and int16 at the f32 rate); a selection about one compare an
     entry (``radix_count``, ``count_emit``: the K-th smallest needs on the
-    order of N compares a row, not the 31 passes they make)."""
+    order of N compares a row, not the count passes they make)."""
     if name == "ew":
         itemsize = torch.empty((), dtype=dtype).element_size()
         ops = 3.0 * reps * b * s * n

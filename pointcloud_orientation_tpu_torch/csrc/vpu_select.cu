@@ -18,42 +18,38 @@
 // 96 operations an element against the f32 rate close behind.
 //
 // The four selections take d (B, S, N) f32 without NaN and write (B, K, S)
-// or (B, 1, S) int32 as the TPU kernels lay their outputs out.
-// sel_argmin and radix_count run one block a row (b, s), the row in shared
-// memory:
-// - sel_argmin: K passes of argmin-and-mask (the winner set to +inf), the
-//   design csrc/sa_group.cu used before its threshold select: each thread
-//   keeps the minimum (value, lane) of its strided slice in registers, a
-//   pass is a warp-shuffle argmin, a merge of the warp winners by warp 0
-//   (two barriers), and a rescan of one slice by the winner's owner;
-// - radix_count: 31 passes over the f32 bit patterns as int32 (d >= 0
-//   orders them), each a block count of the entries below the candidate
-//   prefix (a warp's __reduce_add_sync, one barrier): the K-th smallest
-//   pattern.
-// sel_mintie and count_emit hold the row in registers: one warp a row up
-// to N = 1,024, with no shared memory and no barrier; one block a row above
-// (the row in shared memory only past 16,384 entries). Both spent their
-// time on barriers and shared-memory reads in their first port (64 and
-// about 53 barriers a row, PERF.md), not on the bytes they must move.
-// - sel_mintie: K passes of the row's minimum, then the lowest lane holding
-//   it: each thread keeps its few least order keys in order (the first
-//   word first among equal keys); a pass is two __reduce_min_sync in a warp
-//   (the key, then the position among the lanes holding it) and, in the
-//   block design, the warps' pairs merged through one barrier; the owner
-//   masks the entry with +inf and its next kept key moves up, and it scans
-//   its registers again only when the finite keys kept run out;
-// - count_emit: the same threshold as radix_count (ordered by the int32
-//   bit patterns, so -0.0 and negative values lie below every other
-//   entry), R bits a pass by counting the entries below 2^R - 1 candidates
-//   together (one barrier a pass in the block design); once the bucket
-//   that holds the threshold is small, its entries go to a list in shared
-//   memory and one warp makes the passes left over it. Then the lanes in
-//   lane order: every entry below the threshold and the first ties, up to
-//   K, each written at its slot, which two ballots and __popc give a warp
-//   32 lanes at a time after one scan of the warps' counts.
+// or (B, 1, S) int32 as the TPU kernels lay their outputs out. All four
+// hold the row in registers: one warp a row up to N = 1,024, with no shared
+// memory and no barrier; one block a row above (the row in shared memory
+// only past 16,384 entries). Their first ports ran a block a row over the
+// row in shared memory and spent their time on barriers and shared-memory
+// reads (two barriers and a rescan a pass, 31 to 64 barriers a row,
+// PERF.md), not on the bytes they must move.
+// - sel_mintie and sel_argmin: K passes of the row's least entry, the
+//   lowest position among equal ones: each thread keeps its few least order
+//   keys in order (the first word first among equal keys); the owner masks
+//   the winner with +inf and its next kept key moves up, and it scans its
+//   registers again only when the finite keys kept run out. The two differ
+//   only in a pass's reduction, as their TPU formulations do: sel_mintie
+//   takes the minimum, then the lowest lane holding it (two
+//   __reduce_min_sync in a warp); sel_argmin one argmin of (key, position)
+//   packed in 64 bits (a __shfl_xor_sync butterfly). In the block design
+//   the warps' winners are merged through one barrier a pass, the same way;
+// - count_emit: the K-th smallest bit pattern as int32 (so -0.0 and
+//   negative values lie below every other entry), R bits a pass by counting
+//   the entries below 2^R - 1 candidates together (one barrier a pass in
+//   the block design); once the bucket that holds the threshold is small,
+//   its entries go to a list in shared memory and one warp makes the passes
+//   left over it. Then the lanes in lane order: every entry below the
+//   threshold and the first ties, up to K, each written at its slot, which
+//   two ballots and __popc give a warp 32 lanes at a time after one scan of
+//   the warps' counts;
+// - radix_count: count_emit's threshold without the emission (the TPU
+//   kernel's "counting half of a radix select"; there 31 one-bit passes
+//   over the whole row).
 // The counts kept, the bits a pass and the lists' caps are the fastest of
 // chip_sweep.py's variants (PERF.md).
-// Both K-pass kernels give the stable sort's first K on rows without NaN
+// The K-pass kernels give the stable sort's first K on rows without NaN
 // (the masked +inf is the TPU kernels' choice: past the row's finite
 // entries a pass picks the lowest +inf lane again, as jnp.argmin does).
 
@@ -66,8 +62,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxN = 49152;  // a row in dynamic shared memory: 192 KB
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -154,133 +148,7 @@ ew_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long words16, in
 }
 
 // ---------------------------------------------------------------------------
-// the selections
-// ---------------------------------------------------------------------------
-
-// (d, i) < (od, oi) lexicographically
-__device__ __forceinline__ bool key_less(float d, int i, float od, int oi) {
-  return d < od || (d == od && i < oi);
-}
-
-__device__ __forceinline__ void warp_argmin(float& d, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_down_sync(kFull, d, off);
-    const int oi = __shfl_down_sync(kFull, i, off);
-    if (key_less(od, oi, d, i)) {
-      d = od;
-      i = oi;
-    }
-  }
-}
-
-// Stage row r of d in shared memory; each thread's (value, lane) minimum of
-// its strided slice. Only the owner (lane % blockDim.x) reads a slice later.
-__device__ __forceinline__ void stage_row(const float* __restrict__ src, float* row, int N,
-                                          float& best_d, int& best_i) {
-  best_d = INFINITY;
-  best_i = INT_MAX;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float v = __ldg(src + n);
-    row[n] = v;
-    if (key_less(v, n, best_d, best_i)) {
-      best_d = v;
-      best_i = n;
-    }
-  }
-}
-
-// the owner of lane w masks it with +inf and takes its slice's minimum again
-__device__ __forceinline__ void mask_and_rescan(float* row, int N, int w, float& best_d,
-                                                int& best_i) {
-  if (w % (int)blockDim.x != (int)threadIdx.x) return;
-  row[w] = INFINITY;
-  best_d = INFINITY;
-  best_i = INT_MAX;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float v = row[n];
-    if (key_less(v, n, best_d, best_i)) {
-      best_d = v;
-      best_i = n;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-sel_argmin_kernel(const float* __restrict__ d, int* __restrict__ out, int S, int N, int K) {
-  extern __shared__ float row[];
-  __shared__ float red_d[kMaxWarps];
-  __shared__ int red_i[kMaxWarps];
-  __shared__ int win;
-  const int r = blockIdx.x;
-  const int b = r / S, s = r - b * S;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  float best_d;
-  int best_i;
-  stage_row(d + (size_t)r * N, row, N, best_d, best_i);
-  for (int k = 0; k < K; ++k) {
-    float v = best_d;
-    int i = best_i;
-    warp_argmin(v, i);
-    if (lane == 0) {
-      red_d[warp] = v;
-      red_i[warp] = i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < warps ? red_d[lane] : INFINITY;
-      i = lane < warps ? red_i[lane] : INT_MAX;
-      warp_argmin(v, i);
-      if (lane == 0) {
-        win = i;
-        out[((size_t)b * K + k) * S + s] = i;
-      }
-    }
-    __syncthreads();
-    mask_and_rescan(row, N, win, best_d, best_i);
-  }
-}
-
-// The count of the row's entries whose bit pattern is below cand, summed
-// over the block; buffer p alternates between calls.
-__device__ __forceinline__ int block_count_below(const int* bits, int N, int cand,
-                                                 int (&red)[2][kMaxWarps], int p) {
-  int cnt = 0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) cnt += bits[n] < cand;
-  cnt = __reduce_add_sync(kFull, cnt);
-  if ((threadIdx.x & 31) == 0) red[p][threadIdx.x >> 5] = cnt;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[p][w];
-  return total;
-}
-
-// Stage the row's bit patterns; the K-th smallest by 31 count passes (bit
-// 30 down to 0; d >= 0 keeps bit 31 clear).
-__device__ __forceinline__ int radix_kth(const float* __restrict__ src, int* bits, int N, int K,
-                                         int (&red)[2][kMaxWarps], int& passes) {
-  for (int n = threadIdx.x; n < N; n += blockDim.x) bits[n] = __float_as_int(__ldg(src + n));
-  __syncthreads();
-  int prefix = 0;
-  passes = 0;
-  for (int bit = 30; bit >= 0; --bit, ++passes) {
-    const int cand = prefix | (1 << bit);
-    if (block_count_below(bits, N, cand, red, passes & 1) < K) prefix = cand;
-  }
-  return prefix;
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-radix_count_kernel(const float* __restrict__ d, int* __restrict__ out, int S, int N, int K) {
-  extern __shared__ int bits[];
-  __shared__ int red[2][kMaxWarps];
-  int passes;
-  const int prefix = radix_kth(d + (size_t)blockIdx.x * N, bits, N, K, red, passes);
-  if (threadIdx.x == 0) out[blockIdx.x] = prefix;
-}
-
-// ---------------------------------------------------------------------------
-// sel_mintie and count_emit: the row in registers
+// the selections: the row in registers
 // ---------------------------------------------------------------------------
 //
 // A row of up to kWarpMaxN entries goes to one warp, kWarpRows rows a
@@ -299,14 +167,14 @@ constexpr int kBlockWarps = kBlockThreads / 32;
 constexpr int kRegMaxN = kBlockThreads * 32;
 constexpr int kSmemThreads = 1024;
 constexpr int kSmemWarps = kSmemThreads / 32;
-// sel_mintie: the least keys a thread keeps in order, in the warp and the
-// block designs; it scans its words again only when the finite ones run out
-// (1: after each of its wins)
+// sel_mintie and sel_argmin: the least keys a thread keeps in order, in the
+// warp and the block designs; it scans its words again only when the
+// finite ones run out (1: after each of its wins)
 constexpr int kMintieKeepWarp = 6;
 constexpr int kMintieKeepBlock = 2;
-// count_emit: the bits of the threshold that one count pass decides, by
-// counting the entries below 2^R - 1 candidates together (31 bits take
-// ceil(31 / R) passes), over the row in the warp and the block designs and
+// count_emit and radix_count: the bits of the threshold that one count
+// pass decides, by counting the entries below 2^R - 1 candidates together
+// (31 bits take ceil(31 / R) passes), over the row in the warp and the block designs and
 // over the bucket's list; and the bucket size at which the passes left go
 // to a list in shared memory, in each design
 constexpr int kEmitBitsWarp = 1;
@@ -315,7 +183,7 @@ constexpr int kEmitBitsList = 2;
 constexpr int kEmitCapWarp = 64;
 constexpr int kEmitCapBlock = 512;
 
-// count_emit's words of a thread: W in registers, or n in shared memory
+// count_emit's and radix_count's words of a thread: W in registers, or n in shared memory
 // (word w at p[w * step]).
 template <int W>
 struct RegWords {
@@ -331,9 +199,9 @@ struct SmemWords {
   __device__ __forceinline__ int operator[](int w) const { return p[w * step]; }
 };
 
-// sel_mintie's order key: unsigned order is float order and -0.0 is +0.0's
-// key (float == decides the ties). A taken entry takes +inf's key, so it
-// ties with every +inf of the row (rows hold no NaN).
+// the K-pass kernels' order key: unsigned order is float order and -0.0 is
+// +0.0's key (float == decides the ties). A taken entry takes +inf's key,
+// so it ties with every +inf of the row (rows hold no NaN).
 constexpr unsigned kInfKey = 0xff800000u;
 constexpr unsigned kPadKey = 0xffffffffu;  // past the row: above every entry
 
@@ -342,8 +210,8 @@ __device__ __forceinline__ unsigned mintie_key(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// sel_mintie's keys of a thread: W in registers with a mask of the words
-// taken, or n in shared memory, a taken word overwritten.
+// the K-pass kernels' keys of a thread: W in registers with a mask of the
+// words taken, or n in shared memory, a taken word overwritten.
 template <int W>
 struct RegKeys {
   static_assert(W <= 32, "one bit a word");
@@ -411,13 +279,33 @@ __device__ __forceinline__ void take_least(Keys& keys, Least<T>& l) {
   if (l.k[0] >= kInfKey) least_keys(keys, l);
 }
 
-// sel_mintie, one warp a row, lane l holding positions l, l + 32, ...: a
-// pass is one __reduce_min_sync of the lanes' least keys and one of the
-// positions of the lanes holding that key; the owner takes it.
-template <int W>
+// A pass's winner among a warp's lanes, each offering its least key and
+// that key's position: the least (key, position) pair, packed as key << 32
+// | position, in every lane. sel_mintie takes it by two __reduce_min_sync
+// (the least key, then the lowest position holding it); sel_argmin by one
+// argmin of the packed words, a five-step __shfl_xor_sync butterfly (two
+// 32-bit shuffles a step).
+template <bool kArgmin>
+__device__ __forceinline__ unsigned long long warp_least(unsigned key, unsigned pos) {
+  if constexpr (kArgmin) {
+    unsigned long long x = (unsigned long long)key << 32 | pos;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x = min(x, __shfl_xor_sync(kFull, x, off));
+    return x;
+  } else {
+    const unsigned least = __reduce_min_sync(kFull, key);
+    return (unsigned long long)least << 32 |
+           __reduce_min_sync(kFull, key == least ? pos : UINT_MAX);
+  }
+}
+
+// sel_mintie and sel_argmin, one warp a row, lane l holding positions l,
+// l + 32, ...: a pass is warp_least of the lanes' least keys; the owner
+// takes the winner.
+template <int W, bool kArgmin>
 __global__ void __launch_bounds__(kWarpRows * 32)
-sel_mintie_warp_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, int S, int N,
-                       int K) {
+kpass_warp_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, int S, int N,
+                  int K) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
   if (r >= rows) return;  // the whole warp
@@ -433,45 +321,40 @@ sel_mintie_warp_kernel(const float* __restrict__ d, int* __restrict__ out, int r
   const int b = r / S;
   int* dst = out + ((size_t)b * K * S + (r - b * S));
   for (int k = 0; k < K; ++k) {
-    const unsigned least = __reduce_min_sync(kFull, l.k[0]);
-    const unsigned pos =
-        __reduce_min_sync(kFull, l.k[0] == least ? (unsigned)(l.w[0] * 32 + lane) : UINT_MAX);
+    const unsigned pos = (unsigned)warp_least<kArgmin>(l.k[0], (unsigned)(l.w[0] * 32 + lane));
     if (lane == 0) dst[(size_t)k * S] = (int)pos;
     if (lane == (int)(pos & 31u)) take_least(keys, l);
   }
 }
 
-// sel_mintie, one block of T threads a row, thread t holding positions t,
-// t + T, ...: a pass takes each warp's least (key, position) by two
-// __reduce_min_sync, one barrier, then every warp reduces the warps' pairs
-// the same way (two buffers, alternating); the owner takes the winner.
-template <int T, class Keys>
-__device__ __forceinline__ void mintie_block_passes(Keys& keys, int* __restrict__ dst, int S,
-                                                    int K, unsigned long long (*red)[32]) {
+// The same, one block of T threads a row, thread t holding positions t,
+// t + T, ...: a pass takes each warp's least pair by warp_least, one
+// barrier, then every warp reduces the warps' pairs the same way (two
+// buffers, alternating); the owner takes the winner.
+template <int T, bool kArgmin, class Keys>
+__device__ __forceinline__ void kpass_block_passes(Keys& keys, int* __restrict__ dst, int S,
+                                                   int K, unsigned long long (*red)[32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Least<kMintieKeepBlock> l;
   least_keys(keys, l);
   for (int k = 0; k < K; ++k) {
-    const unsigned wl = __reduce_min_sync(kFull, l.k[0]);
-    const unsigned wp =
-        __reduce_min_sync(kFull, l.k[0] == wl ? (unsigned)(l.w[0] * T) + threadIdx.x : UINT_MAX);
-    if (lane == 0) red[k & 1][warp] = (unsigned long long)wl << 32 | wp;
+    const unsigned long long wx =
+        warp_least<kArgmin>(l.k[0], (unsigned)(l.w[0] * T) + threadIdx.x);
+    if (lane == 0) red[k & 1][warp] = wx;
     __syncthreads();
     const unsigned long long x = lane < T / 32 ? red[k & 1][lane] : ~0ull;
-    const unsigned hi = (unsigned)(x >> 32);
-    const unsigned least = __reduce_min_sync(kFull, hi);
-    const unsigned pos = __reduce_min_sync(kFull, hi == least ? (unsigned)x : UINT_MAX);
+    const unsigned pos = (unsigned)warp_least<kArgmin>((unsigned)(x >> 32), (unsigned)x);
     if (threadIdx.x == 0) dst[(size_t)k * S] = (int)pos;
     if (threadIdx.x == pos % T) take_least(keys, l);
   }
 }
 
-template <int W>  // W == 0: the row in shared memory
+template <int W, bool kArgmin>  // W == 0: the row in shared memory
 __global__ void __launch_bounds__(W ? kBlockThreads : kSmemThreads)
-sel_mintie_block_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, int S, int N,
-                        int K) {
+kpass_block_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, int S, int N,
+                   int K) {
   constexpr int T = W ? kBlockThreads : kSmemThreads;
-  extern __shared__ unsigned mintie_row[];
+  extern __shared__ unsigned kpass_row[];
   __shared__ unsigned long long red[2][32];
   const int r = blockIdx.x;
   const float* src = d + (size_t)r * N;
@@ -484,18 +367,18 @@ sel_mintie_block_kernel(const float* __restrict__ d, int* __restrict__ out, int 
       const int n = w * T + threadIdx.x;
       keys.v[w] = n < N ? mintie_key(__ldg(src + n)) : kPadKey;
     }
-    mintie_block_passes<T>(keys, dst, S, K, red);
+    kpass_block_passes<T, kArgmin>(keys, dst, S, K, red);
   } else {
-    SmemKeys keys{mintie_row + threadIdx.x, T, (N + T - 1) / T};
+    SmemKeys keys{kpass_row + threadIdx.x, T, (N + T - 1) / T};
     for (int w = 0; w < keys.n; ++w) {  // each thread stages only its own words
       const int n = w * T + threadIdx.x;
       keys.p[w * T] = n < N ? mintie_key(__ldg(src + n)) : kPadKey;
     }
-    mintie_block_passes<T>(keys, dst, S, K, red);
+    kpass_block_passes<T, kArgmin>(keys, dst, S, K, red);
   }
 }
 
-// count_emit's search for its threshold, radix_kth's prefix (the largest P
+// count_emit's search for its threshold, radix_count's answer (the largest P
 // in [0, 2^31) with fewer than K of the row's bit patterns below it): the
 // bits of prefix above hi are decided, the bucket [prefix, prefix + 2^hi)
 // holds the answer, `below` entries of the row lie below the bucket (-1:
@@ -661,15 +544,15 @@ __device__ __forceinline__ void emit_lanes(const Words& v, int P, int base, int 
 
 // count_emit over one row: one warp (kRowWarps == 1, a list a warp) or
 // kRowWarps warps (one list), each warp a chunk of consecutive positions
-// starting at base. Padding is INT_MAX, below no candidate.
-template <int kRowWarps, class Words>
+// starting at base. Padding is INT_MAX, below no candidate. Without
+// kEmit, radix_count: the threshold alone, written to *dst by one thread.
+template <int kRowWarps, bool kEmit, class Words>
 __device__ __forceinline__ void count_emit_row(const Words& v, int base, int N, int K,
                                                int* __restrict__ dst, int S) {
   constexpr int R = kRowWarps == 1 ? kEmitBitsWarp : kEmitBitsBlock;
   constexpr int kCap = kRowWarps == 1 ? kEmitCapWarp : kEmitCapBlock;
   constexpr int kLists = kRowWarps == 1 ? kWarpRows : 1;
   __shared__ int red[2][kRowWarps][(1 << R) - 1];
-  __shared__ int2 scan[kRowWarps];
   __shared__ int list[kLists][kCap];
   __shared__ int count;
   if (kRowWarps > 1 && threadIdx.x == 0) count = 0;  // read after the first pass's barrier
@@ -679,12 +562,17 @@ __device__ __forceinline__ void count_emit_row(const Words& v, int base, int N, 
                                                        list[kLists > 1 ? threadIdx.x >> 5 : 0],
                                                        &count)
                          : s.prefix;
-  emit_lanes<kRowWarps>(v, P, base, N, K, dst, S, scan);
+  if constexpr (kEmit) {
+    __shared__ int2 scan[kRowWarps];
+    emit_lanes<kRowWarps>(v, P, base, N, K, dst, S, scan);
+  } else if ((kRowWarps == 1 ? threadIdx.x & 31 : threadIdx.x) == 0) {
+    *dst = P;
+  }
 }
 
-// count_emit: each warp a chunk of 32 * W positions, W in registers, or the
-// row in shared memory (W == 0)
-template <int W, int kRowWarps>
+// count_emit (kEmit) or radix_count: each warp a chunk of 32 * W
+// positions, W in registers, or the row in shared memory (W == 0)
+template <int W, int kRowWarps, bool kEmit>
 __global__ void __launch_bounds__(kRowWarps == 1 ? kWarpRows * 32 : kRowWarps * 32)
 count_emit_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, int S, int N,
                   int K) {
@@ -694,7 +582,7 @@ count_emit_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, 
   if (r >= rows) return;  // the whole warp (a block's rows never run out)
   const int* src = reinterpret_cast<const int*>(d) + (size_t)r * N;
   const int b = r / S;
-  int* dst = out + ((size_t)b * K * S + (r - b * S));
+  int* dst = out + (kEmit ? (size_t)b * K * S + (r - b * S) : (size_t)r);  // (B, K|1, S)
   if constexpr (W > 0) {
     const int base = kRowWarps == 1 ? 0 : warp * 32 * W;
     RegWords<W> v;
@@ -703,7 +591,7 @@ count_emit_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, 
       const int n = base + w * 32 + lane;
       v.v[w] = n < N ? __ldg(src + n) : INT_MAX;
     }
-    count_emit_row<kRowWarps>(v, base, N, K, dst, S);
+    count_emit_row<kRowWarps, kEmit>(v, base, N, K, dst, S);
   } else {
     const int words = (N + 32 * kRowWarps - 1) / (32 * kRowWarps);
     const int base = warp * 32 * words;
@@ -711,7 +599,8 @@ count_emit_kernel(const float* __restrict__ d, int* __restrict__ out, int rows, 
       const int n = base + w * 32 + lane;
       emit_row[base + w * 32 + lane] = n < N ? __ldg(src + n) : INT_MAX;
     }
-    count_emit_row<kRowWarps>(SmemWords{emit_row + base + lane, 32, words}, base, N, K, dst, S);
+    count_emit_row<kRowWarps, kEmit>(SmemWords{emit_row + base + lane, 32, words}, base, N, K,
+                                     dst, S);
   }
 }
 
@@ -747,22 +636,28 @@ Plan plan_for(int N) {
   return {F::template block<0>(), kSmemThreads, 1, words * kSmemThreads * 4};
 }
 
-struct MintieKernels {
+template <bool kArgmin>
+struct KPassKernels {
   template <int W>
-  static SelectKernel warp() { return sel_mintie_warp_kernel<W>; }
+  static SelectKernel warp() { return kpass_warp_kernel<W, kArgmin>; }
   template <int W>
-  static SelectKernel block() { return sel_mintie_block_kernel<W>; }
+  static SelectKernel block() { return kpass_block_kernel<W, kArgmin>; }
 };
+using MintieKernels = KPassKernels<false>;
+using ArgminKernels = KPassKernels<true>;
 
-struct EmitKernels {
+template <bool kEmit>
+struct CountKernels {
   template <int W>
-  static SelectKernel warp() { return count_emit_kernel<W, 1>; }
+  static SelectKernel warp() { return count_emit_kernel<W, 1, kEmit>; }
   template <int W>
   static SelectKernel block() {
-    if constexpr (W > 0) return count_emit_kernel<W, kBlockWarps>;
-    return count_emit_kernel<0, kSmemWarps>;
+    if constexpr (W > 0) return count_emit_kernel<W, kBlockWarps, kEmit>;
+    return count_emit_kernel<0, kSmemWarps, kEmit>;
   }
 };
+using EmitKernels = CountKernels<true>;
+using RadixKernels = CountKernels<false>;
 
 template <class F>
 int launch_select(const void* d, void* out, int B, int S, int N, int K, void* stream) {
@@ -780,23 +675,6 @@ int launch_select(const void* d, void* out, int B, int S, int N, int K, void* st
                                            (rows + p.rows_per_block - 1) / p.rows_per_block,
                                            p.threads, args, (size_t)p.smem, (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-int row_threads(int N) {
-  int t = (N / 4 + 31) / 32 * 32;
-  return t < 32 ? 32 : t > kMaxThreads ? kMaxThreads : t;
-}
-
-// one block a row, the row's N 4-byte entries in dynamic shared memory
-template <typename Kernel>
-int launch_rows(Kernel kernel, int rows, int N, void* stream, const float* d, int* out, int S,
-                int K) {
-  const int smem = N * 4;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<rows, row_threads(N), smem, (cudaStream_t)stream>>>(d, out, S, N, K);
-  return (int)cudaGetLastError();
 }
 
 bool bad_rows(int B, int S, int N, int K) {
@@ -832,11 +710,12 @@ extern "C" int pcot_vpu_ew(const void* x, void* out, long long n, int kind, int 
 }
 
 // d (B,S,N) f32 without NaN -> out (B,K,S) i32: the K nearest lanes of each
-// row, nearest first, equal values to the lowest lane (K argmin passes).
+// row, nearest first, equal values to the lowest lane (K argmin passes of
+// packed (key, position) pairs).
 extern "C" int pcot_vpu_sel_argmin(const void* d, void* out, int B, int S, int N, int K,
                                    void* stream) {
   if (bad_rows(B, S, N, K)) return (int)cudaErrorInvalidValue;
-  return launch_rows(sel_argmin_kernel, B * S, N, stream, (const float*)d, (int*)out, S, K);
+  return launch_select<ArgminKernels>(d, out, B, S, N, K, stream);
 }
 
 // the same, by K passes of a minimum and its lowest tied lane
@@ -847,11 +726,11 @@ extern "C" int pcot_vpu_sel_mintie(const void* d, void* out, int B, int S, int N
 }
 
 // d (B,S,N) f32 -> out (B,1,S) i32: the bit pattern of each row's K-th
-// smallest value (d >= 0), by 31 count passes
+// smallest value (d >= 0), by count_emit's count passes
 extern "C" int pcot_vpu_radix_count(const void* d, void* out, int B, int S, int N, int K,
                                     void* stream) {
   if (bad_rows(B, S, N, K)) return (int)cudaErrorInvalidValue;
-  return launch_rows(radix_count_kernel, B * S, N, stream, (const float*)d, (int*)out, S, K);
+  return launch_select<RadixKernels>(d, out, B, S, N, K, stream);
 }
 
 // d (B,S,N) f32 -> out (B,K,S) i32: the lanes of the K smallest bit

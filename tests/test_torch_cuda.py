@@ -859,13 +859,17 @@ def test_backward_recompute_reproduces_the_pooled_value_on_card(cuda_device, sta
 
 # (B, S, N, K): the JAX file's shape, the training grouping's, K=1, K=N, N
 # not a multiple of 32, and a row of the kNN kernel's size; then the edges
-# of sel_mintie's and count_emit's designs (a warp a row up to N=1,024, a
-# lane's words 1 to 32; a block a row above), each at K=1 and K=N
+# of the selections' designs (a warp a row up to N=1,024, a lane's words 1
+# to 32; a block a row above), each at K=1 and K=N; and the last row held in
+# registers (16,384), the first in shared memory and the longest (MAX_N),
+# each at K=1 and K=32
 VPU_SELECT_CASES = {"B=64-N=1024": (64, 128, 1024, 32), "B=16-N=10000": (16, 128, 10_000, 32),
                     "K=1": (2, 8, 300, 1), "K=N": (2, 8, 40, 40), "N=1000": (3, 5, 1000, 7),
                     "N=20480": (2, 4, 20_480, 32),
                     **{f"N={n}-K={k}": (2, 3, n, k)
-                       for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000) for k in sorted({1, n})}}
+                       for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_000) for k in sorted({1, n})},
+                    **{f"N={n}-K={k}": (2, 3, n, k)
+                       for n in (16_384, 16_385, 49_152) for k in (1, 32)}}
 
 
 @pytest.mark.cuda
@@ -888,6 +892,52 @@ def test_vpu_select_kernels_equal_plain_on_card(cuda_device, name, case, rows):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["random", "ties", "inf", "equal", "signed"])
+@pytest.mark.parametrize("case", list(VPU_SELECT_CASES))
+def test_vpu_sel_argmin_equals_sel_mintie_on_card(cuda_device, case, rows):
+    """The two K-pass kernels share their keys and differ only in a pass's
+    reduction (one packed argmin against a minimum and its lowest tied
+    lane), so their outputs are equal bit for bit."""
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    b, s, n, kn = VPU_SELECT_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    d = PV.select_rows(rows, (b, s, n), gen)
+    before = PV.sel_argmin.launches, PV.sel_mintie.launches
+    got, want = PV.sel_argmin(d, kn), PV.sel_mintie(d, kn)
+    torch.cuda.synchronize()
+    assert (PV.sel_argmin.launches, PV.sel_mintie.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["random", "ties", "inf", "equal", "signed"])
+@pytest.mark.parametrize("case", list(VPU_SELECT_CASES))
+def test_vpu_radix_count_is_the_count_emit_threshold_on_card(cuda_device, case, rows):
+    """radix_count's answer is the threshold count_emit emits against:
+    every lane count_emit emits holds a bit pattern at or below it, and
+    every pattern of the row strictly below it is emitted (the first K of
+    them where K or more lie below it: a row with K negative patterns has
+    the threshold 0)."""
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    b, s, n, kn = VPU_SELECT_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    d = PV.select_rows(rows, (b, s, n), gen)
+    before = PV.radix_count.launches, PV.count_emit.launches
+    threshold = PV.radix_count(d, kn)[:, 0, :, None]  # (B, S, 1)
+    lanes = PV.count_emit(d, kn).transpose(1, 2).long()  # (B, S, K)
+    torch.cuda.synchronize()
+    assert (PV.radix_count.launches, PV.count_emit.launches) == (before[0] + 1, before[1] + 1)
+    bits = d.view(torch.int32)
+    emitted = torch.gather(bits, -1, lanes)
+    assert (emitted <= threshold).all()
+    # the lanes emitted are distinct, so equal counts below the threshold
+    # mean every such lane of the row was emitted
+    below = (bits < threshold).sum(-1)
+    assert torch.equal((emitted < threshold).sum(-1), below.clamp_max(kn))
+    assert (lanes.diff(dim=-1) > 0).all()
 
 
 @pytest.mark.cuda

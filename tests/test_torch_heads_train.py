@@ -79,34 +79,56 @@ def _inputs(task, seed=SEED):
 _JAX_STEPS = {}
 
 
-def _jax_step(task):
-    """Loss, batch statistics and gradients of the JAX model's train step in
-    float64 (the XLA path), dropout off (``nn.Dropout`` made the identity:
-    the two frameworks' dropout streams differ), centroids ``"first"``."""
-    if task in _JAX_STEPS:
-        return _JAX_STEPS[task]
+def _jax_loss_fn(task, dtype, seed=SEED):
+    """The JAX model's train-mode loss of ``task``'s inputs as a function of
+    the parameters, computed in ``dtype`` (dropout off: ``nn.Dropout`` made
+    the identity, the two frameworks' dropout streams differ; centroids
+    ``"first"``), and the parameters. Call it inside ``jax.enable_x64``."""
     name, model_name, kw, _ = _TASKS[task]
     cfg = jax_preset(name)
     adapter = jax_tasks.TASKS[cfg.task]
-    v, pts, batch, valid = _inputs(task)
+    v, pts, batch, valid = _inputs(task, seed)
     model = JAX_MODELS[model_name](sampling="first", **kw)
+    cast = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, dtype if a.dtype == np.float32 else a.dtype),
+        {"v": v, "pts": pts, "batch": batch, "valid": valid})
+
+    def loss_fn(params):
+        out, mut = model.apply({"params": params, "batch_stats": cast["v"]["batch_stats"]},
+                               cast["pts"], train=True, mutable=["batch_stats"])
+        per = adapter.loss(out, cast["batch"], cfg)
+        valid_ = cast["valid"]
+        return jnp.sum(per * valid_) / jnp.maximum(jnp.sum(valid_), 1.0), mut["batch_stats"]
+
+    return loss_fn, cast["v"]["params"]
+
+
+def _jax_step(task):
+    """Loss, batch statistics and gradients of the JAX model's train step in
+    float64 (the XLA path), and the loss of the same step in float32."""
+    if task in _JAX_STEPS:
+        return _JAX_STEPS[task]
     with jax.enable_x64(True), mock.patch.object(fnn.Dropout, "__call__",
                                                  lambda self, x, *a, **k: x):
-        f64 = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(a, jnp.float64 if a.dtype == np.float32 else a.dtype),
-            {"v": v, "pts": pts, "batch": batch, "valid": valid})
-
-        def loss_fn(params):
-            out, mut = model.apply({"params": params, "batch_stats": f64["v"]["batch_stats"]},
-                                   f64["pts"], train=True, mutable=["batch_stats"])
-            per = adapter.loss(out, f64["batch"], cfg)
-            valid_ = f64["valid"]
-            return jnp.sum(per * valid_) / jnp.maximum(jnp.sum(valid_), 1.0), mut["batch_stats"]
-
-        (loss, stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-            f64["v"]["params"])
-        _JAX_STEPS[task] = jax.tree_util.tree_map(np.asarray, (loss, stats, grads))
+        loss_fn, params = _jax_loss_fn(task, jnp.float64)
+        (loss, stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+        loss_fn, params = _jax_loss_fn(task, jnp.float32)
+        loss32 = jax.jit(loss_fn)(params)[0]
+        _JAX_STEPS[task] = jax.tree_util.tree_map(np.asarray, (loss, stats, grads, loss32))
     return _JAX_STEPS[task]
+
+
+def _loss_rtol(want_loss, jax_f32_loss) -> float:
+    """The bound on the port's float32 loss, relative to the float64 one:
+    1e-5, or the JAX float32 step's own distance from float64 on the same
+    inputs where that is larger. At seed 42 the multi_8dir step's loss is
+    ill-conditioned in float32 (a KL of near-equal distributions): the JAX
+    float32 step's loss lies 7.5e-5 from float64 and the port's 1.4e-5 on an
+    x86 CPU with AVX-512 (under 1e-5 on others), while at every stage of the
+    forward the port lies 10-20x nearer to float64 than JAX's float32
+    (ROADMAP.md, queue 3 item 4)."""
+    want = float(want_loss)
+    return max(1e-5, abs(float(jax_f32_loss) - want) / abs(want))
 
 
 def _tiny_trainer(name, **cfg):
@@ -120,21 +142,23 @@ def _tiny_trainer(name, **cfg):
 def test_train_step_matches_jax_f64_step(task):
     """The port's float32 Trainer step against the JAX float64 step, the
     bounds of tests/test_torch_train_step.py's float32-vs-float64 modes:
-    loss within 1e-5 relative, running statistics within 2e-6, each
+    loss within 1e-5 relative (or the JAX float32 loss's own distance from
+    float64, ``_loss_rtol``), running statistics within 2e-6, each
     gradient leaf within 3e-2 relative in norm beyond 1e-5 per entry (read
     over seeds 0-4: at most 4.8e-6, 1.4e-6 and 1.6e-2, the last the MvM
     step's). The
     ``mvm`` step takes ``mvm_guarded``'s ``unmatched_penalty=1`` and starts
     at the MvM heads' zero-init point, where every gradient must be finite
     (the guarded angle's gradient there is 0 on both sides)."""
-    want_loss, want_stats, want_grads = _jax_step(task)
+    want_loss, want_stats, want_grads, jax_f32_loss = _jax_step(task)
     v, pts, batch, valid = _inputs(task)
     trainer = _tiny_trainer(_TASKS[task][0], grad_clip=None)  # .grad before any clipping
     load_flax_variables(trainer.model, v)
     tb = {k: torch.from_numpy(a) for k, a in batch.items()}
     tb["points"] = torch.from_numpy(pts)
     m = trainer.train_step(tb, torch.from_numpy(valid), None)
-    np.testing.assert_allclose(float(m["loss"]), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["loss"]), float(want_loss),
+                               rtol=_loss_rtol(want_loss, jax_f32_loss))
     got_grads = to_flax_variables(trainer.model, grads=True)["params"]
     for (path, g), (_, w) in zip(_leaves(got_grads), _leaves(want_grads)):
         name = jax.tree_util.keystr(path)
@@ -236,3 +260,63 @@ def test_trunk_dropout_placement_and_rate(name, calls, p):
         kept = (y != 0) & live
         assert abs(float(kept.sum() / live.sum()) - (1 - p)) < 0.05
         torch.testing.assert_close(y[kept], a[kept] / (1 - p))
+
+
+_STAGES = ("sa1", "sa2", "sa3", "fc1", "fc2", "trunk", "outputs")
+
+
+def _stage_readings(task, seed=SEED):
+    """Where the port's float32 step leaves the JAX float64 step: each
+    stage's train-mode output (the three set abstractions, the two FC
+    layers, the trunk, the model's outputs) and the loss, the port's
+    float32 and the JAX float32 each relative in norm from the JAX float64
+    ones on the same inputs."""
+    v, pts, batch, valid = _inputs(task, seed)
+    model = JAX_MODELS[_TASKS[task][1]](sampling="first", **_TASKS[task][2])
+    flat = lambda xs: np.concatenate([np.asarray(x, np.float64).ravel() for x in xs])
+
+    def jax_run(dtype):
+        with jax.enable_x64(True), mock.patch.object(fnn.Dropout, "__call__",
+                                                     lambda self, x, *a, **k: x):
+            cast = jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, dtype if a.dtype == np.float32 else a.dtype), v)
+            out, mut = model.apply(cast, jnp.asarray(pts, dtype), train=True,
+                                   mutable=["batch_stats", "intermediates"],
+                                   capture_intermediates=True)
+            trunk = mut["intermediates"]["PointNetPPTrunk_0"]
+            stages = [trunk[f"SetAbstraction_{i}"]["__call__"][0][1] for i in range(3)]
+            stages += [trunk["Dense_0"]["__call__"][0], trunk["Dense_1"]["__call__"][0],
+                       trunk["__call__"][0], out if isinstance(out, tuple) else (out,)]
+            loss_fn, params = _jax_loss_fn(task, dtype, seed)
+            return [flat(x if isinstance(x, tuple) else (x,)) for x in stages] + [
+                flat((jax.jit(loss_fn)(params)[0],))]
+
+    trainer = _tiny_trainer(_TASKS[task][0], grad_clip=None)
+    load_flax_variables(trainer.model, v)
+    got = {}
+    net = trainer.model
+    for key, mod in zip(_STAGES, (net.trunk.sa1, net.trunk.sa2, net.trunk.sa3, net.trunk.fc1,
+                                  net.trunk.fc2, net.trunk, net)):
+        def hook(mod, inp, out, key=key):
+            outs = out[1:2] if key.startswith("sa") else out if isinstance(out, tuple) else (out,)
+            got[key] = flat([o.detach().numpy() for o in outs])
+        mod.register_forward_hook(hook)
+    tb = {k: torch.from_numpy(a) for k, a in batch.items()}
+    tb["points"] = torch.from_numpy(pts)
+    loss = float(trainer.train_step(tb, torch.from_numpy(valid), None)["loss"])
+    port = [got[key] for key in _STAGES] + [flat((loss,))]  # the hooks fired in the step
+    want, jax32 = jax_run(jnp.float64), jax_run(jnp.float32)
+    dist = lambda a, w: float(np.linalg.norm(a - w) / max(np.linalg.norm(w), 1e-30))
+    return {name: (dist(p, w), dist(j, w))
+            for name, p, j, w in zip(_STAGES + ("loss",), port, jax32, want)}
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_heads_train.py [seed ...]
+    import sys
+
+    for seed in [int(a) for a in sys.argv[1:]] or [SEED]:
+        for task in _TASKS:
+            readings = _stage_readings(task, seed)
+            print(f"{task} seed {seed} (port f32 / JAX f32, each from JAX f64): " + ", ".join(
+                f"{name} {p:.1e} / {j:.1e}" for name, (p, j) in readings.items()), flush=True)
