@@ -28,13 +28,18 @@ against the kNN kernel's), and a cloud that fails the certificate. The
 yaw-distribution heads (``pointnet_pp_fwd``, ``pointnet_pp_von_mises``,
 ``pointnet_pp_mvm``) served at B=16, N=10,000 against their plain versions,
 and one epoch each of the multi_8dir, vm_kl, mvm_robust and mvm_debug
-presets, vm_kl and mvm_robust again under the grid dispatch. Finally times
+presets, vm_kl and mvm_robust again under the grid dispatch. The ModelNet40
+classifier trained through ``Trainer`` (``TrainConfig(task="classification",
+model="pointnet_pp_cls")``, B=16, N=1024) one epoch in both train
+configurations, with its launch counts and a step's gradients against the
+plain versions, and its step timed. Finally times
 the kernels, the requests and the train steps, f32 beside bf16 and exact
 beside grid, with CUDA events, the profiler and the host clock. Besides: the
 MLP forward against its backward's recompute (the pooled value reproduced
 bit for bit, f32 and bf16, every stage's widths); the five selection
 micro-benchmark kernels (``benchmarks/profile_vpu_select.py``) bit for bit
-against their plain versions, then their benchmark as its own main path.
+against their plain versions (``ew`` also on NaN, infinities, subnormals
+and tails), then their benchmark as its own main path.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -46,6 +51,7 @@ non-zero before building anything when no CUDA device is visible.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -66,8 +72,8 @@ from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
-from pointcloud_orientation_tpu_torch.train import Trainer, preset
-from pointcloud_orientation_tpu_torch.train.profile_step import device_events
+from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
+from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
 # kernel's products at the bf16 tensor-core rate; the products of an f32 MLP
@@ -94,6 +100,11 @@ SA_MLP_SHAPES = {
     "cls sa1 B=64": (64, 32, 512, (6, 64, 64, 128)),
     "cls sa2 B=64": (64, 64, 128, (131, 128, 128, 256)),
     "cls group-all K=128 B=64": (64, 128, 1, (259, 256, 512, 1024)),
+    # the classifier's training path: B=16 N=1024 xyz clouds (eval's forward
+    # and the fused train step's)
+    "cls train sa1 B=16": (16, 32, 512, (3, 64, 64, 128)),
+    "cls train sa2 B=16": (16, 64, 128, (131, 128, 128, 256)),
+    "cls train group-all K=128 B=16": (16, 128, 1, (259, 256, 512, 1024)),
 }
 # one forward at the bench shape launches these (summed in the last line)
 BENCH_FORWARD = {"sa_group": ("sa1 B=64 N=1024", "sa2 B=64"),
@@ -142,12 +153,16 @@ BF16_GRAD_TOL = {"default": 1e-3, "fused": 1e-2}
 # N=40,000 is the N=40,000 classifier request's sa1.
 FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 128),
               "B=16 N=10000": (16, 10000, 512), "B=2 N=40000": (2, 40_000, 512),
-              "B=4 N=40000": (4, 40_000, 512), "B=4 N=65536": (4, 65_536, 512)}
+              "B=4 N=40000": (4, 40_000, 512), "B=4 N=65536": (4, 65_536, 512),
+              "cls train sa1 B=16 N=1024": (16, 1024, 512),
+              "cls train sa2 B=16 N=512": (16, 512, 128)}
 BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2, False),
                "sa2 B=64": (64, 128, 512, 64, 0.4, True),
                "sa2 B=64 difference form": (64, 128, 512, 64, 0.4, False),
                "B=4 N=24576": (4, 128, 24_576, 32, 0.2, True),
-               "B=2 N=40000": (2, 512, 40_000, 32, 0.2, True)}
+               "B=2 N=40000": (2, 512, 40_000, 32, 0.2, True),
+               "cls train sa1 B=16": (16, 512, 1024, 32, 0.2, False),
+               "cls train sa2 B=16": (16, 128, 512, 64, 0.4, True)}
 KNN_SHAPES = {"sa1 B=16 N=16384": (16, 128, 16384, 32), "sa1 B=16 N=20480": (16, 128, 20480, 32)}
 CLS_FORWARD = {"fps": ("sa1 B=64 N=1024", "sa2 B=64 N=512"), "ball_query": ("sa1 B=64", "sa2 B=64")}
 CLS_CHANNELS = 6  # xyz and normals
@@ -163,6 +178,17 @@ TRAIN_MLP_SHAPES = {
     "sa2 B=16": (16, 32, 32, (131, 128, 128, 256)),
     "sa3 B=16": (16, 32, 1, (259, 256, 512, 1024)),
 }
+# The classifier's training path (B=16, N=1024 xyz clouds): the backward at
+# sa1 (K=32, S=512), sa2 (K=64, S=128) and the group-all stage (K=128 rows,
+# S=1: 16 groups), the last also at B=64 (the kernel's scratch, row chunks
+# and grid limits)
+CLS_TRAIN_MLP_SHAPES = {
+    "cls sa1 B=16": (16, 32, 512, (3, 64, 64, 128)),
+    "cls sa2 B=16": (16, 64, 128, (131, 128, 128, 256)),
+    "cls group-all K=128 B=16": (16, 128, 1, (259, 256, 512, 1024)),
+    "cls group-all K=128 B=64": (64, 128, 1, (259, 256, 512, 1024)),
+}
+CLS_TRAIN_N = 1024
 SCATTER_TOL = 1e-5  # the plain index_add_ sums up to 32 slots in another order
 # the MLP backward: rtol, and atol times the output's largest entry (sums
 # over up to 65,536 rows in another order), on inputs whose forward is exact
@@ -775,7 +801,7 @@ def bwd_device_kernels(g, layers, dp, name, bf16=False) -> int:
     """Device kernels of one backward call as a fused train step makes it:
     sa1's grouped input (coordinates) needs no gradient."""
     return device_kernels(lambda: K.sa_mlp_max_bwd(g, layers, dp, bf16=bf16,
-                                                   need_dgrouped=not name.startswith("sa1")))
+                                                   need_dgrouped="sa1" not in name))
 
 
 def scatter_cost(B, N, S, Kn, D) -> tuple[float, float]:
@@ -926,7 +952,7 @@ def phase_kernels_bwd(dev) -> dict:
         fail(f"sa_group_scatter: max abs err {err} (tol {SCATTER_TOL}), bit-equal {bit_equal}")
     results["sa_group_scatter"]["sa2 B=16"] = {"max_abs_err": err}
 
-    for name, shape in TRAIN_MLP_SHAPES.items():
+    for name, shape in {**TRAIN_MLP_SHAPES, **CLS_TRAIN_MLP_SHAPES}.items():
         results["sa_mlp_max_bwd"][name] = check_mlp_bwd(gen, dev, name, shape,
                                                         ("ties", "all-tied", "random"))
     return results
@@ -949,9 +975,40 @@ def step_grads(trainer, batch, valid, seed) -> dict:
 
 def _zero_in_exact_arithmetic(name: str) -> bool:
     """A Dense bias that feeds a train-mode BatchNorm: the batch mean
-    removes it, so its gradient is rounding noise on both sides."""
-    return name.endswith("bias") and ("linears" in name or name in ("trunk.fc1.bias",
-                                                                    "trunk.fc2.bias"))
+    removes it, so its gradient is rounding noise on both sides. So is the
+    classifier's group-all shift: each pooled value is a max over 128 rows
+    and so positive, and fc1's train-mode BatchNorm centres the batch's
+    gradient, so the shift's (a sum over the batch) is zero as well."""
+    return name.endswith("bias") and ("linears" in name or name in (
+        "trunk.fc1.bias", "trunk.fc2.bias", "fc1.bias", "fc2.bias", "sa3.mlp.bns.2.bias"))
+
+
+def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict) -> dict:
+    """One step's gradients through the kernels against the same step with
+    each kernel wrapper of ``plain`` replaced by its plain version (same
+    generator: the same FPS starts and dropout masks), per parameter,
+    relative in norm; the biases zero in exact arithmetic not held. The
+    model's state is restored after each."""
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    got = step_grads(trainer, batch, valid, SEED)
+    trainer.model.load_state_dict(state)
+    with contextlib.ExitStack() as stack:
+        for name, fn in plain.items():
+            stack.enter_context(mock.patch.object(K, name, fn))
+        want = step_grads(trainer, batch, valid, SEED)
+    trainer.model.load_state_dict(state)
+    rel = {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) for n in want}
+    checked = {n: r for n, r in rel.items() if not _zero_in_exact_arithmetic(n)}
+    worst = max(checked, key=checked.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    return {"worst": worst, "norm_rel_err": checked[worst], "tol": GRAD_TOL[mode],
+            "finite": finite, "ok": finite and checked[worst] <= GRAD_TOL[mode],
+            "median_norm_rel_err": float(np.median(list(checked.values())))}
+
+
+TRAIN_PLAIN = {"sa_group": K.sa_group_plain, "sa_mlp_max": K.sa_mlp_max_plain,
+               "sa_group_scatter": K.sa_group_scatter_plain,
+               "sa_mlp_max_bwd": K.sa_mlp_max_bwd_plain}
 
 
 def phase_train(dev) -> dict:
@@ -983,27 +1040,14 @@ def phase_train(dev) -> dict:
             fail(f"train {mode}: launches {launches}, expected {expected}")
 
         # one step's gradients through the kernels vs through the plain versions
-        state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
         idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
         batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
-        got = step_grads(trainer, batch, valid, SEED)
-        trainer.model.load_state_dict(state)
-        with mock.patch.object(K, "sa_group", K.sa_group_plain), \
-                mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
-                mock.patch.object(K, "sa_group_scatter", K.sa_group_scatter_plain), \
-                mock.patch.object(K, "sa_mlp_max_bwd", K.sa_mlp_max_bwd_plain):
-            want = step_grads(trainer, batch, valid, SEED)
-        trainer.model.load_state_dict(state)
-        rel = {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) for n in want}
-        checked = {n: r for n, r in rel.items() if not _zero_in_exact_arithmetic(n)}
-        worst = max(checked, key=checked.get)
-        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
-        ok = finite and checked[worst] <= GRAD_TOL[mode]
-        emit("train_check", mode=mode, grads_vs_plain_worst=worst, norm_rel_err=checked[worst],
-             tol=GRAD_TOL[mode], finite=finite, ok=ok,
-             median_norm_rel_err=float(np.median(list(checked.values()))))
-        if not ok:
-            fail(f"train {mode}: gradient of {worst} differs by {checked[worst]} from the plain path")
+        check = grads_vs_plain(trainer, batch, valid, mode, TRAIN_PLAIN)
+        emit("train_check", mode=mode, grads_vs_plain_worst=check["worst"],
+             **{k: v for k, v in check.items() if k != "worst"})
+        if not check["ok"]:
+            fail(f"train {mode}: gradient of {check['worst']} differs by "
+                 f"{check['norm_rel_err']} from the plain path")
 
         # checkpoint round trip, in a temporary directory outside the tree
         with tempfile.TemporaryDirectory() as d:
@@ -1064,7 +1108,7 @@ def phase_timing_train(dev, checks: dict, train: dict) -> list:
         host_ms=host_ms, **checks["sa_group_scatter"]["sa2 B=16"])
     emit("timing", kernel="sa_group_scatter", shape="sa2 B=16",
          **per_shape["sa_group_scatter"]["sa2 B=16"])
-    for name, (B, Kn, S, widths) in TRAIN_MLP_SHAPES.items():
+    for name, (B, Kn, S, widths) in {**TRAIN_MLP_SHAPES, **CLS_TRAIN_MLP_SHAPES}.items():
         g = torch.randn((B, Kn, S, widths[0]), generator=gen, device=dev)
         layers = make_layers(widths, gen, dev)
         dp = torch.randn((B, S, widths[-1]), generator=gen, device=dev)
@@ -1787,6 +1831,84 @@ def phase_train_heads(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training the classifier
+# ---------------------------------------------------------------------------
+
+CLS_PLAIN = {"fps": K.fps_plain, "ball_query": K.ball_query_plain,
+             "sa_mlp_max": K.sa_mlp_max_plain, "sa_mlp_max_bwd": K.sa_mlp_max_bwd_plain}
+
+
+def cls_train_config() -> TrainConfig:
+    """The classifier's training config: no preset names it (nor in the JAX
+    package); B=16 and N=1024 are the config's defaults."""
+    return TrainConfig(task="classification", model="pointnet_pp_cls", epochs=1)
+
+
+def phase_train_cls(dev) -> dict:
+    """The classifier's training main path: one epoch (3 steps of B=16 and
+    1 val batch, N=1024 xyz clouds, full width) through ``Trainer`` in each
+    train configuration, counters from 0. A step launches 2 FPS and 2 ball
+    queries, and on the fused path 3 MLP forwards and 3 backwards (sa1, sa2
+    at K=64, the group-all stage at K=128); a val batch 2 + 2 + 3 forwards.
+    Then one step's gradients through the kernels against the plain
+    versions."""
+    ds = OrientationDataset(*synthetic_modelnet(num_points=CLS_TRAIN_N,
+                                                samples_per_class=TRAIN_SAMPLES_PER_CLASS))
+    out = {}
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        trainer = Trainer(cls_train_config(), ds, device=dev, fused_mlp_train=fused)
+        steps = -(-len(trainer.train_ds) // trainer.cfg.batch_size)
+        val = -(-len(trainer.val_ds) // trainer.cfg.batch_size)
+        K.reset_launch_counts()
+        trainer.fit(epochs=1, log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        forwards = steps + val
+        expected = expected_launches(fps=2 * forwards, ball_query=2 * forwards,
+                                     sa_mlp_max=3 * forwards if fused else 3 * val,
+                                     sa_mlp_max_bwd=3 * steps if fused else 0)
+        losses = trainer.step_losses
+        emit("train_cls", mode=mode, batch=trainer.cfg.batch_size, num_points=CLS_TRAIN_N,
+             train_steps=steps, val_batches=val, step_losses=losses,
+             val_loss=trainer.history["val"][0], val_angular_deg=trainer.history["val_ang"][0],
+             launches=launches, expected_launches=expected, timings=trainer.timings)
+        finite = (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                  and math.isfinite(trainer.history["val"][0]))
+        if not finite or not math.isnan(trainer.history["val_ang"][0]):
+            fail(f"train_cls {mode}: losses {losses}, val {trainer.history['val']}, "
+                 f"angular {trainer.history['val_ang']} (classification has none)")
+        if launches != expected:
+            fail(f"train_cls {mode}: launches {launches}, expected {expected}")
+        idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+        check = grads_vs_plain(trainer, batch, valid, mode, CLS_PLAIN)
+        emit("train_cls_check", mode=mode, grads_vs_plain_worst=check["worst"],
+             **{k: v for k, v in check.items() if k != "worst"})
+        if not check["ok"]:
+            fail(f"train_cls {mode}: gradient of {check['worst']} differs by "
+                 f"{check['norm_rel_err']} from the plain path")
+        out[mode] = {"trainer": trainer, "launches": launches, "steps": steps}
+    return out
+
+
+def phase_timing_train_cls(train_cls: dict) -> dict:
+    """A classifier train step in each configuration: host clock (median
+    of 5 after 2 warm-ups), then the device's busy time a step and its idle
+    share under the profiler (``train/profile_step.profile_mode``, its trace
+    in a temporary directory)."""
+    out = {}
+    for mode, run in train_cls.items():
+        steps = step_times(run["trainer"], f"timing_train_cls {mode}")
+        emit("timing_train_cls", mode=mode, batch=16, num_points=CLS_TRAIN_N, **steps)
+        with tempfile.TemporaryDirectory() as d:
+            prof = profile_mode(run["trainer"], TRAIN_STEP_ITERS, d, mode)
+        emit("timing_train_cls_device", batch=16, num_points=CLS_TRAIN_N, **prof)
+        out[mode] = {"step": steps, "device": prof}
+    return out
+
+
 def profiled_ms(fn, iters: int = 5) -> float:
     """Device time per call of ``fn`` from the profiler's kernel, copy and
     fill durations, over ``iters`` calls after a warm-up."""
@@ -1888,7 +2010,8 @@ def phase_timing_grid(dev, checks: dict, serve_grid: dict, serve_heads: dict,
 
 # (K, widths) of every stage the MLP kernels run: the 8-dir trunk's three and
 # the classifier's three (K=64 at sa2, the group-all's 128 rows)
-RECOMPUTE_STAGES = {name: (kn, widths) for name, (_, kn, _, widths) in SA_MLP_SHAPES.items()}
+RECOMPUTE_STAGES = {name: (kn, widths) for name, (_, kn, _, widths) in SA_MLP_SHAPES.items()
+                    if not name.startswith("cls train")}  # those repeat the widths above
 RECOMPUTE_SEEDS = 4
 RECOMPUTE_COLUMNS = 12  # pooled columns sampled a seed
 # the neighbours of a near-tie centroid: one row plus this much noise, relative
@@ -1962,8 +2085,11 @@ VPU_EDGE_SHAPES = ([(2, 3, n, k) for n in (1, 31, 32, 33, 1023, 1024, 1025, 10_0
 
 def phase_kernels_vpu_select(dev) -> dict:
     """The five micro-benchmark kernels bit for bit against their plain
-    versions: ``ew`` in f32, bf16 and int16 at the JAX file's shape, 32
-    rounds (overflow, wrapping) and 3; the four selections at the shapes
+    versions: ``ew`` in f32, bf16 and int16 at the JAX file's shape on
+    random values and at ``profile_vpu_select.EW_EDGE_LENGTHS`` (tails of 1
+    to 7 elements) on its edge values (signed zeros, infinities, NaN,
+    subnormals, int16's extremes), 0, 1, 31, 32 (the unrolled kernel) and
+    33 rounds; the four selections at the shapes
     they are timed at (``profile_vpu_select.SELECT_SHAPES``) on random and
     tie-rich rows, and at ``VPU_EDGE_SHAPES`` on every kind of
     ``profile_vpu_select.ROW_KINDS`` (``+inf`` runs, all-equal rows, -0.0
@@ -1973,15 +2099,20 @@ def phase_kernels_vpu_select(dev) -> dict:
     results = {}
     shape = (PV.B, PV.S, PV.N)
     for dtype in PV.EW_DTYPES:
-        x = PV.ew_input(dtype, shape, gen)
-        for reps in (PV.REPS, 3):
-            got, want = PV.ew(x, reps), PV.ew_plain(x, reps)
-            torch.cuda.synchronize()
-            view = torch.int32 if dtype == torch.float32 else torch.int16
-            if got.dtype != want.dtype or not torch.equal(got.view(view), want.view(view)):
-                fail(f"ew {dtype} reps={reps}: differs from the plain version in "
-                     f"{int((got.view(view) != want.view(view)).sum())} elements")
-        emit("kernel_check", kernel="ew", dtype=str(dtype), exact=True, reps=[PV.REPS, 3])
+        view = torch.int32 if dtype == torch.float32 else torch.int16
+        inputs = {"random (64, 128, 1024)": PV.ew_input(dtype, shape, gen)}
+        inputs.update({f"edge n={n}": PV.ew_edge_input(dtype, n, gen)
+                       for n in PV.EW_EDGE_LENGTHS})
+        for name, x in inputs.items():
+            for reps in PV.EW_EDGE_REPS:
+                got, want = PV.ew(x, reps), PV.ew_plain(x, reps)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got.view(view), want.view(view)):
+                    fail(f"ew {dtype} {name} reps={reps}: differs from the plain version in "
+                         f"{int((got.view(view) != want.view(view)).sum())} elements")
+        emit("kernel_check", kernel="ew", dtype=str(dtype), exact=True,
+             reps=list(PV.EW_EDGE_REPS), inputs=len(inputs),
+             specials=[str(v) for v in PV.EW_SPECIALS[dtype]])
     results["ew"] = {"max_abs_err": 0.0, "exact": True}
     for fn in PV.SELECTIONS:
         cases = [(name, sel_shape, kind) for name, sel_shape in PV.SELECT_SHAPES.items()
@@ -2059,12 +2190,18 @@ def main() -> None:
     serve_grid = phase_serve_grid(dev)
     serve_heads = phase_serve_heads(dev)
     train_heads = phase_train_heads(dev)
+    train_cls = phase_train_cls(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
     summary += phase_timing_bf16(dev, checks, serve_bf16, train_bf16, cls_large)
     summary += phase_timing_grid(dev, checks, serve_grid, serve_heads, train_heads)
     summary += phase_vpu_select(dev, checks)
+    phase_timing_train_cls(train_cls)
+    for row in summary:  # the classifier's training path, beside each row's own path
+        if row["name"] in CLS_PLAIN:
+            row["launches_train_cls"] = {mode: run["launches"][row["name"]]
+                                         for mode, run in train_cls.items()}
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

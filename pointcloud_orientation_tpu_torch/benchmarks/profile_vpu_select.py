@@ -40,12 +40,16 @@ the library call's ms. Needs a CUDA device.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops import _build
 from ..ops._build import load_library
 from .roofline import bound_ms, device_ms
 
@@ -157,8 +161,8 @@ def _raise_on(err: int, what: str) -> None:
 
 def ew(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
     """``reps`` rounds of ``max(x + x, x * x)`` elementwise, in ``x``'s dtype
-    (float32, bfloat16: every operation rounded to bf16; int16: wrapping).
-    ``x`` contiguous, without NaN on the card."""
+    (float32, bfloat16: every operation rounded to bf16; int16: wrapping;
+    NaN propagates through the max). ``x`` contiguous."""
     if x.dtype not in _EW_KIND:
         raise TypeError(f"ew takes float32, bfloat16 or int16, got {x.dtype}")
     if reps < 0:
@@ -296,6 +300,36 @@ def ew_input(dtype: torch.dtype, shape, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
+# ew's edge values: signed zeros, infinities, NaN and subnormals (f32's
+# least, bf16's least and largest), or int16's extremes and the values whose
+# square or double wraps
+EW_SPECIALS = {
+    torch.float32: (0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1.4e-45, -1.4e-45,
+                    1.1754942e-38, 2.0, 1.0, -1.0, 0.5, 3.4e38),
+    torch.bfloat16: (0.0, -0.0, float("inf"), float("-inf"), float("nan"), 9.2e-41, -9.2e-41,
+                     1.1663108e-38, 2.0, 1.0, -1.0, 0.5, 3.3e38),
+    torch.int16: (0, -1, 1, 2, -2, 181, -181, 182, 255, 256, -32768, 32767, 16384, -16384),
+}
+# ew's edge lengths: a tail of 1 to 7 elements past whole 16-byte vectors
+# (f32 4 a vector, bf16 and int16 8), below one vector, a few blocks, and
+# more vectors than the persistent grid has threads
+EW_EDGE_LENGTHS = tuple(range(1, 18)) + tuple(4096 * 8 + t for t in range(8)) + (B * S * N + 7,)
+EW_EDGE_REPS = (0, 1, 31, 32, 33)
+
+
+def ew_edge_input(dtype: torch.dtype, n: int, gen: torch.Generator) -> torch.Tensor:
+    """``n`` values of ``dtype``: ``ew_input``'s, with the first entries and
+    about one in eight of the rest replaced by ``EW_SPECIALS``."""
+    x = ew_input(dtype, (n,), gen)
+    specials = torch.tensor(EW_SPECIALS[dtype], dtype=dtype, device=x.device)
+    pick = torch.randint(0, len(specials), (n,), generator=gen, device=x.device)
+    at = torch.rand((n,), generator=gen, device=x.device) < 0.125
+    m = min(n, len(specials))
+    at[:m] = True
+    pick[:m] = torch.arange(m, device=x.device)
+    return torch.where(at, specials[pick], x).contiguous()
+
+
 ROW_KINDS = ("random", "ties", "inf", "equal", "signed")
 
 
@@ -326,6 +360,103 @@ def select_rows(kind: str, shape, gen: torch.Generator) -> torch.Tensor:
     return d
 
 
+# the ew kernel's instantiation for the benchmark's rounds, by dtype: the
+# round's type in its mangled name, elements a 16-byte vector
+_EW_SASS = {torch.float32: ("EwF32", 4), torch.bfloat16: ("EwBf16x2", 8),
+            torch.int16: ("EwI16x2", 8)}
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+
+
+def _cuobjdump() -> Optional[str]:
+    for path in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
+                 shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"):
+        if path and os.path.exists(path):
+            return path
+    return None
+
+
+def sass_loop(sass: str) -> Tuple[int, Dict[str, int]]:
+    """The instructions of one function's SASS (``cuobjdump -sass`` text)
+    inside its longest loop, from a backward branch's target to the branch:
+    their count and their count by opcode (modifiers dropped)."""
+    insns, labels = [], {}
+    for line in sass.splitlines():
+        m = _SASS_LABEL.match(line)
+        if m:
+            labels[m.group(1)] = None  # the next instruction's address
+            continue
+        m = _SASS_INSN.search(line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name, at in labels.items():
+            if at is None:
+                labels[name] = addr
+        text = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2))
+        insns.append((addr, text.split()[0].split(".")[0], text))
+    best = None
+    for addr, op, text in insns:
+        if op != "BRA":
+            continue
+        tm = re.search(r"(\.L_x_\d+)", text)
+        target = labels.get(tm.group(1)) if tm else int(text.split()[-1], 16)
+        if target is None or target > addr:
+            continue
+        if best is None or addr - target > best[1] - best[0]:
+            best = (target, addr)
+    if best is None:
+        return 0, {}
+    ops: Dict[str, int] = {}
+    for addr, op, _ in insns:
+        if best[0] <= addr <= best[1]:
+            ops[op] = ops.get(op, 0) + 1
+    return sum(ops.values()), dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def ew_sass(dtype: torch.dtype) -> Optional[dict]:
+    """The built ``ew`` kernel for the benchmark's ``REPS`` rounds in
+    ``dtype``, read from the library's SASS: the grid-stride loop's
+    instructions (one 16-byte vector, ``REPS`` rounds) by opcode and per
+    element-round. None when ``cuobjdump`` is missing or the library is not
+    built."""
+    tool = _cuobjdump()
+    if tool is None or _build.LIBRARY.path is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(_build.LIBRARY.path)], capture_output=True,
+                          text=True).stdout
+    op_name, per_vector = _EW_SASS[dtype]
+    parts = _SASS_FUNCTION.split(text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if "ew_kernel" in name and op_name in name and f"Li{REPS}E" in name:
+            count, ops = sass_loop(body)
+            return {"function": name, "loop_instructions": count, "loop_ops": ops,
+                    "per_element_round": count / (REPS * per_vector)}
+    return None
+
+
+def sm_clock_mhz() -> Tuple[Optional[float], Optional[float]]:
+    """(current, maximum) SM clock in MHz from ``nvidia-smi``; None where
+    it gives none."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits", "--id=0"],
+                       capture_output=True, text=True)
+    try:
+        cur, mx = (float(v) for v in r.stdout.strip().split(","))
+        return cur, mx
+    except ValueError:
+        return None, None
+
+
+def issue_floor_ms(per_element_round: float, elements: int, reps: int, sms: int,
+                   clock_mhz: float) -> float:
+    """The least time ``reps`` rounds over ``elements`` take at
+    ``per_element_round`` instructions each, issued at 4 warp instructions
+    (128 thread instructions) a clock an SM."""
+    return per_element_round * elements * reps / (128.0 * sms * clock_mhz * 1e6) * 1e3
+
+
 def benchmark(dev: torch.device, iters: int = 20, seed: int = 0) -> List[dict]:
     """Every kernel at its shapes on ``dev`` (a CUDA device): device ms,
     bound, plain ms and the library call's ms, one dict each. ``ew`` at the
@@ -338,10 +469,19 @@ def benchmark(dev: torch.device, iters: int = 20, seed: int = 0) -> List[dict]:
         x = ew_input(dtype, (B, S, N), gen)
         b_ms, b_by = bound("ew", B, S, N, dtype=dtype)
         ms = device_ms(lambda: ew(x), iters)
+        clock, max_clock = sm_clock_mhz()
         plain_ms = device_ms(lambda: ew_plain(x), max(1, iters // 4))
+        sass = ew_sass(dtype)
+        floor = None
+        if sass is not None and max_clock:
+            floor = issue_floor_ms(sass["per_element_round"], B * S * N, REPS,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                                   max_clock)
         rows.append({"kernel": "ew", "dtype": str(dtype).split(".")[-1], "shape": [B, S, N],
                      "reps": REPS, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "share": b_ms / ms, "plain_ms": plain_ms, "library_ms": None})
+                     "share": b_ms / ms, "plain_ms": plain_ms, "library_ms": None,
+                     "sass": sass, "sm_clock_mhz": clock, "max_sm_clock_mhz": max_clock,
+                     "issue_floor_ms": floor})
     for shape_name, (b, s, n, k) in SELECT_SHAPES.items():
         d = torch.rand((b, s, n), generator=gen, device=dev)
         for fn in SELECTIONS:

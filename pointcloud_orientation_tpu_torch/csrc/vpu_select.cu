@@ -13,9 +13,10 @@
 //
 // ew: 32 (reps) rounds of x = max(x + x, x * x) on every element, f32, bf16
 // (each operation rounded to bf16 to nearest even: the card's packed
-// bf16x2 add, multiply and max) or int16 (wrapping modulo 2^16). One
-// 16-byte vector a thread; bound by bytes (read once, written once), with
-// 96 operations an element against the f32 rate close behind.
+// bf16x2 add, multiply and max) or int16 (wrapping modulo 2^16, two
+// elements a word). A persistent grid over 16-byte vectors, the rounds
+// unrolled and a vector's words run as independent chains: bound by the
+// rounds' instruction issue (section below), with the bytes close behind.
 //
 // The four selections take d (B, S, N) f32 without NaN and write (B, K, S)
 // or (B, 1, S) int32 as the TPU kernels lay their outputs out. All four
@@ -69,6 +70,28 @@ constexpr unsigned kFull = 0xffffffffu;
 // ew
 // ---------------------------------------------------------------------------
 
+// The rounds bound ew on this card, not its bytes: 3 instructions an
+// element-round in f32 (FADD, FMUL, FMNMX) at 4 warp instructions a clock an
+// SM take 0.024 ms at (64, 128, 1024) and 32 rounds, above the 0.020 ms the
+// bytes take at 3.35 TB/s. So the kernel spends as little issue as it can
+// beside those three: the benchmark's 32 rounds are a template constant
+// (fully unrolled; any other count runs the same kernel with a run-time
+// loop), a thread's four words of a 16-byte vector run as four independent
+// chains in one loop over the rounds, int16 runs two elements a word (7
+// instructions for two element-rounds in its SASS, where widening each
+// element to 32 bits needs sign extensions and packing on top of the
+// arithmetic), and a persistent grid walks the vectors with the next one's
+// load issued before this one's rounds, so that memory latency hides under
+// issue.
+constexpr int kEwThreads = 256;
+constexpr int kEwBlocksPerSm = 8;  // 2,048 threads an SM
+constexpr int kEwReps = 32;        // the benchmark's rounds, unrolled
+// int16x2: x + x is the word shifted left with the low half's carry out
+// (bit 16) cleared; the squares' low halves, lo * lo from w * w and hi * hi
+// from (w >> 16) squared, are joined by a byte permute {a.lo, b.lo}
+constexpr unsigned kEwI16DoubleMask = 0xfffeffffu;
+constexpr unsigned kEwI16JoinPerm = 0x5410u;
+
 // max that propagates NaN, as jnp.maximum and torch.maximum: one instruction
 __device__ __forceinline__ float max_nan(float a, float b) {
   float r;
@@ -76,75 +99,99 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
-__device__ __forceinline__ unsigned ew_f32(unsigned w, int reps) {
-  float x = __uint_as_float(w);
-  for (int r = 0; r < reps; ++r) x = max_nan(__fadd_rn(x, x), __fmul_rn(x, x));
-  return __float_as_uint(x);
-}
-
-// two bf16 in a word: add, multiply and (NaN-propagating) max of bf16x2,
-// each rounded to nearest even (x + x and x * x of bf16 values are exact in
-// f32, so this is f32 arithmetic rounded after every operation)
-__device__ __forceinline__ unsigned ew_bf16x2(unsigned w, int reps) {
-  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  for (int r = 0; r < reps; ++r) x = __hmax2_nan(__hadd2(x, x), __hmul2(x, x));
-  return *reinterpret_cast<const unsigned*>(&x);
-}
-
-__device__ __forceinline__ short ew_i16(short v, int reps) {
-  int x = v;
-  for (int r = 0; r < reps; ++r) {
-    const int a = (short)(x + x);  // wraps modulo 2^16
-    const int b = (short)(x * x);
-    x = a > b ? a : b;
+// one round on a 32-bit word: one f32, two bf16 or two int16
+struct EwF32 {
+  static __device__ __forceinline__ unsigned round(unsigned w) {
+    const float x = __uint_as_float(w);
+    return __float_as_uint(max_nan(__fadd_rn(x, x), __fmul_rn(x, x)));
   }
-  return (short)x;
+};
+
+// add, multiply and (NaN-propagating) max of bf16x2, each rounded to
+// nearest even (x + x and x * x of bf16 values are exact in f32, so this is
+// f32 arithmetic rounded after every operation)
+struct EwBf16x2 {
+  static __device__ __forceinline__ unsigned round(unsigned w) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w);
+    const __nv_bfloat162 r = __hmax2_nan(__hadd2(x, x), __hmul2(x, x));
+    return *reinterpret_cast<const unsigned*>(&r);
+  }
+};
+
+// wrapping modulo 2^16 in each half: the low 16 bits of a 32-bit product or
+// shift are those of the 16-bit one
+struct EwI16x2 {
+  static __device__ __forceinline__ unsigned round(unsigned w) {
+    const unsigned twice = (w << 1) & kEwI16DoubleMask;
+    const unsigned hi = w >> 16;
+    const unsigned square = __byte_perm(w * w, hi * hi, kEwI16JoinPerm);
+    unsigned r;
+    asm("max.s16x2 %0, %1, %2;" : "=r"(r) : "r"(twice), "r"(square));
+    return r;
+  }
+};
+
+// kReps rounds when it is positive (fully unrolled), else reps, the four
+// words as independent chains
+template <class Op, int kReps>
+__device__ __forceinline__ void ew_rounds(uint4& v, int reps) {
+#pragma unroll
+  for (int r = 0; r < (kReps > 0 ? kReps : reps); ++r) {
+    v.x = Op::round(v.x);
+    v.y = Op::round(v.y);
+    v.z = Op::round(v.z);
+    v.w = Op::round(v.w);
+  }
 }
 
-__device__ __forceinline__ unsigned ew_i16x2(unsigned w, int reps) {
-  const unsigned lo = (unsigned short)ew_i16((short)(w & 0xffffu), reps);
-  const unsigned hi = (unsigned short)ew_i16((short)(w >> 16), reps);
-  return lo | (hi << 16);
-}
-
-// kind 0 f32, 1 bf16, 2 int16: a 32-bit word holds 1, 2, 2 elements
-template <int kKind>
-__device__ __forceinline__ unsigned ew_word(unsigned w, int reps) {
-  if (kKind == 0) return ew_f32(w, reps);
-  if (kKind == 1) return ew_bf16x2(w, reps);
-  return ew_i16x2(w, reps);
-}
-
-// words16 16-byte vectors a thread each, then the tail elements past them
-// one a thread
-template <int kKind>
-__global__ void __launch_bounds__(256)
+// words16 16-byte vectors over a grid-stride loop, then the tail's
+// elements past them (fewer than a vector holds), one a thread; kBytes is
+// the element size (a 2-byte element is the low half of a word)
+template <class Op, int kReps, int kBytes>
+__global__ void __launch_bounds__(kEwThreads, kEwBlocksPerSm)
 ew_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long words16, int tail,
           int reps) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < words16) {
-    uint4 v = x[i];
-    v.x = ew_word<kKind>(v.x, reps);
-    v.y = ew_word<kKind>(v.y, reps);
-    v.z = ew_word<kKind>(v.z, reps);
-    v.w = ew_word<kKind>(v.w, reps);
+  const long first = (long)blockIdx.x * kEwThreads + threadIdx.x;
+  const long stride = (long)gridDim.x * kEwThreads;
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (first < words16) v = x[first];
+  for (long i = first; i < words16; i += stride) {
+    uint4 next = v;
+    if (i + stride < words16) next = x[i + stride];  // in flight under this vector's rounds
+    ew_rounds<Op, kReps>(v, reps);
     out[i] = v;
-  } else if (i - words16 < tail) {  // the tail's elements, one a thread
-    const long e = i - words16;
-    if (kKind == 0) {
-      const unsigned* xs = reinterpret_cast<const unsigned*>(x + words16);
-      reinterpret_cast<unsigned*>(out + words16)[e] = ew_f32(xs[e], reps);
+    v = next;
+  }
+  if (first < tail) {  // one element in the low bits of v.x
+    if (kBytes == 4) {
+      v = make_uint4(reinterpret_cast<const unsigned*>(x + words16)[first], 0, 0, 0);
+      ew_rounds<Op, kReps>(v, reps);
+      reinterpret_cast<unsigned*>(out + words16)[first] = v.x;
     } else {
-      const unsigned short* xs = reinterpret_cast<const unsigned short*>(x + words16);
-      unsigned short* os = reinterpret_cast<unsigned short*>(out + words16);
-      if (kKind == 1) {
-        // one bf16 as the low half of a word; the high half's result is dropped
-        os[e] = (unsigned short)(ew_bf16x2(xs[e], reps) & 0xffffu);
-      } else {
-        os[e] = (unsigned short)ew_i16((short)xs[e], reps);
-      }
+      v = make_uint4(reinterpret_cast<const unsigned short*>(x + words16)[first], 0, 0, 0);
+      ew_rounds<Op, kReps>(v, reps);
+      reinterpret_cast<unsigned short*>(out + words16)[first] = (unsigned short)(v.x & 0xffffu);
     }
   }
+}
+
+template <class Op, int kBytes>
+int ew_launch(const uint4* x, uint4* out, long words16, int tail, int reps, cudaStream_t st) {
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const long threads = words16 > tail ? words16 : tail;
+  long blocks = (threads + kEwThreads - 1) / kEwThreads;
+  if (blocks > (long)sms * kEwBlocksPerSm) blocks = (long)sms * kEwBlocksPerSm;
+  if (reps == kEwReps)
+    ew_kernel<Op, kEwReps, kBytes><<<(unsigned)blocks, kEwThreads, 0, st>>>(x, out, words16,
+                                                                           tail, reps);
+  else
+    ew_kernel<Op, 0, kBytes><<<(unsigned)blocks, kEwThreads, 0, st>>>(x, out, words16, tail,
+                                                                     reps);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -694,19 +741,12 @@ extern "C" int pcot_vpu_ew(const void* x, void* out, long long n, int kind, int 
   const int per16 = kind == 0 ? 4 : 8;  // elements in a 16-byte vector
   const long words16 = (long)(n / per16);
   const int tail = (int)(n - (long long)words16 * per16);
-  const long threads = words16 + tail;
-  const long blocks = (threads + 255) / 256;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const uint4* xi = (const uint4*)x;
   uint4* oi = (uint4*)out;
-  if (kind == 0)
-    ew_kernel<0><<<(unsigned)blocks, 256, 0, st>>>(xi, oi, words16, tail, reps);
-  else if (kind == 1)
-    ew_kernel<1><<<(unsigned)blocks, 256, 0, st>>>(xi, oi, words16, tail, reps);
-  else
-    ew_kernel<2><<<(unsigned)blocks, 256, 0, st>>>(xi, oi, words16, tail, reps);
-  return (int)cudaGetLastError();
+  if (kind == 0) return ew_launch<EwF32, 4>(xi, oi, words16, tail, reps, st);
+  if (kind == 1) return ew_launch<EwBf16x2, 2>(xi, oi, words16, tail, reps, st);
+  return ew_launch<EwI16x2, 2>(xi, oi, words16, tail, reps, st);
 }
 
 // d (B,S,N) f32 without NaN -> out (B,K,S) i32: the K nearest lanes of each

@@ -1,8 +1,8 @@
-"""The yaw-task objectives. Counterpart of
+"""The yaw-task objectives and the classifier's. Counterpart of
 ``pointcloud_orientation_tpu/losses/objectives.py`` (``soft_label_kl_8dir``,
 ``softmax_mse_8dir_loss``, ``projected_probs_mse_loss``,
-``single_peak_vm_kl_loss``, ``mvm_matched_loss``); each returns
-``(scalar_loss, per_sample (B,))``."""
+``single_peak_vm_kl_loss``, ``mvm_matched_loss``, ``nll_loss``); each
+returns ``(scalar_loss, per_sample (B,))``."""
 
 from __future__ import annotations
 
@@ -52,4 +52,11 @@ def mvm_matched_loss(mu_pred: torch.Tensor, kappa_pred: torch.Tensor, w_pred: to
     (:func:`..ops.matching.matched_mvm_loss`)."""
     per = matched_mvm_loss(mu_pred, kappa_pred, w_pred, mu_gt, kappa_gt, k_gt,
                            unmatched_penalty=unmatched_penalty)
+    return per.mean(), per
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> Loss:
+    """Negative log-likelihood on log-probabilities ``(B, C)`` of integer
+    labels ``(B,)`` (torch's ``F.nll_loss`` with the per-sample values)."""
+    per = -torch.gather(log_probs, -1, labels.long()[:, None])[:, 0]
     return per.mean(), per

@@ -1,6 +1,6 @@
 """PyTorch models of the port: the PointNet++ yaw heads (8-dir, unit
-forward, von Mises, mixture of von Mises), in eval and train mode, and the
-PointNet++ ModelNet40 classifier, in eval."""
+forward, von Mises, mixture of von Mises) and the PointNet++ ModelNet40
+classifier, in eval and train mode."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
 from .pointnet_pp import (

@@ -12,7 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import BN_EPS, PointNetPPTrunk, SetAbstraction, compute_dtype
+from . import layers
+from .layers import BN_EPS, PointNetPPTrunk, SetAbstraction, compute_dtype, flax_batch_norm_train
 
 
 def _check_trunk_modes(sampling: str, grouping: str) -> None:
@@ -186,40 +187,51 @@ class PointNetPPMvM(nn.Module):
 
 
 class PointNetPPCls(nn.Module):
-    """The ModelNet40 classifier with FPS and radius ball query, in eval.
+    """The ModelNet40 classifier with FPS and radius ball query.
 
     Counterpart of ``pointcloud_orientation_tpu/models/pointnet_pp.py``
     ``PointNetPPCls`` (the reference's `PointNet++Demo.py:177-245`):
     SA(512, r=0.2, K=32, [64, 64, 128]) -> SA(128, r=0.4, K=64,
     [128, 128, 256]) -> group-all [256, 512, 1024] -> Linear 1024 -> 512,
-    BatchNorm, ReLU -> 256, BatchNorm, ReLU -> ``num_classes``, then
-    ``log_softmax``. Takes ``(B, N, in_channels)`` clouds: xyz
-    (``in_channels=3``) or xyz and normals (6). ``generator`` draws the
-    FPS start points; without one both stages start at index 0. Train mode
-    (dropout 0.4 after each FC) is not ported.
+    BatchNorm, ReLU, dropout 0.4 -> 256, BatchNorm, ReLU, dropout 0.4 ->
+    ``num_classes``, then ``log_softmax``. Takes ``(B, N, in_channels)``
+    clouds: xyz (``in_channels=3``) or xyz and normals (6). ``generator``
+    draws the FPS start points of both stages and, in train, the dropout
+    masks; without one both stages start at index 0 (and train mode
+    refuses dropout). In train the FC BatchNorms follow flax (momentum 0.9)
+    and ``fused_mlp_train`` picks the set abstractions' train configuration
+    (``models/layers.py``). Like the JAX model it has no ``dtype``: a
+    trainer leaves it in f32 whatever its config's ``compute_dtype`` says,
+    as the JAX ``Trainer._build_model`` does.
     """
 
-    def __init__(self, num_classes: int = 40, in_channels: int = 3):
+    P_DROP = 0.4
+
+    def __init__(self, num_classes: int = 40, in_channels: int = 3,
+                 fused_mlp_train: bool = False):
         super().__init__()
         if in_channels < 3:
             raise ValueError(f"in_channels={in_channels}: the clouds carry xyz first")
-        sa = dict(sampling="fps", grouping="ball")
+        sa = dict(sampling="fps", grouping="ball", fused_mlp_train=fused_mlp_train)
         self.in_channels = in_channels
         self.sa1 = SetAbstraction(512, 32, in_channels, (64, 64, 128), radius=0.2, **sa)
         self.sa2 = SetAbstraction(128, 64, 3 + 128, (128, 128, 256), radius=0.4, **sa)
-        self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True)
+        self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True,
+                                  fused_mlp_train=fused_mlp_train)
         self.fc1 = nn.Linear(1024, 512)
         self.bn1 = nn.BatchNorm1d(512, eps=BN_EPS)
         self.fc2 = nn.Linear(512, 256)
         self.bn2 = nn.BatchNorm1d(256, eps=BN_EPS)
         self.fc3 = nn.Linear(256, num_classes)
 
+    def _fc(self, h: torch.Tensor, lin: nn.Linear, bn: nn.BatchNorm1d,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training:
+            return F.relu(bn(lin(h)))
+        return layers.dropout(F.relu(flax_batch_norm_train(lin(h), bn)), self.P_DROP, generator)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "PointNetPPCls trains in a later slice of the port (task 'classification'); "
-                "call .eval() to serve it")
         if x.dim() != 3 or x.shape[-1] != self.in_channels:
             raise ValueError(f"x must be (B, N, {self.in_channels}), got {tuple(x.shape)}")
         xyz = x[..., :3].contiguous()
@@ -228,6 +240,6 @@ class PointNetPPCls(nn.Module):
         l2_xyz, l2_pts = self.sa2(l1_xyz, l1_pts, generator)
         _, l3_pts = self.sa3(l2_xyz, l2_pts)
         h = l3_pts.reshape(x.shape[0], -1)  # (B, 1024)
-        h = F.relu(self.bn1(self.fc1(h)))
-        h = F.relu(self.bn2(self.fc2(h)))
+        h = self._fc(h, self.fc1, self.bn1, generator)
+        h = self._fc(h, self.fc2, self.bn2, generator)
         return F.log_softmax(self.fc3(h), dim=-1)

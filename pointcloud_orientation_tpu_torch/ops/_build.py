@@ -1,10 +1,11 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` (with the ``csrc/*.cuh``
-headers they include) into one shared library with
-a plain C interface (no PyTorch headers, so it builds in seconds). The
-library lands in ``build/pcot_torch_kernels/<hash>/libpcot_kernels.so`` at
-the root of the checkout, keyed by the sources, the flags and
+One ``nvcc`` a source compiles every ``csrc/*.cu`` (with the ``csrc/*.cuh``
+headers they include), all started together, and one more links the objects
+into one shared library with a plain C interface (no PyTorch headers, so it
+builds in seconds). The library lands in
+``build/pcot_torch_kernels/<hash>/libpcot_kernels.so`` at the root of the
+checkout, keyed by the sources, the flags and
 ``nvcc --version``; a second call in the same process, or a later process on
 the same tree, loads it without building. Nothing here runs at import time:
 the build starts when the first CUDA tensor reaches a kernel wrapper.
@@ -33,6 +34,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# one source to an object (the link adds -shared)
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes of each C entry point in csrc/
@@ -112,16 +115,15 @@ class _Library:
         if not lib.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
+            try:
+                text = _compile_and_link(nvcc, sources, objs, tmp)
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
             self.build_seconds = time.perf_counter() - t0
-            if r.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise BuildError(
-                    f"nvcc failed with code {r.returncode}: {' '.join(cmd)}\n"
-                    f"{r.stdout}{r.stderr}")
-            log.write_text(r.stdout + r.stderr)
+            log.write_text(text)
             os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
         self.nvcc_log = log.read_text() if log.exists() else ""
         cdll = ctypes.CDLL(str(lib))
@@ -131,6 +133,27 @@ class _Library:
             fn.restype = ctypes.c_int
         self.path = lib
         self.cdll = cdll
+
+
+def _compile_and_link(nvcc: str, sources, objs, lib: Path) -> str:
+    """Compile each source to its object, every nvcc started at once, then
+    link the objects into ``lib``; returns what they printed (ptxas -v).
+    Raises ``BuildError`` with the output of every command that failed."""
+    cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{out}"
+              for cmd, proc, out in zip(cmds, procs, outs) if proc.returncode != 0]
+    if failed:
+        raise BuildError("\n".join(failed))
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib), *map(str, objs)]
+    r = subprocess.run(link, capture_output=True, text=True)
+    if r.returncode != 0:
+        lib.unlink(missing_ok=True)
+        raise BuildError(f"nvcc failed with code {r.returncode}: {' '.join(link)}\n"
+                         f"{r.stdout}{r.stderr}")
+    return "".join(outs) + r.stdout + r.stderr
 
 
 LIBRARY = _Library()

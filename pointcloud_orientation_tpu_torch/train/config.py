@@ -7,10 +7,12 @@ the yaw tasks use and their presets: ``8dir_kl`` and ``8dir_mse``
 ``mvm_spread``, ``mvm_robust`` and ``mvm_debug`` (PointNetPPMvM, the twelve
 MvM categories, 100 epochs, gradient clip 1.0): yaw rotations, N=10,000,
 B=16, Adam at 1e-3, seed 42, with ``compute_dtype`` None/"float32" or
-"bfloat16" (the trunk's compute type; the MvM trunk is f32 only). The JAX
-config's other fields are accepted by :func:`preset` and
-:meth:`TrainConfig.replace` at their default values only; any other value
-raises ``NotImplementedError``.
+"bfloat16" (the trunk's compute type; the MvM trunk is f32 only). The
+``classification`` task trains ``pointnet_pp_cls``; no preset names it, as
+in the JAX package: ``TrainConfig(task="classification",
+model="pointnet_pp_cls")``. The JAX config's other fields are accepted by
+:func:`preset` and :meth:`TrainConfig.replace` at their default values
+only; any other value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ MVM_CLASSES: Tuple[str, ...] = (
     "sofa", "toilet", "door", "curtain", "bathtub", "glass_box",
 )
 
-PORTED_TASKS = ("8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm")
+PORTED_TASKS = ("8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm", "classification")
 PORTED_MODELS = ("pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
-                 "pointnet_pp_mvm")
+                 "pointnet_pp_mvm", "pointnet_pp_cls")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,

@@ -1,8 +1,10 @@
-"""Task adapters of the yaw tasks: (outputs, batch, cfg) -> per-sample loss
-and per-sample angular error in degrees (NaN where undefined).
+"""Task adapters: (outputs, batch, cfg) -> per-sample loss and per-sample
+angular error in degrees (NaN where undefined; no adapter where the task has
+none, as classification).
 
-Counterpart of the ``8dir_kl``, ``8dir_mse``, ``multi_8dir``, ``vm_kl`` and
-``mvm`` entries of ``pointcloud_orientation_tpu/train/tasks.py``.
+Counterpart of the ``8dir_kl``, ``8dir_mse``, ``multi_8dir``, ``vm_kl``,
+``mvm`` and ``classification`` entries of
+``pointcloud_orientation_tpu/train/tasks.py``.
 """
 
 from __future__ import annotations
@@ -106,10 +108,17 @@ def _mvm_ang(outputs, batch, cfg):
     return _nan_where(~valid.any(-1), mean)
 
 
+def _cls(outputs, batch, cfg):
+    """The negative log-probability of each sample's label."""
+    log_probs = outputs[0] if isinstance(outputs, tuple) else outputs
+    return L.nll_loss(log_probs, batch["labels"])[1]
+
+
 TASKS: Dict[str, TaskAdapter] = {
     "8dir_kl": TaskAdapter(_8dir_kl, _8dir_ang),
     "8dir_mse": TaskAdapter(_8dir_mse, _8dir_ang),
     "multi_8dir": TaskAdapter(_multi_8dir, _multi_8dir_ang),
     "vm_kl": TaskAdapter(_vm_kl, _vm_ang),
     "mvm": TaskAdapter(_mvm, _mvm_ang),
+    "classification": TaskAdapter(_cls, None),
 }

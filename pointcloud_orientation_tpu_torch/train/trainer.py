@@ -1,5 +1,6 @@
 """Single-GPU trainer of the port: the yaw tasks on the PointNet++ heads
-(8-dir, unit forward, von Mises, mixture of von Mises).
+(8-dir, unit forward, von Mises, mixture of von Mises) and the ModelNet40
+classifier (task ``classification``, whose angular error is NaN).
 
 Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
 step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -74,8 +76,11 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
     """The model's constructor arguments that the config sets, as the JAX
-    package's ``Trainer._build_model`` sets them."""
-    kwargs: Dict[str, Any] = {"dtype": config.compute_dtype}
+    package's ``Trainer._build_model`` sets them: ``compute_dtype`` only to
+    a model that takes a ``dtype`` (not the classifier, which stays f32)."""
+    kwargs: Dict[str, Any] = {}
+    if "dtype" in inspect.signature(MODEL_REGISTRY[config.model]).parameters:
+        kwargs["dtype"] = config.compute_dtype
     if config.model == "pointnet_pp_mvm":
         kwargs.update(max_K=config.max_k, weight_floor=config.mvm_weight_floor,
                       mu_init=config.mvm_mu_init)
@@ -150,20 +155,24 @@ class Trainer:
     def device_batch(self, ds: OrientationDataset, idx: np.ndarray, valid: np.ndarray,
                      generator: torch.Generator):
         """Gather a batch on the host, move it to the device and augment it
-        there (subsample, yaw rotation, targets)."""
+        there (subsample, yaw rotation, targets, labels)."""
         pts, labels, uniform, symm, k_spec = ds.gather_host(idx)
         pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
         uniform, symm, k_spec = (torch.from_numpy(np.asarray(a)).to(self.device)
                                  for a in (uniform, symm, k_spec))
         batch = augment_batch(generator, pts, uniform, symm, k_spec, self.num_points,
                               self.cfg.rotation_mode, self.cfg.kappa_default, self.cfg.max_k)
+        batch["labels"] = torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
         return batch, torch.from_numpy(np.asarray(valid, np.float32)).to(self.device), labels
 
     # ---------- steps ----------
 
     def _metrics(self, outputs, batch, per, valid) -> Dict[str, Any]:
         scalar = (per * valid).sum() / valid.sum().clamp_min(1.0)
-        ang = self.adapter.angular_error(outputs, batch, self.cfg)
+        if self.adapter.angular_error is None:  # classification: no angular error
+            ang = torch.full_like(per, math.nan)
+        else:
+            ang = self.adapter.angular_error(outputs, batch, self.cfg)
         metrics = {"loss": scalar, "per_sample": per, "angular": ang}
         if self.cfg.debug_checks:  # the raw outputs, for debug_check's dump
             metrics["outputs"] = tuple(o.detach() for o in _outputs_tuple(outputs))

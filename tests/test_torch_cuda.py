@@ -271,7 +271,13 @@ def dyadic_mlp_case(gen, dev, b, kn, s, widths, dead=False):
 # abstraction, and ragged shapes whose rows and widths end inside the
 # kernel's 64 x 64 product tiles and its 32-deep stages
 BWD_CASES = {**{stage: (16, kn, s, widths) for stage, (kn, s, widths) in SA_WIDTHS.items()},
-             "ragged-3": (5, 7, 9, (3, 20, 36)), "ragged-131": (5, 7, 9, (131, 40, 72))}
+             "ragged-3": (5, 7, 9, (3, 20, 36)), "ragged-131": (5, 7, 9, (131, 40, 72)),
+             # the classifier's training path: sa1 K=32 S=512, sa2 K=64 S=128, the
+             # group-all stage's K=128 rows (S=1), at B=16 and B=64
+             "cls-sa1": (16, 32, 512, (3, 64, 64, 128)),
+             "cls-sa2": (16, 64, 128, (131, 128, 128, 256)),
+             "cls-group-all": (16, 128, 1, (259, 256, 512, 1024)),
+             "cls-group-all-B64": (64, 128, 1, (259, 256, 512, 1024))}
 
 
 @pytest.mark.cuda
@@ -330,7 +336,7 @@ def test_sa_mlp_max_bf16_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dead", [False, True], ids=["ties", "all-tied"])
-@pytest.mark.parametrize("stage", sorted(BWD_CASES))
+@pytest.mark.parametrize("stage", sorted(k for k in BWD_CASES if not k.startswith("cls")))
 def test_mlp_max_bwd_bf16_kernel_matches_plain_on_card(cuda_device, stage, dead):
     """The bf16 backward at B=16 and the ragged shapes, on dyadic inputs:
     every output within rtol 1e-4 and atol 1e-4 of its scale; the same bits
@@ -459,6 +465,47 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
         if name.endswith("bias") and "linears" in name or name in ("trunk.fc1.bias",
                                                                   "trunk.fc2.bias"):
             continue  # zero in exact arithmetic: a Dense bias that feeds a train BatchNorm
+        assert rel <= (5e-2 if fused else 1e-3), (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused-ghost"])
+def test_classifier_train_step_through_kernels_matches_plain_on_card(cuda_device, fused):
+    """One classifier step (task ``classification``, B=16, N=1,024, full
+    width) through the kernels and through every kernel's plain version,
+    from the same weights and generator (the same FPS starts and dropout
+    masks): 2 FPS and 2 ball queries a step, and on the fused path 3 MLP
+    forwards and 3 backwards; each parameter's gradient within 1e-3
+    relative in norm (default: the index kernels are bit-equal to their
+    plain versions) or 5e-2 (fused: ReLU and max decisions, as above)."""
+    from pointcloud_orientation_tpu_torch.train import TrainConfig
+    ds = OrientationDataset.synthetic(samples_per_class=4, num_points=1024)
+    cfg = TrainConfig(task="classification", model="pointnet_pp_cls")
+    trainer = Trainer(cfg, ds, device=cuda_device, fused_mlp_train=fused)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+    batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 1, 0))
+    before = K.launch_counts()
+    got = _step_grads(trainer, batch, valid, 3)
+    grown = {k: v - before[k] for k, v in K.launch_counts().items() if v != before[k]}
+    assert grown == ({"fps": 2, "ball_query": 2, "sa_mlp_max": 3, "sa_mlp_max_bwd": 3} if fused
+                     else {"fps": 2, "ball_query": 2}), grown
+    trainer.model.load_state_dict(state)
+    with mock.patch.object(K, "fps", K.fps_plain), \
+            mock.patch.object(K, "ball_query", K.ball_query_plain), \
+            mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain), \
+            mock.patch.object(K, "sa_mlp_max_bwd", K.sa_mlp_max_bwd_plain):
+        want = _step_grads(trainer, batch, valid, 3)
+    for name in want:
+        a, b = got[name], want[name]
+        assert torch.isfinite(a).all(), name
+        if name.endswith("bias") and ("linears" in name or name in (
+                "fc1.bias", "fc2.bias", "sa3.mlp.bns.2.bias")):
+            # zero in exact arithmetic: a Dense bias that feeds a train BatchNorm, and the
+            # group-all shift (its pooled values are positive maxima over 128 rows, and fc1's
+            # train BatchNorm centres their gradient over the batch)
+            continue
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         assert rel <= (5e-2 if fused else 1e-3), (name, rel)
 
 
@@ -956,6 +1003,29 @@ def test_vpu_ew_kernel_bit_equal_to_plain_on_card(cuda_device, dtype, shape, rep
     assert PV.ew.launches == before + 1
     view = torch.int32 if dtype == torch.float32 else torch.int16
     assert got.dtype == dtype and torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [0, 1, 31, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int16],
+                         ids=["f32", "bf16", "int16"])
+def test_vpu_ew_kernel_bit_equal_to_plain_on_edge_values_and_tails_on_card(cuda_device, dtype,
+                                                                           reps):
+    """The edge values (signed zeros, infinities, NaN, subnormals; int16's
+    extremes and wrapping values) at every edge length (tails of 1 to 7
+    elements past whole 16-byte vectors, lengths below one vector, more
+    vectors than the persistent grid's threads), the benchmark's unrolled
+    32 rounds and the run-time loop's other counts, bit for bit (NaN
+    included)."""
+    from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    for n in PV.EW_EDGE_LENGTHS:
+        x = PV.ew_edge_input(dtype, n, gen)
+        got, want = PV.ew(x, reps), PV.ew_plain(x, reps)
+        torch.cuda.synchronize()
+        differ = int((got.view(view) != want.view(view)).sum())
+        assert got.dtype == dtype and differ == 0, (n, differ)
 
 
 @pytest.mark.cuda

@@ -99,6 +99,34 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
         assert r.returncode != 0 and "blocked" in r.stderr
 
 
+def test_classifier_trains_and_its_demo_runs_without_jax():
+    """One CPU train step of the classification config in each train
+    configuration, and the classifier demo's port (``--device cpu``),
+    where JAX cannot be imported."""
+    code = _BLOCKER + textwrap.dedent("""
+        import runpy
+        import numpy as np
+        from pointcloud_orientation_tpu_torch.data import OrientationDataset
+        from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig
+        ds = OrientationDataset.synthetic(samples_per_class=2, num_points=512)
+        cfg = TrainConfig(task="classification", model="pointnet_pp_cls", batch_size=4,
+                          num_points=512)
+        for fused in (False, True):
+            t = Trainer(cfg, ds, device="cpu", fused_mlp_train=fused)
+            idx, valid, _ = next(ds.batches(4))
+            batch, valid, _ = t.device_batch(ds, idx, valid, t.generator(0, 1, 0))
+            m = t.train_step(batch, valid, t.generator(0, 1, 0))
+            assert np.isfinite(float(m["loss"])) and np.isnan(m["angular"].numpy()).all()
+        sys.argv = ["pointnet_pp_demo_torch.py", "--device", "cpu"]
+        runpy.run_path("demos/pointnet_pp_demo_torch.py", run_name="__main__")
+        for name in ("jax", "flax", "pointcloud_orientation_tpu"):
+            assert name not in sys.modules, name
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "NLL (random weights)" in r.stdout
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

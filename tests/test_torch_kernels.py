@@ -156,3 +156,51 @@ def test_build_flags_and_signatures():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 576 bytes smem"]
 
+
+
+_FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({log!r}, "a") as f:
+    f.write(("link " if "-c" not in args else "start ") + out + " " + repr(time.time()) + "\\n")
+if "-c" in args:
+    src = args[-1]
+    if "broken" in src:
+        print("error: broken source"); sys.exit(2)
+    time.sleep(0.3)
+    print("ptxas info    : Used 8 registers for " + src)
+    with open({log!r}, "a") as f:
+        f.write("end " + out + " " + repr(time.time()) + "\\n")
+open(out, "w").write("object")
+"""
+
+
+def test_build_compiles_every_source_at_once_then_links(tmp_path):
+    """One nvcc a source, all started before any ends, then one link of
+    their objects, returning what they printed; a source that fails
+    raises with its output, and no library is left."""
+    import sys
+
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    sources = []
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (tmp_path / name).write_text("// source")
+        sources.append(tmp_path / name)
+    objs = [tmp_path / f"{p.stem}.o" for p in sources]
+    out = _build._compile_and_link(str(nvcc), sources, objs, tmp_path / "lib.so")
+    assert (tmp_path / "lib.so").read_text() == "object"
+    assert out.count("ptxas info") == 3
+    calls = [line.split() for line in log.read_text().splitlines()]
+    starts = [float(t) for kind, _, t in calls if kind == "start"]
+    ends = [float(t) for kind, _, t in calls if kind == "end"]
+    assert len(starts) == len(ends) == 3 and max(starts) < min(ends)
+    assert calls[-1][0] == "link"
+    (tmp_path / "broken.cu").write_text("// source")
+    with pytest.raises(_build.BuildError, match="broken source"):
+        _build._compile_and_link(str(nvcc), sources + [tmp_path / "broken.cu"],
+                                 objs + [tmp_path / "broken.o"], tmp_path / "lib2.so")
+    assert not (tmp_path / "lib2.so").exists()

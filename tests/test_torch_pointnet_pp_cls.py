@@ -70,15 +70,31 @@ def test_random_flax_variables_match_the_classifier_tree(channels, num_classes):
 
 
 def test_classifier_refuses_train_mode_wrong_widths_and_trees():
+    """Train mode is ported (``tests/test_torch_cls_train.py``); the width
+    and tree refusals stay."""
     v = random_flax_variables(1, "pointnet_pp_cls", in_channels=6)
-    model = PointNetPPCls(in_channels=6)  # a fresh module is in train mode
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model(torch.zeros((2, 64, 6)))
     model = _model(v)
     with pytest.raises(ValueError):  # 3 channels into a model of 6
         model(torch.zeros((2, 64, 3)))
     with pytest.raises(ValueError, match="SetAbstraction_0"):  # a 6-channel tree, 3-channel model
         load_flax_variables(PointNetPPCls(in_channels=3), v)
+
+
+def test_classifier_in_train_mode_draws_dropout_from_its_generator():
+    """A fresh module is in train mode: it needs a generator for its
+    dropout (and draws its FPS starts from it), gives finite
+    log-probabilities and moves its FC BatchNorms' running statistics
+    (flax momentum 0.9); the same generator state gives the same output."""
+    model = PointNetPPCls(in_channels=6)
+    x = torch.from_numpy(_clouds(np.random.default_rng(4), 2, 600, 6))
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model(x)
+    before = model.bn1.running_var.clone()
+    out = model(x, torch.Generator().manual_seed(1))
+    assert out.shape == (2, 40) and torch.isfinite(out).all()
+    assert not torch.equal(model.bn1.running_var, before)
+    again = model(x, torch.Generator().manual_seed(1))
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module", params=[3, 6], ids=["xyz", "xyz+normals"])
