@@ -32,7 +32,16 @@ presets, vm_kl and mvm_robust again under the grid dispatch. The ModelNet40
 classifier trained through ``Trainer`` (``TrainConfig(task="classification",
 model="pointnet_pp_cls")``, B=16, N=1024) one epoch in both train
 configurations, with its launch counts and a step's gradients against the
-plain versions, and its step timed. Finally times
+plain versions, and its step timed. The SO(3) heads (``pointnet_pp``,
+``pointnet_pp_xyz``, ``pointnet_pp_xyz_schmidt``) served at B=64 N=1024 in
+f32 and bf16 and, with FPS and the ball query, at B=16 N=10,000, each
+request against the plain versions with every index call bit for bit; the
+``pointnet_pp_forward`` preset trained one epoch in both configurations,
+``axes_all_labels`` through ``run_per_label`` over two labels and resumed,
+and a FPS/ball train step, every step's gradients held under
+``utils/grad_check.py``'s rule (the group-all shift by an absolute bound
+where a forward hook saw every pooled value > 0); and their latency and
+step time in turns beside the 8-dir paths. Finally times
 the kernels, the requests and the train steps, f32 beside bf16 and exact
 beside grid, with CUDA events, the profiler and the host clock. Besides: the
 MLP forward against its backward's recompute (the pooled value reproduced
@@ -72,8 +81,11 @@ from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
+from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
+from pointcloud_orientation_tpu_torch.train.run import run_per_label
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
+from pointcloud_orientation_tpu_torch.utils import grad_check as GC
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
 # kernel's products at the bf16 tensor-core rate; the products of an f32 MLP
@@ -155,14 +167,19 @@ FPS_SHAPES = {"sa1 B=64 N=1024": (64, 1024, 512), "sa2 B=64 N=512": (64, 512, 12
               "B=16 N=10000": (16, 10000, 512), "B=2 N=40000": (2, 40_000, 512),
               "B=4 N=40000": (4, 40_000, 512), "B=4 N=65536": (4, 65_536, 512),
               "cls train sa1 B=16 N=1024": (16, 1024, 512),
-              "cls train sa2 B=16 N=512": (16, 512, 128)}
+              "cls train sa2 B=16 N=512": (16, 512, 128),
+              "so3 sa1 B=16 N=10000": (16, 10_000, 128), "so3 sa2 B=16 N=128": (16, 128, 32)}
 BALL_SHAPES = {"sa1 B=64": (64, 512, 1024, 32, 0.2, False),
                "sa2 B=64": (64, 128, 512, 64, 0.4, True),
                "sa2 B=64 difference form": (64, 128, 512, 64, 0.4, False),
                "B=4 N=24576": (4, 128, 24_576, 32, 0.2, True),
                "B=2 N=40000": (2, 512, 40_000, 32, 0.2, True),
                "cls train sa1 B=16": (16, 512, 1024, 32, 0.2, False),
-               "cls train sa2 B=16": (16, 128, 512, 64, 0.4, True)}
+               "cls train sa2 B=16": (16, 128, 512, 64, 0.4, True),
+               # the trunk heads' FPS/ball modes at B=16 N=10,000: radius 0.2 at
+               # both stages, sa2 over 128 points in the matmul form
+               "so3 sa1 B=16": (16, 128, 10_000, 32, 0.2, False),
+               "so3 sa2 B=16": (16, 32, 128, 32, 0.2, True)}
 KNN_SHAPES = {"sa1 B=16 N=16384": (16, 128, 16384, 32), "sa1 B=16 N=20480": (16, 128, 20480, 32)}
 CLS_FORWARD = {"fps": ("sa1 B=64 N=1024", "sa2 B=64 N=512"), "ball_query": ("sa1 B=64", "sa2 B=64")}
 CLS_CHANNELS = 6  # xyz and normals
@@ -973,37 +990,26 @@ def step_grads(trainer, batch, valid, seed) -> dict:
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def _zero_in_exact_arithmetic(name: str) -> bool:
-    """A Dense bias that feeds a train-mode BatchNorm: the batch mean
-    removes it, so its gradient is rounding noise on both sides. So is the
-    classifier's group-all shift: each pooled value is a max over 128 rows
-    and so positive, and fc1's train-mode BatchNorm centres the batch's
-    gradient, so the shift's (a sum over the batch) is zero as well."""
-    return name.endswith("bias") and ("linears" in name or name in (
-        "trunk.fc1.bias", "trunk.fc2.bias", "fc1.bias", "fc2.bias", "sa3.mlp.bns.2.bias"))
-
-
 def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict) -> dict:
     """One step's gradients through the kernels against the same step with
     each kernel wrapper of ``plain`` replaced by its plain version (same
     generator: the same FPS starts and dropout masks), per parameter,
-    relative in norm; the biases zero in exact arithmetic not held. The
+    relative in norm, under ``utils/grad_check.py``'s rule: the Dense biases
+    that a train BatchNorm normalises (zero in exact arithmetic) left out;
+    the group-all shift held by ``GRAD_TOL`` times its scale leaf's
+    gradient norm where every pooled value of both steps is > 0 (read by a
+    forward hook on the group-all stage), else relative like the rest. The
     model's state is restored after each."""
-    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    got = step_grads(trainer, batch, valid, SEED)
-    trainer.model.load_state_dict(state)
-    with contextlib.ExitStack() as stack:
-        for name, fn in plain.items():
-            stack.enter_context(mock.patch.object(K, name, fn))
-        want = step_grads(trainer, batch, valid, SEED)
-    trainer.model.load_state_dict(state)
-    rel = {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) for n in want}
-    checked = {n: r for n, r in rel.items() if not _zero_in_exact_arithmetic(n)}
-    worst = max(checked, key=checked.get)
-    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
-    return {"worst": worst, "norm_rel_err": checked[worst], "tol": GRAD_TOL[mode],
-            "finite": finite, "ok": finite and checked[worst] <= GRAD_TOL[mode],
-            "median_norm_rel_err": float(np.median(list(checked.values())))}
+    model = trainer.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with GC.record_group_all(model) as pooled:
+        got = step_grads(trainer, batch, valid, SEED)
+        model.load_state_dict(state)
+        with mock.patch.multiple(K, **plain):
+            want = step_grads(trainer, batch, valid, SEED)
+    model.load_state_dict(state)
+    return GC.compare_grads(got, want, GRAD_TOL[mode], GC.bias_leaves_feeding_batch_norm(model),
+                            GC.group_all_shift_leaves(model), GC.pooled_all_positive(pooled))
 
 
 TRAIN_PLAIN = {"sa_group": K.sa_group_plain, "sa_mlp_max": K.sa_mlp_max_plain,
@@ -1329,8 +1335,9 @@ def bf16_grads_vs_autograd(trainer, batch, valid) -> dict:
     """The default bf16 step's gradients through the kernels against the
     same step with the grouping's explicit backward (the scatter kernel and
     the cast of its result to bf16) replaced by autograd through the plain
-    grouping: the whole gradient, but the Dense biases that feed a
-    BatchNorm, relative in norm."""
+    grouping: the whole gradient, but the Dense biases that a train
+    BatchNorm normalises (``grad_check``; zero in exact arithmetic),
+    relative in norm."""
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     got = step_grads(trainer, batch, valid, SEED)
     trainer.model.load_state_dict(state)
@@ -1340,7 +1347,8 @@ def bf16_grads_vs_autograd(trainer, batch, valid) -> dict:
 
     with mock.patch.object(K.SAGroupFeatsFn, "apply", group):
         want = step_grads(trainer, batch, valid, SEED)
-    names = [n for n in want if not _zero_in_exact_arithmetic(n)]
+    skip = GC.bias_leaves_feeding_batch_norm(trainer.model)
+    names = [n for n in want if n not in skip]
     err = _norm_rel([got[n] for n in names], [want[n] for n in names])
     finite = all(bool(torch.isfinite(g).all()) for g in got.values())
     return {"norm_rel_err": err, "finite": finite,
@@ -2168,6 +2176,276 @@ def phase_vpu_select(dev, checks: dict) -> list:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the SO(3) tasks: PointNetPP and the two-axis heads, served and trained
+# ---------------------------------------------------------------------------
+
+SO3_N, SO3_B = 1024, 64  # the SO(3) serving requests
+SO3_MODELS = (("pointnet_pp", {}), ("pointnet_pp_xyz", {}),
+              ("pointnet_pp_xyz_schmidt", {"gram_schmidt": True}))
+SO3_BALL = {"sampling": "fps", "grouping": "ball"}  # the trunk heads' FPS/ball modes
+SO3_PER_LABEL = ("chair", "sofa")
+SO3_INDEX = ("sa_group", "fps", "ball_query")  # index kernels: held bit for bit
+
+
+def so3_clouds(b, n, seed) -> np.ndarray:
+    """``(b, n, 3)`` synthetic ModelNet-like clouds under random SO(3)
+    rotations (the port's pipeline draw)."""
+    xyz, _, _ = synthetic_modelnet(seed=seed, num_points=n, samples_per_class=-(-b // 6))
+    pts = torch.from_numpy(xyz[:b])
+    rot = random_so3_matrix(torch.Generator().manual_seed(seed), b)
+    return rotate_points(pts, rot).numpy().astype(np.float32)
+
+
+def index_calls_vs_kernels(pred, x) -> tuple:
+    """The request through every kernel's plain version, recording each
+    index call (``sa_group``, ``fps``, ``ball_query``); then each index
+    kernel on the recorded inputs, bit for bit against the plain result.
+    Returns the plain output and the number of index calls held."""
+    calls = []
+
+    def recording(name):
+        plain = getattr(K, f"{name}_plain")
+
+        def call(*args):
+            out = plain(*args)
+            calls.append((name, args, out))
+            return out
+        return call
+
+    pred.generator.manual_seed(SEED)
+    with mock.patch.multiple(K, sa_mlp_max=K.sa_mlp_max_plain,
+                             **{n: recording(n) for n in SO3_INDEX}):
+        plain = pred(x)
+    for name, args, want in calls:
+        got = getattr(K, name)(*args)
+        for a, b in zip(as_tuple(got), as_tuple(want)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"{name} on a {pred.model_name} request: kernel differs from plain")
+    return plain, len(calls)
+
+
+def so3_output_checks(name, kw, outs, b) -> dict:
+    """Finite outputs of ``b`` rows of 3; unit heads; Gram-Schmidt's up
+    vector unit and orthogonal to the unit forward one."""
+    checks = {"finite": all(np.isfinite(o).all() for o in outs),
+              "shapes": all(o.shape == (b, 3) for o in outs)}
+    if name != "pointnet_pp":
+        checks["unit"] = all(np.abs(np.linalg.norm(o, axis=-1) - 1).max() <= UNIT_TOL
+                             for o in outs)
+    if kw.get("gram_schmidt"):
+        checks["orthogonal"] = bool(np.abs((outs[0] * outs[1]).sum(-1)).max() <= UNIT_TOL)
+    return checks
+
+
+def phase_serve_so3(dev) -> dict:
+    """The SO(3) serving path: ``pointnet_pp``, ``pointnet_pp_xyz`` and
+    ``pointnet_pp_xyz_schmidt`` (Gram-Schmidt) through
+    ``OrientationPredictor`` at B=64 N=1024 in f32 and bf16 on SO(3)-rotated
+    clouds (2 ``sa_group`` and 3 MLP launches a request), and the Schmidt
+    head with FPS and the ball query on one B=16 N=10,000 request (2 FPS, 2
+    ball-query and 3 MLP launches), counters from 0 around each request.
+    Then each request through the plain versions from the same generator
+    state: outputs within LOGIT_TOL (f32) or BF16_LOGIT_TOL (bf16), every
+    index kernel bit for bit on the plain path's inputs."""
+    x = so3_clouds(SO3_B, SO3_N, SEED + 21)
+    x_ball = so3_clouds(16, TRAIN_N, SEED + 22)
+    cases = [(name, kw, dtype, x) for name, kw in SO3_MODELS for dtype in (None, "bfloat16")]
+    cases.append(("pointnet_pp_xyz_schmidt", {"gram_schmidt": True, **SO3_BALL}, None, x_ball))
+    rows, preds, launches = [], {}, {}
+    for name, kw, dtype, clouds in cases:
+        v = random_flax_variables(SEED, name)
+        b, n = clouds.shape[:2]
+        pred = OrientationPredictor(name, v["params"], v["batch_stats"], num_points=n,
+                                    max_batch=b, seed=SEED, device=dev, dtype=dtype, **kw)
+        K.reset_launch_counts()
+        got = pred(clouds)
+        torch.cuda.synchronize()
+        got_launches = K.launch_counts()
+        mlp = "sa_mlp_max_bf16" if dtype else "sa_mlp_max"
+        if kw.get("grouping") == "ball":
+            expected = expected_launches(fps=2, ball_query=2, **{mlp: 3})
+        else:
+            expected = expected_launches(sa_group=2, **{mlp: 3})
+        pred.generator.manual_seed(SEED)
+        with_kernels = pred(clouds)
+        plain, index_calls = index_calls_vs_kernels(pred, clouds)
+        err = max_abs(with_kernels, plain)
+        tol = BF16_LOGIT_TOL if dtype else LOGIT_TOL
+        outs = as_tuple(got)
+        checks = so3_output_checks(name, kw, outs, b)
+        fwd = pred.forward_vectors(clouds)
+        checks["forward_vectors_unit"] = bool(
+            fwd.shape == (b, 3) and np.abs(np.linalg.norm(fwd, axis=-1) - 1).max() <= UNIT_TOL)
+        case = f"{name}{' gram_schmidt' if kw.get('gram_schmidt') else ''}" \
+               f"{' fps/ball' if kw.get('grouping') else ''} {dtype or 'float32'}"
+        ok = got_launches == expected and err <= tol and all(checks.values())
+        rows.append({"case": case, "B": b, "N": n, "launches": got_launches,
+                     "index_calls_bit_equal": index_calls, "max_abs_err_vs_plain": err,
+                     "tol": tol, "checks": checks, "ok": ok})
+        if not ok:
+            fail(f"serve_so3 {case}: launches {got_launches} (expected {expected}), "
+                 f"{err} from the plain versions (tol {tol}), {checks}")
+        preds[case] = pred
+        launches[case] = got_launches
+    emit("serve_so3", requests=rows)
+    return {"predictors": preds, "launches": launches, "clouds": {"knn": x, "ball": x_ball}}
+
+
+def so3_dataset(classes, per_class: int) -> OrientationDataset:
+    return OrientationDataset(*synthetic_modelnet(num_points=TRAIN_N, samples_per_class=per_class,
+                                                  class_names=list(classes)))
+
+
+def batches_of(ds, batch_size: int) -> int:
+    return -(-len(ds) // batch_size)
+
+
+def knn_trunk_launches(steps: int, evals: int, fused: bool) -> dict:
+    """One epoch's launches on the kNN trunk: 2 groupings a forward, the
+    scatter a step; the MLP forward kernel in eval, and on the fused path
+    in every step with its backward."""
+    return expected_launches(sa_group=2 * (steps + evals),
+                             sa_mlp_max=3 * (steps + evals) if fused else 3 * evals,
+                             sa_group_scatter=steps, sa_mlp_max_bwd=3 * steps if fused else 0)
+
+
+def phase_train_so3(dev) -> dict:
+    """The SO(3) training path at full width (B=16, N=10,000): one epoch of
+    ``pointnet_pp_forward`` in each train configuration (launch counts, a
+    step's gradients against the plain versions under the repaired rule, a
+    checkpoint round trip); ``axes_all_labels`` (Gram-Schmidt) through
+    ``run_per_label`` over two labels, one epoch each, and again with
+    ``resume`` (nothing trains); one step of the Schmidt head with FPS and
+    the ball query in each configuration, its gradients against every
+    kernel's plain version."""
+    out = {}
+    cfg = preset("pointnet_pp_forward", epochs=1)
+    ds = so3_dataset(cfg.classes, 48)
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        trainer = Trainer(cfg, ds, device=dev, fused_mlp_train=fused)
+        steps, val = batches_of(trainer.train_ds, 16), batches_of(trainer.val_ds, 16)
+        K.reset_launch_counts()
+        trainer.fit(epochs=1, log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expected = knn_trunk_launches(steps, val, fused)
+        losses = trainer.step_losses
+        finite = (len(losses) == steps and all(math.isfinite(v) for v in losses)
+                  and math.isfinite(trainer.history["val"][0]))
+        idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+        check = grads_vs_plain(trainer, batch, valid, mode, TRAIN_PLAIN)
+        with tempfile.TemporaryDirectory() as d:
+            other = Trainer(cfg, ds, device=dev, fused_mlp_train=fused)
+            epoch = other.restore_checkpoint(trainer.save_checkpoint(d))
+            same = all(torch.equal(a, b) for a, b in zip(other.model.state_dict().values(),
+                                                         trainer.model.state_dict().values()))
+        emit("train_so3", preset="pointnet_pp_forward", mode=mode, train_steps=steps,
+             val_batches=val, step_losses=losses, val_loss=trainer.history["val"][0],
+             val_angular_deg=trainer.history["val_ang"][0], launches=launches,
+             expected_launches=expected, grads_vs_plain=check, checkpoint_equal=same,
+             timings=trainer.timings)
+        if not (finite and launches == expected and check["ok"] and same and epoch == 1):
+            fail(f"train_so3 {mode}: losses {losses}, launches {launches} (expected "
+                 f"{expected}), gradient of {check['worst']} {check['norm_rel_err']}, "
+                 f"checkpoint equal {same}")
+        out[f"forward {mode}"] = {"trainer": trainer, "launches": launches}
+
+    ds = so3_dataset(SO3_PER_LABEL, 24)
+    cfg = preset("axes_all_labels", epochs=1, axes_gram_schmidt=True)
+    expected = expected_launches()
+    for label in SO3_PER_LABEL:
+        parts = ds.select_classes([label]).split(cfg.seed)
+        steps, evals = batches_of(parts[0], 16), sum(batches_of(p, 16) for p in parts[1:])
+        for k, v in knn_trunk_launches(steps, evals, False).items():
+            expected[k] += v
+    with tempfile.TemporaryDirectory() as d:
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            summary = run_per_label(cfg, ds, d, str(dev))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        with open(os.path.join(d, "summary.txt")) as f:
+            lines = f.read().splitlines()
+        K.reset_launch_counts()
+        again = run_per_label(cfg, ds, d, str(dev), resume=True)
+        resumed = K.launch_counts()
+    ok = (launches == expected and [line.split("\t")[0] for line in lines] == list(SO3_PER_LABEL)
+          and all(math.isfinite(v) for v in summary.values()) and again == summary
+          and not any(resumed.values()))
+    emit("train_so3_per_label", preset="axes_all_labels", labels=list(SO3_PER_LABEL),
+         summary_lines=lines, launches=launches, expected_launches=expected,
+         resumed_launches={k: v for k, v in resumed.items() if v}, ok=ok)
+    if not ok:
+        fail(f"axes_all_labels per label: summary {lines}, launches {launches} (expected "
+             f"{expected}), resumed {resumed}")
+    out["per_label"] = {"launches": launches}
+
+    cfg = TrainConfig(task="axes", model="pointnet_pp_xyz_schmidt", rotation_mode="so3",
+                      num_points=TRAIN_N, axes_gram_schmidt=True, classes=SO3_PER_LABEL)
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        trainer = Trainer(cfg, ds, device=dev, fused_mlp_train=fused, **SO3_BALL)
+        idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+        K.reset_launch_counts()
+        loss = float(trainer.train_step(batch, valid, trainer.generator(0, 98, 0))["loss"])
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expected = expected_launches(fps=2, ball_query=2, sa_mlp_max=3 if fused else 0,
+                                     sa_mlp_max_bwd=3 if fused else 0)
+        check = grads_vs_plain(trainer, batch, valid, mode, CLS_PLAIN)
+        emit("train_so3_ball", mode=mode, loss=loss, launches=launches,
+             expected_launches=expected, grads_vs_plain=check)
+        if not (math.isfinite(loss) and launches == expected and check["ok"]):
+            fail(f"train_so3_ball {mode}: loss {loss}, launches {launches} (expected "
+                 f"{expected}), gradient of {check['worst']} {check['norm_rel_err']}")
+        out[f"ball {mode}"] = {"trainer": trainer, "launches": launches}
+    return out
+
+
+def phase_timing_so3(serve: dict, serve_bf16: dict, train: dict, serve_so3: dict,
+                     train_so3: dict) -> None:
+    """The SO(3) paths beside the 8-dir paths of the same shape, in turns
+    (8-dir, SO(3), SO(3), 8-dir) in this one phase: request latency (host
+    clock, median of 5 after a warm-up) with each request's device time and
+    device kernels from the profiler, for the Schmidt head at B=64 N=1024
+    in f32 and bf16 and the FPS/ball request at B=16 N=10,000 (against the
+    8-dir kNN request at N=10,000); then train steps (median of 5 after 2
+    warm-ups) of ``pointnet_pp_forward`` beside 8dir_kl in each
+    configuration."""
+    preds, clouds = serve_so3["predictors"], serve_so3["clouds"]
+    pairs = (("B=64 N=1024 float32", serve["predictors"][1024],
+              preds["pointnet_pp_xyz_schmidt gram_schmidt float32"], clouds["knn"]),
+             ("B=64 N=1024 bfloat16", serve_bf16["predictors"][1024],
+              preds["pointnet_pp_xyz_schmidt gram_schmidt bfloat16"], clouds["knn"]),
+             ("B=16 N=10000 fps/ball vs knn", serve["predictors"][10000],
+              preds["pointnet_pp_xyz_schmidt gram_schmidt fps/ball float32"], clouds["ball"]))
+    requests = []
+    for label, base, so3, x in pairs:
+        turns = [(name, request_latency(pred, x)["ms_median"])
+                 for name, pred in (("8dir", base), ("so3", so3), ("so3", so3), ("8dir", base))]
+        row = {"shape": label, "turns_ms": turns}
+        for name, pred in (("8dir", base), ("so3", so3)):
+            row[name] = {"ms_median": float(np.median([t for n, t in turns if n == name])),
+                         "device_ms": profiled_ms(lambda: pred(x)),
+                         "device_kernels": device_kernels(lambda: pred(x))}
+        requests.append(row)
+    steps = {}
+    for mode in ("default", "fused"):
+        base, so3 = train[mode]["trainer"], train_so3[f"forward {mode}"]["trainer"]
+        turns = [(name, step_times(t, f"timing_so3 {name} {mode}")["ms_median"])
+                 for name, t in (("8dir_kl", base), ("pointnet_pp_forward", so3),
+                                 ("pointnet_pp_forward", so3), ("8dir_kl", base))]
+        steps[mode] = {"turns_ms": turns, **{name: float(np.median([t for n, t in turns
+                                                                   if n == name]))
+                                             for name in ("8dir_kl", "pointnet_pp_forward")}}
+    emit("timing_so3", requests=requests,
+         train_steps={"batch": 16, "num_points": TRAIN_N, **steps})
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -2191,6 +2469,8 @@ def main() -> None:
     serve_heads = phase_serve_heads(dev)
     train_heads = phase_train_heads(dev)
     train_cls = phase_train_cls(dev)
+    serve_so3 = phase_serve_so3(dev)
+    train_so3 = phase_train_so3(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -2198,10 +2478,16 @@ def main() -> None:
     summary += phase_timing_grid(dev, checks, serve_grid, serve_heads, train_heads)
     summary += phase_vpu_select(dev, checks)
     phase_timing_train_cls(train_cls)
-    for row in summary:  # the classifier's training path, beside each row's own path
+    phase_timing_so3(serve, serve_bf16, train, serve_so3, train_so3)
+    so3_paths = {**{f"serve {case}": n for case, n in serve_so3["launches"].items()},
+                 **{f"train {path}": run["launches"] for path, run in train_so3.items()}}
+    for row in summary:  # the classifier's and the SO(3) paths, beside each row's own path
         if row["name"] in CLS_PLAIN:
             row["launches_train_cls"] = {mode: run["launches"][row["name"]]
                                          for mode, run in train_cls.items()}
+        so3 = {path: n[row["name"]] for path, n in so3_paths.items() if n.get(row["name"])}
+        if so3:
+            row["launches_so3"] = so3
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

@@ -3,7 +3,9 @@
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
 for the models ``pointnet_pp_8dir`` (8-way direction logits),
 ``pointnet_pp_fwd`` (unit forward vectors), ``pointnet_pp_von_mises`` ((mu,
-kappa)), ``pointnet_pp_mvm`` ((mu, kappa, weight)) and ``pointnet_pp_cls``
+kappa)), ``pointnet_pp_mvm`` ((mu, kappa, weight)), ``pointnet_pp`` (raw
+forward vectors), ``pointnet_pp_xyz`` ((x, y) axes),
+``pointnet_pp_xyz_schmidt`` ((up, forward)) and ``pointnet_pp_cls``
 (ModelNet40 log-probabilities) in eval mode, one view, one ensemble member,
 no quantization, one device; f32, or a bf16 trunk (``dtype="bfloat16"``,
 the JAX package's ``**model_kwargs``; not for the MvM head's LayerNorm
@@ -51,8 +53,10 @@ class OrientationPredictor:
     ``seed``; they match the JAX predictor's only in distribution
     (``sampling="first"`` makes the 8-dir model deterministic).
     ``model_kwargs`` go to the model: ``dtype=torch.bfloat16`` (or
-    ``"bfloat16"``) serves a BatchNorm trunk in bf16; ``sampling``, and the
-    MvM head's ``temp``, ``kappa_max`` and ``weight_floor``.
+    ``"bfloat16"``) serves a BatchNorm trunk in bf16; ``sampling`` and
+    ``grouping`` of a trunk head, the MvM head's ``temp``, ``kappa_max`` and
+    ``weight_floor``, the two-axis heads' ``normalize_heads`` and
+    ``gram_schmidt``.
     """
 
     def __init__(
@@ -122,7 +126,9 @@ class OrientationPredictor:
         the model's input width, for the original B: logits ``(B, 8)``
         (8-dir), unit vectors ``(B, 3)`` (forward), the tuple ``(mu (B,),
         kappa (B,))`` (vM) or ``(mu, kappa, weight)``, each ``(B, max_K)``
-        (MvM), log-probabilities ``(B, num_classes)`` (classifier); above
+        (MvM), raw vectors ``(B, 3)`` (``pointnet_pp``), the tuple of two
+        ``(B, 3)`` axes (the two-axis heads), log-probabilities ``(B,
+        num_classes)`` (classifier); above
         ``max_batch`` the request is served in chunks of ``max_batch``."""
         clouds = np.asarray(clouds, np.float32)
         c = self.channels
@@ -143,10 +149,11 @@ class OrientationPredictor:
     def forward_vectors(self, clouds: np.ndarray) -> np.ndarray:
         """The JAX predictor's decode to unit forward vectors ``(B, 3)``: for
         8-dir the softmax of the logits times ``DIRS_8``; for vM ``(sin mu,
-        0, -cos mu)``; for MvM the same of the heaviest component's mu; the
-        forward head's output as it is (and the classifier's ``(B,
-        num_classes)``, as the JAX package's fall-through branch does);
-        normalised."""
+        0, -cos mu)``; for MvM the same of the heaviest component's mu; for
+        the two-axis heads the last head's output (forward; ``head_y`` for
+        ``pointnet_pp_xyz``); the forward heads' output as it is (and the
+        classifier's ``(B, num_classes)``, as the JAX package's fall-through
+        branch does); normalised."""
         out = self(clouds)
         if self.model_name == "pointnet_pp_8dir":
             out = (torch.softmax(torch.from_numpy(out), dim=-1) @ DIRS_8).numpy()
@@ -155,4 +162,6 @@ class OrientationPredictor:
             if self.model_name == "pointnet_pp_mvm":
                 mu = np.take_along_axis(mu, np.argmax(out[2], -1)[:, None], 1)[:, 0]
             out = np.stack([np.sin(mu), np.zeros_like(mu), -np.cos(mu)], -1)
+        elif self.model_name in ("pointnet_pp_xyz", "pointnet_pp_xyz_schmidt"):
+            out = out[-1]
         return out / (np.linalg.norm(out, axis=-1, keepdims=True) + 1e-12)

@@ -249,7 +249,9 @@ class PointNetPPTrunk(nn.Module):
 
     sa1 = SA(128, 32, [64, 64, 128]); sa2 = SA(32, 32, [128, 128, 256]);
     sa3 = SA(group_all, [256, 512, 1024]); fc 1024 -> 512 -> 256, each with
-    its norm and ReLU, then dropout ``p_drop`` in train. ``fc_norm``:
+    its norm and ReLU, then dropout ``p_drop`` in train. ``sampling`` and
+    ``grouping`` go to sa1 and sa2 (:class:`SetAbstraction`; the ball query
+    at its default radius 0.2 in both, as in the JAX trunk). ``fc_norm``:
     ``"batch"`` (the BatchNorm trunk, ``bn1``/``bn2``) or ``"layer"`` (the
     MvM head's LayerNorm trunk, ``ln1``/``ln2``, f32 only);
     ``drop_each_fc`` adds dropout after fc1 as well (the MvM trunk; the
@@ -261,13 +263,14 @@ class PointNetPPTrunk(nn.Module):
 
     def __init__(self, sampling: str = "random", p_drop: float = 0.5,
                  fused_mlp_train: bool = False, dtype: Optional[torch.dtype] = None,
-                 fc_norm: str = "batch", drop_each_fc: bool = False):
+                 fc_norm: str = "batch", drop_each_fc: bool = False, grouping: str = "knn"):
         super().__init__()
         if fc_norm not in ("batch", "layer"):
             raise ValueError(f"fc_norm={fc_norm!r}: 'batch' or 'layer'")
         if fc_norm == "layer" and dtype == torch.bfloat16:
             raise NotImplementedError("a bf16 LayerNorm funnel is not ported (ROADMAP.md)")
-        sa = dict(sampling=sampling, fused_mlp_train=fused_mlp_train, dtype=dtype)
+        sa = dict(sampling=sampling, grouping=grouping, fused_mlp_train=fused_mlp_train,
+                  dtype=dtype)
         self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), **sa)
         self.sa2 = SetAbstraction(32, 32, 3 + 128, (128, 128, 256), **sa)
         self.sa3 = SetAbstraction(None, None, 3 + 256, (256, 512, 1024), group_all=True, **sa)

@@ -1,6 +1,7 @@
-"""PointNet++ models in PyTorch: the yaw heads on the shared trunk (8-way
+"""PointNet++ models in PyTorch: the heads on the shared trunk (8-way
 direction logits, unit forward vector, single-peak von Mises, mixture of von
-Mises), served and trained, and the ModelNet40 classifier, served in eval."""
+Mises; the SO(3) heads: a raw forward vector and the two-axis heads) and the
+ModelNet40 classifier, served and trained."""
 
 from __future__ import annotations
 
@@ -16,12 +17,10 @@ from . import layers
 from .layers import BN_EPS, PointNetPPTrunk, SetAbstraction, compute_dtype, flax_batch_norm_train
 
 
-def _check_trunk_modes(sampling: str, grouping: str) -> None:
-    if grouping != "knn":
-        raise NotImplementedError(f"grouping={grouping!r}: the trunk's heads take only 'knn'")
-    if sampling not in ("random", "first"):
-        raise NotImplementedError(
-            f"sampling={sampling!r}: the trunk's heads take only 'random' and 'first'")
+def _trunk(sampling: str, grouping: str, dtype, fused_mlp_train: bool, p_drop: float,
+           **kw) -> PointNetPPTrunk:
+    return PointNetPPTrunk(sampling=sampling, grouping=grouping, p_drop=p_drop,
+                           fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype), **kw)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -47,12 +46,88 @@ def guarded_angle(cs: torch.Tensor) -> torch.Tensor:
     return torch.atan2(s, c)
 
 
+class PointNetPP(nn.Module):
+    """Forward-vector regression head: trunk, then Linear 256 -> 3, raw.
+
+    Counterpart of ``pointcloud_orientation_tpu/models/pointnet_pp.py``
+    ``PointNetPP`` (the reference's `models/pointnet_pp.py:45-68`); the
+    trunk's options as :class:`PointNetPP8Dir`'s.
+    """
+
+    def __init__(self, sampling: str = "random", grouping: str = "knn",
+                 dtype=None, fused_mlp_train: bool = False, p_drop: float = 0.5):
+        super().__init__()
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop)
+        self.head = nn.Linear(256, 3)
+
+    def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return self.head(self.trunk(xyz, generator))
+
+
+class PointNetPPXYZ(nn.Module):
+    """Two-axis regression: ``head_x`` and ``head_y``, each Linear 256 -> 3
+    and L2-normalised unless ``normalize_heads=False`` (the reference's
+    no-L2-norm ablation). Returns ``(v_x, v_y)``.
+
+    Counterpart of ``PointNetPPXYZ`` there; the trunk's options as
+    :class:`PointNetPP8Dir`'s.
+    """
+
+    HEADS = ("head_x", "head_y")
+
+    def __init__(self, sampling: str = "random", grouping: str = "knn", dtype=None,
+                 normalize_heads: bool = True, fused_mlp_train: bool = False,
+                 p_drop: float = 0.5):
+        super().__init__()
+        self.normalize_heads = normalize_heads
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop)
+        for name in self.HEADS:
+            setattr(self, name, nn.Linear(256, 3))
+
+    def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        feat = self.trunk(xyz, generator)
+        a, b = (getattr(self, name)(feat) for name in self.HEADS)
+        if self.normalize_heads:
+            a, b = l2_normalize(a), l2_normalize(b)
+        return a, b
+
+
+class PointNetPPXYZSchmidt(PointNetPPXYZ):
+    """Up/forward two-axis regression: ``head_y`` (up) and ``head_z``
+    (forward), each L2-normalised unless ``normalize_heads=False``; with
+    ``gram_schmidt`` the up vector becomes ``l2_normalize(v_y - (v_y . v_z)
+    v_z)``, normalised even when the heads are not (as in the JAX model).
+    Returns ``(up, forward)``.
+
+    Counterpart of ``PointNetPPXYZSchmidt`` there; the trunk's options as
+    :class:`PointNetPP8Dir`'s.
+    """
+
+    HEADS = ("head_y", "head_z")
+
+    def __init__(self, gram_schmidt: bool = False, sampling: str = "random",
+                 grouping: str = "knn", dtype=None, normalize_heads: bool = True,
+                 fused_mlp_train: bool = False, p_drop: float = 0.5):
+        super().__init__(sampling, grouping, dtype, normalize_heads, fused_mlp_train, p_drop)
+        self.gram_schmidt = gram_schmidt
+
+    def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        up, fwd = super().forward(xyz, generator)
+        if self.gram_schmidt:
+            up = l2_normalize(up - (up * fwd).sum(dim=-1, keepdim=True) * fwd)
+        return up, fwd
+
+
 class PointNetPP8Dir(nn.Module):
     """8-way direction head: trunk, then Linear 256 -> 8 raw logits.
 
     Counterpart of ``pointcloud_orientation_tpu/models/pointnet_pp.py``
     ``PointNetPP8Dir`` (the reference's `models/pointnet_pp_8dir.py:58-85`).
-    The kNN trunk with ``random`` or ``first`` centroids is ported, in f32
+    The trunk takes ``sampling`` ``"random"``, ``"first"`` or ``"fps"`` and
+    ``grouping`` ``"knn"`` or ``"ball"`` (radius 0.2 at sa1 and sa2), in f32
     (``dtype=None``) or bf16 (``dtype=torch.bfloat16`` or ``"bfloat16"``,
     flax's ``dtype=jnp.bfloat16``: the trunk computes in bf16 and returns
     f32, the head is f32; ``models/layers.py``). ``fused_mlp_train`` picks
@@ -64,9 +139,7 @@ class PointNetPP8Dir(nn.Module):
     def __init__(self, sampling: str = "random", grouping: str = "knn",
                  dtype=None, fused_mlp_train: bool = False, p_drop: float = 0.5):
         super().__init__()
-        _check_trunk_modes(sampling, grouping)
-        self.trunk = PointNetPPTrunk(sampling=sampling, p_drop=p_drop,
-                                     fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype))
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop)
         self.head = nn.Linear(256, 8)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -84,9 +157,7 @@ class PointNetPPFwd(nn.Module):
     def __init__(self, sampling: str = "random", grouping: str = "knn",
                  dtype=None, fused_mlp_train: bool = False, p_drop: float = 0.5):
         super().__init__()
-        _check_trunk_modes(sampling, grouping)
-        self.trunk = PointNetPPTrunk(sampling=sampling, p_drop=p_drop,
-                                     fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype))
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop)
         self.head = nn.Linear(256, 3)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -108,12 +179,10 @@ class PointNetPPVonMises(nn.Module):
                  grouping: str = "knn", dtype=None, fused_mlp_train: bool = False,
                  p_drop: float = 0.5):
         super().__init__()
-        _check_trunk_modes(sampling, grouping)
         if mu_parameterization not in ("tanh", "atan2"):
             raise ValueError(f"mu_parameterization={mu_parameterization!r}: 'tanh' or 'atan2'")
         self.mu_parameterization = mu_parameterization
-        self.trunk = PointNetPPTrunk(sampling=sampling, p_drop=p_drop,
-                                     fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype))
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop)
         self.head = nn.Linear(256, 3 if mu_parameterization == "atan2" else 2)
 
     def forward(self, xyz: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -152,14 +221,12 @@ class PointNetPPMvM(nn.Module):
                  dtype=None, weight_floor: float = 0.0, mu_init: str = "zero",
                  fused_mlp_train: bool = False):
         super().__init__()
-        _check_trunk_modes(sampling, grouping)
         if mu_init not in ("zero", "spread"):
             raise ValueError(f"mu_init={mu_init!r}: 'zero' or 'spread'")
         self.max_K, self.kappa_max, self.temp = max_K, kappa_max, temp
         self.weight_floor, self.mu_init = weight_floor, mu_init
-        self.trunk = PointNetPPTrunk(sampling=sampling, p_drop=p_drop,
-                                     fused_mlp_train=fused_mlp_train, dtype=compute_dtype(dtype),
-                                     fc_norm="layer", drop_each_fc=True)
+        self.trunk = _trunk(sampling, grouping, dtype, fused_mlp_train, p_drop,
+                            fc_norm="layer", drop_each_fc=True)
         self.head_pi = nn.Linear(256, max_K)
         self.head_mu = nn.Linear(256, 2 * max_K)
         self.head_kappa = nn.Linear(256, max_K)

@@ -1,8 +1,7 @@
-"""Yaw rotations, point-cloud rotation and orientation ground truth.
+"""Yaw and SO(3) rotations, point-cloud rotation and orientation ground truth.
 
-Counterpart of ``pointcloud_orientation_tpu/ops/rotations.py`` (yaw only;
-SO(3) sampling is not ported yet) and of ``wrap_angle`` from its
-``ops/von_mises.py``. Random draws come from an explicit
+Counterpart of ``pointcloud_orientation_tpu/ops/rotations.py`` and of
+``wrap_angle`` from its ``ops/von_mises.py``. Random draws come from an explicit
 ``torch.Generator``, so the numbers differ from ``jax.random``'s; the
 distributions are the same.
 """
@@ -34,6 +33,40 @@ def random_yaw_matrix(generator: torch.Generator, batch: int,
     """Random yaw-only rotations, ``theta ~ U[0, 2 pi)``; returns (B, 3, 3)."""
     theta = torch.rand((batch,), generator=generator, device=device) * (2.0 * math.pi)
     return yaw_matrix(theta)
+
+
+def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of ``(..., 3, 3)`` matrices written out elementwise in f32,
+    ``(a_i0 b_0j + a_i1 b_1j) + a_i2 b_2j``: no TF32 on the card, whatever
+    the matmul settings (the JAX function multiplies at ``HIGHEST``)."""
+    p = a[..., :, :, None] * b[..., None, :, :]  # (..., i, k, j)
+    return (p[..., 0, :] + p[..., 1, :]) + p[..., 2, :]
+
+
+def so3_matrix(angles: torch.Tensor) -> torch.Tensor:
+    """``R = Rz @ Ry @ Rx`` of the Euler angles ``angles (B, 3)`` = (tx, ty,
+    tz); returns ``(B, 3, 3)``."""
+    c, s = torch.cos(angles), torch.sin(angles)
+    cx, cy, cz = c.unbind(-1)
+    sx, sy, sz = s.unbind(-1)
+    z, o = torch.zeros_like(cx), torch.ones_like(cx)
+
+    def mat(*rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    rx = mat((o, z, z), (z, cx, -sx), (z, sx, cx))
+    ry = mat((cy, z, sy), (z, o, z), (-sy, z, cy))
+    rz = mat((cz, -sz, z), (sz, cz, z), (z, z, o))
+    return _matmul3(_matmul3(rz, ry), rx)
+
+
+def random_so3_matrix(generator: torch.Generator, batch: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """Random rotations :func:`so3_matrix` of Euler angles ~ U[0, 2 pi),
+    drawn as one ``(B, 3)`` uniform; returns (B, 3, 3). Euler sampling is
+    not Haar-uniform on SO(3); it is the reference's distribution."""
+    angles = torch.rand((batch, 3), generator=generator, device=device) * (2.0 * math.pi)
+    return so3_matrix(angles)
 
 
 def rotate_points(points: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:

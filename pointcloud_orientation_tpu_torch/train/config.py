@@ -1,12 +1,16 @@
 """Training configuration of the port.
 
 Counterpart of ``pointcloud_orientation_tpu/train/config.py`` for the fields
-the yaw tasks use and their presets: ``8dir_kl`` and ``8dir_mse``
-(PointNetPP8Dir), ``multi_8dir`` (PointNetPPFwd), ``vm_kl`` and
+the PointNet++ tasks use and their presets: the SO(3) tasks
+``pointnet_pp_forward`` (PointNetPP, ``forward_mse`` on axes row
+``target_row``) and ``axes_all_labels`` (PointNetPPXYZSchmidt, task
+``axes``, one model per label), ``8dir`` (per label), ``8dir_kl`` and
+``8dir_mse`` (PointNetPP8Dir), ``multi_8dir`` (PointNetPPFwd), ``vm_kl`` and
 ``vm_kl_atan2`` (PointNetPPVonMises), and ``mvm``, ``mvm_guarded``,
 ``mvm_spread``, ``mvm_robust`` and ``mvm_debug`` (PointNetPPMvM, the twelve
-MvM categories, 100 epochs, gradient clip 1.0): yaw rotations, N=10,000,
-B=16, Adam at 1e-3, seed 42, with ``compute_dtype`` None/"float32" or
+MvM categories, 100 epochs, gradient clip 1.0): N=10,000, B=16, Adam at
+1e-3, seed 42, rotations ``yaw``, ``so3`` or ``none``, with
+``compute_dtype`` None/"float32" or
 "bfloat16" (the trunk's compute type; the MvM trunk is f32 only). The
 ``classification`` task trains ``pointnet_pp_cls``; no preset names it, as
 in the JAX package: ``TrainConfig(task="classification",
@@ -20,6 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+from ..data.pipeline import ROTATION_MODES
+
 SIX_CLASS_MIX: Tuple[str, ...] = ("chair", "toilet", "sofa", "plant", "bowl", "bottle")
 
 # The 12-category MvM scope.
@@ -28,22 +34,19 @@ MVM_CLASSES: Tuple[str, ...] = (
     "sofa", "toilet", "door", "curtain", "bathtub", "glass_box",
 )
 
-PORTED_TASKS = ("8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm", "classification")
-PORTED_MODELS = ("pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
+PORTED_TASKS = ("forward_mse", "axes", "8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm",
+                "classification")
+PORTED_MODELS = ("pointnet_pp", "pointnet_pp_xyz", "pointnet_pp_xyz_schmidt",
+                 "pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
                  "pointnet_pp_mvm", "pointnet_pp_cls")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,
 # with their defaults there.
 UNPORTED_DEFAULTS = {
-    "per_label": False,
-    "target_row": 2,
     "optimizer": "adam",
     "lr_schedule": None,
     "warmup_epochs": 0,
-    "lambda_orth": 0.1,
-    "axes_gram_schmidt": False,
-    "axes_normalize_heads": True,
     "transformer_attention": "xla",
     "moe_experts": 4,
     "moe_aux_weight": 0.01,
@@ -63,8 +66,10 @@ class TrainConfig:
     model: str = "pointnet_pp_8dir"
     # data
     num_points: int = 1024
-    rotation_mode: str = "yaw"
+    rotation_mode: str = "yaw"  # "yaw" | "so3" | "none"
     classes: Optional[Sequence[str]] = SIX_CLASS_MIX
+    per_label: bool = False  # one model per category (train/run.py run_per_label)
+    target_row: int = 2  # the axes row forward_mse regresses (2 = forward)
     # optimization (Adam)
     batch_size: int = 16
     epochs: int = 200
@@ -72,6 +77,10 @@ class TrainConfig:
     seed: int = 42
     grad_clip: Optional[float] = None
     compute_dtype: Optional[str] = None  # "bfloat16": the trunk computes in bf16
+    lambda_orth: float = 0.1  # the axes task's orthogonality weight
+    # the axes task's ablations: orthogonalise up against forward; raw heads
+    axes_gram_schmidt: bool = False
+    axes_normalize_heads: bool = True
     # distribution heads
     kappa_default: float = 8.0
     max_k: int = 4
@@ -89,7 +98,7 @@ class TrainConfig:
         checks = (
             ("task", self.task in PORTED_TASKS, f"one of {PORTED_TASKS}"),
             ("model", self.model in PORTED_MODELS, f"one of {PORTED_MODELS}"),
-            ("rotation_mode", self.rotation_mode == "yaw", "'yaw'"),
+            ("rotation_mode", self.rotation_mode in ROTATION_MODES, f"one of {ROTATION_MODES}"),
             ("compute_dtype", self.compute_dtype in PORTED_COMPUTE_DTYPES,
              f"one of {PORTED_COMPUTE_DTYPES}"),
             ("vm_mu_parameterization", self.vm_mu_parameterization in ("tanh", "atan2"),
@@ -117,6 +126,17 @@ def _ported_overrides(kw: dict) -> dict:
 
 
 PRESETS = {
+    # PointNet++_train.py: inline PointNetPP, MSE forward, one category
+    "pointnet_pp_forward": TrainConfig(task="forward_mse", model="pointnet_pp",
+                                       rotation_mode="so3", classes=("bookshelf",),
+                                       target_row=0, num_points=10_000),
+    # train.py: two-axis + orthogonality over all 40 labels, per-label loop
+    "axes_all_labels": TrainConfig(task="axes", model="pointnet_pp_xyz_schmidt",
+                                   rotation_mode="so3", classes=None, per_label=True,
+                                   num_points=10_000, lambda_orth=0.1),
+    # train_8dir.py: 8-dir softmax-MSE, per label (chair), yaw rotations
+    "8dir": TrainConfig(task="8dir_mse", model="pointnet_pp_8dir", rotation_mode="yaw",
+                        classes=("chair",), per_label=True, num_points=10_000),
     # train_8dir_MSE.py: 8-dir softmax-MSE, 6-class mix
     "8dir_mse": TrainConfig(task="8dir_mse", rotation_mode="yaw", classes=SIX_CLASS_MIX,
                             num_points=10_000),

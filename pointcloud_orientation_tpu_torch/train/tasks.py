@@ -2,8 +2,8 @@
 angular error in degrees (NaN where undefined; no adapter where the task has
 none, as classification).
 
-Counterpart of the ``8dir_kl``, ``8dir_mse``, ``multi_8dir``, ``vm_kl``,
-``mvm`` and ``classification`` entries of
+Counterpart of the ``forward_mse``, ``axes``, ``8dir_kl``, ``8dir_mse``,
+``multi_8dir``, ``vm_kl``, ``mvm`` and ``classification`` entries of
 ``pointcloud_orientation_tpu/train/tasks.py``.
 """
 
@@ -28,6 +28,13 @@ def _unit(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
 
 
+def _vec_angle_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The angle between ``a`` and ``b`` in degrees, ``arccos`` of the
+    clipped cosine of their :func:`_unit` vectors."""
+    cos = torch.clamp((_unit(a) * _unit(b)).sum(dim=-1), -1.0, 1.0)
+    return torch.arccos(cos) * _DEG
+
+
 def _horizontal_angle_deg(pred_forward: torch.Tensor, gt_forward: torch.Tensor) -> torch.Tensor:
     """Yaw-only angular error between the horizontal projections."""
     d = wrap_angle(forward_to_mu(pred_forward) - forward_to_mu(gt_forward))
@@ -42,6 +49,30 @@ class TaskAdapter:
 
 def _nan_where(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, torch.full_like(x, math.nan), x)
+
+
+def _forward_mse(outputs, batch, cfg):
+    """MSE of the raw forward head against the axes row ``cfg.target_row``."""
+    return ((outputs - batch["axes"][:, cfg.target_row]) ** 2).mean(dim=-1)
+
+
+def _forward_mse_ang(outputs, batch, cfg):
+    return _vec_angle_deg(outputs, batch["axes"][:, cfg.target_row])
+
+
+def _axes(outputs, batch, cfg):
+    """The two-axis loss: the mean of the up and forward heads' MSEs
+    against axes rows 1 and 2, plus ``lambda_orth`` times the squared dot
+    product of the two heads."""
+    vy, vz = outputs
+    gy, gz = batch["axes"][:, 1], batch["axes"][:, 2]
+    per = (((vy - gy) ** 2).mean(dim=-1) + ((vz - gz) ** 2).mean(dim=-1)) / 2.0
+    return per + cfg.lambda_orth * (vy * vz).sum(dim=-1) ** 2
+
+
+def _axes_ang(outputs, batch, cfg):
+    """The forward head's angle from the ground-truth forward (axes row 2)."""
+    return _vec_angle_deg(outputs[1], batch["axes"][:, 2])
 
 
 def _uniform_target(batch) -> torch.Tensor:
@@ -115,6 +146,8 @@ def _cls(outputs, batch, cfg):
 
 
 TASKS: Dict[str, TaskAdapter] = {
+    "forward_mse": TaskAdapter(_forward_mse, _forward_mse_ang),
+    "axes": TaskAdapter(_axes, _axes_ang),
     "8dir_kl": TaskAdapter(_8dir_kl, _8dir_ang),
     "8dir_mse": TaskAdapter(_8dir_mse, _8dir_ang),
     "multi_8dir": TaskAdapter(_multi_8dir, _multi_8dir_ang),

@@ -1,6 +1,7 @@
 """Single-GPU trainer of the port: the yaw tasks on the PointNet++ heads
-(8-dir, unit forward, von Mises, mixture of von Mises) and the ModelNet40
-classifier (task ``classification``, whose angular error is NaN).
+(8-dir, unit forward, von Mises, mixture of von Mises), the SO(3) tasks
+(``forward_mse`` on ``PointNetPP``, ``axes`` on the two-axis heads) and the
+ModelNet40 classifier (task ``classification``, whose angular error is NaN).
 
 Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
 step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
@@ -77,10 +78,17 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
     """The model's constructor arguments that the config sets, as the JAX
     package's ``Trainer._build_model`` sets them: ``compute_dtype`` only to
-    a model that takes a ``dtype`` (not the classifier, which stays f32)."""
+    a model that takes a ``dtype`` (not the classifier, which stays f32),
+    and the axes task's ``axes_gram_schmidt`` and ``axes_normalize_heads``
+    to a model that takes ``gram_schmidt`` or ``normalize_heads``."""
     kwargs: Dict[str, Any] = {}
-    if "dtype" in inspect.signature(MODEL_REGISTRY[config.model]).parameters:
+    takes = inspect.signature(MODEL_REGISTRY[config.model]).parameters
+    if "dtype" in takes:
         kwargs["dtype"] = config.compute_dtype
+    if "gram_schmidt" in takes:
+        kwargs["gram_schmidt"] = config.axes_gram_schmidt
+    if "normalize_heads" in takes:
+        kwargs["normalize_heads"] = config.axes_normalize_heads
     if config.model == "pointnet_pp_mvm":
         kwargs.update(max_K=config.max_k, weight_floor=config.mvm_weight_floor,
                       mu_init=config.mvm_mu_init)
@@ -106,6 +114,10 @@ class Trainer:
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
                  **model_kwargs: Any):
+        if getattr(dataset, "targets", None) is not None:
+            raise NotImplementedError(
+                "stored sidecar targets (the JAX trainer's rotation_mode='none' on a "
+                "pre-rotated PLY tree) are not ported; see ROADMAP.md queue 1 item 3")
         self.cfg = config
         self.device = torch.device(device)
         self.dataset = dataset
@@ -155,7 +167,7 @@ class Trainer:
     def device_batch(self, ds: OrientationDataset, idx: np.ndarray, valid: np.ndarray,
                      generator: torch.Generator):
         """Gather a batch on the host, move it to the device and augment it
-        there (subsample, yaw rotation, targets, labels)."""
+        there (subsample, rotation, targets, labels)."""
         pts, labels, uniform, symm, k_spec = ds.gather_host(idx)
         pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
         uniform, symm, k_spec = (torch.from_numpy(np.asarray(a)).to(self.device)

@@ -1,7 +1,8 @@
 """Carry the JAX package's flax variables into the port, and make such a
 variable tree with numpy alone, for the PointNet++ models of the port: the
 yaw heads (``PointNetPP8Dir``, ``PointNetPPFwd``, ``PointNetPPVonMises``,
-``PointNetPPMvM``) and the classifier (``PointNetPPCls``).
+``PointNetPPMvM``), the SO(3) heads (``PointNetPP``, ``PointNetPPXYZ``,
+``PointNetPPXYZSchmidt``) and the classifier (``PointNetPPCls``).
 
 A tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
 arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
@@ -18,7 +19,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.pointnet_pp import PointNetPPCls, PointNetPPMvM, mu_bias_init
+from ..models.pointnet_pp import (
+    PointNetPPCls,
+    PointNetPPMvM,
+    PointNetPPXYZ,
+    PointNetPPXYZSchmidt,
+    mu_bias_init,
+)
 
 # MLP widths of each set abstraction (the grouped input width is 3 plus the
 # previous stage's output, or plus the cloud's features for the first)
@@ -28,8 +35,12 @@ _TRUNK = ("PointNetPPTrunk_0",)
 # the classifier's set-abstraction scopes sit at the top of its tree, the
 # other models' under their trunk
 _SCOPE = {"pointnet_pp_8dir": _TRUNK, "pointnet_pp_fwd": _TRUNK,
-          "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": ()}
+          "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": (),
+          "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK}
 _MVM_HEADS = ("head_pi", "head_mu", "head_kappa")
+# the two-axis heads' Dense scopes, each 3 wide
+_AXES_HEADS = {"pointnet_pp_xyz": PointNetPPXYZ.HEADS,
+               "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt.HEADS}
 
 
 def _pairs(model: nn.Module) -> Iterator[Tuple]:
@@ -55,8 +66,8 @@ def _pairs(model: nn.Module) -> Iterator[Tuple]:
         yield top + (f"Dense_{j}",), lin, top + (f"{kind}_{j}",), norm
     if isinstance(model, PointNetPPCls):
         yield ("Dense_2",), model.fc3, None, None
-    elif isinstance(model, PointNetPPMvM):
-        for name in _MVM_HEADS:
+    elif isinstance(model, (PointNetPPMvM, PointNetPPXYZ)):
+        for name in _MVM_HEADS if isinstance(model, PointNetPPMvM) else model.HEADS:
             yield (name,), getattr(model, name), None, None
     else:
         yield ("Dense_0",), model.head, None, None
@@ -162,7 +173,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
     """Constructor arguments of the port's ``model`` that its flax tree
     fixes: the classifier's :func:`cls_kwargs`, the vM head's
     ``mu_parameterization`` (the tanh head is 2 wide, the atan2 head 3), the
-    MvM head's ``max_K``; none for the others."""
+    MvM head's ``max_K``; none for the others (the two-axis heads'
+    ``gram_schmidt`` and ``normalize_heads`` are not in the tree)."""
     if model == "pointnet_pp_cls":
         return cls_kwargs(params)
     if model == "pointnet_pp_von_mises":
@@ -229,8 +241,11 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
             dense((name,), 256, width)
         if mu_init == "spread":
             params["head_mu"]["bias"] = mu_bias_init(max_K, mu_init)
+    elif model in _AXES_HEADS:
+        for name in _AXES_HEADS[model]:
+            dense((name,), 256, 3)
     else:
-        width = {"pointnet_pp_8dir": 8, "pointnet_pp_fwd": 3,
+        width = {"pointnet_pp_8dir": 8, "pointnet_pp_fwd": 3, "pointnet_pp": 3,
                  "pointnet_pp_von_mises": 3 if mu_parameterization == "atan2" else 2}[model]
         dense(("Dense_0",), 256, width)
     return {"params": params, "batch_stats": stats}

@@ -65,7 +65,7 @@ def test_forward_vectors_are_unit_and_follow_the_logits(predictors, rng):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"model_name": "pointnet_pp"}, {"tta_views": 2}, {"ensemble_size": 2},
+    {"model_name": "simple_pointnet"}, {"tta_views": 2}, {"ensemble_size": 2},
     {"quantize": "int8"}, {"mesh": object()},
 ], ids=["other-model", "tta", "ensemble", "int8", "mesh"])
 def test_predictor_refuses_what_is_not_ported(kwargs):

@@ -11,11 +11,14 @@ from pointcloud_orientation_tpu.models import PointNetPP8Dir as JaxPointNetPP8Di
 from pointcloud_orientation_tpu.ops.geometry import set_pallas_mode
 from pointcloud_orientation_tpu_torch.models import (
     MODEL_REGISTRY,
+    PointNetPP,
     PointNetPP8Dir,
     PointNetPPCls,
     PointNetPPFwd,
     PointNetPPMvM,
     PointNetPPVonMises,
+    PointNetPPXYZ,
+    PointNetPPXYZSchmidt,
     SharedMLP,
 )
 from pointcloud_orientation_tpu_torch.utils import load_flax_variables, random_flax_variables
@@ -114,8 +117,8 @@ def test_train_mode_raises_until_the_training_slice():
     assert out.shape == (2, 8) and torch.isfinite(out).all() and out.requires_grad
 
 
-@pytest.mark.parametrize("kwargs", [{"grouping": "ball"}, {"dtype": torch.float16},
-                                    {"sampling": "fps"}])
+@pytest.mark.parametrize("kwargs", [{"grouping": "radius"}, {"dtype": torch.float16},
+                                    {"sampling": "grid"}])
 def test_model_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):
         PointNetPP8Dir(**kwargs)
@@ -126,7 +129,10 @@ def test_registry_holds_the_ported_model():
                               "pointnet_pp_fwd": PointNetPPFwd,
                               "pointnet_pp_von_mises": PointNetPPVonMises,
                               "pointnet_pp_mvm": PointNetPPMvM,
-                              "pointnet_pp_cls": PointNetPPCls}
+                              "pointnet_pp_cls": PointNetPPCls,
+                              "pointnet_pp": PointNetPP,
+                              "pointnet_pp_xyz": PointNetPPXYZ,
+                              "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt}
 
 
 def test_random_sampling_uses_the_generator(rng):

@@ -66,7 +66,7 @@ def test_random_flax_variables_match_the_classifier_tree(channels, num_classes):
     model = _model(v)
     assert model.in_channels == channels and model.fc3.out_features == num_classes
     with pytest.raises(NotImplementedError):
-        random_flax_variables(0, "pointnet_pp")
+        random_flax_variables(0, "simple_pointnet")
 
 
 def test_classifier_refuses_train_mode_wrong_widths_and_trees():

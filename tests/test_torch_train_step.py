@@ -393,11 +393,11 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
     assert preset("8dir_mse").task == "8dir_mse"
     assert preset("8dir_kl", compute_dtype=None).task == "8dir_kl"  # a default is fine
     with pytest.raises(NotImplementedError):
-        preset("axes_all_labels")
+        preset("simple_pointnet")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
-        preset("8dir_kl", task="axes")
+        preset("8dir_kl", task="forward_mse_aux")
     with pytest.raises(TypeError):
         preset("8dir_kl", no_such_field=1)
 
