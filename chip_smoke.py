@@ -68,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -79,6 +80,7 @@ from pointcloud_orientation_tpu_torch.benchmarks.roofline import bound_ms, timed
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import device_ms as cuda_ms
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
+from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
@@ -990,7 +992,7 @@ def step_grads(trainer, batch, valid, seed) -> dict:
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict) -> dict:
+def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict, tol: float = None) -> dict:
     """One step's gradients through the kernels against the same step with
     each kernel wrapper of ``plain`` replaced by its plain version (same
     generator: the same FPS starts and dropout masks), per parameter,
@@ -999,7 +1001,8 @@ def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict) -> dict:
     the group-all shift held by ``GRAD_TOL`` times its scale leaf's
     gradient norm where every pooled value of both steps is > 0 (read by a
     forward hook on the group-all stage), else relative like the rest. The
-    model's state is restored after each."""
+    model's state is restored after each. Each attention's key bias (zero
+    in exact arithmetic) is left out too; ``tol`` overrides ``GRAD_TOL``."""
     model = trainer.model
     state = {k: v.clone() for k, v in model.state_dict().items()}
     with GC.record_group_all(model) as pooled:
@@ -1008,7 +1011,7 @@ def grads_vs_plain(trainer, batch, valid, mode: str, plain: dict) -> dict:
         with mock.patch.multiple(K, **plain):
             want = step_grads(trainer, batch, valid, SEED)
     model.load_state_dict(state)
-    return GC.compare_grads(got, want, GRAD_TOL[mode], GC.bias_leaves_feeding_batch_norm(model),
+    return GC.compare_grads(got, want, tol or GRAD_TOL[mode], GC.zero_gradient_leaves(model),
                             GC.group_all_shift_leaves(model), GC.pooled_all_positive(pooled))
 
 
@@ -2445,6 +2448,367 @@ def phase_timing_so3(serve: dict, serve_bf16: dict, train: dict, serve_so3: dict
     emit("timing_so3", requests=requests,
          train_steps={"batch": 16, "num_points": TRAIN_N, **steps})
 
+# The point transformer (preset ``point_transformer``) and its flash kernels
+FLASH_SHAPES = {"preset B=16 N=1024": (16, 4, 1024, 16), "long B=2 N=16384": (2, 4, 16384, 16)}
+FLASH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# kernel vs plain version, the largest difference over the largest value of
+# the plain output (l: relative, m: over max(1, |m|)): f32 sums in another
+# order (and FMA contraction); bf16 also flips roundings of p, ds and the
+# outputs (one bf16 step is 2^-8 of a value)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_PLAIN = {"flash_attention_fwd": FA.flash_attention_plain,
+               "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv_plain,
+               "flash_attention_bwd_dq": FA.flash_attention_bwd_dq_plain}
+FLASH_KERNELS = tuple(FLASH_PLAIN)
+PT_B, PT_N = 64, 1024  # serving requests
+PT_REQUESTS = 2
+PT_DEPTH = 6  # the preset's depth: 6 attention layers, one launch of each kernel a layer
+PT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # outputs through the kernels vs the plain versions
+PT_GRAD_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+PT_LONG = (2, 16_384)  # the long-context flash step
+PT_PLAIN_NS = (2048, 4096, 8192, 12_288, 16_384)  # the plain step's N, until one does not fit
+
+
+def flash_inputs(shape, dtype, gen, dev):
+    """q, k, v and a cotangent (B,H,N,D) of unit normals in ``dtype``."""
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+
+def flash_cost(kernel, B, H, N, D, bf16) -> tuple:
+    """Bytes (inputs read once, outputs written once) and operations of one
+    call, per (query, key) pair: the products, 2D operations each (q.k and
+    p.v in the forward; q.k, dO.v, p.dO and ds.q in dK/dV; q.k, dO.v and
+    ds.k in dQ) at the tensor cores' rate (bf16, or f32 as 3xTF32), a few
+    elementwise operations (scale, subtract, multiply) at the f32 rate, and
+    one exponential at the SFU rate."""
+    pairs = B * H * N * N
+    e = 2 if bf16 else 4
+    rows, stats = B * H * N * D * e, B * H * N * 4
+    products, rest, nbytes = {
+        "flash_attention_fwd": (4 * D, 3, 4 * rows + 2 * stats),
+        "flash_attention_bwd_dkv": (8 * D, 5, 6 * rows + 3 * stats),
+        "flash_attention_bwd_dq": (6 * D, 4, 5 * rows + 3 * stats)}[kernel]
+    kw = {"bf16_flops" if bf16 else "f32_products": pairs * products}
+    return nbytes, dict(flops=pairs * rest, transcendentals=pairs, **kw)
+
+
+def flash_errors(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def phase_kernels_flash(dev) -> dict:
+    """The three flash kernels against their plain versions at the preset's
+    shape and the long-context one, f32 and bf16: the forward's o, l
+    (relative) and m, then dK/dV and dQ on the forward's l and m with a
+    random cotangent; each kernel's counter must move by one a call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    checks = {k: {} for k in FLASH_KERNELS}
+    for name, shape in FLASH_SHAPES.items():
+        for dname, dtype in FLASH_DTYPES.items():
+            q, k, v, do = flash_inputs(shape, dtype, gen, dev)
+            scale = 1.0 / math.sqrt(shape[-1])
+            before = K.launch_counts()
+            o, l, m = K.flash_attention_fwd(q, k, v, scale)
+            di = FA.row_di(o, do)
+            dk, dv = K.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale)
+            dq = K.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale)
+            torch.cuda.synchronize()
+            moved = {n: K.launch_counts()[n] - before[n] for n in FLASH_KERNELS}
+            po, pl, pm = FA.flash_attention_plain(q, k, v, scale)
+            pdk, pdv = FA.flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, scale)
+            pdq = FA.flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, scale)
+            errs = {
+                "flash_attention_fwd": {
+                    "o": flash_errors([o], [po]),
+                    "l": float(((l - pl).abs() / pl).max()),
+                    "m": float((m - pm).abs().max()) / max(1.0, float(pm.abs().max()))},
+                "flash_attention_bwd_dkv": {"dk": flash_errors([dk], [pdk]),
+                                            "dv": flash_errors([dv], [pdv])},
+                "flash_attention_bwd_dq": {"dq": flash_errors([dq], [pdq])}}
+            abs_errs = {"flash_attention_fwd": float((o.float() - po.float()).abs().max()),
+                        "flash_attention_bwd_dkv": max(float((a.float() - b.float()).abs().max())
+                                                       for a, b in ((dk, pdk), (dv, pdv))),
+                        "flash_attention_bwd_dq": float((dq.float() - pdq.float()).abs().max())}
+            for kname in FLASH_KERNELS:
+                tol = (FLASH_TOL if kname == "flash_attention_fwd" else FLASH_BWD_TOL)[dname]
+                finite = all(bool(torch.isfinite(t).all()) for t in (o, l, m, dk, dv, dq))
+                ok = finite and moved[kname] == 1 and max(errs[kname].values()) <= tol
+                row = {"rel_err": errs[kname], "max_abs_err": abs_errs[kname], "tol": tol,
+                       "launches": moved[kname], "ok": ok}
+                checks[kname][f"{name} {dname}"] = row
+                emit("kernels_flash", kernel=kname, shape=name, dtype=dname, **row)
+                if not ok:
+                    fail(f"{kname} {name} {dname}: {row}")
+            del q, k, v, do, o, l, m, di, dk, dv, dq, po, pl, pm, pdk, pdv, pdq
+    torch.cuda.empty_cache()
+    return checks
+
+
+def transformer_predictor(dev, impl: str, dtype) -> OrientationPredictor:
+    v = random_flax_variables(SEED, "point_transformer")
+    return OrientationPredictor("point_transformer", v["params"], num_points=PT_N,
+                                max_batch=PT_B, seed=SEED, device=dev, attention_impl=impl,
+                                dtype=dtype)
+
+
+def phase_serve_transformer(dev) -> dict:
+    """``point_transformer`` served through ``OrientationPredictor`` at
+    B=64 N=1024, full width (depth 6, embed 64, 4 heads, FFN 2048), random
+    weights from the seed, on both backends in f32 and bf16: the flash
+    backend launches the forward kernel once a layer, the plain backend
+    nothing; the flash outputs against the same requests through the plain
+    versions, and against the plain backend."""
+    x = so3_clouds(PT_B, PT_N, SEED + 41)
+    rows, preds, launches = [], {}, {}
+    for dname in ("float32", "bfloat16"):
+        dtype = None if dname == "float32" else dname
+        outs = {}
+        for impl in ("xla", "flash"):
+            pred = transformer_predictor(dev, impl, dtype)
+            K.reset_launch_counts()
+            for _ in range(PT_REQUESTS):
+                got = pred(x)
+            torch.cuda.synchronize()
+            n = K.launch_counts()
+            expected = expected_launches(
+                **({"flash_attention_fwd": PT_DEPTH * PT_REQUESTS} if impl == "flash" else {}))
+            with mock.patch.multiple(K, **FLASH_PLAIN):
+                plain = pred(x)
+            err = float(np.abs(got - plain).max())
+            fwd = pred.forward_vectors(x)
+            ok = bool(n == expected and got.shape == (PT_B, 3) and np.isfinite(got).all()
+                      and err <= PT_TOL[dname]
+                      and np.abs(np.linalg.norm(fwd, axis=-1) - 1).max() <= UNIT_TOL)
+            case = f"{impl} {dname}"
+            rows.append({"case": case, "B": PT_B, "N": PT_N, "requests": PT_REQUESTS,
+                         "launches": n, "expected_launches": expected,
+                         "max_abs_err_vs_plain": err, "tol": PT_TOL[dname], "ok": ok})
+            if not ok:
+                fail(f"serve_transformer {case}: launches {n} (expected {expected}), {err} "
+                     f"from the plain versions (tol {PT_TOL[dname]})")
+            outs[impl] = got
+            preds[case] = pred
+            launches[case] = n
+        rows.append({"case": f"flash vs xla {dname}",
+                     "max_abs_diff": float(np.abs(outs["flash"] - outs["xla"]).max())})
+    emit("serve_transformer", requests=rows)
+    return {"predictors": preds, "launches": launches, "clouds": x}
+
+
+def transformer_dataset(n: int, per_class: int) -> OrientationDataset:
+    return OrientationDataset.synthetic(samples_per_class=per_class, num_points=n,
+                                        class_names=["chair"])
+
+
+def phase_train_transformer(dev) -> dict:
+    """One epoch of the ``point_transformer`` preset (B=16, N=1024, full
+    width) with ``transformer_attention="flash"`` in f32 and bf16, as the
+    CLI's synthetic data gives it (64 chairs: 3 steps, 1 val batch): exact
+    launches (the forward kernel once a layer a forward, dK/dV and dQ once
+    a layer a step), finite losses; one step's gradients through the kernels
+    against the plain versions (``utils/grad_check.py``: each attention's
+    key bias, zero in exact arithmetic, left out), and a checkpoint round
+    trip."""
+    ds = transformer_dataset(PT_N, 64)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        dtype = None if dname == "float32" else dname
+        cfg = preset("point_transformer", epochs=1, transformer_attention="flash",
+                     compute_dtype=dtype)
+        trainer = Trainer(cfg, ds, device=dev)
+        steps, val = batches_of(trainer.train_ds, 16), batches_of(trainer.val_ds, 16)
+        K.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the flash backend's dropout warning
+            trainer.fit(epochs=1, log_every=0)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            expected = expected_launches(flash_attention_fwd=PT_DEPTH * (steps + val),
+                                         flash_attention_bwd_dkv=PT_DEPTH * steps,
+                                         flash_attention_bwd_dq=PT_DEPTH * steps)
+            losses = trainer.step_losses
+            idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+            batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 99, 0))
+            check = grads_vs_plain(trainer, batch, valid, dname, FLASH_PLAIN, PT_GRAD_TOL[dname])
+        with tempfile.TemporaryDirectory() as d:
+            path = trainer.save_checkpoint(d)
+            other = Trainer(cfg, ds, device=dev)
+            epoch = other.restore_checkpoint(path)
+            same = all(torch.equal(a, b) for a, b in zip(other.model.state_dict().values(),
+                                                         trainer.model.state_dict().values()))
+        emit("train_transformer", dtype=dname, attention="flash", train_steps=steps,
+             val_batches=val, step_losses=losses, val_loss=trainer.history["val"][0],
+             launches=launches, expected_launches=expected, timings=trainer.timings,
+             grads_vs_plain_worst=check["worst"],
+             **{k: v for k, v in check.items() if k not in ("worst", "group_all_shift")},
+             checkpoint_equal=same and epoch == 1)
+        if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                and math.isfinite(trainer.history["val"][0])):
+            fail(f"train_transformer {dname}: losses {losses}, val {trainer.history['val']}")
+        if launches != expected:
+            fail(f"train_transformer {dname}: launches {launches}, expected {expected}")
+        if not check["ok"]:
+            fail(f"train_transformer {dname}: gradient of {check['worst']} differs by "
+                 f"{check['norm_rel_err']} from the plain path")
+        if not (same and epoch == 1):
+            fail(f"train_transformer {dname}: checkpoint round trip")
+        out[dname] = {"trainer": trainer, "launches": launches}
+    return out
+
+
+def sdpa_ms(q, k, v, do, scale, backward: bool, iters: int) -> float:
+    """The yardstick ``library_ms``: one ``scaled_dot_product_attention``
+    call (the forward), or its backward (dq, dk and dv together) on the
+    same inputs. Timed here only; the port never calls it."""
+    F = torch.nn.functional
+    if not backward:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True), iters)
+    del o, qg, kg, vg
+    return ms
+
+
+def long_step(dev, impl: str, n: int) -> dict:
+    """One ``point_transformer`` train step at B=2 and N=n on backend
+    ``impl``: step time (median of TRAIN_STEP_ITERS after 2 warm-ups) and
+    the peak of ``torch.cuda.max_memory_allocated`` over the steps; or
+    ``fits: False`` when the card runs out of memory."""
+    import gc
+    B = PT_LONG[0]
+    trainer = None
+    try:
+        cfg = preset("point_transformer", batch_size=B, num_points=n, transformer_attention=impl)
+        trainer = Trainer(cfg, transformer_dataset(n, 8), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t = step_times(trainer, f"timing_transformer {impl} N={n}")
+        out = {"N": n, "fits": True, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               **t}
+    except torch.cuda.OutOfMemoryError as e:
+        out = {"N": n, "fits": False, "error": str(e).splitlines()[0][:200]}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> list:
+    """The flash kernels at the preset's shape and the long-context one, f32
+    and bf16: CUDA events beside the plain versions, the bound (products at
+    the tensor cores' rate, exponentials at the SFU rate) and
+    ``scaled_dot_product_attention`` as ``library_ms``. Then request latency
+    (B=64 N=1024) and the preset's step time (B=16 N=1024) on both backends
+    in turns (xla, flash, flash, xla), each request's device time and
+    kernels from the profiler; then the long-context step: flash at B=2 and
+    every N of PT_PLAIN_NS up to 16,384, the plain backend until it does
+    not fit, each with its step time and peak device memory."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 42)
+    per = {k: {} for k in FLASH_KERNELS}
+    for name, shape in FLASH_SHAPES.items():
+        long = shape[2] > 4096
+        for dname, dtype in FLASH_DTYPES.items():
+            q, k, v, do = flash_inputs(shape, dtype, gen, dev)
+            scale = 1.0 / math.sqrt(shape[-1])
+            o, l, m = K.flash_attention_fwd(q, k, v, scale)
+            di = FA.row_di(o, do)
+            calls = {
+                "flash_attention_fwd": (lambda: K.flash_attention_fwd(q, k, v, scale),
+                                        lambda: FA.flash_attention_plain(q, k, v, scale), False),
+                "flash_attention_bwd_dkv": (
+                    lambda: K.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale),
+                    lambda: FA.flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, scale), True),
+                "flash_attention_bwd_dq": (
+                    lambda: K.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale),
+                    lambda: FA.flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, scale), True)}
+            for kname, (kernel, plain, backward) in calls.items():
+                ms, host_ms = timed(kernel, iters=5 if long else TIMING_ITERS)
+                plain_ms = cuda_ms(plain, iters=3 if long else 10, warmup=1)
+                lib_ms = sdpa_ms(q, k, v, do, scale, backward, iters=5 if long else TIMING_ITERS)
+                nbytes, ops = flash_cost(kname, *shape, dtype == torch.bfloat16)
+                b_ms, b_by = bound_ms(nbytes, **ops)
+                row = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                           max_abs_err=checks[kname][f"{name} {dname}"]["max_abs_err"])
+                per[kname][f"{name} {dname}"] = row
+                emit("timing_flash", kernel=kname, shape=name, dtype=dname, **row)
+            del q, k, v, do, o, l, m, di
+            torch.cuda.empty_cache()
+
+    x = serve["clouds"]
+    requests = []
+    for dname in ("float32", "bfloat16"):
+        xla, flash = serve["predictors"][f"xla {dname}"], serve["predictors"][f"flash {dname}"]
+        turns = [(n, request_latency(p, x)["ms_median"])
+                 for n, p in (("xla", xla), ("flash", flash), ("flash", flash), ("xla", xla))]
+        row = {"dtype": dname, "B": PT_B, "N": PT_N, "turns_ms": turns}
+        for n, p in (("xla", xla), ("flash", flash)):
+            row[n] = {"ms_median": float(np.median([t for m, t in turns if m == n])),
+                      "device_ms": profiled_ms(lambda: p(x)),
+                      "device_kernels": device_kernels(lambda: p(x))}
+        requests.append(row)
+    steps = {}
+    ds = transformer_dataset(PT_N, 64)
+    for dname in ("float32", "bfloat16"):
+        dtype = None if dname == "float32" else dname
+        flash = train[dname]["trainer"]
+        xla = Trainer(preset("point_transformer", compute_dtype=dtype), ds, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            turns = [(n, step_times(t, f"timing_transformer {n} {dname}")["ms_median"])
+                     for n, t in (("xla", xla), ("flash", flash), ("flash", flash),
+                                  ("xla", xla))]
+        steps[dname] = {"turns_ms": turns, **{n: float(np.median([t for m, t in turns if m == n]))
+                                             for n in ("xla", "flash")}}
+        del xla
+    long_steps = {"flash": [long_step(dev, "flash", n) for n in PT_PLAIN_NS]}
+    long_steps["xla"] = []
+    for n in PT_PLAIN_NS:
+        long_steps["xla"].append(long_step(dev, "xla", n))
+        if not long_steps["xla"][-1]["fits"]:
+            break
+    fits = [r["N"] for r in long_steps["xla"] if r["fits"]]
+    emit("timing_transformer", requests=requests,
+         train_steps={"batch": 16, "num_points": PT_N, **steps},
+         long_steps={"batch": PT_LONG[0], **long_steps},
+         plain_largest_n_that_fits=max(fits) if fits else None)
+    if not long_steps["flash"][-1]["fits"]:
+        fail(f"timing_transformer: the flash step at B=2 N={PT_PLAIN_NS[-1]} did not fit")
+
+    sources = "pointcloud_orientation_tpu_torch/csrc/flash_attention.cu"
+    replaces = {
+        "flash_attention_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "
+                               "(_flash_attention_impl :589; via "
+                               "pointcloud_orientation_tpu/models/point_transformer.py:24)",
+        "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                                   "(_flash_attention_bwd_dkv :941)",
+        "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                                  "(_flash_attention_bwd_dq :1287)"}
+    summary = []
+    for kname in FLASH_KERNELS:
+        row = per[kname][f"preset B=16 N=1024 float32"]
+        launches = {**{f"serve {c}": n[kname] for c, n in serve["launches"].items()},
+                    **{f"train {d}": r["launches"][kname] for d, r in train.items()}}
+        summary.append({
+            "name": kname, "route": "cuda", "source": sources, "replaces": replaces[kname],
+            "launches": sum(launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in checks[kname].values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "per": "one call at the preset's shape, B=16 H=4 N=1024 D=16, f32 "
+                   "(library_ms: scaled_dot_product_attention"
+                   + (", its backward computing dq, dk and dv together)"
+                      if kname != "flash_attention_fwd" else ")"),
+            "launches_transformer": launches, "shapes": per[kname]})
+    return summary
+
 
 def main() -> None:
     info = phase_device()
@@ -2471,6 +2835,9 @@ def main() -> None:
     train_cls = phase_train_cls(dev)
     serve_so3 = phase_serve_so3(dev)
     train_so3 = phase_train_so3(dev)
+    checks.update(phase_kernels_flash(dev))
+    serve_transformer = phase_serve_transformer(dev)
+    train_transformer = phase_train_transformer(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -2479,6 +2846,7 @@ def main() -> None:
     summary += phase_vpu_select(dev, checks)
     phase_timing_train_cls(train_cls)
     phase_timing_so3(serve, serve_bf16, train, serve_so3, train_so3)
+    flash_rows = phase_timing_transformer(dev, checks, serve_transformer, train_transformer)
     so3_paths = {**{f"serve {case}": n for case, n in serve_so3["launches"].items()},
                  **{f"train {path}": run["launches"] for path, run in train_so3.items()}}
     for row in summary:  # the classifier's and the SO(3) paths, beside each row's own path
@@ -2488,6 +2856,7 @@ def main() -> None:
         so3 = {path: n[row["name"]] for path, n in so3_paths.items() if n.get(row["name"])}
         if so3:
             row["launches_so3"] = so3
+    summary += flash_rows
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)

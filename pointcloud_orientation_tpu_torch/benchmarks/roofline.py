@@ -8,6 +8,10 @@ at 67 TFLOP/s and bf16 at 133.8 TFLOP/s (the "NVIDIA H100 Tensor Core GPU
 Architecture" whitepaper's "Peak BF16 (non-Tensor)" for the SXM5 part,
 twice the f32 rate, from packed bf16x2 instructions); in the tensor cores
 bf16 at 989 TFLOP/s and TF32 at 495 TFLOP/s (f32 accumulation).
+Transcendentals (the exponentials of a softmax) run on the special function
+units: 16 results a clock an SM for compute capability 9.0 (the CUDA C++
+Programming Guide's arithmetic instruction throughput table: exp2f,
+reciprocal, rsqrt, log2, sin, cos), on 132 SMs at the 1,980 MHz boost clock.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 # f32-grade products as 3xTF32: three TF32 products each
 PEAK_F32_PRODUCT_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9  # SMs x results a clock an SM x boost clock
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's SM clock: a sleep at least this long
 
 
 def bound_ms(nbytes: float, flops: float = 0.0, bf16_flops: float = 0.0,
-             f32_products: float = 0.0, bf16_vector_flops: float = 0.0) -> Tuple[float, str]:
+             f32_products: float = 0.0, bf16_vector_flops: float = 0.0,
+             transcendentals: float = 0.0) -> Tuple[float, str]:
     """The larger of the bytes' time (each input read once, each output
     written once) and the operations' time, with its name: ``flops`` at the
     f32 peak (integer operations too: the card runs them at most at that
@@ -36,10 +42,12 @@ def bound_ms(nbytes: float, flops: float = 0.0, bf16_flops: float = 0.0,
     ``bf16_vector_flops`` (bf16 arithmetic outside the tensor cores) at the
     non-tensor bf16 peak, ``bf16_flops`` (products of bf16 operands) at the
     bf16 tensor-core peak, ``f32_products`` (f32 matrix products) at a third
-    of the TF32 tensor-core peak."""
+    of the TF32 tensor-core peak, ``transcendentals`` at the special
+    function units' rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (flops / PEAK_F32_FLOPS + bf16_vector_flops / PEAK_BF16_VECTOR_FLOPS
-             + bf16_flops / PEAK_BF16_FLOPS + f32_products / PEAK_F32_PRODUCT_FLOPS) * 1e3
+             + bf16_flops / PEAK_BF16_FLOPS + f32_products / PEAK_F32_PRODUCT_FLOPS
+             + transcendentals / PEAK_SFU_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

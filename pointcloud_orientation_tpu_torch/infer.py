@@ -1,15 +1,17 @@
-"""Batched serving of the PointNet++ models on the card.
+"""Batched serving of the PointNet++ models and the point transformer on
+the card.
 
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
 for the models ``pointnet_pp_8dir`` (8-way direction logits),
 ``pointnet_pp_fwd`` (unit forward vectors), ``pointnet_pp_von_mises`` ((mu,
 kappa)), ``pointnet_pp_mvm`` ((mu, kappa, weight)), ``pointnet_pp`` (raw
 forward vectors), ``pointnet_pp_xyz`` ((x, y) axes),
-``pointnet_pp_xyz_schmidt`` ((up, forward)) and ``pointnet_pp_cls``
-(ModelNet40 log-probabilities) in eval mode, one view, one ensemble member,
-no quantization, one device; f32, or a bf16 trunk (``dtype="bfloat16"``,
-the JAX package's ``**model_kwargs``; not for the MvM head's LayerNorm
-trunk). Requests are padded to power-of-two batch buckets (clamped to
+``pointnet_pp_xyz_schmidt`` ((up, forward)), ``pointnet_pp_cls``
+(ModelNet40 log-probabilities) and ``point_transformer`` (raw forward
+vectors; ``attention_impl="flash"`` through the flash kernels) in eval
+mode, one view, one ensemble member, no quantization, one device; f32, or
+bf16 (``dtype="bfloat16"``, the JAX package's ``**model_kwargs``).
+Requests are padded to power-of-two batch buckets (clamped to
 ``max_batch``) and to ``num_points`` points, exactly as the JAX predictor
 pads them.
 
@@ -56,7 +58,9 @@ class OrientationPredictor:
     ``"bfloat16"``) serves a BatchNorm trunk in bf16; ``sampling`` and
     ``grouping`` of a trunk head, the MvM head's ``temp``, ``kappa_max`` and
     ``weight_floor``, the two-axis heads' ``normalize_heads`` and
-    ``gram_schmidt``.
+    ``gram_schmidt``, the transformer's ``attention_impl`` (``"xla"`` or
+    ``"flash"``; the flash kernels take ``num_points`` in multiples of
+    128) and ``dtype``.
     """
 
     def __init__(

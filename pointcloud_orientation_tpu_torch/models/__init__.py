@@ -1,9 +1,10 @@
 """PyTorch models of the port: the PointNet++ yaw heads (8-dir, unit
 forward, von Mises, mixture of von Mises), the SO(3) heads (raw forward
-vector, the two two-axis heads) and the PointNet++ ModelNet40 classifier,
-in eval and train mode."""
+vector, the two two-axis heads), the PointNet++ ModelNet40 classifier and
+the point transformer, in eval and train mode."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
+from .point_transformer import PointTransformer
 from .pointnet_pp import (
     PointNetPP,
     PointNetPP8Dir,
@@ -24,6 +25,7 @@ MODEL_REGISTRY = {
     "pointnet_pp": PointNetPP,
     "pointnet_pp_xyz": PointNetPPXYZ,
     "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt,
+    "point_transformer": PointTransformer,
 }
 
 __all__ = [
@@ -37,6 +39,7 @@ __all__ = [
     "PointNetPPXYZ",
     "PointNetPPXYZSchmidt",
     "PointNetPPTrunk",
+    "PointTransformer",
     "SetAbstraction",
     "SharedMLP",
 ]

@@ -112,10 +112,13 @@ def flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """``flax.linen.LayerNorm`` over the last axis with ``ln``'s scale and
     bias: mean and the fast variance ``max(0, E[x^2] - E[x]^2)`` per row,
     then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the same in
-    train and eval."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-    return (x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
+    train and eval. A bf16 ``x`` is widened to f32 for the statistics and
+    the normalisation and the result rounded to bf16, as flax's
+    ``LayerNorm(dtype=bfloat16)``."""
+    xf = _widen(x)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    return ((xf - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias).to(x.dtype)
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
@@ -253,7 +256,7 @@ class PointNetPPTrunk(nn.Module):
     ``grouping`` go to sa1 and sa2 (:class:`SetAbstraction`; the ball query
     at its default radius 0.2 in both, as in the JAX trunk). ``fc_norm``:
     ``"batch"`` (the BatchNorm trunk, ``bn1``/``bn2``) or ``"layer"`` (the
-    MvM head's LayerNorm trunk, ``ln1``/``ln2``, f32 only);
+    MvM head's LayerNorm trunk, ``ln1``/``ln2``);
     ``drop_each_fc`` adds dropout after fc1 as well (the MvM trunk; the
     BatchNorm trunk drops once, after fc2). ``generator`` feeds the centroid
     sampling and the dropout masks. ``dtype`` (None or ``torch.bfloat16``)
@@ -267,8 +270,6 @@ class PointNetPPTrunk(nn.Module):
         super().__init__()
         if fc_norm not in ("batch", "layer"):
             raise ValueError(f"fc_norm={fc_norm!r}: 'batch' or 'layer'")
-        if fc_norm == "layer" and dtype == torch.bfloat16:
-            raise NotImplementedError("a bf16 LayerNorm funnel is not ported (ROADMAP.md)")
         sa = dict(sampling=sampling, grouping=grouping, fused_mlp_train=fused_mlp_train,
                   dtype=dtype)
         self.sa1 = SetAbstraction(128, 32, 3, (64, 64, 128), **sa)

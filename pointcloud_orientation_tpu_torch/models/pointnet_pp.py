@@ -213,7 +213,8 @@ class PointNetPPMvM(nn.Module):
     when set; ``head_mu`` (zero-init kernel; bias zero, or with
     ``mu_init="spread"`` the unit vectors at angles ``2 pi k / max_K``) gives
     ``max_K`` guarded angles (:func:`guarded_angle`); ``head_kappa`` gives
-    ``min(softplus + 1e-6, kappa_max)``. f32 only (the LayerNorm funnel).
+    ``min(softplus + 1e-6, kappa_max)``. The trunk, its LayerNorm funnel
+    included, computes in f32 or bf16 (``dtype``).
     """
 
     def __init__(self, max_K: int = 4, kappa_max: float = 80.0, p_drop: float = 0.4,

@@ -59,6 +59,12 @@ SIGNATURES = {
     "pcot_topk_min_f32": [_P, _P] + [_I] * 3 + [_P],
     # x, out, n, kind (0 f32, 1 bf16, 2 int16), reps, stream
     "pcot_vpu_ew": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    # q, k, v, o, l, m, B, H, N, D, bf16, sm_scale, stream
+    "pcot_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # q, k, v, l, m, dout, di, dk, dv, B, H, N, D, bf16, sm_scale, stream
+    "pcot_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # q, k, v, l, m, dout, di, dq, B, H, N, D, bf16, sm_scale, stream
+    "pcot_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _P],
     # d, out, B, S, N, K, stream (each of the four selections)
     **{f"pcot_vpu_{name}": [_P, _P] + [_I] * 4 + [_P]
        for name in ("sel_argmin", "sel_mintie", "radix_count", "count_emit")},

@@ -1,5 +1,6 @@
-"""The set-abstraction kernels of the serving and training paths, with
-their plain PyTorch versions, launch counters and autograd Functions.
+"""The CUDA kernels of the serving and training paths (set abstraction,
+sampling and grouping, flash attention), with their plain PyTorch versions,
+launch counters and autograd Functions.
 
 Each wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (built at first use by :mod:`._build`) or
@@ -56,6 +57,16 @@ block-wide argmax steps; the ball query stages the cloud in shared memory
 when the centroids are few and the cloud large, and stops scanning once it
 has its points.
 
+``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and
+``flash_attention_bwd_dq`` (``csrc/flash_attention.cu``) replace the three
+Pallas kernels of the library flash attention that the point transformer's
+``attention_impl="flash"`` calls (``jax.experimental.pallas.ops.tpu.
+flash_attention``: ``_flash_attention_impl``, ``_flash_attention_bwd_dkv``,
+``_flash_attention_bwd_dq``); their plain versions and the autograd
+Function are in :mod:`.flash_attention`. One thread a row, the other side
+staged in shared memory, the library's online softmax over 128-key tiles,
+f32 or bf16 operands with f32 sums; deterministic (no atomics).
+
 ``topk_min`` (``csrc/topk_min.cu``) replaces ``pallas_kernels.py:topk_min_pallas``,
 the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):
 a radix select of the K-th smallest (value, position) key, 8 bits a pass
@@ -69,6 +80,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from . import flash_attention as FA
 from . import geometry as G
 from ._build import load_library
 
@@ -84,6 +96,7 @@ FPS_CLUSTER_MAX_N = 16 * FPS_REGISTER_MAX_N
 FPS_MAX_N = 1 << 30  # the kernel's int point index stays in range
 TOPK_MIN_MAX_K = 64
 TOPK_MIN_MAX_M = 1 << 24  # the kernel's limit on a row's entries
+FLASH_HEAD_DIMS = (8, 16, 32)  # the flash kernels' head dimensions (csrc/flash_attention.cu)
 
 
 def f32_matmuls() -> None:
@@ -761,10 +774,113 @@ def topk_min(d: torch.Tensor, nsample: int) -> torch.Tensor:
 
 topk_min.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K9: flash attention (forward, dK/dV, dQ)
+# ---------------------------------------------------------------------------
+
+
+def _flash_args(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                stats: Sequence[Tuple[str, torch.Tensor]] = (),
+                rows: Sequence[Tuple[str, torch.Tensor]] = ()) -> Tuple[int, int, int, int]:
+    """Check a flash kernel's arguments on the card: q, k, v and the ``rows``
+    ``(B,H,N,D)`` contiguous of one type (f32 or bf16), the ``stats``
+    ``(B,H,N)`` f32; N a multiple of 128, D one the kernels take."""
+    FA.check_qkv(q, k, v)
+    _cuda_only(fn, q)
+    B, H, N, D = q.shape
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dimension D={D} is not one the kernels take "
+                         f"{FLASH_HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn} takes float32 or bfloat16 q, k, v, got {q.dtype}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{fn}: B={B} and H={H} must be at most 65535")
+    for name, t in (("q", q), ("k", k), ("v", v), *rows):
+        _check_cuda(name, t, q.dtype, (B, H, N, D), q.device)
+    for name, t in stats:
+        _check_cuda(name, t, torch.float32, (B, H, N), q.device)
+    return B, H, N, D
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention forward over ``(B,H,N,D)`` f32 or bf16: ``o`` (q's
+    type) and the row statistics ``l`` (sum) and ``m`` (max) ``(B,H,N)``
+    f32 (``ops/flash_attention.py``'s :func:`flash_attention_plain`)."""
+    if q.device.type == "cpu":
+        return FA.flash_attention_plain(q, k, v, sm_scale)
+    B, H, N, D = _flash_args("flash_attention_fwd", q, k, v)
+    o = torch.empty_like(q)
+    l = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pcot_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                 l.data_ptr(), m.data_ptr(), B, H, N, D,
+                                 int(q.dtype == torch.bfloat16), float(sm_scale), stream)
+    _raise_on(err, f"flash_attention_fwd launch (B={B}, H={H}, N={N}, D={D}, {q.dtype})")
+    flash_attention_fwd.launches += 1
+    return o, l, m
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, l, m, dout, di, sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of flash attention from q, k, v, the forward's ``l`` and
+    ``m``, the cotangent ``dout`` and ``di = sum(o * dout)`` (f32); in q's
+    type (:func:`flash_attention.flash_attention_bwd_dkv_plain`)."""
+    if q.device.type == "cpu":
+        return FA.flash_attention_bwd_dkv_plain(q, k, v, l, m, dout, di, sm_scale)
+    B, H, N, D = _flash_args("flash_attention_bwd_dkv", q, k, v,
+                             stats=(("l", l), ("m", m), ("di", di)), rows=(("dout", dout),))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pcot_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(),
+                                     m.data_ptr(), dout.data_ptr(), di.data_ptr(),
+                                     dk.data_ptr(), dv.data_ptr(), B, H, N, D,
+                                     int(q.dtype == torch.bfloat16), float(sm_scale), stream)
+    _raise_on(err, f"flash_attention_bwd_dkv launch (B={B}, H={H}, N={N}, D={D}, {q.dtype})")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, l, m, dout, di, sm_scale: float) -> torch.Tensor:
+    """dQ of flash attention from the same inputs as
+    :func:`flash_attention_bwd_dkv`, in q's type
+    (:func:`flash_attention.flash_attention_bwd_dq_plain`)."""
+    if q.device.type == "cpu":
+        return FA.flash_attention_bwd_dq_plain(q, k, v, l, m, dout, di, sm_scale)
+    B, H, N, D = _flash_args("flash_attention_bwd_dq", q, k, v,
+                             stats=(("l", l), ("m", m), ("di", di)), rows=(("dout", dout),))
+    dq = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pcot_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(),
+                                    m.data_ptr(), dout.data_ptr(), di.data_ptr(),
+                                    dq.data_ptr(), B, H, N, D,
+                                    int(q.dtype == torch.bfloat16), float(sm_scale), stream)
+    _raise_on(err, f"flash_attention_bwd_dq launch (B={B}, H={H}, N={N}, D={D}, {q.dtype})")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
 # counter name -> (wrapper, its attribute); the bf16 variants count apart
 _COUNTERS = {fn.__name__: (fn, "launches") for fn in
              (sa_group, sa_mlp_max, sa_group_scatter, sa_mlp_max_bwd, knn, fps, ball_query,
-              topk_min)}
+              topk_min, flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq)}
 _COUNTERS["sa_mlp_max_bf16"] = (sa_mlp_max, "launches_bf16")
 _COUNTERS["sa_mlp_max_bwd_bf16"] = (sa_mlp_max_bwd, "launches_bf16")
 

@@ -11,7 +11,10 @@ the PointNet++ tasks use and their presets: the SO(3) tasks
 MvM categories, 100 epochs, gradient clip 1.0): N=10,000, B=16, Adam at
 1e-3, seed 42, rotations ``yaw``, ``so3`` or ``none``, with
 ``compute_dtype`` None/"float32" or
-"bfloat16" (the trunk's compute type; the MvM trunk is f32 only). The
+"bfloat16" (the trunk's compute type). The ``point_transformer`` preset
+trains the point transformer on ``forward_mse`` (SO(3) rotations, one
+category, N=1,024) with ``transformer_attention`` "xla" or "flash" (the
+flash kernels, O(N) attention memory). The
 ``classification`` task trains ``pointnet_pp_cls``; no preset names it, as
 in the JAX package: ``TrainConfig(task="classification",
 model="pointnet_pp_cls")``. The JAX config's other fields are accepted by
@@ -38,7 +41,7 @@ PORTED_TASKS = ("forward_mse", "axes", "8dir_kl", "8dir_mse", "multi_8dir", "vm_
                 "classification")
 PORTED_MODELS = ("pointnet_pp", "pointnet_pp_xyz", "pointnet_pp_xyz_schmidt",
                  "pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
-                 "pointnet_pp_mvm", "pointnet_pp_cls")
+                 "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,
@@ -47,7 +50,6 @@ UNPORTED_DEFAULTS = {
     "optimizer": "adam",
     "lr_schedule": None,
     "warmup_epochs": 0,
-    "transformer_attention": "xla",
     "moe_experts": 4,
     "moe_aux_weight": 0.01,
     "moe_dispatch": "masked",
@@ -81,6 +83,9 @@ class TrainConfig:
     # the axes task's ablations: orthogonalise up against forward; raw heads
     axes_gram_schmidt: bool = False
     axes_normalize_heads: bool = True
+    # the point transformer's attention: "xla" (plain) or "flash" (the flash
+    # kernels, O(N) attention memory; applies no attention-probability dropout)
+    transformer_attention: str = "xla"
     # distribution heads
     kappa_default: float = 8.0
     max_k: int = 4
@@ -104,6 +109,8 @@ class TrainConfig:
             ("vm_mu_parameterization", self.vm_mu_parameterization in ("tanh", "atan2"),
              "'tanh' or 'atan2'"),
             ("mvm_mu_init", self.mvm_mu_init in ("zero", "spread"), "'zero' or 'spread'"),
+            ("transformer_attention", self.transformer_attention in ("xla", "flash"),
+             "'xla' or 'flash'"),
         )
         for name, ok, ported in checks:
             if not ok:
@@ -135,6 +142,9 @@ PRESETS = {
                                    rotation_mode="so3", classes=None, per_label=True,
                                    num_points=10_000, lambda_orth=0.1),
     # train_8dir.py: 8-dir softmax-MSE, per label (chair), yaw rotations
+    # the point transformer (models/point_transformer.py): MSE forward, one category
+    "point_transformer": TrainConfig(task="forward_mse", model="point_transformer",
+                                     rotation_mode="so3", classes=("chair",), num_points=1024),
     "8dir": TrainConfig(task="8dir_mse", model="pointnet_pp_8dir", rotation_mode="yaw",
                         classes=("chair",), per_label=True, num_points=10_000),
     # train_8dir_MSE.py: 8-dir softmax-MSE, 6-class mix

@@ -2,7 +2,8 @@
 
 Counterpart of ``pointcloud_orientation_tpu/train/run.py`` for the flags
 the port supports. Trains a preset (``pointnet_pp_forward``,
-``axes_all_labels``, ``8dir``, ``8dir_kl``, ``8dir_mse``, ``multi_8dir``,
+``point_transformer`` (``--attention xla|flash``), ``axes_all_labels``,
+``8dir``, ``8dir_kl``, ``8dir_mse``, ``multi_8dir``,
 ``vm_kl``, ``vm_kl_atan2``, ``mvm``, ``mvm_guarded``, ``mvm_spread``,
 ``mvm_robust``, ``mvm_debug``) on the card (``--device cuda``, the default)
 or the CPU, tests the best-val weights and writes ``metrics.json`` and
@@ -111,6 +112,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--compute-dtype", default=None, dest="compute_dtype",
                     help="trunk compute dtype: float32 (default) or bfloat16")
+    ap.add_argument("--attention", default=None, dest="transformer_attention",
+                    choices=("xla", "flash"),
+                    help="transformer attention backend (flash = the flash kernels, O(N) "
+                         "attention memory; the long-context path)")
     ap.add_argument("--fused-mlp-train", action="store_true", dest="fused_mlp_train",
                     help="train the shared MLPs through the fused MLP+max kernel and its "
                          "backward kernel with ghost-row BatchNorm statistics (the JAX "
@@ -119,7 +124,7 @@ def main(argv=None):
 
     overrides = {k: getattr(args, k) for k in
                  ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every",
-                  "compute_dtype")
+                  "compute_dtype", "transformer_attention")
                  if getattr(args, k) is not None}
     if args.classes:
         overrides["classes"] = tuple(args.classes.split(","))

@@ -1,7 +1,11 @@
 """Single-GPU trainer of the port: the yaw tasks on the PointNet++ heads
 (8-dir, unit forward, von Mises, mixture of von Mises), the SO(3) tasks
-(``forward_mse`` on ``PointNetPP``, ``axes`` on the two-axis heads) and the
-ModelNet40 classifier (task ``classification``, whose angular error is NaN).
+(``forward_mse`` on ``PointNetPP`` and on the point transformer, ``axes``
+on the two-axis heads) and the ModelNet40 classifier (task
+``classification``, whose angular error is NaN). A model may hold
+BatchNorm running statistics or, as the transformer, none: the step, the
+checkpoint and the best-val snapshot go through ``state_dict``, which
+holds whatever the model has.
 
 Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
 step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
@@ -79,12 +83,15 @@ def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
     """The model's constructor arguments that the config sets, as the JAX
     package's ``Trainer._build_model`` sets them: ``compute_dtype`` only to
     a model that takes a ``dtype`` (not the classifier, which stays f32),
-    and the axes task's ``axes_gram_schmidt`` and ``axes_normalize_heads``
-    to a model that takes ``gram_schmidt`` or ``normalize_heads``."""
+    the axes task's ``axes_gram_schmidt`` and ``axes_normalize_heads`` to a
+    model that takes ``gram_schmidt`` or ``normalize_heads``, and
+    ``transformer_attention`` to a model that takes ``attention_impl``."""
     kwargs: Dict[str, Any] = {}
     takes = inspect.signature(MODEL_REGISTRY[config.model]).parameters
     if "dtype" in takes:
         kwargs["dtype"] = config.compute_dtype
+    if "attention_impl" in takes:
+        kwargs["attention_impl"] = config.transformer_attention
     if "gram_schmidt" in takes:
         kwargs["gram_schmidt"] = config.axes_gram_schmidt
     if "normalize_heads" in takes:
@@ -105,8 +112,10 @@ class Trainer:
     """Builds the model and optimizer for a config on ``device`` ("cuda"
     unless the caller asks for the CPU) and runs the train/val/test
     protocol. ``fused_mlp_train`` selects the shared MLPs' train
-    configuration (``models/layers.py``) and ``config.compute_dtype`` the
-    trunk's compute type (parameters and Adam state stay f32);
+    configuration (``models/layers.py``; the point transformer has none and
+    ignores it, as the JAX package's ``PCOT_FUSED_MLP`` does) and
+    ``config.compute_dtype`` the trunk's compute type (parameters and Adam
+    state stay f32);
     ``model_kwargs`` go to the model after the config's own
     (:func:`config_model_kwargs`; tests pass ``sampling="first",
     p_drop=0.0``)."""
@@ -134,7 +143,10 @@ class Trainer:
         if config.compute_dtype == "bfloat16":
             bf16_matmuls()  # cuBLAS's bf16 products accumulate in f32, as XLA's
         kwargs = {**config_model_kwargs(config), **model_kwargs}
-        self.model = MODEL_REGISTRY[config.model](fused_mlp_train=fused_mlp_train, **kwargs)
+        model_cls = MODEL_REGISTRY[config.model]
+        if "fused_mlp_train" in inspect.signature(model_cls).parameters:
+            kwargs["fused_mlp_train"] = fused_mlp_train  # no shared MLP, no such option
+        self.model = model_cls(**kwargs)
         flax_dense_init_(self.model, torch.Generator().manual_seed(config.seed))
         if hasattr(self.model, "reset_head_parameters"):  # the MvM heads' zero inits
             self.model.reset_head_parameters()

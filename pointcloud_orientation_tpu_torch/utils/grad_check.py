@@ -1,9 +1,12 @@
 """Hold one train step's gradients through the kernels against the same
 step through the kernels' plain versions, leaf by leaf.
 
-Two kinds of leaf have a gradient that is zero in exact arithmetic, so
+Three kinds of leaf have a gradient that is zero in exact arithmetic, so
 that both sides carry only rounding noise and a relative bound reads noise
 against noise:
+* an attention layer's key bias: it adds ``q . b`` to every score of a
+  query's row alike, which the softmax removes. These leaves are left out
+  (:func:`zero_gradient_leaves`).
 
 * a Dense bias whose output a train-mode BatchNorm normalises (every
   shared-MLP layer's, and the BatchNorm funnel's ``fc1``/``fc2``): the
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from ..models.layers import PointNetPPTrunk, SetAbstraction, SharedMLP
+from ..models.point_transformer import MultiHeadAttention
 from ..models.pointnet_pp import PointNetPPCls
 
 
@@ -55,6 +59,17 @@ def bias_leaves_feeding_batch_norm(model: nn.Module) -> Set[str]:
         elif isinstance(m, PointNetPPCls) or (isinstance(m, PointNetPPTrunk)
                                               and m.fc_norm == "batch"):
             names.update((f"{prefix}fc1.bias", f"{prefix}fc2.bias"))
+    return names
+
+
+def zero_gradient_leaves(model: nn.Module) -> Set[str]:
+    """Every leaf left out of the comparison, by parameter name: the Dense
+    biases that a train-mode BatchNorm normalises, and each attention
+    layer's key bias (the softmax removes a shift shared by a row)."""
+    names = bias_leaves_feeding_batch_norm(model)
+    for mname, m in model.named_modules():
+        if isinstance(m, MultiHeadAttention):
+            names.add(f"{mname}.key.bias" if mname else "key.bias")
     return names
 
 

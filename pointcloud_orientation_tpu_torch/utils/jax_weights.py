@@ -1,14 +1,19 @@
 """Carry the JAX package's flax variables into the port, and make such a
-variable tree with numpy alone, for the PointNet++ models of the port: the
+variable tree with numpy alone, for the models of the port: the PointNet++
 yaw heads (``PointNetPP8Dir``, ``PointNetPPFwd``, ``PointNetPPVonMises``,
 ``PointNetPPMvM``), the SO(3) heads (``PointNetPP``, ``PointNetPPXYZ``,
-``PointNetPPXYZSchmidt``) and the classifier (``PointNetPPCls``).
+``PointNetPPXYZSchmidt``), the classifier (``PointNetPPCls``) and the point
+transformer (``PointTransformer``).
 
 A tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
 arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
-``kernel`` is ``(Cin, Cout)``, the transpose of ``nn.Linear.weight``;
-BatchNorm has ``scale``/``bias`` params and ``mean``/``var`` statistics,
-LayerNorm (the MvM trunk's funnel) ``scale``/``bias`` params only.
+``kernel`` is ``(Cin, Cout)``, the transpose of ``nn.Linear.weight``; the
+attention's ``query``/``key``/``value`` kernels are ``(E, H, D)`` with
+biases ``(H, D)`` and its ``out`` kernel ``(H, D, E)``, the same numbers as
+the Linear's flattened. BatchNorm has ``scale``/``bias`` params and
+``mean``/``var`` statistics, LayerNorm (the MvM trunk's funnel, the
+transformer) ``scale``/``bias`` params only; the transformer has no
+``batch_stats``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.point_transformer import PointTransformer
 from ..models.pointnet_pp import (
     PointNetPPCls,
     PointNetPPMvM,
@@ -36,17 +42,40 @@ _TRUNK = ("PointNetPPTrunk_0",)
 # other models' under their trunk
 _SCOPE = {"pointnet_pp_8dir": _TRUNK, "pointnet_pp_fwd": _TRUNK,
           "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": (),
-          "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK}
+          "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK,
+          "point_transformer": ()}
+_MHA = "MultiHeadDotProductAttention_0"
 _MVM_HEADS = ("head_pi", "head_mu", "head_kappa")
 # the two-axis heads' Dense scopes, each 3 wide
 _AXES_HEADS = {"pointnet_pp_xyz": PointNetPPXYZ.HEADS,
                "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt.HEADS}
 
 
+def _transformer_pairs(model: PointTransformer) -> Iterator[Tuple]:
+    yield ("Dense_0",), model.embed, None, None, None
+    for i, layer in enumerate(model.layers):
+        scope = (f"TransformerEncoderLayer_{i}",)
+        attn = layer.attn
+        heads, width = attn.num_heads, attn.query.out_features
+        qkv = ((width, heads, width // heads), (heads, width // heads))
+        for name in ("query", "key", "value"):
+            yield scope + (_MHA, name), getattr(attn, name), None, None, qkv
+        yield (scope + (_MHA, "out"), attn.out, None, None,
+               ((heads, width // heads, width), (width,)))
+        yield scope + ("Dense_0",), layer.ffn1, scope + ("LayerNorm_0",), layer.ln1, None
+        yield scope + ("Dense_1",), layer.ffn2, scope + ("LayerNorm_1",), layer.ln2, None
+    yield ("Dense_1",), model.head, None, None, None
+
+
 def _pairs(model: nn.Module) -> Iterator[Tuple]:
-    """(Dense scope, Linear, norm scope, norm module) for every layer of
-    the model, the last two None for an output layer; the norm is a
-    BatchNorm1d or, in the MvM trunk's funnel, a LayerNorm."""
+    """(Dense scope, Linear, norm scope, norm module, flax shapes) for every
+    layer of the model, the norm None for a layer without one; the norm is
+    a BatchNorm1d or a LayerNorm (the MvM trunk's funnel, the transformer).
+    The flax shapes are the (kernel, bias) shapes of an attention Dense,
+    None for a plain Dense."""
+    if isinstance(model, PointTransformer):
+        yield from _transformer_pairs(model)
+        return
     if isinstance(model, PointNetPPCls):
         top, sas = (), (model.sa1, model.sa2, model.sa3)
         fcs = ((model.fc1, model.bn1), (model.fc2, model.bn2))
@@ -60,17 +89,17 @@ def _pairs(model: nn.Module) -> Iterator[Tuple]:
     for i, sa in enumerate(sas):
         for j, (lin, bn) in enumerate(zip(sa.mlp.linears, sa.mlp.bns)):
             scope = top + (f"SetAbstraction_{i}", "SharedMLP_0")
-            yield scope + (f"Dense_{j}",), lin, scope + (f"BatchNorm_{j}",), bn
+            yield scope + (f"Dense_{j}",), lin, scope + (f"BatchNorm_{j}",), bn, None
     for j, (lin, norm) in enumerate(fcs):
         kind = "LayerNorm" if isinstance(norm, nn.LayerNorm) else "BatchNorm"
-        yield top + (f"Dense_{j}",), lin, top + (f"{kind}_{j}",), norm
+        yield top + (f"Dense_{j}",), lin, top + (f"{kind}_{j}",), norm, None
     if isinstance(model, PointNetPPCls):
-        yield ("Dense_2",), model.fc3, None, None
+        yield ("Dense_2",), model.fc3, None, None, None
     elif isinstance(model, (PointNetPPMvM, PointNetPPXYZ)):
         for name in _MVM_HEADS if isinstance(model, PointNetPPMvM) else model.HEADS:
-            yield (name,), getattr(model, name), None, None
+            yield (name,), getattr(model, name), None, None, None
     else:
-        yield ("Dense_0",), model.head, None, None
+        yield ("Dense_0",), model.head, None, None, None
 
 
 def cls_kwargs(params: Dict) -> Dict[str, int]:
@@ -109,11 +138,18 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     tree has)."""
     params = variables["params"]
     stats = variables.get("batch_stats")
-    for lin_path, lin, norm_path, norm in _pairs(model):
+    for lin_path, lin, norm_path, norm, shapes in _pairs(model):
         dense = _get(params, lin_path, "params")
         name = "/".join(lin_path)
-        _copy(lin.weight, np.asarray(dense["kernel"]).T, name + "/kernel")
-        _copy(lin.bias, dense["bias"], name + "/bias")
+        kernel, bias = np.asarray(dense["kernel"]), np.asarray(dense["bias"])
+        if shapes is not None:  # an attention Dense: check its flax shapes, then flatten
+            for what, arr, shape in (("kernel", kernel, shapes[0]), ("bias", bias, shapes[1])):
+                if arr.shape != shape:
+                    raise ValueError(f"{name}/{what}: shape {arr.shape}, the model expects "
+                                     f"{shape}")
+            kernel, bias = kernel.reshape(lin.in_features, -1), bias.reshape(-1)
+        _copy(lin.weight, kernel.T, name + "/kernel")
+        _copy(lin.bias, bias, name + "/bias")
         if norm is None:
             continue
         p = _get(params, norm_path, "params")
@@ -145,7 +181,8 @@ def _np(t: torch.Tensor, name: str) -> np.ndarray:
 def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
     """The model's weights and running statistics as a flax
     ``{"params", "batch_stats"}`` tree of numpy arrays in the JAX package's
-    layout (the inverse of :func:`load_flax_variables`). With ``grads=True``,
+    layout (the inverse of :func:`load_flax_variables`; ``batch_stats`` is
+    empty for a model without BatchNorm). With ``grads=True``,
     ``{"params": ...}`` holds the parameters' ``.grad`` instead, so that a
     step's gradients compare leaf by leaf with ``jax.grad``'s."""
     params: Dict = {}
@@ -154,10 +191,12 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
     def value(p: torch.Tensor, name: str) -> np.ndarray:
         return _np(p.grad if grads else p, name)
 
-    for lin_path, lin, norm_path, norm in _pairs(model):
+    for lin_path, lin, norm_path, norm, shapes in _pairs(model):
         name = "/".join(lin_path)
-        _set(params, lin_path, {"kernel": value(lin.weight, name + "/kernel").T.copy(),
-                                "bias": value(lin.bias, name + "/bias")})
+        kernel, bias = value(lin.weight, name + "/kernel").T.copy(), value(lin.bias, name + "/bias")
+        if shapes is not None:
+            kernel, bias = kernel.reshape(shapes[0]), bias.reshape(shapes[1])
+        _set(params, lin_path, {"kernel": kernel, "bias": bias})
         if norm is None:
             continue
         name = "/".join(norm_path)
@@ -169,14 +208,36 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
     return {"params": params} if grads else {"params": params, "batch_stats": stats}
 
 
+def transformer_kwargs(params: Dict) -> Dict[str, int]:
+    """``PointTransformer`` constructor arguments read from a flax
+    ``params`` tree: ``in_dim`` and ``embed_dim`` from the embedding Dense,
+    ``depth`` from the layers' count, ``num_heads`` from the first layer's
+    query kernel ``(E, H, D)``, ``ffn_dim`` from its first feed-forward
+    Dense."""
+    embed = np.shape(_get(params, ("Dense_0",), "params")["kernel"])
+    depth = 0
+    while f"TransformerEncoderLayer_{depth}" in params:
+        depth += 1
+    if depth == 0:
+        raise KeyError("params has no TransformerEncoderLayer_0")
+    first = ("TransformerEncoderLayer_0",)
+    query = np.shape(_get(params, first + (_MHA, "query"), "params")["kernel"])
+    ffn = np.shape(_get(params, first + ("Dense_0",), "params")["kernel"])
+    return {"in_dim": int(embed[0]), "embed_dim": int(embed[1]), "depth": depth,
+            "num_heads": int(query[1]), "ffn_dim": int(ffn[1])}
+
+
 def model_kwargs(model: str, params: Dict) -> Dict:
     """Constructor arguments of the port's ``model`` that its flax tree
-    fixes: the classifier's :func:`cls_kwargs`, the vM head's
-    ``mu_parameterization`` (the tanh head is 2 wide, the atan2 head 3), the
-    MvM head's ``max_K``; none for the others (the two-axis heads'
-    ``gram_schmidt`` and ``normalize_heads`` are not in the tree)."""
+    fixes: the classifier's :func:`cls_kwargs`, the transformer's
+    :func:`transformer_kwargs`, the vM head's ``mu_parameterization`` (the
+    tanh head is 2 wide, the atan2 head 3), the MvM head's ``max_K``; none
+    for the others (the two-axis heads' ``gram_schmidt`` and
+    ``normalize_heads`` are not in the tree)."""
     if model == "pointnet_pp_cls":
         return cls_kwargs(params)
+    if model == "point_transformer":
+        return transformer_kwargs(params)
     if model == "pointnet_pp_von_mises":
         width = np.shape(_get(params, ("Dense_0",), "params")["kernel"])[1]
         return {"mu_parameterization": "atan2" if width == 3 else "tanh"}
@@ -187,7 +248,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
 
 def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channels: int = 3,
                           num_classes: int = 40, mu_parameterization: str = "tanh",
-                          max_K: int = 4, mu_init: str = "zero") -> Dict:
+                          max_K: int = 4, mu_init: str = "zero", embed_dim: int = 64,
+                          num_heads: int = 4, depth: int = 6, ffn_dim: int = 2048) -> Dict:
     """A variable tree of the JAX package's ``model`` in its layout, made
     with numpy from ``seed``: LeCun-normal kernels, small random biases,
     BatchNorm with random scale, shift, mean and variance (var in [0.5,
@@ -196,7 +258,9 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
     ``in_channels`` 3 or 6 and ``num_classes``; ``pointnet_pp_von_mises``
     its ``mu_parameterization`` (a head 2 or 3 wide); ``pointnet_pp_mvm``
     ``max_K`` and ``mu_init`` (``"spread"``: ``head_mu``'s bias is the
-    spread initialisation, the unit vectors at ``2 pi k / max_K``)."""
+    spread initialisation, the unit vectors at ``2 pi k / max_K``);
+    ``point_transformer`` ``in_channels`` (its ``in_dim``), ``embed_dim``,
+    ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``."""
     if model not in _SCOPE:
         raise NotImplementedError(f"model {model!r}: the port has {sorted(_SCOPE)}")
     top = _SCOPE[model]
@@ -221,6 +285,25 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32),
             })
 
+    if model == "point_transformer":
+        head_dim = embed_dim // num_heads
+        dense(("Dense_0",), in_channels, embed_dim)
+        for i in range(depth):
+            scope = (f"TransformerEncoderLayer_{i}",)
+            for name in ("query", "key", "value", "out"):
+                dense(scope + (_MHA, name), embed_dim, embed_dim)
+                p = params[scope[0]][_MHA][name]
+                if name == "out":
+                    p["kernel"] = p["kernel"].reshape(num_heads, head_dim, embed_dim)
+                else:
+                    p["kernel"] = p["kernel"].reshape(embed_dim, num_heads, head_dim)
+                    p["bias"] = p["bias"].reshape(num_heads, head_dim)
+            dense(scope + ("Dense_0",), embed_dim, ffn_dim)
+            dense(scope + ("Dense_1",), ffn_dim, embed_dim)
+            norm(scope + ("LayerNorm_0",), embed_dim, running_stats=False)
+            norm(scope + ("LayerNorm_1",), embed_dim, running_stats=False)
+        dense(("Dense_1",), embed_dim, 3)
+        return {"params": params, "batch_stats": stats}
     cin = in_channels if model == "pointnet_pp_cls" else 3
     for i, widths in enumerate(_SA_WIDTHS):
         scope = top + (f"SetAbstraction_{i}", "SharedMLP_0")

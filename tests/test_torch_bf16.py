@@ -151,7 +151,8 @@ def test_bf16_wrappers_count_nothing_on_the_cpu_and_keep_f32_io(rng):
     assert set(K.launch_counts()) == {"sa_group", "sa_mlp_max", "sa_mlp_max_bf16",
                                       "sa_group_scatter", "sa_mlp_max_bwd",
                                       "sa_mlp_max_bwd_bf16", "knn", "fps", "ball_query",
-                                      "topk_min"}
+                                      "topk_min", "flash_attention_fwd",
+                                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
     assert not any(K.launch_counts().values())
     with pytest.raises(TypeError):
         K.sa_mlp_max(torch.from_numpy(g).bfloat16(), _t(layers), bf16=True)

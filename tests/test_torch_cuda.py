@@ -2,7 +2,8 @@
 CUDA kernel of the port against its plain PyTorch version, the wrappers'
 refusals, the models' outputs through the kernels against the same models
 through the plain versions (8-dir, the classifier, the SO(3) heads, clouds
-above the fused grouping's size), and a train step's gradients likewise.
+above the fused grouping's size, the point transformer's flash backend),
+and a train step's gradients likewise.
 
 This file imports nothing of JAX, so that it runs on a machine without it:
 
@@ -142,7 +143,8 @@ def test_logits_through_kernels_match_plain_versions_on_card(cuda_device):
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
         "knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
-        "topk_min": 0}
+        "topk_min": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
     with mock.patch.object(K, "sa_group", K.sa_group_plain), \
             mock.patch.object(K, "sa_mlp_max", K.sa_mlp_max_plain):
         want = pred(clouds)
@@ -454,7 +456,8 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
     got = _step_grads(trainer, batch, valid, 3, pooled)
     grown = {k: v - before[k] for k, v in K.launch_counts().items()}
     untouched = {"knn": 0, "fps": 0, "ball_query": 0, "sa_mlp_max_bf16": 0,
-                     "sa_mlp_max_bwd_bf16": 0, "topk_min": 0}
+                     "sa_mlp_max_bwd_bf16": 0, "topk_min": 0,
+                 "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
     if fused:
         assert grown == {"sa_group": 2, "sa_mlp_max": 3, "sa_group_scatter": 1,
                          "sa_mlp_max_bwd": 3, **untouched}, grown
@@ -472,11 +475,11 @@ def test_train_step_gradients_through_kernels_match_plain_on_card(cuda_device, f
 
 def _assert_grads_match(model, got, want, pooled, tol):
     """Every leaf within ``tol`` under ``grad_check``'s rule: the Dense
-    biases that a train BatchNorm normalises left out (zero in exact
-    arithmetic), the group-all shift held by ``tol`` times its scale leaf's
+    biases that a train BatchNorm normalises and each attention's key bias
+    left out (zero in exact arithmetic), the group-all shift held by ``tol`` times its scale leaf's
     gradient norm where every pooled value of both steps is > 0, and by the
     relative bound otherwise."""
-    res = GC.compare_grads(got, want, tol, GC.bias_leaves_feeding_batch_norm(model),
+    res = GC.compare_grads(got, want, tol, GC.zero_gradient_leaves(model),
                            GC.group_all_shift_leaves(model), GC.pooled_all_positive(pooled))
     assert res["ok"], (res["worst"], res["norm_rel_err"], res["group_all_shift"])
 
@@ -777,7 +780,8 @@ def test_classifier_through_kernels_matches_plain_versions_on_card(cuda_device):
     assert {k: after[k] - before[k] for k in after} == {
         "sa_group": 0, "sa_mlp_max": 3, "sa_group_scatter": 0, "sa_mlp_max_bwd": 0,
         "knn": 0, "fps": 2, "ball_query": 2, "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
-        "topk_min": 0}
+        "topk_min": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
     pred.generator.manual_seed(1)
     with mock.patch.object(K, "fps", K.fps_plain), \
             mock.patch.object(K, "ball_query", K.ball_query_plain), \
@@ -1106,3 +1110,116 @@ def test_vpu_select_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         PV.count_emit(torch.rand((1, 4, 64), device=cuda_device)[:, ::2], 4)  # not contiguous
     with pytest.raises(ValueError):
         PV.ew(torch.ones(9, device=cuda_device)[1:])  # not 16-byte aligned
+
+
+# the flash attention kernels: (B, H, N, D) at the preset's request, the
+# long-context step's, and small or odd cases (one tile; D=8 and 32)
+FLASH_CASES = {"preset": (16, 4, 1024, 16), "long": (2, 4, 16384, 16), "one-tile": (3, 2, 128, 16),
+               "D=8": (2, 3, 384, 8), "D=32": (2, 2, 640, 32)}
+# kernel vs plain, the largest difference over the plain output's largest
+# value (l relative, m over max(1, |m|)): f32 sums in other orders; bf16
+# also flips roundings of p, ds and the outputs (a bf16 step is 2^-8)
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _flash_rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """The forward (o, l, m), dK/dV and dQ kernels against their plain
+    versions on the same inputs, each launched once."""
+    from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
+    shape = FLASH_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+    before = K.launch_counts()
+    o, l, m = K.flash_attention_fwd(q, k, v, scale)
+    di = FA.row_di(o, do)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale)
+    dq = K.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale)
+    torch.cuda.synchronize()
+    grown = {n: c - before[n] for n, c in K.launch_counts().items() if c != before[n]}
+    assert grown == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
+                     "flash_attention_bwd_dq": 1}
+    assert o.dtype == dk.dtype == dv.dtype == dq.dtype == dtype
+    po, pl, pm = FA.flash_attention_plain(q, k, v, scale)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert _flash_rel(o, po) <= fwd_tol
+    assert float(((l - pl).abs() / pl).max()) <= 1e-5
+    assert float((m - pm).abs().max()) <= 1e-5 * max(1.0, float(pm.abs().max()))
+    pdk, pdv = FA.flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, scale)
+    pdq = FA.flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, scale)
+    for got, want in ((dk, pdk), (dv, pdv), (dq, pdq)):
+        assert _flash_rel(got, want) <= bwd_tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    """A head dimension the kernels do not take raises naming it (no
+    fallback); so do other types, N off the 128 grid and mixed devices."""
+    def qkv(shape, dtype=torch.float32, dev=cuda_device):
+        return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(3)]
+
+    with pytest.raises(ValueError, match="head dimension D=12"):
+        K.flash_attention_fwd(*qkv((1, 1, 128, 12)), 1.0)
+    with pytest.raises(ValueError, match="head dimension D=64"):
+        K.flash_attention_fwd(*qkv((1, 1, 128, 64)), 1.0)
+    with pytest.raises(TypeError, match="float16"):
+        K.flash_attention_fwd(*qkv((1, 1, 128, 16), torch.float16), 1.0)
+    with pytest.raises(ValueError, match="divisible by block_k_major=128"):
+        K.flash_attention_fwd(*qkv((1, 1, 192, 16)), 1.0)
+    q, k, _ = qkv((1, 1, 128, 16))
+    with pytest.raises(ValueError):
+        K.flash_attention_fwd(q, k, torch.zeros((1, 1, 128, 16)), 1.0)
+    o, l, m = K.flash_attention_fwd(*qkv((1, 1, 128, 16)), 1.0)
+    with pytest.raises(TypeError):
+        K.flash_attention_bwd_dq(q, k, q, l.double(), m, q, l, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_point_transformer_flash_step_through_kernels_matches_plain_on_card(cuda_device, dtype):
+    """One ``point_transformer`` step with ``transformer_attention="flash"``
+    (B=16, N=1,024, full width) through the kernels and through their
+    plain versions, from the same weights and generator (the same residual
+    and feed-forward dropout masks): 6 forward, 6 dK/dV and 6 dQ launches,
+    the outputs of an eval request likewise, and each parameter's gradient
+    within 1e-3 (f32: only the order of f32 sums differs) or 1e-1 (bf16:
+    flipped roundings of p and ds, through six layers) relative in norm,
+    each attention's key bias left out (zero in exact arithmetic)."""
+    import warnings
+    from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
+    plain = {"flash_attention_fwd": FA.flash_attention_plain,
+             "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv_plain,
+             "flash_attention_bwd_dq": FA.flash_attention_bwd_dq_plain}
+    ds = OrientationDataset.synthetic(samples_per_class=20, num_points=1024,
+                                      class_names=["chair"])
+    trainer = Trainer(preset("point_transformer", transformer_attention="flash",
+                             compute_dtype=dtype), ds, device=cuda_device)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    idx, valid, _ = next(ds.batches(16, shuffle=True, seed=1))
+    batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 1, 0))
+    before = K.launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the flash backend's dropout warning
+        got = _step_grads(trainer, batch, valid, 3, [])
+        grown = {k: v - before[k] for k, v in K.launch_counts().items() if v != before[k]}
+        assert grown == {"flash_attention_fwd": 6, "flash_attention_bwd_dkv": 6,
+                         "flash_attention_bwd_dq": 6}, grown
+        trainer.model.load_state_dict(state)
+        with mock.patch.multiple(K, **plain):
+            want = _step_grads(trainer, batch, valid, 3, [])
+    _assert_grads_match(trainer.model, got, want, [], 1e-3 if dtype is None else 1e-1)
+    trainer.model.load_state_dict(state)
+    trainer.model.eval()
+    with torch.no_grad():
+        out = trainer.model(batch["points"])
+        with mock.patch.multiple(K, **plain):
+            out_plain = trainer.model(batch["points"])
+    assert float((out - out_plain).abs().max()) <= (1e-4 if dtype is None else 5e-2)

@@ -1,8 +1,9 @@
 """The port, chip_smoke.py and chip_sweep.py run where JAX is absent (the
 port's modules, the selection micro-benchmarks among them, import; serving the 8-dir,
 classifier, vM and MvM models, one train step in each train configuration
-and one of the MvM task, the training CLI), and chip_smoke.py refuses to
-run without a card."""
+and one of the MvM task, the training CLI; the point transformer served on
+both attention backends and a flash train step), and chip_smoke.py refuses
+to run without a card."""
 
 import os
 import shutil
@@ -125,6 +126,42 @@ def test_classifier_trains_and_its_demo_runs_without_jax():
     r = _run(code)
     assert r.returncode == 0, r.stderr
     assert "NLL (random weights)" in r.stdout
+
+
+def test_point_transformer_serves_and_trains_without_jax():
+    """The point transformer served on both attention backends and one CPU
+    step of the ``point_transformer`` preset with flash attention (depth 2),
+    where JAX cannot be imported."""
+    code = _BLOCKER + textwrap.dedent("""
+        import warnings
+        import numpy as np
+        import pointcloud_orientation_tpu_torch as port
+        from pointcloud_orientation_tpu_torch.data import OrientationDataset
+        from pointcloud_orientation_tpu_torch.train import Trainer, preset
+        v = port.random_flax_variables(0, "point_transformer", depth=2, ffn_dim=64)
+        x = np.random.default_rng(0).normal(size=(3, 100, 3)).astype(np.float32)
+        outs = [port.OrientationPredictor("point_transformer", v["params"], num_points=128,
+                                          device="cpu", attention_impl=impl)(x)
+                for impl in ("xla", "flash")]
+        assert all(o.shape == (3, 3) for o in outs)
+        assert np.abs(outs[0] - outs[1]).max() < 1e-5
+        ds = OrientationDataset.synthetic(samples_per_class=4, num_points=128,
+                                          class_names=["chair"])
+        t = Trainer(preset("point_transformer", batch_size=4, num_points=128,
+                           transformer_attention="flash"), ds, device="cpu", depth=2,
+                    ffn_dim=64)
+        idx, valid, _ = next(ds.batches(4))
+        batch, valid, _ = t.device_batch(ds, idx, valid, t.generator(0, 1, 0))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            assert np.isfinite(float(t.train_step(batch, valid, t.generator(0, 1, 0))["loss"]))
+        for name in ("jax", "flax", "pointcloud_orientation_tpu"):
+            assert name not in sys.modules, name
+        print("TRAINED")
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "TRAINED" in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

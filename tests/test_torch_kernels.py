@@ -109,7 +109,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
                                  "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
                                  "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
-                                 "topk_min": 0}
+                                 "topk_min": 0, "flash_attention_fwd": 0,
+                                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 
 def test_wrappers_refuse_other_dtypes_and_devices():
@@ -140,8 +141,9 @@ def test_build_flags_and_signatures():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-Xptxas -v" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["ball_query.cu", "fps.cu", "knn.cu", "sa_group.cu", "sa_mlp_max.cu",
-                       "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu", "vpu_select.cu"]
+    assert sources == ["ball_query.cu", "flash_attention.cu", "fps.cu", "knn.cu", "sa_group.cu",
+                       "sa_mlp_max.cu", "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu",
+                       "vpu_select.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["threshold_select.cuh"]
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for name, argtypes in _build.SIGNATURES.items():

@@ -19,6 +19,7 @@ from pointcloud_orientation_tpu_torch.models import (
     PointNetPPVonMises,
     PointNetPPXYZ,
     PointNetPPXYZSchmidt,
+    PointTransformer,
     SharedMLP,
 )
 from pointcloud_orientation_tpu_torch.utils import load_flax_variables, random_flax_variables
@@ -132,7 +133,8 @@ def test_registry_holds_the_ported_model():
                               "pointnet_pp_cls": PointNetPPCls,
                               "pointnet_pp": PointNetPP,
                               "pointnet_pp_xyz": PointNetPPXYZ,
-                              "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt}
+                              "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt,
+                              "point_transformer": PointTransformer}
 
 
 def test_random_sampling_uses_the_generator(rng):

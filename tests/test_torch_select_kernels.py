@@ -110,7 +110,8 @@ def test_index_wrappers_count_nothing_on_the_cpu_and_check_types(rng):
     assert K.launch_counts() == {"sa_group": 0, "sa_mlp_max": 0, "sa_group_scatter": 0,
                                  "sa_mlp_max_bwd": 0, "knn": 0, "fps": 0, "ball_query": 0,
                                  "sa_mlp_max_bf16": 0, "sa_mlp_max_bwd_bf16": 0,
-                                 "topk_min": 0}
+                                 "topk_min": 0, "flash_attention_fwd": 0,
+                                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
     with pytest.raises(TypeError):
         K.fps(xyz.double(), torch.zeros((1,), dtype=torch.int32), 8)
     with pytest.raises(ValueError):
