@@ -64,6 +64,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2450,6 +2451,11 @@ def phase_timing_so3(serve: dict, serve_bf16: dict, train: dict, serve_so3: dict
 
 # The point transformer (preset ``point_transformer``) and its flash kernels
 FLASH_SHAPES = {"preset B=16 N=1024": (16, 4, 1024, 16), "long B=2 N=16384": (2, 4, 16384, 16)}
+# the checks' shapes: the timed ones, one 128-row tile, D=8 and D=32, and B*H
+# odd with five 128-row tiles (tests/test_torch_cuda.py FLASH_CASES, FLASH_ODD)
+FLASH_CHECK_SHAPES = {**FLASH_SHAPES, "one-tile B=3 H=2 N=128": (3, 2, 128, 16),
+                      "D=8 B=2 H=3 N=384": (2, 3, 384, 8), "D=32 B=2 H=2 N=640": (2, 2, 640, 32),
+                      "odd B=1 H=3 N=640": (1, 3, 640, 16)}
 FLASH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # kernel vs plain version, the largest difference over the largest value of
 # the plain output (l: relative, m: over max(1, |m|)): f32 sums in another
@@ -2498,15 +2504,27 @@ def flash_errors(got, want) -> float:
                for a, b in zip(got, want))
 
 
+def flash_ptxas() -> dict:
+    """The flash kernels' registers and spills from the build's ``ptxas -v``
+    lines, by "<kernel> <type> D=<d>"."""
+    out = {}
+    for name, text in _build.ptxas_summary(_build.LIBRARY.nvcc_log).items():
+        hit = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+        if hit:
+            dtype = "float32" if hit.group(2) == "f" else "bfloat16"
+            out[f"{hit.group(1)} {dtype} D={hit.group(3)}"] = text
+    return dict(sorted(out.items()))
+
+
 def phase_kernels_flash(dev) -> dict:
-    """The three flash kernels against their plain versions at the preset's
-    shape and the long-context one, f32 and bf16: the forward's o, l
-    (relative) and m, then dK/dV and dQ on the forward's l and m with a
-    random cotangent; each kernel's counter must move by one a call."""
+    """The three flash kernels against their plain versions at every
+    FLASH_CHECK_SHAPES shape, f32 and bf16: the forward's o, l (relative)
+    and m, then dK/dV and dQ on the forward's l and m with a random
+    cotangent; each kernel's counter must move by one a call."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 40)
     checks = {k: {} for k in FLASH_KERNELS}
-    for name, shape in FLASH_SHAPES.items():
+    for name, shape in FLASH_CHECK_SHAPES.items():
         for dname, dtype in FLASH_DTYPES.items():
             q, k, v, do = flash_inputs(shape, dtype, gen, dev)
             scale = 1.0 / math.sqrt(shape[-1])
@@ -2673,16 +2691,18 @@ def sdpa_ms(q, k, v, do, scale, backward: bool, iters: int) -> float:
     return ms
 
 
-def long_step(dev, impl: str, n: int) -> dict:
+def long_step(dev, impl: str, n: int, dtype=None) -> dict:
     """One ``point_transformer`` train step at B=2 and N=n on backend
-    ``impl``: step time (median of TRAIN_STEP_ITERS after 2 warm-ups) and
-    the peak of ``torch.cuda.max_memory_allocated`` over the steps; or
-    ``fits: False`` when the card runs out of memory."""
+    ``impl`` (compute type ``dtype``, else f32): step time (median of
+    TRAIN_STEP_ITERS after 2 warm-ups) and the peak of
+    ``torch.cuda.max_memory_allocated`` over the steps; or ``fits: False``
+    when the card runs out of memory."""
     import gc
     B = PT_LONG[0]
     trainer = None
     try:
-        cfg = preset("point_transformer", batch_size=B, num_points=n, transformer_attention=impl)
+        cfg = preset("point_transformer", batch_size=B, num_points=n, transformer_attention=impl,
+                     compute_dtype=dtype)
         trainer = Trainer(cfg, transformer_dataset(n, 8), device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2707,11 +2727,14 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
     (B=64 N=1024) and the preset's step time (B=16 N=1024) on both backends
     in turns (xla, flash, flash, xla), each request's device time and
     kernels from the profiler; then the long-context step: flash at B=2 and
-    every N of PT_PLAIN_NS up to 16,384, the plain backend until it does
-    not fit, each with its step time and peak device memory."""
+    every N of PT_PLAIN_NS up to 16,384 (and at 16,384 in bf16), the plain
+    backend until it does not fit, each with its step time and peak device
+    memory."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 42)
     per = {k: {} for k in FLASH_KERNELS}
+    ptxas = flash_ptxas()
+    emit("timing_flash_ptxas", kernels=ptxas)
     for name, shape in FLASH_SHAPES.items():
         long = shape[2] > 4096
         for dname, dtype in FLASH_DTYPES.items():
@@ -2734,9 +2757,11 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
                 lib_ms = sdpa_ms(q, k, v, do, scale, backward, iters=5 if long else TIMING_ITERS)
                 nbytes, ops = flash_cost(kname, *shape, dtype == torch.bfloat16)
                 b_ms, b_by = bound_ms(nbytes, **ops)
+                kernel_name = kname.replace("flash_attention_", "flash_") + "_kernel"
                 row = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
-                           max_abs_err=checks[kname][f"{name} {dname}"]["max_abs_err"])
+                           max_abs_err=checks[kname][f"{name} {dname}"]["max_abs_err"],
+                           ptxas=ptxas.get(f"{kernel_name} {dname} D={shape[-1]}"))
                 per[kname][f"{name} {dname}"] = row
                 emit("timing_flash", kernel=kname, shape=name, dtype=dname, **row)
             del q, k, v, do, o, l, m, di
@@ -2768,7 +2793,8 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
         steps[dname] = {"turns_ms": turns, **{n: float(np.median([t for m, t in turns if m == n]))
                                              for n in ("xla", "flash")}}
         del xla
-    long_steps = {"flash": [long_step(dev, "flash", n) for n in PT_PLAIN_NS]}
+    long_steps = {"flash": [long_step(dev, "flash", n) for n in PT_PLAIN_NS],
+                  "flash bfloat16": [long_step(dev, "flash", PT_LONG[1], "bfloat16")]}
     long_steps["xla"] = []
     for n in PT_PLAIN_NS:
         long_steps["xla"].append(long_step(dev, "xla", n))
@@ -2779,7 +2805,7 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
          train_steps={"batch": 16, "num_points": PT_N, **steps},
          long_steps={"batch": PT_LONG[0], **long_steps},
          plain_largest_n_that_fits=max(fits) if fits else None)
-    if not long_steps["flash"][-1]["fits"]:
+    if not (long_steps["flash"][-1]["fits"] and long_steps["flash bfloat16"][-1]["fits"]):
         fail(f"timing_transformer: the flash step at B=2 N={PT_PLAIN_NS[-1]} did not fit")
 
     sources = "pointcloud_orientation_tpu_torch/csrc/flash_attention.cu"

@@ -1,8 +1,8 @@
 """Design measurements behind the port's kernels, on one NVIDIA card.
 
-    python3 chip_sweep.py [select] [mlp] [ball] [scatter]
+    python3 chip_sweep.py [select] [mlp] [ball] [scatter] [flash --against FILE]
 
-(no argument: all four). Builds, beside the shipped library, variants of the
+(no sweep named: the first four). Builds, beside the shipped library, variants of the
 shipped sources that differ in one choice each (one nvcc per variant,
 started together, into ``build/sweep/``), and times them on the same inputs
 in turns:
@@ -34,6 +34,11 @@ in turns:
   on a contiguous cotangent (float4 loads): the slots whose loads are in
   flight together, a cloud's rows over 4 blocks or 16, and scalar loads
   where float4 loads apply.
+- ``flash``: the three flash attention kernels of the shipped library
+  against those of another ``flash_attention.cu`` given by ``--against``
+  (an earlier tree's, unpacked with ``git archive``), built alone: both
+  held to the plain versions at every ``chip_smoke.FLASH_SHAPES`` shape,
+  f32 and bf16, then timed in turns.
 
 A variant is the shipped source with a few lines replaced by their text, so
 it is made only when its sweep runs, and that sweep stops (naming the line)
@@ -50,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -57,12 +63,14 @@ import torch
 import chip_smoke as CS
 from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
+from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 
 OUT = _build.BUILD_ROOT.parent / "sweep"
-SWEEPS = ("select", "mlp", "ball", "scatter")
+SWEEPS = ("select", "mlp", "ball", "scatter", "flash")
+DEFAULT_SWEEPS = SWEEPS[:4]
 # sources whose variants build alone: their wrappers call no other entry point
-STANDALONE = ("vpu_select.cu", "ball_query.cu", "sa_scatter.cu")
+STANDALONE = ("vpu_select.cu", "ball_query.cu", "sa_scatter.cu", "flash_attention.cu")
 
 
 def patched(text: str, *edits: tuple[str, str]) -> str:
@@ -241,28 +249,15 @@ def scatter_variants(scatter: str) -> dict:
     return out
 
 
-def ptxas_summary(log: str) -> dict:
-    """Each kernel of a build's ``ptxas -v`` lines: "<n> registers, <m>
-    bytes spilled" (spill stores)."""
-    out, name, spill = {}, None, 0
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and "spill stores" in line:
-            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif name and "Used" in line and "registers" in line:
-            regs = int(line.split("Used")[1].split("registers")[0])
-            out[name] = f"{regs} registers, {spill} bytes spilled"
-            name = None
-    return out
-
-
-def build_all(sweeps) -> dict:
+def build_all(sweeps, against=None) -> dict:
     """One nvcc for the whole library with each variant of a library source
-    the chosen sweeps need, all started together."""
+    the chosen sweeps need, all started together; ``against``: the flash
+    sweep's other ``flash_attention.cu``."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build.nvcc_path()
     variants = {}  # name -> (file, text)
+    if "flash" in sweeps:
+        variants["flash against"] = ("flash_attention.cu", against.read_text())
     if "mlp" in sweeps:
         fwd = (_build.CSRC / "sa_mlp_max.cu").read_text()
         variants.update({name: ("sa_mlp_max.cu", text) for name, text in mlp_variants(fwd).items()})
@@ -299,7 +294,7 @@ def build_all(sweeps) -> dict:
         if p.returncode != 0:
             CS.fail(f"nvcc failed for the variant {name}:\n{log[-4000:]}")
         if variants[name][0] in STANDALONE:
-            CS.emit("sweep_build", variant=name, ptxas=ptxas_summary(log))
+            CS.emit("sweep_build", variant=name, ptxas=_build.ptxas_summary(log))
         cdll = ctypes.CDLL(str(jobs[name][0]))
         for fn_name, argtypes in _build.SIGNATURES.items():
             if hasattr(cdll, fn_name):
@@ -458,14 +453,83 @@ def sweep_scatter(dev, libs) -> None:
         CS.emit("sweep_scatter", layout=layout, B=B, N=N, S=S, K=Kn, D=D, ms=in_turns(fns))
 
 
+def sweep_flash(dev, libs) -> None:
+    """The shipped flash kernels and the ``--against`` build's at every
+    FLASH_SHAPES shape, f32 and bf16: each kernel of both held to its plain
+    version with chip_smoke's gates (o 1e-5 / 1e-2, l and m 1e-5, dK/dV and
+    dQ 1e-4 / 2e-2, on the same library's l and m), then timed in turns (two
+    rounds); then requests and the long-context step through each build."""
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 26)
+    builds = {"shipped": _build.load_library(), "against": libs["flash against"]}
+    for name, shape in CS.FLASH_SHAPES.items():
+        for dname, dtype in CS.FLASH_DTYPES.items():
+            q, k, v, do = CS.flash_inputs(shape, dtype, gen, dev)
+            scale = 1.0 / shape[-1] ** 0.5
+            po, pl, pm = FA.flash_attention_plain(q, k, v, scale)
+            fns, errs = {}, {}
+            for label, lib in builds.items():
+                o, l, m = with_library(lambda: K.flash_attention_fwd(q, k, v, scale), lib)()
+                di = FA.row_di(o, do)
+                args = (q, k, v, l, m, do, di, scale)
+                bwd = [*with_library(lambda: K.flash_attention_bwd_dkv(*args), lib)(),
+                       with_library(lambda: K.flash_attention_bwd_dq(*args), lib)()]
+                want = [*FA.flash_attention_bwd_dkv_plain(*args),
+                        FA.flash_attention_bwd_dq_plain(*args)]
+                errs[label] = {"o": CS.flash_errors([o], [po]),
+                               "l": float(((l - pl).abs() / pl).max()),
+                               "m": float((m - pm).abs().max()) / max(1.0, float(pm.abs().max())),
+                               **{n: CS.flash_errors([a], [b])
+                                  for n, a, b in zip(("dk", "dv", "dq"), bwd, want)}}
+                fwd_tol, bwd_tol = CS.FLASH_TOL[dname], CS.FLASH_BWD_TOL[dname]
+                e = errs[label]
+                if (e["o"] > fwd_tol or max(e["l"], e["m"]) > 1e-5
+                        or max(e["dk"], e["dv"], e["dq"]) > bwd_tol):
+                    CS.fail(f"flash sweep {name} {dname}: {label} is off the plain versions: "
+                            f"{errs[label]}")
+                fns[f"{label} forward"] = with_library(
+                    lambda: K.flash_attention_fwd(q, k, v, scale), lib)
+                fns[f"{label} dK/dV"] = with_library(
+                    lambda args=args: K.flash_attention_bwd_dkv(*args), lib)
+                fns[f"{label} dQ"] = with_library(
+                    lambda args=args: K.flash_attention_bwd_dq(*args), lib)
+            CS.emit("sweep_flash", shape=name, dtype=dname, rel_err=errs, ms=in_turns(fns))
+            del q, k, v, do, po, pl, pm, fns
+            torch.cuda.empty_cache()
+    # end to end, each build in turns (shipped, against, against, shipped):
+    # flash requests at B=64 N=1,024 and the long-context step at B=2
+    # N=16,384, f32 and bf16
+    x = CS.so3_clouds(CS.PT_B, CS.PT_N, CS.SEED + 41)
+    order = ("shipped", "against", "against", "shipped")
+    for dname in CS.FLASH_DTYPES:
+        dtype = None if dname == "float32" else dname
+        pred = CS.transformer_predictor(dev, "flash", dtype)
+        requests = [(label, with_library(lambda: CS.request_latency(pred, x),
+                                         builds[label])()["ms_median"]) for label in order]
+        steps = [(label, with_library(lambda: CS.long_step(dev, "flash", CS.PT_LONG[1], dtype),
+                                      builds[label])()) for label in order]
+        CS.emit("sweep_flash_end_to_end", dtype=dname,
+                request_ms={"B": CS.PT_B, "N": CS.PT_N, "turns": requests},
+                long_step={"B": CS.PT_LONG[0], "N": CS.PT_LONG[1],
+                           "turns": [(label, r.get("ms_median"), r.get("peak_gib"))
+                                     for label, r in steps]})
+        del pred
+
+
 def main(argv) -> None:
-    sweeps = argv or SWEEPS
+    against = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        against = Path(argv[i + 1]) if i + 1 < len(argv) else None
+        argv = argv[:i] + argv[i + 2:]
+    sweeps = argv or DEFAULT_SWEEPS
     if set(sweeps) - set(SWEEPS):
         CS.fail(f"unknown sweeps {sorted(set(sweeps) - set(SWEEPS))}; choose from {SWEEPS}")
+    if ("flash" in sweeps) != (against is not None and against.is_file()):
+        CS.fail("the flash sweep needs --against FILE, another flash_attention.cu, and only it")
     info = CS.phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    libs = build_all(sweeps)
+    libs = build_all(sweeps, against)
     if "select" in sweeps:
         sweep_select(dev, libs)
     if "mlp" in sweeps:
@@ -474,6 +538,8 @@ def main(argv) -> None:
         sweep_ball(dev, libs)
     if "scatter" in sweeps:
         sweep_scatter(dev, libs)
+    if "flash" in sweeps:
+        sweep_flash(dev, libs)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True}), flush=True)
 

@@ -99,6 +99,8 @@
 
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -109,72 +111,13 @@ constexpr int kWarpCols = 32;                               // 4 MMA tiles of 8 
 constexpr int kPassOut = kWarps * kWarpRows * kWarpCols;    // rc * nb
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
+// smem_addr, ldmatrix_x4, cp_async16, the commit and wait, tf32_rna,
+// split_tf32, mma_tf32, mma_bf16, pack_bf16
+using namespace pcot;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cvt.rna.tf32.f32 (to 10 mantissa bits, ties away from zero) for finite x,
-// as two integer operations at the ALU's full rate: add half a TF32 ulp to
-// the magnitude and clear the 13 low bits. The conversion instruction runs
-// at a quarter of that rate and, two per operand, held the products to
-// about a third of the tensor cores' TF32 rate.
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32 values (the low 13 bits zero)
-__device__ __forceinline__ void split_tf32(unsigned x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(__uint_as_float(x));
-  lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as a bf16 pair, the first in the low half (round to nearest even)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // y = z * s + t in two roundings, never contracted to an FMA: the

@@ -87,6 +87,8 @@
 
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps, 2 x 2 warp tiles of 32 x 32
@@ -102,39 +104,8 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum { kStore = 0, kBnBwd = 1 };
 
-// cvt.rna.tf32.f32 for finite x as two integer operations (csrc/sa_mlp_max.cu)
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(unsigned x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(__uint_as_float(x));
-  lo = tf32_rna(__uint_as_float(x) - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as a bf16 pair, the first in the low half (round to nearest even)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
+// tf32_rna, split_tf32, mma_tf32, mma_bf16, pack_bf16
+using namespace pcot;
 
 // y = z * s + t as the plain version computes it: two roundings, no FMA
 __device__ __forceinline__ float affine(float z, float s, float t) {

@@ -174,3 +174,19 @@ def ptxas_lines(log: str) -> list[str]:
     """The ``ptxas -v`` lines of a build log: registers, shared memory,
     spills, one group per kernel."""
     return [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel of a build's ``ptxas -v`` lines, by mangled name: "<n>
+    registers, <m> bytes spilled" (spill stores)."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out[name] = f"{regs} registers, {spill} bytes spilled"
+            name = None
+    return out

@@ -1159,6 +1159,66 @@ def test_flash_attention_kernels_match_plain_on_card(cuda_device, case, dtype):
         assert _flash_rel(got, want) <= bwd_tol
 
 
+# B*H odd and five 128-row tiles: the grid's batch-head count and the
+# double buffer's last stage differ from the cases above (ten 64-row blocks)
+FLASH_ODD = {"odd": (1, 3, 640, 16)}
+
+
+def _flash_case(dev, shape, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES) + list(FLASH_ODD))
+def test_flash_attention_forward_and_dkv_repeat_their_bits_on_card(cuda_device, case, dtype):
+    """The forward and dK/dV kernels sum each output row in one warp in a
+    fixed order (no atomics): two calls on the same inputs give the same
+    bits, o, l, m, dk and dv."""
+    from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
+    shape = {**FLASH_CASES, **FLASH_ODD}[case]
+    q, k, v, do = _flash_case(cuda_device, shape, dtype, 12)
+    scale = shape[-1] ** -0.5
+    first = K.flash_attention_fwd(q, k, v, scale)
+    second = K.flash_attention_fwd(q, k, v, scale)
+    di = FA.row_di(first[0], do)
+    first += K.flash_attention_bwd_dkv(q, k, v, first[1], first[2], do, di, scale)
+    second += K.flash_attention_bwd_dkv(q, k, v, first[1], first[2], do, di, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "l", "m", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES) + list(FLASH_ODD))
+def test_flash_attention_forward_statistics_feed_dq_on_card(cuda_device, case, dtype):
+    """The forward kernel's l and m (and o, through di) feed the dQ and
+    dK/dV kernels, and the result is the plain backward on the plain
+    forward's own statistics, within FLASH_TOL; at the odd case the forward
+    is also held to its plain version."""
+    from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
+    shape = {**FLASH_CASES, **FLASH_ODD}[case]
+    q, k, v, do = _flash_case(cuda_device, shape, dtype, 13)
+    scale = shape[-1] ** -0.5
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    o, l, m = K.flash_attention_fwd(q, k, v, scale)
+    di = FA.row_di(o, do)
+    dq = K.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale)
+    torch.cuda.synchronize()
+    po, pl, pm = FA.flash_attention_plain(q, k, v, scale)
+    assert _flash_rel(o, po) <= fwd_tol
+    assert float(((l - pl).abs() / pl).max()) <= 1e-5
+    assert float((m - pm).abs().max()) <= 1e-5 * max(1.0, float(pm.abs().max()))
+    pdi = FA.row_di(po, do)
+    want = (FA.flash_attention_bwd_dq_plain(q, k, v, pl, pm, do, pdi, scale),
+            *FA.flash_attention_bwd_dkv_plain(q, k, v, pl, pm, do, pdi, scale))
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _flash_rel(got, w) <= bwd_tol, name
+
+
 @pytest.mark.cuda
 def test_flash_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     """A head dimension the kernels do not take raises naming it (no

@@ -144,7 +144,8 @@ def test_build_flags_and_signatures():
     assert sources == ["ball_query.cu", "flash_attention.cu", "fps.cu", "knn.cu", "sa_group.cu",
                        "sa_mlp_max.cu", "sa_mlp_max_bwd.cu", "sa_scatter.cu", "topk_min.cu",
                        "vpu_select.cu"]
-    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["threshold_select.cuh"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["mma_sync.cuh",
+                                                                 "threshold_select.cuh"]
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text
@@ -157,6 +158,22 @@ def test_build_flags_and_signatures():
         "ptxas info    : Function properties for k",
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 576 bytes smem"]
+
+
+def test_ptxas_summary_reads_registers_and_spills_by_kernel():
+    """``_build.ptxas_summary`` (``chip_smoke.py`` prints the flash kernels'
+    lines with it, ``chip_sweep.py`` each variant's): a kernel's registers
+    and spill stores, by its mangled name, from ``ptxas -v`` lines."""
+    log = ("ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kPf\n"
+           "    0 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads\n"
+           "ptxas info    : Used 255 registers, 576 bytes smem, 380 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1jv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 72 registers, 380 bytes cmem[0]\n")
+    assert _build.ptxas_summary(log) == {"_Z1kPf": "255 registers, 24 bytes spilled",
+                                         "_Z1jv": "72 registers, 0 bytes spilled"}
 
 
 
