@@ -2726,13 +2726,15 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
     ``scaled_dot_product_attention`` as ``library_ms``. Then request latency
     (B=64 N=1024) and the preset's step time (B=16 N=1024) on both backends
     in turns (xla, flash, flash, xla), each request's device time and
-    kernels from the profiler; then the long-context step: flash at B=2 and
+    kernels from the profiler; the whole backward (dK/dV and dQ, one call
+    each) beside SDPA's; then the long-context step: flash at B=2 and
     every N of PT_PLAIN_NS up to 16,384 (and at 16,384 in bf16), the plain
     backend until it does not fit, each with its step time and peak device
     memory."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 42)
     per = {k: {} for k in FLASH_KERNELS}
+    whole_bwd = []
     ptxas = flash_ptxas()
     emit("timing_flash_ptxas", kernels=ptxas)
     for name, shape in FLASH_SHAPES.items():
@@ -2764,8 +2766,15 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
                            ptxas=ptxas.get(f"{kernel_name} {dname} D={shape[-1]}"))
                 per[kname][f"{name} {dname}"] = row
                 emit("timing_flash", kernel=kname, shape=name, dtype=dname, **row)
+            bwd_ms, _ = timed(lambda: (calls["flash_attention_bwd_dkv"][0](),
+                                       calls["flash_attention_bwd_dq"][0]()),
+                              iters=5 if long else TIMING_ITERS)
+            sdpa = per["flash_attention_bwd_dq"][f"{name} {dname}"]["library_ms"]
+            whole_bwd.append({"shape": name, "dtype": dname, "dkv_plus_dq_ms": bwd_ms,
+                             "sdpa_backward_ms": sdpa, "ratio": bwd_ms / sdpa})
             del q, k, v, do, o, l, m, di
             torch.cuda.empty_cache()
+    emit("timing_flash_backward", rows=whole_bwd)
 
     x = serve["clouds"]
     requests = []

@@ -458,7 +458,8 @@ def sweep_flash(dev, libs) -> None:
     FLASH_SHAPES shape, f32 and bf16: each kernel of both held to its plain
     version with chip_smoke's gates (o 1e-5 / 1e-2, l and m 1e-5, dK/dV and
     dQ 1e-4 / 2e-2, on the same library's l and m), then timed in turns (two
-    rounds); then requests and the long-context step through each build."""
+    rounds), each kernel and the whole backward (dK/dV and dQ); then
+    requests and the long-context step through each build."""
     gen = torch.Generator(device=dev).manual_seed(CS.SEED + 26)
     builds = {"shipped": _build.load_library(), "against": libs["flash against"]}
     for name, shape in CS.FLASH_SHAPES.items():
@@ -492,6 +493,9 @@ def sweep_flash(dev, libs) -> None:
                     lambda args=args: K.flash_attention_bwd_dkv(*args), lib)
                 fns[f"{label} dQ"] = with_library(
                     lambda args=args: K.flash_attention_bwd_dq(*args), lib)
+                fns[f"{label} backward"] = with_library(
+                    lambda args=args: (K.flash_attention_bwd_dkv(*args),
+                                       K.flash_attention_bwd_dq(*args)), lib)
             CS.emit("sweep_flash", shape=name, dtype=dname, rel_err=errs, ms=in_turns(fns))
             del q, k, v, do, po, pl, pm, fns
             torch.cuda.empty_cache()

@@ -26,8 +26,8 @@
 // library rounds them. The plain PyTorch versions (ops/flash_attention.py)
 // follow the same steps; the kernels differ from them in the order of the
 // f32 sums, in FMA contraction, in the tensor cores' f32 accumulation and
-// (forward and dK/dV) in exp, taken as ex2.approx of x * log2(e), a few f32
-// ulps from expf; so they are held by a tolerance.
+// in exp, taken as ex2.approx of x * log2(e), a few f32 ulps from expf; so
+// they are held by a tolerance.
 //
 // Bound on this card: a (query, key) pair costs 2D multiply-adds a product
 // (two products in the forward, four in dK/dV, three in dQ), a few f32
@@ -36,14 +36,14 @@
 // a clock an SM), so the bound is the exponentials and the elementwise work
 // (chip_smoke.py flash_cost); the bytes are a few MB.
 //
-// The forward and dK/dV kernels: the products on the tensor cores
-// (mma.sync, csrc/mma_sync.cuh), so that a pair's issue slots go to its
+// All three kernels run their products on the tensor cores (mma.sync,
+// csrc/mma_sync.cuh), so that a pair's issue slots go to its
 // exponential and its few elementwise operations. bf16 as m16n8k16 with f32
 // accumulation on bf16 tiles; f32 as 3xTF32 m16n8k8 (x = hi + lo, the
 // product lo*hi + hi*lo + hi*hi, about f32's precision). A block is 4 warps
-// and owns 64 rows, 16 a warp (query rows in the forward, key rows in
-// dK/dV); its 16 rows' own operands stay in registers as A fragments for the
-// whole kernel. The other side is staged 128 rows a tile in its own type by
+// and owns 64 rows, 16 a warp (query rows in the forward and dQ, key rows
+// in dK/dV); its 16 rows' own operands stay in registers as A fragments for
+// the whole kernel. The other side is staged 128 rows a tile in its own type by
 // 16-byte cp.async, double-buffered: tile t + 1 is in flight while tile t
 // computes. Row strides are padded so that the fragment loads (ldmatrix for
 // bf16, 32-bit loads for f32) hit distinct banks.
@@ -61,6 +61,17 @@
 //   registers. 1/l, m and di of a query tile are loaded into registers while
 //   the tile before it computes and written to their stage (1/l taken once
 //   a query) before the barrier that ends that tile.
+// - dQ: dK/dV turned around. The warp's q and dO rows are its A fragments,
+//   m, 1/l and di of its two rows (g, g + 8) stay in each thread's
+//   registers, and K and V are staged as the forward stages them. Each key
+//   tile runs as two passes of 64 keys: S = Q K^T and dP = dO V^T (32
+//   registers each), P = exp(S scale - m) / l and dS = (dP - di) P scale in
+//   place, and dQ += round(dS) K with dS as the A operand from registers
+//   and K read as the forward reads V.
+// Each pass's products of a backward kernel go into zeroed registers and
+// are then added to the f32 sums: the tensor cores' own accumulation
+// truncates, and chained over all N rows it put f32 dK and dV about 1e-4
+// (relative to their largest value) off the plain version at N = 16,384.
 // f32 A fragments from C fragments: the TF32 A layout (columns t and t + 4)
 // is not the C layout (columns 2t and 2t + 1). Rather than repack within
 // the quad (shuffles) or through shared memory, the contraction is
@@ -70,11 +81,6 @@
 // A fragment is the C fragment's registers reordered, with no data moved.
 // No atomics: each output row is summed by one warp in a fixed order, so
 // every run gives the same bits.
-//
-// dQ keeps the first design: one thread a query row, a block of 128 rows
-// per (batch, head, tile), the row's operands and accumulator in registers,
-// K and V staged 128 rows at a time in shared memory as f32 and read by
-// every thread at the same address (a broadcast), the products as f32 FMAs.
 //
 // Head dimensions 8, 16 and 32 (D = 8 fills the upper half of bf16's k16
 // step with zeros).
@@ -89,75 +95,11 @@ namespace {
 
 using namespace pcot;
 
-constexpr int kTile = 128;  // rows a staged tile holds; the dQ kernel's rows (threads) a block
-constexpr int kThreads = 128;         // the forward and dK/dV kernels: 4 warps
-constexpr int kRows = kThreads / 2;  // rows a block owns there, 16 a warp
+constexpr int kTile = 128;            // rows a staged tile holds
+constexpr int kThreads = 128;         // 4 warps a block
+constexpr int kRows = kThreads / 2;  // rows a block owns, 16 a warp
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kTile == kThreads, "a thread a row of a staged tile (its statistics, its copies)");
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x as T holds it (f32: itself; bf16: rounded to nearest even)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return widen(narrow<T>(x)); }
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&a)[D], const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const float4 x = b4[i];
-    s = fmaf(a[4 * i], x.x, s);
-    s = fmaf(a[4 * i + 1], x.y, s);
-    s = fmaf(a[4 * i + 2], x.z, s);
-    s = fmaf(a[4 * i + 3], x.w, s);
-  }
-  return s;
-}
-
-// acc += c * b
-template <int D>
-__device__ __forceinline__ void axpy_row(float (&acc)[D], float c, const float* __restrict__ b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const float4 x = b4[i];
-    acc[4 * i] = fmaf(c, x.x, acc[4 * i]);
-    acc[4 * i + 1] = fmaf(c, x.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(c, x.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(c, x.w, acc[4 * i + 3]);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void load_row(float (&r)[D], const T* __restrict__ src) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) r[d] = widen(src[d]);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&r)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) dst[d] = narrow<T>(r[d]);
-}
-
-// rows [row0, row0 + kTile) of a (N, D) matrix into shared memory as f32
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* __restrict__ dst, const T* __restrict__ src) {
-  for (int e = threadIdx.x; e < kTile * D; e += kTile) dst[e] = widen(src[e]);
-}
-
 
 // e^x as ex2.approx of x * log2(e) (subnormal results flush to zero)
 __device__ __forceinline__ float exp_approx(float x) {
@@ -356,14 +298,37 @@ __device__ __forceinline__ void stage_async(T* __restrict__ dst, const T* __rest
   }
 }
 
+// K and V rows [0, kTile) from k and v into their stages, one commit group
 template <typename T, int D>
-constexpr size_t fwd_smem_bytes() {
-  return 4 * kTile * Mma<T, D>::kStride * sizeof(T);  // K and V, two stages each
+__device__ __forceinline__ void stage_kv(T* sk, T* sv, const T* k, const T* v) {
+  stage_async<T, D, Mma<T, D>::kStride>(sk, k);
+  stage_async<T, D, Mma<T, D>::kStride>(sv, v);
+  cp_async_commit();
+}
+
+// the forward's and dQ's double buffer: the next K/V tile (from element
+// offset next, when there is one) put in flight into the other stages,
+// then the current tile waited for and seen by every warp
+template <typename T, int D>
+__device__ __forceinline__ void kv_tile_ready(T* sk_other, T* sv_other, const T* k, const T* v,
+                                              size_t next, bool has_next) {
+  if (has_next) {
+    stage_kv<T, D>(sk_other, sv_other, k + next, v + next);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+}
+
+template <typename T, int D>
+constexpr size_t kv_smem_bytes() {
+  return 4 * kTile * Mma<T, D>::kStride * sizeof(T);  // K and V (dK/dV: Q and dO), two stages each
 }
 
 template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {
-  return fwd_smem_bytes<T, D>() + 2 * 3 * kTile * sizeof(float);  // Q, dO; 1/l, m, di
+  return kv_smem_bytes<T, D>() + 2 * 3 * kTile * sizeof(float);  // Q, dO; 1/l, m, di
 }
 
 // grid (N / kRows, H, B); warp = 16 query rows; loops over the key tiles
@@ -387,21 +352,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float acc[D / 8][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
   const int tiles = N / kTile;
-  stage_async<T, D, M::kStride>(sk, k + base);
-  stage_async<T, D, M::kStride>(sv, v + base);
-  cp_async_commit();
+  stage_kv<T, D>(sk, sv, k + base, v + base);
   for (int it = 0; it < tiles; ++it) {
     const int cur = it & 1;
-    if (it + 1 < tiles) {
-      const size_t next = base + (size_t)(it + 1) * kTile * D;
-      stage_async<T, D, M::kStride>(sk + (cur ^ 1) * kElems, k + next);
-      stage_async<T, D, M::kStride>(sv + (cur ^ 1) * kElems, v + next);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    kv_tile_ready<T, D>(sk + (cur ^ 1) * kElems, sv + (cur ^ 1) * kElems, k, v,
+                        base + (size_t)(it + 1) * kTile * D, it + 1 < tiles);
     float s[NT][4] = {};
     M::template mul_bt<NT>(s, qa, sk + cur * kElems, lane);
     float m_next[2] = {-INFINITY, -INFINITY};
@@ -525,10 +480,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           s[nt][i] = p;
         }
       }
-      // each pass's products in zeroed registers, then added to the sums in
-      // f32 (round to nearest): the tensor cores' own accumulation truncates,
-      // which over all N queries put f32 dK and dV about 1e-4 (relative to
-      // their largest value) off the plain version on an H100 at N = 16,384
+      // each pass's products in zeroed registers, then added to the f32 sums
+      // (the note at the top)
       float dvp[D / 8][4] = {}, dkp[D / 8][4] = {};
       M::template mul_b<NT>(dvp, s, dos, lane);
       M::template mul_b<NT>(dkp, dp, qs, lane);
@@ -559,40 +512,74 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// grid (N / kTile, H, B); thread = query row; loops over the key tiles
+// grid (N / kRows, H, B); warp = 16 query rows; loops over the key tiles
 template <typename T, int D>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ l, const float* __restrict__ m,
                     const T* __restrict__ dout, const float* __restrict__ di,
                     T* __restrict__ dq, int N, float scale) {
-  __shared__ __align__(16) float sk[kTile * D];
-  __shared__ __align__(16) float sv[kTile * D];
+  using M = Mma<T, D>;
+  constexpr int kElems = kTile * M::kStride;
+  constexpr int kHalf = kTile / 2;  // keys a pass
+  constexpr int NT = kHalf / 8;     // 8-key tiles of a warp's pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sk = reinterpret_cast<T*>(smem);  // [2][kElems]
+  T* sv = sk + 2 * kElems;             // [2][kElems]
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
   const size_t base = bh * N * D;
-  const int row = blockIdx.x * kTile + threadIdx.x;
-  float qr[D], dor[D], dqr[D];
-  load_row<T, D>(qr, q + base + (size_t)row * D);
-  load_row<T, D>(dor, dout + base + (size_t)row * D);
+  const int row0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
+  typename M::A qa, da;
+  M::load_a(qa, q + base + (size_t)row0 * D, lane);
+  M::load_a(da, dout + base + (size_t)row0 * D, lane);
+  float mq[2], il[2], dr[2];  // rows g, g + 8
 #pragma unroll
-  for (int d = 0; d < D; ++d) dqr[d] = 0.f;
-  const float mi = m[bh * N + row];
-  const float inv_l = 1.f / l[bh * N + row];
-  const float dii = di[bh * N + row];
-  for (int t = 0; t < N; t += kTile) {
-    __syncthreads();
-    stage<T, D>(sk, k + base + (size_t)t * D);
-    stage<T, D>(sv, v + base + (size_t)t * D);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float p = expf(dot_row<D>(qr, sk + j * D) * scale - mi) * inv_l;
-      const float dp = dot_row<D>(dor, sv + j * D);
-      const float ds = (dp - dii) * p * scale;
-      axpy_row<D>(dqr, round_to<T>(ds), sk + j * D);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const size_t i = bh * N + row0 + g + 8 * r;
+    mq[r] = m[i];
+    il[r] = 1.f / l[i];
+    dr[r] = di[i];
   }
-  store_row<T, D>(dq + base + (size_t)row * D, dqr);
+  float dqa[D / 8][4] = {};
+  const int tiles = N / kTile;
+  stage_kv<T, D>(sk, sv, k + base, v + base);
+  for (int it = 0; it < tiles; ++it) {
+    const int cur = it & 1;
+    kv_tile_ready<T, D>(sk + (cur ^ 1) * kElems, sv + (cur ^ 1) * kElems, k, v,
+                        base + (size_t)(it + 1) * kTile * D, it + 1 < tiles);
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      const T* ks = sk + cur * kElems + h * kHalf * M::kStride;
+      const T* vs = sv + cur * kElems + h * kHalf * M::kStride;
+      float s[NT][4] = {}, dp[NT][4] = {};  // rows: the warp's queries; columns: the pass's keys
+      M::template mul_bt<NT>(s, qa, ks, lane);
+      M::template mul_bt<NT>(dp, da, vs, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;  // row g or g + 8
+          const float p = exp_approx(__fmul_rn(s[nt][i], scale) - mq[r]) * il[r];
+          dp[nt][i] = (dp[nt][i] - dr[r]) * p * scale;
+        }
+      // the pass's product in zeroed registers, then added to the f32 sums
+      float dqp[D / 8][4] = {};
+      M::template mul_b<NT>(dqp, dp, ks, lane);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dqa[dt][i] += dqp[dt][i];
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t off = base + (size_t)(row0 + g + 8 * r) * D + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      store2(dq + off + 8 * dt, dqa[dt][2 * r], dqa[dt][2 * r + 1]);
+  }
 }
 
 bool takes(int B, int H, int N, int D) {
@@ -634,7 +621,7 @@ extern "C" int pcot_flash_fwd(const void* q, const void* k, const void* v, void*
   const dim3 grid(N / kRows, H, B);
 #define PCOT_FLASH_FWD(T, DD)                                                          \
   {                                                                                    \
-    constexpr size_t smem = fwd_smem_bytes<T, DD>();                                   \
+    constexpr size_t smem = kv_smem_bytes<T, DD>();                                   \
     const cudaError_t e = allow_smem(flash_fwd_kernel<T, DD>, smem);                   \
     if (e != cudaSuccess) return (int)e;                                               \
     flash_fwd_kernel<T, DD><<<grid, kThreads, smem, (cudaStream_t)stream>>>(            \
@@ -673,11 +660,16 @@ extern "C" int pcot_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                  int B, int H, int N, int D, int bf16, float scale,
                                  void* stream) {
   if (!takes(B, H, N, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kTile, H, B);
-#define PCOT_FLASH_DQ(T, DD)                                                       \
-  flash_bwd_dq_kernel<T, DD><<<grid, kTile, 0, (cudaStream_t)stream>>>(             \
-      (const T*)q, (const T*)k, (const T*)v, (const float*)l, (const float*)m,      \
-      (const T*)dout, (const float*)di, (T*)dq, N, scale)
+  const dim3 grid(N / kRows, H, B);
+#define PCOT_FLASH_DQ(T, DD)                                                           \
+  {                                                                                    \
+    constexpr size_t smem = kv_smem_bytes<T, DD>();                                    \
+    const cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DD>, smem);                \
+    if (e != cudaSuccess) return (int)e;                                               \
+    flash_bwd_dq_kernel<T, DD><<<grid, kThreads, smem, (cudaStream_t)stream>>>(         \
+        (const T*)q, (const T*)k, (const T*)v, (const float*)l, (const float*)m,       \
+        (const T*)dout, (const float*)di, (T*)dq, N, scale);                           \
+  }
   PCOT_FLASH_DISPATCH(D, bf16, PCOT_FLASH_DQ);
 #undef PCOT_FLASH_DQ
   return (int)cudaGetLastError();

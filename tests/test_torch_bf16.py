@@ -43,6 +43,20 @@ from pointcloud_orientation_tpu_torch.utils import (
     to_flax_variables,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small CPU ops: beside other
+    test processes on the same cores, PyTorch's thread pool otherwise
+    spends most of its time waiting for its own descheduled threads (this
+    file summed 756 s under six test workers, against about 65 s alone).
+    Restored for the files that follow."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (B, K, S, MLP widths) of the three set abstractions, at B=2
 SA_SHAPES = {
     "sa1": (2, 32, 128, (3, 64, 64, 128)),

@@ -1172,10 +1172,10 @@ def _flash_case(dev, shape, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", list(FLASH_CASES) + list(FLASH_ODD))
-def test_flash_attention_forward_and_dkv_repeat_their_bits_on_card(cuda_device, case, dtype):
-    """The forward and dK/dV kernels sum each output row in one warp in a
-    fixed order (no atomics): two calls on the same inputs give the same
-    bits, o, l, m, dk and dv."""
+def test_flash_attention_kernels_repeat_their_bits_on_card(cuda_device, case, dtype):
+    """The forward, dK/dV and dQ kernels sum each output row in one warp in
+    a fixed order (no atomics): two calls on the same inputs give the same
+    bits, o, l, m, dk, dv and dq."""
     from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
     shape = {**FLASH_CASES, **FLASH_ODD}[case]
     q, k, v, do = _flash_case(cuda_device, shape, dtype, 12)
@@ -1183,10 +1183,11 @@ def test_flash_attention_forward_and_dkv_repeat_their_bits_on_card(cuda_device, 
     first = K.flash_attention_fwd(q, k, v, scale)
     second = K.flash_attention_fwd(q, k, v, scale)
     di = FA.row_di(first[0], do)
-    first += K.flash_attention_bwd_dkv(q, k, v, first[1], first[2], do, di, scale)
-    second += K.flash_attention_bwd_dkv(q, k, v, first[1], first[2], do, di, scale)
+    args = (q, k, v, first[1], first[2], do, di, scale)
+    first += (*K.flash_attention_bwd_dkv(*args), K.flash_attention_bwd_dq(*args))
+    second += (*K.flash_attention_bwd_dkv(*args), K.flash_attention_bwd_dq(*args))
     torch.cuda.synchronize()
-    for name, a, b in zip(("o", "l", "m", "dk", "dv"), first, second):
+    for name, a, b in zip(("o", "l", "m", "dk", "dv", "dq"), first, second):
         assert torch.equal(a, b), name
 
 
