@@ -48,7 +48,17 @@ MLP forward against its backward's recompute (the pooled value reproduced
 bit for bit, f32 and bf16, every stage's widths); the five selection
 micro-benchmark kernels (``benchmarks/profile_vpu_select.py``) bit for bit
 against their plain versions (``ew`` also on NaN, infinities, subnormals
-and tails), then their benchmark as its own main path.
+and tails), then their benchmark as its own main path. Real data
+(``real_data``): a PLY tree of 48 clouds of 10,000 points written, rotated
+and given its ground-truth sidecars by ``data/offline.py``, read back
+through the native parser (built from ``native/fastply.cc``) beside the
+NumPy one; the 8dir_kl preset trained one epoch on its stored targets
+(``rotation_mode="none"``) through ``train.run.run_single`` in both train
+configurations, with exact launches, the targets in the batch, a step's
+gradients, the prediction PLYs, the step beside the synthetic one in
+turns; the weights written as a reference ``.pth`` and served and
+evaluated from it; mvm one epoch (``results.txt``) and the classifier one
+epoch from the canonical tree as ``ply:``.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -80,15 +90,19 @@ from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import bound_ms, timed
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import device_ms as cuda_ms
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
+from pointcloud_orientation_tpu_torch.data import fastply, offline
+from pointcloud_orientation_tpu_torch.data.ply import read_ply, read_ply_numpy, write_ply
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
-from pointcloud_orientation_tpu_torch.train.run import run_per_label
+from pointcloud_orientation_tpu_torch.train import evaluate as EV
+from pointcloud_orientation_tpu_torch.train.run import load_dataset, run_per_label, run_single
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
 from pointcloud_orientation_tpu_torch.utils import grad_check as GC
+from pointcloud_orientation_tpu_torch.utils import save_torch_checkpoint, to_flax_variables
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
 # kernel's products at the bf16 tensor-core rate; the products of an f32 MLP
@@ -2319,8 +2333,8 @@ def phase_train_so3(dev) -> dict:
     ``pointnet_pp_forward`` in each train configuration (launch counts, a
     step's gradients against the plain versions under the repaired rule, a
     checkpoint round trip); ``axes_all_labels`` (Gram-Schmidt) through
-    ``run_per_label`` over two labels, one epoch each, and again with
-    ``resume`` (nothing trains); one step of the Schmidt head with FPS and
+    ``run_per_label`` over two labels, one epoch each (with its prediction
+    PLYs), and again with ``resume`` (nothing trains); one step of the Schmidt head with FPS and
     the ball query in each configuration, its gradients against every
     kernel's plain version."""
     out = {}
@@ -2363,6 +2377,7 @@ def phase_train_so3(dev) -> dict:
     for label in SO3_PER_LABEL:
         parts = ds.select_classes([label]).split(cfg.seed)
         steps, evals = batches_of(parts[0], 16), sum(batches_of(p, 16) for p in parts[1:])
+        evals += 1  # run_single's prediction PLYs: one request of the test clouds
         for k, v in knn_trunk_launches(steps, evals, False).items():
             expected[k] += v
     with tempfile.TemporaryDirectory() as d:
@@ -2845,6 +2860,229 @@ def phase_timing_transformer(dev, checks: dict, serve: dict, train: dict) -> lis
     return summary
 
 
+# ---------------------------------------------------------------------------
+# real data: PLY trees with stored ground truth
+# ---------------------------------------------------------------------------
+
+REAL_STEP_TURNS = ("plygt", "synthetic", "synthetic", "plygt")  # step timing, in turns
+REAL_TOL = 1e-5  # evaluate's loss against the run's own test pass on the same weights
+
+
+def write_tree(root: str, pts, labels, names) -> None:
+    for i, (cloud, label) in enumerate(zip(pts, labels)):
+        os.makedirs(os.path.join(root, names[label]), exist_ok=True)
+        write_ply(cloud, os.path.join(root, names[label], f"{names[label]}_{i:03d}.ply"))
+
+
+def ply_files(root: str) -> list:
+    return sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs
+                  if f.endswith(".ply"))
+
+
+def check_run(what: str, out_dir: str, trainer, test_acc, launches, expected) -> dict:
+    """A ``run_single`` of the real-data phase: finite losses, exact
+    launches, and its prediction PLYs (if any) parse with 4 extra vertices."""
+    pred_dir = os.path.join(out_dir, "pred_ply")
+    plys = sorted(os.listdir(pred_dir)) if os.path.isdir(pred_dir) else []
+    shapes = {read_ply(os.path.join(pred_dir, f)).shape for f in plys}
+    parse_ok = all(sh == (trainer.num_points + 4, 3) for sh in shapes)
+    losses = trainer.step_losses
+    finite = (all(math.isfinite(v) for v in losses) and math.isfinite(test_acc.mean_loss)
+              and math.isfinite(trainer.history["val"][0]))
+    return {"what": what, "train_steps": len(losses), "step_losses": losses,
+            "val_loss": trainer.history["val"][0], "test_loss": test_acc.mean_loss,
+            "test_angular_deg": test_acc.mean_angular_error, "launches": launches,
+            "expected_launches": expected, "pred_plys": len(plys), "pred_ply_shapes":
+            sorted(list(sh) for sh in shapes), "ok": finite and parse_ok and launches == expected}
+
+
+def phase_real_data(dev, train: dict) -> dict:
+    """Real data on the card. A canonical PLY tree of the 6 synthetic
+    classes (48 clouds of 10,000 points) is written, rotated by
+    ``offline.rotate_tree`` (yaw) and given its three ground-truth passes,
+    then read back with its sidecars through the native parser (held
+    against the NumPy parser, file for file). The 8dir_kl preset (B=16,
+    N=10,000) trains one epoch on the stored targets
+    (``rotation_mode="none"``) through ``run_single`` in both train
+    configurations: the stored targets in the batch unchanged, exact
+    launches (the epoch, the test pass and the two extra requests of the
+    prediction PLYs and the 8-direction summary), a step's gradients
+    against the plain versions, the PLYs parsed, the step timed in turns
+    with the synthetic step at the same shape. The trained weights go out
+    as a reference-layout ``.pth`` (``utils/torch_export.py``) and come back
+    through ``OrientationPredictor.from_torch_checkpoint`` (the same request
+    output, bit for bit) and the ``evaluate`` CLI (``--torch-ckpt``, finite,
+    and the run's own test loss). Then one epoch of the mvm preset on the
+    same tree (its ``results.txt``), and the classifier one epoch from the
+    canonical tree as ``ply:`` (B=16, N=1,024)."""
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    if not fastply.native_available():  # g++ on native/fastply.cc, or an earlier build loaded
+        fail(f"real_data: the native PLY parser did not build: {fastply.build_error()}")
+    parser_build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        canonical, rotated = os.path.join(d, "canonical"), os.path.join(d, "rotated")
+        t0 = time.perf_counter()
+        pts, labels, names = synthetic_modelnet(num_points=TRAIN_N,
+                                                samples_per_class=TRAIN_SAMPLES_PER_CLASS)
+        write_tree(canonical, pts, labels, names)
+        written = [offline.rotate_tree(canonical, rotated, seed=SEED),
+                   offline.generate_8dir_gt(rotated), offline.generate_single_peak_gt(rotated),
+                   offline.generate_mvm_gt(rotated, rotated)]
+        write_s = time.perf_counter() - t0
+
+        fastply.reset_parser_counts()
+        t0 = time.perf_counter()
+        ds = OrientationDataset.from_ply_tree(rotated, TRAIN_N, load_sidecars=True)
+        ingest_s = time.perf_counter() - t0
+        parsers = fastply.parser_counts()
+        files = ply_files(rotated)
+        t0 = time.perf_counter()
+        native = fastply.try_read_ply_bulk_native(files)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_parsed = [read_ply_numpy(f) for f in files]
+        numpy_s = time.perf_counter() - t0
+        same = native is not None and all(a is not None and np.array_equal(a, b)
+                                          for a, b in zip(native, numpy_parsed))
+        ingest = {"parser_build_seconds": parser_build_s, "parser_library":
+                  str(fastply.build_library()), "files": len(files),
+                  "points_per_file": TRAIN_N, "written": written,
+                  "write_seconds": write_s, "ingest_seconds": ingest_s, "parsers": parsers,
+                  "native_bulk_seconds": native_s, "numpy_seconds": numpy_s,
+                  "native_equals_numpy": same, "build_error": fastply.build_error()}
+        emit("real_data_ingest", **ingest)
+        if parsers != {"native": len(files), "numpy": 0} or not same or len(ds) != len(files):
+            fail(f"real_data ingest: parsers {parsers} over {len(files)} files, native equals "
+                 f"numpy {same}, build error {fastply.build_error()}")
+        out["ingest"] = ingest
+
+        cfg = preset("8dir_kl", epochs=1, rotation_mode="none")
+        for mode in ("default", "fused"):
+            fused = mode == "fused"
+            run_dir = os.path.join(d, f"8dir_kl_{mode}")
+            K.reset_launch_counts()
+            with contextlib.redirect_stdout(sys.stderr):
+                trainer, test_acc = run_single(cfg, ds, run_dir, str(dev), fused)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            n_test = len(trainer.test_ds)
+            steps = batches_of(trainer.train_ds, 16)
+            # the val and test passes, and one request each for the prediction PLYs and
+            # the 8-direction summary
+            evals = batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16) + 2
+            run = check_run(f"8dir_kl {mode}", run_dir, trainer, test_acc, launches,
+                            knn_trunk_launches(steps, evals, fused))
+            run["pred_plys_expected"] = min(10, n_test)
+            with open(os.path.join(run_dir, "summary.txt")) as f:
+                tail = [ln.split("\t")[0] for ln in f.read().splitlines()[-2:]]
+            run["ok"] &= run["pred_plys"] == min(10, n_test) and tail == ["mean_gt_8dir",
+                                                                           "mean_pred_8dir"]
+
+            if mode == "default":  # the trained weights in the reference layout, out and back
+                pth = os.path.join(d, "best.pth")
+                tree = to_flax_variables(trainer.model)
+                save_torch_checkpoint(pth, **tree, model=cfg.model)
+                clouds = trainer.test_ds.points
+                want = OrientationPredictor(cfg.model, tree["params"], tree["batch_stats"],
+                                            num_points=TRAIN_N, device=dev)(clouds)
+                got = OrientationPredictor.from_torch_checkpoint(pth, cfg.model,
+                                                                 num_points=TRAIN_N,
+                                                                 device=dev)(clouds)
+                with contextlib.redirect_stdout(sys.stderr):
+                    ev = EV.main(["--preset", "8dir_kl", "--data", f"plygt:{rotated}",
+                                  "--torch-ckpt", pth, "--device", str(dev)])
+                bit_equal = bool(np.array_equal(got, want))
+                finite = all(math.isfinite(ev[k]) for k in ("loss", "mean_angular_error_deg"))
+                rel = abs(ev["loss"] - test_acc.mean_loss) / abs(test_acc.mean_loss)
+                ok = bit_equal and finite and ev["count"] == n_test and rel <= REAL_TOL
+                emit("real_data_reference_ckpt", request_bit_equal=bit_equal,
+                     request_shape=list(got.shape), evaluate=ev,
+                     run_test_loss=test_acc.mean_loss, evaluate_rel_err=rel, tol=REAL_TOL,
+                     ok=ok)
+                if not ok:
+                    fail(f"real_data reference checkpoint: request bit-equal {bit_equal}, "
+                         f"evaluate {ev}, run test loss {test_acc.mean_loss}")
+
+            # the stored targets reach the batch unchanged
+            tds = trainer.train_ds
+            idx, valid, _ = next(tds.batches(16, shuffle=True, seed=1))
+            batch, valid, _ = trainer.device_batch(tds, idx, valid, trainer.generator(0, 99, 0))
+            stored = {k: bool(torch.equal(batch[k].cpu(), torch.from_numpy(v[idx])))
+                      for k, v in tds.targets.items()}
+            check = grads_vs_plain(trainer, batch, valid, mode, TRAIN_PLAIN)
+            emit("real_data_train", mode=mode, **run, stored_targets_equal=stored,
+                 grads_vs_plain=check, timings=trainer.timings)
+            if not (run["ok"] and all(stored.values()) and check["ok"]):
+                fail(f"real_data 8dir_kl {mode}: launches {launches} (expected "
+                     f"{run['expected_launches']}), stored targets {stored}, gradient of "
+                     f"{check['worst']} {check['norm_rel_err']}, PLYs {run['pred_plys']} "
+                     f"{run['pred_ply_shapes']}, summary tail {tail}")
+            out["launches"][f"plygt 8dir_kl {mode}"] = launches
+
+            # the plygt step beside the synthetic step at the same shape, in turns
+            synth = Trainer(preset("8dir_kl", epochs=1), train[mode]["trainer"].dataset,
+                            device=dev, fused_mlp_train=fused)
+            turns = [(which, step_times(trainer if which == "plygt" else synth,
+                                        f"real_data {which} {mode}")["ms_median"])
+                     for which in REAL_STEP_TURNS]
+            emit("timing_real_data_step", mode=mode, batch=16, num_points=TRAIN_N,
+                 turns_ms=turns, plygt_ms=[t for w, t in turns if w == "plygt"],
+                 synthetic_ms=[t for w, t in turns if w == "synthetic"])
+            out[f"step {mode}"] = turns
+
+        mvm_dir = os.path.join(d, "mvm")
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer, test_acc = run_single(preset("mvm", epochs=1, rotation_mode="none"), ds,
+                                           mvm_dir, str(dev))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        evals = batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16) + 1  # PLYs
+        run = check_run("mvm", mvm_dir, trainer, test_acc, launches,
+                        knn_trunk_launches(batches_of(trainer.train_ds, 16), evals, False))
+        with open(os.path.join(mvm_dir, "results.txt")) as f:
+            results = f.read().splitlines()
+        run["ok"] &= (results[0] == "=== Multi-Peak von Mises KL Summary ==="
+                      and len(results) == 6 + len(trainer.class_names))
+        emit("real_data_mvm", **run, results_txt=results)
+        if not run["ok"]:
+            fail(f"real_data mvm: launches {launches} (expected {run['expected_launches']}), "
+                 f"losses {run['step_losses']}, results.txt {results}")
+        out["launches"]["plygt mvm"] = launches
+
+        fastply.reset_parser_counts()
+        cls_ds = load_dataset(f"ply:{canonical}", CLS_TRAIN_N)
+        cls_parsers = fastply.parser_counts()
+        cls_dir = os.path.join(d, "cls")
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer, test_acc = run_single(cls_train_config(), cls_ds, cls_dir, str(dev))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        steps = batches_of(trainer.train_ds, 16)
+        forwards = steps + batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16)
+        expected = expected_launches(fps=2 * forwards, ball_query=2 * forwards,
+                                     sa_mlp_max=3 * (forwards - steps))
+        finite = (all(math.isfinite(v) for v in trainer.step_losses)
+                  and math.isfinite(test_acc.mean_loss))
+        ok = (finite and launches == expected and cls_parsers == {"native": len(files), "numpy": 0}
+              and cls_ds.points.shape == (len(files), CLS_TRAIN_N, 3) and cls_ds.targets is None
+              and not os.path.exists(os.path.join(cls_dir, "pred_ply")))
+        emit("real_data_cls", data="ply", batch=16, num_points=CLS_TRAIN_N, parsers=cls_parsers,
+             step_losses=trainer.step_losses, test_loss=test_acc.mean_loss, launches=launches,
+             expected_launches=expected, ok=ok)
+        if not ok:
+            fail(f"real_data classifier: launches {launches} (expected {expected}), parsers "
+                 f"{cls_parsers}, losses {trainer.step_losses}")
+        out["launches"]["ply classifier"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("real_data_done", seconds=out["seconds"])
+    return out
+
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -2873,6 +3111,7 @@ def main() -> None:
     checks.update(phase_kernels_flash(dev))
     serve_transformer = phase_serve_transformer(dev)
     train_transformer = phase_train_transformer(dev)
+    real_data = phase_real_data(dev, train)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -2891,6 +3130,10 @@ def main() -> None:
         so3 = {path: n[row["name"]] for path, n in so3_paths.items() if n.get(row["name"])}
         if so3:
             row["launches_so3"] = so3
+        real = {path: n[row["name"]] for path, n in real_data["launches"].items()
+                if n.get(row["name"])}
+        if real:
+            row["launches_real_data"] = real
     summary += flash_rows
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,

@@ -1,15 +1,42 @@
-"""Procedural ModelNet40 stand-in (``synthetic_modelnet``), numpy only.
+"""ModelNet40 ingest: the HDF5 archive read into packed arrays
+(``load_modelnet_hdf5``, h5py imported where it is used) and the procedural
+stand-in (``synthetic_modelnet``), numpy only.
 
-A copy of ``pointcloud_orientation_tpu/data/hdf5.py:synthetic_modelnet``;
-reading the HDF5 archive itself (``load_modelnet_hdf5``, h5py) is not ported
-yet.
+Counterpart of ``pointcloud_orientation_tpu/data/hdf5.py``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def load_modelnet_hdf5(dataset_dir: str, splits: Sequence[str] = ("train", "test")
+                       ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """Read every ``*.h5`` under ``dataset_dir`` whose name holds one of
+    ``splits``, in sorted order, with its ``data`` and ``label`` keys, and
+    the class names from ``shape_names.txt``. Returns ``(points (S, P, 3)
+    float32, labels (S,) int32, class_names)``."""
+    import h5py
+
+    with open(os.path.join(dataset_dir, "shape_names.txt"), "r") as f:
+        class_names = [ln.strip() for ln in f if ln.strip()]
+    h5_files = sorted(f for f in os.listdir(dataset_dir)
+                      if f.endswith(".h5") and any(s in f for s in splits))
+    if not h5_files:
+        raise FileNotFoundError(f"no .h5 files in {dataset_dir}")
+    all_pts, all_labels = [], []
+    for fname in h5_files:
+        with h5py.File(os.path.join(dataset_dir, fname), "r") as f:
+            data = f["data"][:]
+            labels = f["label"][:]
+        if labels.ndim > 1:
+            labels = labels[:, 0]
+        all_pts.append(np.asarray(data[..., :3], np.float32))
+        all_labels.append(np.asarray(labels, np.int32))
+    return np.concatenate(all_pts), np.concatenate(all_labels), class_names
 
 
 def synthetic_modelnet(

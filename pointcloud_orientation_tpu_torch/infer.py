@@ -104,6 +104,17 @@ class OrientationPredictor:
         if compute_dtype(model_kwargs.get("dtype")) == torch.bfloat16:
             bf16_matmuls()  # its bf16 products accumulate in f32, as XLA's
 
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, model: str = "pointnet_pp_8dir",
+                              **kw) -> "OrientationPredictor":
+        """Serve a reference-layout ``.pth`` (a raw ``state_dict`` of the
+        reference's ``model``, or one that ``utils/torch_export.py`` wrote);
+        ``kw`` as the constructor's."""
+        from .utils.torch_import import load_torch_checkpoint
+
+        params, stats = load_torch_checkpoint(path, model)
+        return cls(model, params, stats, **kw)
+
     def _bucket(self, b: int) -> int:
         bucket = 1
         while bucket < b:

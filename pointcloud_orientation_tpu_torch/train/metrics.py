@@ -1,14 +1,14 @@
 """Metrics accumulation and ``summary.txt``, numpy only.
 
 Counterpart of ``pointcloud_orientation_tpu/train/metrics.py``
-(``masked_angular_mean``, ``MetricsAccumulator``, ``write_summary_txt``; the
-loss-curve PNG and the MvM summary are not ported yet).
+(``masked_angular_mean``, ``MetricsAccumulator``, ``write_summary_txt``,
+``write_mvm_results_txt``; the loss-curve PNG is not ported yet).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -76,3 +76,34 @@ def write_summary_txt(path: str, per_class: Dict[str, float], overall: Optional[
             f.write(f"{label}\t{value:.6f}\n")
         if overall is not None:
             f.write(f"Overall\t{overall:.6f}\n")
+
+
+def write_mvm_results_txt(path: str, categories: Sequence[str],
+                          hist: Dict[str, Dict[str, List[float]]],
+                          test_kl: Optional[float] = None,
+                          best_val_epoch: Optional[int] = None):
+    """The MvM run's ``results.txt``: the best val epoch, the test KL, then
+    the last epoch's train and val loss in total (``hist["total"]``) and per
+    category (``hist[category]``), NaN where a category has none."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def _fmt(x):
+        try:
+            return f"{float(x):.6f}"
+        except (TypeError, ValueError):
+            return "nan"
+
+    with open(path, "w") as f:
+        f.write("=== Multi-Peak von Mises KL Summary ===\n")
+        if best_val_epoch is not None:
+            f.write(f"Best Total Val Epoch: {best_val_epoch}\n")
+        if test_kl is not None:
+            f.write(f"Test KL: {test_kl:.6f}\n")
+        f.write("\n-- Per-Category (last epoch) --\n")
+        last = len(hist["total"]["train"]) - 1
+        f.write(f"[TOTAL] Train={_fmt(hist['total']['train'][last])} "
+                f"Val={_fmt(hist['total']['val'][last])}\n")
+        for cat in categories:
+            tr = hist[cat]["train"][last] if hist[cat]["train"] else float("nan")
+            va = hist[cat]["val"][last] if hist[cat]["val"] else float("nan")
+            f.write(f"[{cat}] Train={_fmt(tr)} Val={_fmt(va)}\n")

@@ -15,7 +15,20 @@ a label (:func:`run_per_label`).
     python -m pointcloud_orientation_tpu_torch.train.run --preset vm_kl \\
         --data synthetic --epochs 5 --device cuda --out results/torch_vm_kl
 
-Data: ``synthetic`` only (the HDF5 and PLY sources are not ported yet).
+After training, :func:`run_single` also writes ``pred_ply/`` (up to 10 test
+clouds with their predicted axes), for the 8-direction tasks two lines of
+mean ground-truth and predicted distributions at the end of
+``summary.txt``, and for ``mvm`` ``results.txt``. Not ported yet: the
+loss-curve PNG and the MvM polar plots (matplotlib).
+
+Data (:func:`load_dataset`): ``synthetic``, ``hdf5:DIR`` (the ModelNet40
+archive, needs h5py), ``ply:DIR`` (a PLY tree ``DIR/<class>/*.ply``) or
+``plygt:DIR`` (a pre-rotated PLY tree with its ground-truth sidecars, which
+sets ``rotation_mode="none"`` so that the stored targets are trained on):
+
+    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \\
+        --data plygt:data/rotated --out results/torch_8dir_kl
+
 The grid-pruned kNN is reached through ``PCOT_KNN=grid``, as in the JAX
 package (whose ``--knn`` flag offers only ``exact`` and the unported
 ``approx``). The vmapped protocols (``--seeds``, ``--vmap-labels``,
@@ -30,30 +43,140 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
+import torch
+
 from ..data import OrientationDataset
+from ..data.ply import write_ply_with_axes
+from ..ops.dirs8 import DIRS_8
+from ..viz.axes_export import axes_from_two_heads
 from .config import PRESETS, preset
-from .metrics import write_summary_txt
-from .trainer import Trainer
+from .metrics import write_mvm_results_txt, write_summary_txt
+from .trainer import _EVAL, Trainer
 
 
 def load_dataset(spec: str, num_points: int, classes=None) -> OrientationDataset:
+    """``synthetic`` (64 clouds a class of ``max(num_points, 512)`` points),
+    ``hdf5:DIR``, ``ply:DIR`` or ``plygt:DIR`` (with the sidecars)."""
     if spec == "synthetic":
         return OrientationDataset.synthetic(
             samples_per_class=64, num_points=max(num_points, 512),
             class_names=list(classes) if classes else None)
-    raise NotImplementedError(f"data {spec!r} is not ported; the port takes 'synthetic'")
+    if spec.startswith("hdf5:"):
+        return OrientationDataset.from_hdf5(spec[len("hdf5:"):])
+    if spec.startswith("ply:"):
+        return OrientationDataset.from_ply_tree(spec[len("ply:"):], num_points)
+    if spec.startswith("plygt:"):
+        return OrientationDataset.from_ply_tree(spec[len("plygt:"):], num_points,
+                                                load_sidecars=True)
+    raise ValueError(f"unknown data spec: {spec} (use synthetic | hdf5:DIR | ply:DIR | plygt:DIR)")
+
+
+# the tasks whose outputs _decode_axes turns into axes
+DECODED_TASKS = ("axes", "8dir_mse", "8dir_kl", "forward_mse", "multi_8dir", "vm_kl", "mvm")
+
+
+def _decode_axes(task: str, outputs, i: int):
+    """Sample ``i``'s [side, up, forward] overlay from the model's outputs:
+    the two heads' cross product (``axes``); a forward vector with the
+    vertical up axis and ``side = up x forward`` from the 8-direction
+    softmax times ``DIRS_8``, the forward heads' output, the vM mu or the
+    heaviest MvM component's mu. None for a task without a direction (the
+    classifier; :func:`export_test_predictions` asks only for
+    ``DECODED_TASKS``)."""
+    up = np.array([0.0, 1.0, 0.0])
+
+    def from_forward(fwd):
+        fwd = np.asarray(fwd, np.float64)
+        fwd = fwd / (np.linalg.norm(fwd) + 1e-12)
+        side = np.cross(up, fwd)
+        side /= np.linalg.norm(side) + 1e-12
+        return [side, up, fwd]
+
+    if task == "axes":
+        return axes_from_two_heads(np.asarray(outputs[0][i]), np.asarray(outputs[1][i]))
+    if task in ("8dir_mse", "8dir_kl"):
+        probs = torch.softmax(torch.as_tensor(outputs[i]), dim=-1).numpy()
+        return from_forward(probs @ DIRS_8.numpy())
+    if task in ("forward_mse", "multi_8dir"):
+        return from_forward(outputs[i])
+    if task == "vm_kl":
+        mu = float(outputs[0][i])
+        return from_forward([np.sin(mu), 0.0, -np.cos(mu)])
+    if task == "mvm":
+        mu_all, _, w = outputs
+        mu = float(np.asarray(mu_all[i])[np.argmax(np.asarray(w[i]))])
+        return from_forward([np.sin(mu), 0.0, -np.cos(mu)])
+    return None
+
+
+def _eval_batch(trainer: Trainer, n: int) -> Dict[str, torch.Tensor]:
+    """The first ``n`` test clouds as an eval batch: subsampled and rotated
+    by the trainer's eval generator of batch 0 (the JAX package draws them
+    with its eval key of batch 0), the stored targets in place where the
+    trainer takes them."""
+    idx = np.arange(n)
+    batch, _, _ = trainer.device_batch(trainer.test_ds, idx, np.ones(n, np.float32),
+                                       trainer.generator(_EVAL, 0))
+    return batch
+
+
+def export_test_predictions(trainer: Trainer, out_dir: str, max_count: int = 10) -> int:
+    """Write up to ``max_count`` test clouds, rotated as an eval batch, with
+    the axes the current weights predict for them, to
+    ``out_dir/sample_<i>_pred_<i+1>.ply``. Returns the count (0 for a task
+    :func:`_decode_axes` does not cover)."""
+    n = min(max_count, len(trainer.test_ds))
+    if n == 0 or trainer.cfg.task not in DECODED_TASKS:
+        return 0
+    clouds = _eval_batch(trainer, n)["points"]
+    outputs = trainer.predict(clouds)
+    clouds = clouds.cpu().numpy()
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(n):
+        write_ply_with_axes(clouds[i], _decode_axes(trainer.cfg.task, outputs, i),
+                            os.path.join(out_dir, f"sample_{i}_pred_{i + 1}.ply"))
+    return n
+
+
+def _write_8dir_distribution_summary(trainer: Trainer, out_dir: str, max_count: int = 128):
+    """Append the mean ground-truth and the mean predicted 8-direction
+    distributions over up to ``max_count`` test clouds to
+    ``out_dir/summary.txt``. The ground truth is the batch's, stored targets
+    where the trainer takes them (the JAX function reads the synthesized
+    targets there)."""
+    n = min(max_count, len(trainer.test_ds))
+    if n == 0:
+        return
+    batch = _eval_batch(trainer, n)
+    logits = torch.as_tensor(trainer.predict(batch["points"]))
+    pred = torch.softmax(logits, dim=-1).mean(0).numpy()
+    gt = batch["probs_8dir"].mean(0).cpu().numpy()
+    with open(os.path.join(out_dir, "summary.txt"), "a") as f:
+        f.write("mean_gt_8dir\t" + " ".join(f"{v:.4f}" for v in gt) + "\n")
+        f.write("mean_pred_8dir\t" + " ".join(f"{v:.4f}" for v in pred) + "\n")
 
 
 def run_single(cfg, dataset: OrientationDataset, out_dir: str, device: str,
                fused_mlp_train: bool = False, label: Optional[str] = None):
-    """Train, test the best-val weights and write the artifacts to ``out_dir``."""
+    """Train, test the best-val weights and write the artifacts to
+    ``out_dir``: ``metrics.json``, ``summary.txt``, ``pred_ply/``, the
+    8-direction summary lines and, for ``mvm``, ``results.txt``."""
     trainer = Trainer(cfg, dataset, device=device, fused_mlp_train=fused_mlp_train)
     trainer.fit(checkpoint_dir=os.path.join(out_dir, "ckpt") if cfg.checkpoint_every else None)
     test_acc = trainer.test()
     trainer.write_artifacts(out_dir, test_acc)
+    export_test_predictions(trainer, os.path.join(out_dir, "pred_ply"))
+    if cfg.task in ("8dir_mse", "8dir_kl"):
+        _write_8dir_distribution_summary(trainer, out_dir)
     print(f"[{label or cfg.task}] test loss {test_acc.mean_loss:.6f}  "
           f"angular {test_acc.mean_angular_error:.2f} deg  "
           f"best val {trainer.best_val:.6f} @ epoch {trainer.best_val_epoch}", flush=True)
+    if cfg.task == "mvm":
+        hist = {"total": {"train": trainer.history["train"], "val": trainer.history["val"]},
+                **trainer.class_history}
+        write_mvm_results_txt(os.path.join(out_dir, "results.txt"), trainer.class_names, hist,
+                              test_kl=test_acc.mean_loss, best_val_epoch=trainer.best_val_epoch)
     return trainer, test_acc
 
 
@@ -128,6 +251,8 @@ def main(argv=None):
                  if getattr(args, k) is not None}
     if args.classes:
         overrides["classes"] = tuple(args.classes.split(","))
+    if args.data.startswith("plygt:"):
+        overrides["rotation_mode"] = "none"  # train on the stored targets
     cfg = preset(args.preset, **overrides)
     dataset = load_dataset(args.data, cfg.num_points, classes=cfg.classes)
     out_dir = args.out or os.path.join(cfg.out_dir, "torch_" + args.preset)

@@ -16,7 +16,9 @@ optax's ``clip_by_global_norm``. The loss of a step is the masked mean
 ``sum(per * valid) / max(sum(valid), 1)`` over a batch whose tail is padded
 by wrapping. Every random draw comes from a ``torch.Generator`` keyed by the
 run's seed and the absolute epoch and step, so that a resumed run
-reproduces an uninterrupted one. ``debug_checks`` runs the JAX package's
+reproduces an uninterrupted one. A dataset's stored sidecar ``targets``
+replace the synthesized ones under ``rotation_mode="none"``
+(:meth:`Trainer.device_batch`). ``debug_checks`` runs the JAX package's
 per-step finite checks and ``debug_log.txt`` (:meth:`Trainer.debug_check`).
 Not ported yet (ROADMAP.md): the whole-epoch scan and block paths, meshes,
 asynchronous checkpoints, preemption, host-resident streaming.
@@ -123,10 +125,6 @@ class Trainer:
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
                  **model_kwargs: Any):
-        if getattr(dataset, "targets", None) is not None:
-            raise NotImplementedError(
-                "stored sidecar targets (the JAX trainer's rotation_mode='none' on a "
-                "pre-rotated PLY tree) are not ported; see ROADMAP.md queue 1 item 3")
         self.cfg = config
         self.device = torch.device(device)
         self.dataset = dataset
@@ -179,7 +177,10 @@ class Trainer:
     def device_batch(self, ds: OrientationDataset, idx: np.ndarray, valid: np.ndarray,
                      generator: torch.Generator):
         """Gather a batch on the host, move it to the device and augment it
-        there (subsample, rotation, targets, labels)."""
+        there (subsample, rotation, targets, labels). A dataset's stored
+        ``targets`` (a pre-rotated PLY tree's sidecars) replace the
+        synthesized ones under ``rotation_mode="none"``, and are ignored
+        under a rotation, as in the JAX trainer."""
         pts, labels, uniform, symm, k_spec = ds.gather_host(idx)
         pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
         uniform, symm, k_spec = (torch.from_numpy(np.asarray(a)).to(self.device)
@@ -187,6 +188,9 @@ class Trainer:
         batch = augment_batch(generator, pts, uniform, symm, k_spec, self.num_points,
                               self.cfg.rotation_mode, self.cfg.kappa_default, self.cfg.max_k)
         batch["labels"] = torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
+        if ds.targets is not None and self.cfg.rotation_mode == "none":
+            for k, v in ds.targets.items():
+                batch[k] = torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device)
         return batch, torch.from_numpy(np.asarray(valid, np.float32)).to(self.device), labels
 
     # ---------- steps ----------
@@ -357,6 +361,19 @@ class Trainer:
     def test(self) -> MetricsAccumulator:
         self.load_best()
         return self.run_phase(self.test_ds, train=False, epoch=0)
+
+    @torch.no_grad()
+    def predict(self, points, generator: Optional[torch.Generator] = None):
+        """One eval-mode forward pass of the current weights on raw ``(B, N,
+        3)`` clouds (numpy or a tensor); returns the model's output as numpy
+        (a tuple for the tuple heads). Random centroids come from
+        ``generator``, by default one on the device seeded with 0."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.model.eval()
+        out = self.model(torch.as_tensor(points, dtype=torch.float32, device=self.device),
+                         generator)
+        return tuple(o.cpu().numpy() for o in out) if isinstance(out, tuple) else out.cpu().numpy()
 
     # ---------- artifacts and checkpoints ----------
 

@@ -93,7 +93,10 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
     r = _run(code, args=(str(tmp_path / "run"),))
     assert r.returncode == 0, r.stderr
     assert "IMPORTED" in r.stdout
-    assert (tmp_path / "run" / "summary.txt").read_text().splitlines()[-1].startswith("Overall")
+    # the per-class rows and Overall, then the two mean 8-direction lines of run_single
+    lines = (tmp_path / "run" / "summary.txt").read_text().splitlines()
+    assert lines[-3].startswith("Overall")
+    assert [ln.split("\t")[0] for ln in lines[-2:]] == ["mean_gt_8dir", "mean_pred_8dir"]
     # the blocker itself works: the JAX package and its benchmarks cannot come in
     for module in ("pointcloud_orientation_tpu.ops.dirs8", "benchmarks.profile_vpu_select"):
         r = _run(_BLOCKER + f"import {module}")
@@ -162,6 +165,61 @@ def test_point_transformer_serves_and_trains_without_jax():
     r = _run(code)
     assert r.returncode == 0, r.stderr
     assert "TRAINED" in r.stdout
+
+
+def test_real_data_trains_evaluates_and_exports_without_jax(tmp_path):
+    """The real-data path where jax, h5py and matplotlib cannot be imported:
+    a PLY tree written and rotated by the offline tools with its three
+    ground-truth passes, read through the native parser, one epoch of the
+    CLI on ``plygt:`` (stored targets), a reference-layout ``.pth`` of the
+    trained weights served back and evaluated; the HDF5 loader says it needs
+    h5py."""
+    code = _BLOCKER + textwrap.dedent("""
+        import os, sys
+        import numpy as np
+        from pointcloud_orientation_tpu_torch.data import OrientationDataset, fastply, offline
+        from pointcloud_orientation_tpu_torch.data import synthetic_modelnet, write_ply
+        from pointcloud_orientation_tpu_torch.infer import OrientationPredictor
+        from pointcloud_orientation_tpu_torch.train import Trainer, evaluate, preset, run
+        from pointcloud_orientation_tpu_torch.utils import save_torch_checkpoint, to_flax_variables
+        root = sys.argv[1]
+        pts, labels, names = synthetic_modelnet(num_points=160, samples_per_class=6,
+                                                class_names=["chair", "bottle"])
+        for i, (p, l) in enumerate(zip(pts, labels)):
+            os.makedirs(f"{root}/c/{names[l]}", exist_ok=True)
+            write_ply(p, f"{root}/c/{names[l]}/{i}.ply")
+        offline.rotate_tree(f"{root}/c", f"{root}/r", seed=0)
+        offline.generate_8dir_gt(f"{root}/r")
+        offline.generate_single_peak_gt(f"{root}/r")
+        offline.generate_mvm_gt(f"{root}/r", f"{root}/r")
+        fastply.reset_parser_counts()
+        run.main(["--preset", "8dir_kl", "--data", f"plygt:{root}/r", "--epochs", "1",
+                  "--num-points", "128", "--batch-size", "4", "--device", "cpu",
+                  "--out", f"{root}/out"])
+        assert fastply.parser_counts() == {"native": 12, "numpy": 0}, fastply.parser_counts()
+        assert len(os.listdir(f"{root}/out/pred_ply")) == 3  # the test split of 12 clouds
+        ds = OrientationDataset.from_ply_tree(f"{root}/r", 128, load_sidecars=True)
+        cfg = preset("8dir_kl", num_points=128, batch_size=4, rotation_mode="none")
+        t = Trainer(cfg, ds, device="cpu")
+        save_torch_checkpoint(f"{root}/m.pth", **to_flax_variables(t.model), model=cfg.model)
+        out = OrientationPredictor.from_torch_checkpoint(f"{root}/m.pth", num_points=128,
+                                                         device="cpu")(ds.points[:2])
+        assert out.shape == (2, 8) and np.isfinite(out).all()
+        r = evaluate.evaluate(cfg, ds, torch_ckpt=f"{root}/m.pth", device="cpu")
+        assert np.isfinite(r["loss"]) and r["loss"] == t.test().mean_loss
+        try:
+            OrientationDataset.from_hdf5(root)
+        except ImportError as e:
+            assert "h5py" in str(e)
+        else:
+            raise AssertionError("from_hdf5 ran without h5py")
+        for name in ("jax", "flax", "h5py", "matplotlib", "pointcloud_orientation_tpu"):
+            assert name not in sys.modules, name
+        print("REAL DATA")
+    """)
+    r = _run(code, args=(str(tmp_path),))
+    assert r.returncode == 0, r.stderr
+    assert "REAL DATA" in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -550,8 +550,11 @@ def test_preset_fields_equal_jax_and_train_a_step(name):
 def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
     """``TrainConfig(task="forward_mse", model="pointnet_pp",
     rotation_mode="so3")`` trains an epoch with the FPS/ball trunk on the
-    CPU; the presets of the other backbones, an unknown rotation mode, the
-    JAX fields still unported and a dataset with stored targets raise."""
+    CPU; the presets of the other backbones, an unknown rotation mode and
+    the JAX fields still unported raise. A dataset with stored targets
+    gives them to the batch under ``rotation_mode="none"``
+    (tests/test_torch_real_data.py holds that path against the JAX
+    trainer)."""
     cfg = TrainConfig(task="forward_mse", model="pointnet_pp", rotation_mode="so3", epochs=1,
                       batch_size=4, num_points=N)
     ds = OrientationDataset.synthetic(samples_per_class=3, num_points=N)
@@ -570,8 +573,10 @@ def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
         preset("pointnet_pp_forward", optimizer="sgd")
     stored = OrientationDataset.synthetic(samples_per_class=1, num_points=N)
     stored.targets = {"axes": np.zeros((len(stored), 3, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match="stored sidecar targets"):
-        Trainer(cfg.replace(rotation_mode="none"), stored, device="cpu")
+    t = Trainer(cfg.replace(rotation_mode="none"), stored, device="cpu")
+    idx, valid, _ = next(stored.batches(4))
+    batch, _, _ = t.device_batch(stored, idx, valid, t.generator(0, 1, 0))
+    assert not batch["axes"].any() and batch["axes"].shape == (4, 3, 3)
 
 
 def _sweep(seeds):
