@@ -58,7 +58,18 @@ configurations, with exact launches, the targets in the batch, a step's
 gradients, the prediction PLYs, the step beside the synthetic one in
 turns; the weights written as a reference ``.pth`` and served and
 evaluated from it; mvm one epoch (``results.txt``) and the classifier one
-epoch from the canonical tree as ``ply:``.
+epoch from the canonical tree as ``ply:``. The rest of serving
+(``serve_tta``): yaw-voting TTA for every head family at B=64 N=1,024
+(8-dir at V=8 in f32 and bf16, 512 views through the grouping and MLP
+kernels; the forward, two-axis, vM and MvM heads at V=4; the flash
+transformer at V=2), each request one model call's launches, against the
+plain versions and against its own combine of V single-view requests;
+int8 serving (``serve_int8``) of 8-dir from an ``.npz`` this run writes,
+against the plain versions, within the JAX package's envelope of the f32
+predictor, with its weight bytes on the card. The PointNet backbones
+(``pointnet``, cuBLAS only): ``pointnet_cls`` and ``pointnet`` served and
+the ``simple_pointnet`` preset and ``pointnet_cls`` classification trained
+against the port on the CPU; then all of these timed (``timing_serving``).
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -85,16 +96,18 @@ from unittest import mock
 import numpy as np
 import torch
 
-from pointcloud_orientation_tpu_torch import OrientationPredictor, random_flax_variables
+from pointcloud_orientation_tpu_torch import OrientationPredictor, infer, random_flax_variables
 from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import bound_ms, timed
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import device_ms as cuda_ms
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
 from pointcloud_orientation_tpu_torch.data import fastply, offline
 from pointcloud_orientation_tpu_torch.data.ply import read_ply, read_ply_numpy, write_ply
+from pointcloud_orientation_tpu_torch.models import layers as LAYERS
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import flash_attention as FA
 from pointcloud_orientation_tpu_torch.ops import geometry as G
+from pointcloud_orientation_tpu_torch.ops import von_mises as TVM
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
@@ -103,6 +116,7 @@ from pointcloud_orientation_tpu_torch.train.run import load_dataset, run_per_lab
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
 from pointcloud_orientation_tpu_torch.utils import grad_check as GC
 from pointcloud_orientation_tpu_torch.utils import save_torch_checkpoint, to_flax_variables
+from pointcloud_orientation_tpu_torch.utils.quantize import save_quantized_checkpoint
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
 # kernel's products at the bf16 tensor-core rate; the products of an f32 MLP
@@ -3082,6 +3096,326 @@ def phase_real_data(dev, train: dict) -> dict:
     return out
 
 
+TTA_B, TTA_N = 64, 1024
+# (case, model, views, predictor options): every head family the JAX
+# predictor votes for, 8-dir at V=8 in f32 and bf16 (512 views through the
+# grouping and MLP kernels), the trunk heads at V=4, the transformer's
+# flash forward at V=2
+TTA_CASES = (("8dir f32", "pointnet_pp_8dir", 8, {}),
+             ("8dir bf16", "pointnet_pp_8dir", 8, {"dtype": "bfloat16"}),
+             ("fwd", "pointnet_pp_fwd", 4, {}),
+             ("xyz_schmidt", "pointnet_pp_xyz_schmidt", 4, {}),
+             ("von_mises", "pointnet_pp_von_mises", 4, {}),
+             ("mvm", "pointnet_pp_mvm", 4, {}),
+             ("transformer flash", "point_transformer", 2, {"attention_impl": "flash"}))
+# the int8 envelope of tests/test_quantize.py: per-direction probabilities
+# and decoded forward vectors against the f32 predictor
+INT8_PROB_TOL, INT8_DEG_TOL = 0.01, 2.5
+# PointNet: served (model, B, N) and trained (name, B, N); the card's
+# outputs and a step's gradients against the port on the CPU, same weights
+PN_SERVE = (("pointnet_cls", 64, 1024), ("pointnet", 16, TRAIN_N))
+PN_TRAIN = (("simple_pointnet", 16, TRAIN_N), ("pointnet_cls", 16, CLS_TRAIN_N))
+PN_TOL = 1e-4  # f32 cuBLAS products (TF32 off) against the CPU's, in another order
+
+
+def tta_tol(case: str) -> float:
+    if case.startswith("transformer"):
+        return PT_TOL["float32"]
+    return BF16_LOGIT_TOL if "bf16" in case else LOGIT_TOL
+
+
+def tta_expected(case: str) -> dict:
+    """One model call a request, whatever V: the launches of one request."""
+    if case.startswith("transformer"):
+        return expected_launches(flash_attention_fwd=PT_DEPTH)
+    mlp = "sa_mlp_max_bf16" if "bf16" in case else "sa_mlp_max"
+    return expected_launches(sa_group=2, **{mlp: 3})
+
+
+def vm_moment(mu, kappa) -> np.ndarray:
+    """The first circular moment ``A(kappa) e^{i mu}`` (f64, on the host)."""
+    a = TVM.bessel_ratio(torch.as_tensor(np.asarray(kappa, np.float64))).numpy()
+    return np.stack([a * np.cos(mu), a * np.sin(mu)], -1)
+
+
+def combine_views(model: str, outs: list, angles: np.ndarray, rots: np.ndarray):
+    """The JAX predictor's combine of V single-view outputs, in numpy: 8-dir
+    slot-rolled softmax mean (log); vectors and the two axes derotated
+    (``v @ R``) and averaged; vM the mean first moment; MvM the view-major
+    mixture of V*K components, weights over V."""
+    V = len(outs)
+    if model == "pointnet_pp_8dir":
+        step = 8 // V
+        probs = [np.roll(np.exp(o - o.max(-1, keepdims=True)) /
+                         np.exp(o - o.max(-1, keepdims=True)).sum(-1, keepdims=True),
+                         i * step, axis=-1) for i, o in enumerate(outs)]
+        return np.log(np.mean(probs, 0) + 1e-12)
+    if model == "pointnet_pp_von_mises":
+        return np.mean([vm_moment(mu + angles[i], kappa) for i, (mu, kappa) in enumerate(outs)],
+                       0)
+    if model == "pointnet_pp_mvm":
+        mu = np.stack([np.mod(o[0] + angles[i] + np.pi, 2 * np.pi) - np.pi
+                       for i, o in enumerate(outs)], 1)
+        kappa, w = (np.stack([o[j] for o in outs], 1) for j in (1, 2))
+        b = mu.shape[0]
+        return mu.reshape(b, -1), kappa.reshape(b, -1), w.reshape(b, -1) / V
+    if model == "pointnet_pp_xyz_schmidt":
+        return tuple(np.mean([o[j] @ rots[i] for i, o in enumerate(outs)], 0) for j in (0, 1))
+    return np.mean([o @ rots[i] for i, o in enumerate(outs)], 0)
+
+
+def tta_diff(model: str, got, want) -> float:
+    """Largest difference: the vM head's by its first moment, the MvM
+    head's mu wrapped."""
+    if model == "pointnet_pp_von_mises":
+        got = vm_moment(*got)
+        want = vm_moment(*want) if isinstance(want, tuple) else want
+    if model == "pointnet_pp_mvm":
+        d = np.mod(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
+        return max(float(np.abs(d).max()), max_abs(got[1:], want[1:]))
+    return max_abs(got, want)
+
+
+def phase_serve_tta(dev) -> dict:
+    """Yaw-voting TTA on the card, B=64 N=1,024, random weights from the seed,
+    ``sampling="first"`` on the trunk heads. Each family's request: counters
+    from 0 around it, exactly one request's launches (one model call on the
+    ``(V*B, N, 3)`` views, through the kernels, none on a plain version);
+    the request through the plain versions; and its own combine of V
+    single-view requests on the same views (``infer.rotate_views`` on the
+    card), combined in numpy."""
+    x = so3_clouds(TTA_B, TTA_N, SEED + 61)
+    rows, launches, preds = [], {}, {}
+    for case, model, views, opts in TTA_CASES:
+        v = random_flax_variables(SEED, model)
+        kw = dict(num_points=TTA_N, max_batch=TTA_B, seed=SEED, device=dev, **opts)
+        if model != "point_transformer":
+            kw["sampling"] = "first"
+        pred = OrientationPredictor(model, v["params"], v["batch_stats"] or None,
+                                    tta_views=views, **kw)
+        single = OrientationPredictor(model, v["params"], v["batch_stats"] or None, **kw)
+        K.reset_launch_counts()
+        got = pred(x)
+        torch.cuda.synchronize()
+        n = K.launch_counts()
+        plain_patch = (FLASH_PLAIN if model == "point_transformer" else
+                       {"sa_group": K.sa_group_plain, "sa_mlp_max": K.sa_mlp_max_plain})
+        with mock.patch.multiple(K, **plain_patch):
+            plain = pred(x)
+        stacked = infer.rotate_views(torch.from_numpy(x).to(dev), pred._rots).cpu().numpy()
+        outs = [single(stacked[i * TTA_B:(i + 1) * TTA_B]) for i in range(views)]
+        want = combine_views(model, outs, pred._angles.cpu().numpy(), pred._rots.cpu().numpy())
+        tol = tta_tol(case)
+        vs_plain, vs_views = tta_diff(model, got, plain), tta_diff(model, got, want)
+        outs_ok = all(np.isfinite(o).all() and o.shape[0] == TTA_B for o in as_tuple(got))
+        if model == "pointnet_pp_mvm":
+            outs_ok = outs_ok and got[0].shape == (TTA_B, 4 * views) and bool(
+                np.abs(got[2].sum(-1) - 1).max() <= UNIT_TOL)
+        ok = (n == tta_expected(case) and outs_ok and vs_plain <= tol and vs_views <= tol)
+        rows.append({"case": case, "model": model, "views": views, "B": TTA_B, "N": TTA_N,
+                     "view_batch": views * TTA_B, "launches": n,
+                     "expected_launches": tta_expected(case), "max_abs_err_vs_plain": vs_plain,
+                     "max_abs_diff_vs_single_views": vs_views, "tol": tol, "ok": ok})
+        if not ok:
+            fail(f"serve_tta {case}: launches {n} (expected {tta_expected(case)}), {vs_plain} "
+                 f"from the plain versions, {vs_views} from {views} single-view requests "
+                 f"(tol {tol}), outputs ok {outs_ok}")
+        launches[case] = n
+        preds[case] = (pred, single)
+    emit("serve_tta", requests=rows)
+    return {"launches": launches, "predictors": preds, "clouds": x}
+
+
+def phase_serve_int8(dev) -> dict:
+    """int8 weight-only serving of ``pointnet_pp_8dir`` at B=64 N=1,024 from an
+    ``.npz`` this phase writes with ``save_quantized_checkpoint``: the int8
+    kernels and scales on the card, dequantized there each request; its
+    launches (one request's), the request through the plain versions, the
+    envelope against the f32 predictor on synthetic clouds, and the weight
+    bytes on the card against f32."""
+    v = random_flax_variables(SEED)
+    xyz, _, _ = synthetic_modelnet(seed=SEED + 67, num_points=TTA_N,
+                                   samples_per_class=-(-TTA_B // 6))
+    x = np.ascontiguousarray(xyz[:TTA_B], np.float32)
+    kw = dict(num_points=TTA_N, max_batch=TTA_B, seed=SEED, device=dev, sampling="first")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pointnet_pp_8dir_int8.npz")
+        save_quantized_checkpoint(path, v["params"], v["batch_stats"])
+        npz_bytes = os.path.getsize(path)
+        p8 = OrientationPredictor.from_quantized_checkpoint(path, "pointnet_pp_8dir", **kw)
+    p32 = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"], **kw)
+    K.reset_launch_counts()
+    got = p8(x)
+    torch.cuda.synchronize()
+    n = K.launch_counts()
+    with mock.patch.multiple(K, sa_group=K.sa_group_plain, sa_mlp_max=K.sa_mlp_max_plain):
+        plain = p8(x)
+    ref = p32(x)
+
+    def softmax(a):
+        e = np.exp(a - a.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    prob_dev = float(np.abs(softmax(got) - softmax(ref)).max())
+    cos = np.clip(np.sum(p8.forward_vectors(x) * p32.forward_vectors(x), -1), -1.0, 1.0)
+    deg_dev = float(np.degrees(np.arccos(cos)).max())
+    b8, b32 = p8.param_bytes(), p32.param_bytes()
+    quantized_f32 = b32["module"] - b8["module"]
+    vs_plain = float(np.abs(got - plain).max())
+    ok = (n == expected_launches(sa_group=2, sa_mlp_max=3) and np.isfinite(got).all()
+          and vs_plain <= LOGIT_TOL and prob_dev < INT8_PROB_TOL and deg_dev < INT8_DEG_TOL
+          and b8["int8"] * 4 == quantized_f32)
+    emit("serve_int8", model="pointnet_pp_8dir", B=TTA_B, N=TTA_N, launches=n,
+         max_abs_err_vs_plain=vs_plain, tol=LOGIT_TOL, prob_max_dev_vs_f32=prob_dev,
+         prob_tol=INT8_PROB_TOL, deg_max_dev_vs_f32=deg_dev, deg_tol=INT8_DEG_TOL,
+         bytes_on_card_int8=b8, bytes_on_card_f32=b32,
+         quantized_leaves_f32_bytes=quantized_f32,
+         quantized_leaves_shrink=quantized_f32 / max(b8["int8"] + b8["scales"], 1),
+         total_shrink=sum(b32.values()) / max(sum(b8.values()), 1), npz_bytes=npz_bytes, ok=ok)
+    if not ok:
+        fail(f"serve_int8: launches {n}, {vs_plain} from the plain versions, probabilities "
+             f"{prob_dev} and {deg_dev} deg from f32, bytes {b8} vs {b32}")
+    return {"launches": n, "p8": p8, "p32": p32, "clouds": x}
+
+
+def pn_step(trainer, batch, valid, masks) -> tuple:
+    """One train step of ``trainer`` on ``batch`` with the dropout keep masks
+    given (drawn on the host, the same on both devices): loss and gradients
+    by parameter name."""
+    queue = [m.to(trainer.device) for m in masks]
+
+    def fed(x, p, generator):
+        return torch.where(queue.pop(0), x / (1.0 - p), torch.zeros_like(x))
+
+    dev_batch = {k: t.to(trainer.device) for k, t in batch.items()}
+    with mock.patch.object(LAYERS, "dropout", fed):
+        loss = trainer.train_step(dev_batch, valid.to(trainer.device), None)["loss"]
+    grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}
+    return float(loss), grads
+
+
+def pn_trainer(name: str, b: int, n: int, dev) -> Trainer:
+    """The ``simple_pointnet`` preset, or ``pointnet_cls`` under
+    ``classification``, at (b, n), on 48 synthetic clouds (3 train steps
+    and 1 val batch): the same flax initialisation on any device."""
+    if name == "simple_pointnet":
+        cfg = preset("simple_pointnet", batch_size=b, num_points=n, epochs=1)
+        ds = OrientationDataset(*synthetic_modelnet(num_points=n, samples_per_class=48,
+                                                    class_names=["chair"]))
+    else:
+        cfg = TrainConfig(task="classification", model="pointnet_cls", batch_size=b,
+                          num_points=n, epochs=1)
+        ds = OrientationDataset(*synthetic_modelnet(num_points=n, samples_per_class=8))
+    return Trainer(cfg, ds, device=str(dev))
+
+
+def phase_pointnet(dev) -> dict:
+    """The PointNet backbones on the card (cuBLAS products with TF32 off;
+    none of the port's kernels, so every counter stays 0): ``pointnet_cls``
+    served at B=64 N=1,024 and ``pointnet`` (feature transform) at B=16
+    N=10,000, each against the port on the CPU with the same weights; the
+    ``simple_pointnet`` preset at B=16 N=10,000 and ``pointnet_cls`` under
+    ``classification`` at B=16 N=1,024: a step on the card against the same
+    step on the CPU in float64 (same initial weights, batch and dropout
+    masks): the loss, and every gradient leaf under ``utils/grad_check.py``'s
+    rule, its shift leaves held absolutely, within ``GRAD_TOL["default"]``
+    or three times the CPU's own float32 step's distance from float64,
+    whichever is larger (the feature transform's products make PointNetCls's
+    float32 gradients far less exact than a PointNet++ step's); then an
+    epoch (3 steps and a val batch), and the step timed."""
+    rows, timing, launches = [], {}, {}
+    for name, b, n in PN_SERVE:
+        v = random_flax_variables(SEED, name)
+        x = so3_clouds(b, n, SEED + 71)
+        card = OrientationPredictor(name, v["params"], v["batch_stats"], num_points=n,
+                                    max_batch=b, seed=SEED, device=dev)
+        cpu = OrientationPredictor(name, v["params"], v["batch_stats"], num_points=n,
+                                   max_batch=b, seed=SEED, device="cpu")
+        K.reset_launch_counts()
+        got = card(x)
+        torch.cuda.synchronize()
+        launches[f"serve {name}"] = K.launch_counts()
+        want = cpu(x)
+        err = max_abs(got, want)
+        close = all(np.allclose(g, w, rtol=PN_TOL, atol=PN_TOL)
+                    for g, w in zip(as_tuple(got), as_tuple(want)))
+        ok = close and launches[f"serve {name}"] == expected_launches() and all(
+            np.isfinite(g).all() for g in as_tuple(got))
+        timing[f"serve {name} B={b} N={n}"] = request_latency(card, x)
+        rows.append({"what": f"serve {name}", "B": b, "N": n, "max_abs_diff_vs_cpu": err,
+                     "scale": max(float(np.abs(w).max()) for w in as_tuple(want)),
+                     "shapes": [list(g.shape) for g in as_tuple(got)], "tol": PN_TOL, "ok": ok})
+        emit("pointnet_check", **rows[-1])
+        if not ok:
+            fail(f"pointnet serve {name}: {err} from the CPU (tol {PN_TOL}), launches "
+                 f"{launches[f'serve {name}']}")
+    for name, b, n in PN_TRAIN:
+        card, cpu, cpu64 = (pn_trainer(name, b, n, d) for d in (dev, "cpu", "cpu"))
+        cpu64.model.double()
+        ds = card.train_ds
+        idx, valid, _ = next(ds.batches(b))
+        batch, valid, _ = card.device_batch(ds, idx, valid, card.generator(0, 1, 0))
+        batch = {"points": batch["points"].cpu(), **({"labels": batch["labels"].cpu()}
+                 if name == "pointnet_cls" else {"axes": batch["axes"].cpu()})}
+        width = 128 if name == "simple_pointnet" else 256
+        masks = [torch.rand((b, width), generator=torch.Generator().manual_seed(SEED + 73))
+                 < 1.0 - card.model.P_DROP]
+        K.reset_launch_counts()
+        loss, grads = pn_step(card, batch, valid, masks)
+        torch.cuda.synchronize()
+        step_launches = K.launch_counts()
+        cpu_loss, cpu_grads = pn_step(cpu, batch, valid, masks)
+        loss64, grads64 = pn_step(cpu64, {k: t.double() if t.is_floating_point() else t
+                                          for k, t in batch.items()}, valid.double(), masks)
+        grads64 = {k: g.float() for k, g in grads64.items()}
+        rule = dict(skip=GC.zero_gradient_leaves(card.model),
+                    shifts=GC.group_all_shift_leaves(card.model), premise=True)
+        own = GC.compare_grads(cpu_grads, grads64, GRAD_TOL["default"], **rule)
+        tol = max(GRAD_TOL["default"], 3 * own["norm_rel_err"])
+        cmp = GC.compare_grads(grads, grads64, tol, **rule)
+        vs_cpu32 = GC.compare_grads(grads, cpu_grads, tol, **rule)
+        loss_err = abs(loss - loss64) / max(abs(loss64), 1e-30)
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            hist = card.fit(log_every=0)
+        torch.cuda.synchronize()
+        epoch_launches = K.launch_counts()
+        finite = all(math.isfinite(x) for x in card.step_losses + hist["val"])
+        ok = (cmp["ok"] and loss_err <= PN_TOL and finite and step_launches == expected_launches()
+              and epoch_launches == expected_launches()
+              and len(card.step_losses) == batches_of(card.train_ds, b))
+        timing[f"train {name} B={b} N={n}"] = step_times(card, f"pointnet train {name}")
+        launches[f"train {name}"] = epoch_launches
+        rows.append({"what": f"train {name}", "B": b, "N": n, "loss": loss, "loss_cpu_f32":
+                     cpu_loss, "loss_cpu_f64": loss64, "loss_rel_err_vs_f64": loss_err,
+                     "grads_vs_cpu_f64": cmp, "cpu_f32_grads_vs_cpu_f64": own,
+                     "grads_vs_cpu_f32": {k: vs_cpu32[k] for k in ("worst", "norm_rel_err",
+                                                                    "median_norm_rel_err")},
+                     "step_losses": card.step_losses, "val_loss": hist["val"][0], "ok": ok})
+        emit("pointnet_check", **rows[-1])
+        if not ok:
+            fail(f"pointnet train {name}: loss {loss} vs {loss64} in f64 on the CPU, grads "
+                 f"{cmp}, finite {finite}, launches {step_launches} / {epoch_launches}")
+    emit("pointnet", checks=[r["what"] for r in rows], launches=launches)
+    return {"timing": timing, "launches": launches}
+
+
+def phase_timing_serving(dev, card: str, tta: dict, int8: dict, pn: dict) -> None:
+    """Requests in turns on one card: 8-dir at V=1 and V=8 (f32, B=64
+    N=1,024; the same weights), int8 against f32, and the PointNet requests
+    and steps (``phase_pointnet``); host clock around whole requests; with
+    the card's name and power limit (``card``, nvidia-smi's)."""
+    pred8, single = tta["predictors"]["8dir f32"]
+    x = tta["clouds"]
+    rows = {}
+    for turn in range(2):
+        rows[f"8dir V=1 turn {turn}"] = request_latency(single, x)
+        rows[f"8dir V=8 turn {turn}"] = request_latency(pred8, x)
+        rows[f"8dir f32 turn {turn}"] = request_latency(int8["p32"], int8["clouds"])
+        rows[f"8dir int8 turn {turn}"] = request_latency(int8["p8"], int8["clouds"])
+    emit("timing_serving", device=card, requests=rows, pointnet=pn["timing"])
+
+
 
 def main() -> None:
     info = phase_device()
@@ -3112,6 +3446,9 @@ def main() -> None:
     serve_transformer = phase_serve_transformer(dev)
     train_transformer = phase_train_transformer(dev)
     real_data = phase_real_data(dev, train)
+    serve_tta = phase_serve_tta(dev)
+    serve_int8 = phase_serve_int8(dev)
+    pointnet = phase_pointnet(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -3121,6 +3458,7 @@ def main() -> None:
     phase_timing_train_cls(train_cls)
     phase_timing_so3(serve, serve_bf16, train, serve_so3, train_so3)
     flash_rows = phase_timing_transformer(dev, checks, serve_transformer, train_transformer)
+    phase_timing_serving(dev, info["nvidia_smi"], serve_tta, serve_int8, pointnet)
     so3_paths = {**{f"serve {case}": n for case, n in serve_so3["launches"].items()},
                  **{f"train {path}": run["launches"] for path, run in train_so3.items()}}
     for row in summary:  # the classifier's and the SO(3) paths, beside each row's own path
@@ -3134,6 +3472,13 @@ def main() -> None:
                 if n.get(row["name"])}
         if real:
             row["launches_real_data"] = real
+    for row in summary + flash_rows:  # TTA's and int8's requests, beside each row's own path
+        tta = {case: n[row["name"]] for case, n in serve_tta["launches"].items()
+               if n.get(row["name"])}
+        if tta:
+            row["launches_tta"] = tta
+        if serve_int8["launches"].get(row["name"]):
+            row["launches_int8"] = {"8dir B=64 N=1024": serve_int8["launches"][row["name"]]}
     summary += flash_rows
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,

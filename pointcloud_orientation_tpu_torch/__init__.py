@@ -1,13 +1,13 @@
 """PyTorch/CUDA port of pointcloud_orientation_tpu, for one NVIDIA H100.
 
-The port serves the PointNet++ 8-direction model (``pointnet_pp_8dir``) and
-the PointNet++ ModelNet40 classifier (``pointnet_pp_cls``) through
-``infer.OrientationPredictor``, and trains the 8-direction model
-(``train.Trainer``, the ``8dir_kl``/``8dir_mse`` presets), through seven
-CUDA kernels written for Hopper (``csrc/``): fused set-abstraction grouping
-and its scatter-add gradient, fused shared-MLP + max and its recompute
-backward, kNN for clouds above the fused grouping's size, farthest-point
-sampling and the radius ball query. Importing the package builds nothing and
+The port serves every head the JAX package serves on one device (the
+PointNet++ heads and classifier, the point transformer, the PointNet
+backbones; yaw-voting TTA, int8 weights) through
+``infer.OrientationPredictor``, and trains them (``train.Trainer`` and its
+presets), through the CUDA kernels written for Hopper (``csrc/``): fused
+set-abstraction grouping and its scatter-add gradient, fused shared-MLP +
+max and its recompute backward, kNN, farthest-point sampling, the radius
+ball query, the grid stage's top-k and the flash attention. Importing the package builds nothing and
 needs no ``nvcc``; the kernels are built on the first CUDA call.
 The JAX package beside it is the reference; this package never imports it.
 """

@@ -1,5 +1,4 @@
-"""Batched serving of the PointNet++ models and the point transformer on
-the card.
+"""Batched serving of the port's models on the card.
 
 Counterpart of ``pointcloud_orientation_tpu/infer.py`` ``OrientationPredictor``
 for the models ``pointnet_pp_8dir`` (8-way direction logits),
@@ -7,13 +6,16 @@ for the models ``pointnet_pp_8dir`` (8-way direction logits),
 kappa)), ``pointnet_pp_mvm`` ((mu, kappa, weight)), ``pointnet_pp`` (raw
 forward vectors), ``pointnet_pp_xyz`` ((x, y) axes),
 ``pointnet_pp_xyz_schmidt`` ((up, forward)), ``pointnet_pp_cls``
-(ModelNet40 log-probabilities) and ``point_transformer`` (raw forward
-vectors; ``attention_impl="flash"`` through the flash kernels) in eval
-mode, one view, one ensemble member, no quantization, one device; f32, or
-bf16 (``dtype="bfloat16"``, the JAX package's ``**model_kwargs``).
+(ModelNet40 log-probabilities), ``point_transformer`` (raw forward vectors;
+``attention_impl="flash"`` through the flash kernels), ``simple_pointnet``
+and ``pointnet`` (raw forward vectors) and ``pointnet_cls``
+((log-probabilities, feature transform)) in eval mode, on one device; f32,
+or bf16 (``dtype="bfloat16"``, the JAX package's ``**model_kwargs``).
 Requests are padded to power-of-two batch buckets (clamped to
 ``max_batch``) and to ``num_points`` points, exactly as the JAX predictor
-pads them.
+pads them. ``tta_views`` votes over yaw-rotated views of each request and
+``quantize="int8"`` serves int8 weights dequantized on the device, as there;
+ensembles and meshes are not ported.
 
 Example
 -------
@@ -28,39 +30,140 @@ Example
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
+from torch.func import functional_call
 
 from .models import MODEL_REGISTRY
 from .ops import DIRS_8
 from .models.layers import compute_dtype
 from .ops.cuda_kernels import bf16_matmuls, f32_matmuls
-from .utils.jax_weights import load_flax_variables, model_kwargs as tree_kwargs
+from .ops.rotations import wrap_angle, yaw_matrix
+from .ops.von_mises import vm_mixture_moment_match
+from .utils.jax_weights import kernel_parameters, load_flax_variables
+from .utils.jax_weights import model_kwargs as tree_kwargs
+from .utils.quantize import dequantize_params, map_leaves, quantize_params_int8
 
 Output = Union[np.ndarray, Tuple[np.ndarray, ...]]
 
+# the yaw-equivariant head families, by how views combine
+TTA_VECTOR = ("pointnet_pp", "pointnet_pp_fwd", "simple_pointnet", "point_transformer")
+TTA_TUPLE = ("pointnet_pp_xyz", "pointnet_pp_xyz_schmidt")
+TTA_DIST = ("pointnet_pp_von_mises", "pointnet_pp_mvm")
+
+
+def tta_mode(model_name: str) -> str:
+    """How ``model_name``'s views combine: ``"slots"`` (8-dir), ``"tuple"``
+    (the two-axis heads), ``"vm"``, ``"mvm"`` or ``"vector"``."""
+    if model_name == "pointnet_pp_8dir":
+        return "slots"
+    if model_name in TTA_TUPLE:
+        return "tuple"
+    return {"pointnet_pp_von_mises": "vm", "pointnet_pp_mvm": "mvm"}.get(model_name, "vector")
+
+
+def tta_angles(mode: str, views: int) -> torch.Tensor:
+    """The views' yaw angles (f32): multiples of 45 degrees ``i * (8 /
+    views) * pi / 4`` for 8-dir, else ``i * 2 pi / views``."""
+    if mode == "slots":
+        step = 8 // views
+        return torch.tensor([i * step * math.pi / 4 for i in range(views)], dtype=torch.float32)
+    return torch.tensor([i * 2.0 * math.pi / views for i in range(views)], dtype=torch.float32)
+
+
+def _apply3(rots: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """``rots (V, 1.., 3, 3)`` applied to ``vecs (.., 3)`` as ``(r_i0 v_0 +
+    r_i1 v_1) + r_i2 v_2``, elementwise in f32, the same order on any
+    device."""
+    first = rots[..., 0] * vecs[..., 0:1] + rots[..., 1] * vecs[..., 1:2]
+    return first + rots[..., 2] * vecs[..., 2:3]
+
+
+def rotate_views(pts: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
+    """``(B, N, 3)`` clouds under each of ``rots (V, 3, 3)``, stacked view
+    by view: ``(V * B, N, 3)``."""
+    return _apply3(rots[:, None, None], pts[None]).reshape(-1, *pts.shape[1:])
+
+
+def derotate_mean(vecs: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
+    """The views' vectors ``(V * B, 3)`` rotated back by ``R^T`` and
+    averaged over the views: ``(B, 3)``."""
+    V = rots.shape[0]
+    vv = vecs.reshape(V, -1, 3)
+    return _apply3(rots.transpose(1, 2)[:, None], vv).mean(dim=0)
+
+
+def tta_combine(mode: str, out, angles: torch.Tensor, rots: torch.Tensor):
+    """The JAX predictor's combine of a model output over ``V`` views
+    stacked view by view (``V * B`` rows): 8-dir ``log(mean of each view's
+    softmax rolled back by its slots + 1e-12)``; vector and two-axis heads
+    the derotated mean; vM each mu shifted by its view's angle, then
+    :func:`.ops.von_mises.vm_mixture_moment_match` over the views; MvM the
+    exact mixture of ``V * K`` components (mu shifted and wrapped, weights
+    divided by ``V``), component axis ordered view-major as the JAX
+    package's ``moveaxis``."""
+    V = angles.shape[0]
+    if mode == "slots":
+        step = 8 // V
+        probs = torch.softmax(out, dim=-1).reshape(V, -1, 8)
+        unshifted = torch.stack([torch.roll(probs[i], i * step, dims=-1) for i in range(V)])
+        return torch.log(unshifted.mean(dim=0) + 1e-12)
+    if mode == "vm":
+        mu, kappa = out
+        mu = mu.reshape(V, -1) + angles[:, None]
+        return vm_mixture_moment_match(mu, kappa.reshape(V, -1), dim=0)
+    if mode == "mvm":
+        mu, kappa, w = out
+        K = mu.shape[-1]
+        mu = wrap_angle(mu.reshape(V, -1, K) + angles[:, None, None])
+
+        def view_major(t):
+            return t.reshape(V, -1, K).transpose(0, 1).reshape(-1, V * K)
+
+        return view_major(mu), view_major(kappa), view_major(w) / V
+    if mode == "tuple":
+        return tuple(derotate_mean(v, rots) for v in out)
+    return derotate_mean(out, rots)
+
 
 class OrientationPredictor:
-    """Bucketed predictor over one of the port's PointNet++ models
-    (``MODEL_REGISTRY``).
+    """Bucketed predictor over one of the port's models (``MODEL_REGISTRY``).
 
     ``params``/``batch_stats`` are the JAX package's flax trees as numpy
     arrays (see :mod:`.utils.jax_weights`); what the tree fixes is read from
-    it (the classifier's input width and class count, the vM head's mu
-    parameterisation, the MvM head's ``max_K``). Runs on
-    ``device`` ("cuda" unless the caller asks for the CPU). Random centroids
-    and FPS start points are drawn from a ``torch.Generator`` seeded with
-    ``seed``; they match the JAX predictor's only in distribution
-    (``sampling="first"`` makes the 8-dir model deterministic).
-    ``model_kwargs`` go to the model: ``dtype=torch.bfloat16`` (or
-    ``"bfloat16"``) serves a BatchNorm trunk in bf16; ``sampling`` and
+    it (the classifiers' input width and class count, the vM head's mu
+    parameterisation, the MvM head's ``max_K``, PointNet's feature
+    transform). Runs on ``device`` ("cuda" unless the caller asks for the
+    CPU). Random centroids and FPS start points are drawn from a
+    ``torch.Generator`` seeded with ``seed``; they match the JAX predictor's
+    only in distribution (``sampling="first"`` makes the trunk heads
+    deterministic). ``model_kwargs`` go to the model: ``dtype=torch.bfloat16``
+    (or ``"bfloat16"``) serves a trunk in bf16; ``sampling`` and
     ``grouping`` of a trunk head, the MvM head's ``temp``, ``kappa_max`` and
     ``weight_floor``, the two-axis heads' ``normalize_heads`` and
     ``gram_schmidt``, the transformer's ``attention_impl`` (``"xla"`` or
     ``"flash"``; the flash kernels take ``num_points`` in multiples of
     128) and ``dtype``.
+
+    ``tta_views``: yaw-voting test-time augmentation for the yaw-equivariant
+    heads, one model call on the ``(V * bucket, N, 3)`` views built on the
+    device (:func:`rotate_views`) and combined by :func:`tta_combine`:
+    8-dir at V in (2, 4, 8), any V for the vector, two-axis, vM and MvM
+    heads; the outputs keep each head's contract (the MvM head's component
+    axis is ``V * max_K`` wide). ``quantize="int8"`` quantizes the Dense
+    kernels (:func:`.utils.quantize.quantize_params_int8`); ``scales=``
+    takes ``params`` already quantized with their scales (as
+    :meth:`from_quantized_checkpoint` loads them). The int8 kernels and
+    their scales stay on the device and each request dequantizes them
+    there and runs the model through ``torch.func.functional_call``; the
+    module keeps no f32 copy of them. ``ensemble_size > 1`` and ``mesh``
+    are not ported (``NotImplementedError``); the JAX package's
+    ``ValueError``s stand: ``tta_views < 1``, an 8-dir V outside (2, 4, 8),
+    TTA on a head that is not yaw-equivariant, an unknown ``quantize``.
     """
 
     def __init__(
@@ -82,27 +185,104 @@ class OrientationPredictor:
         if model_name not in MODEL_REGISTRY:
             raise NotImplementedError(
                 f"model {model_name!r} is not ported; the port serves {sorted(MODEL_REGISTRY)}")
-        for name, value, default in (("quantize", quantize, None), ("scales", scales, None),
-                                     ("mesh", mesh, None), ("tta_views", tta_views, 1),
-                                     ("ensemble_size", ensemble_size, 1)):
+        if tta_views < 1:
+            raise ValueError(f"tta_views must be >= 1, got {tta_views}")
+        if ensemble_size < 1:
+            raise ValueError(f"ensemble_size must be >= 1, got {ensemble_size}")
+        if tta_views > 1:
+            if model_name == "pointnet_pp_8dir":
+                if tta_views not in (2, 4, 8):
+                    raise ValueError("8-dir TTA needs 45°-multiple views: tta_views in "
+                                     f"(2, 4, 8), got {tta_views}")
+            elif model_name not in TTA_VECTOR + TTA_TUPLE + TTA_DIST:
+                raise ValueError(
+                    "yaw-voting TTA needs a yaw-equivariant head (8-dir slot shift, "
+                    "forward/axes vector derotation, or vM/MvM angle derotation); model "
+                    f"{model_name!r} is unsupported")
+        for name, value, default in (("mesh", mesh, None), ("ensemble_size", ensemble_size, 1)):
             if value != default:
                 raise NotImplementedError(f"{name}={value!r} is not ported")
+        if scales is None and quantize is not None:
+            if quantize != "int8":
+                raise ValueError(f"unknown quantize mode {quantize!r}")
+            params, scales = quantize_params_int8(params)
         if num_points < 1 or max_batch < 1:
             raise ValueError(f"num_points={num_points} and max_batch={max_batch} must be >= 1")
         self.device = torch.device(device)
         self.model_name = model_name
         self.num_points = num_points
         self.max_batch = max_batch
+        self.tta_views = tta_views
+        self._tta_mode = tta_mode(model_name)
+        self._angles = tta_angles(self._tta_mode, tta_views).to(self.device)
+        self._rots = yaw_matrix(self._angles)
         model_kwargs = {**tree_kwargs(model_name, params), **model_kwargs}
         model = MODEL_REGISTRY[model_name](**model_kwargs)
         self.channels = getattr(model, "in_channels", 3)
+        self._int8: Dict[str, Tuple[str, int]] = {}  # kernel path -> (weight name, in_features)
+        self._quantized: Dict[str, torch.Tensor] = {}
+        self._scales: Dict[str, torch.Tensor] = {}
+        if scales is not None:
+            params = self._hold_int8(model, params, scales)
         load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
+        for name, _ in self._int8.values():  # no f32 copy of an int8 kernel
+            owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+            setattr(owner, leaf, nn.Parameter(torch.empty(0), requires_grad=False))
         self.model = model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         f32_matmuls()  # the FC funnel runs in cuBLAS; the JAX side is full f32
         if compute_dtype(model_kwargs.get("dtype")) == torch.bfloat16:
             bf16_matmuls()  # its bf16 products accumulate in f32, as XLA's
+
+    def _hold_int8(self, model: nn.Module, params: Dict, scales: Dict) -> Dict:
+        """Keep each scaled kernel of ``params`` and its scale on the device,
+        and return ``params`` with those kernels dequantized on the host,
+        for the module's shapes only (their weights are dropped after the
+        load)."""
+        kernels = kernel_parameters(model)
+        unknown = sorted(set(scales) - set(kernels))
+        if unknown:
+            raise KeyError(f"scales for kernels {model.__class__.__name__} does not have: "
+                           f"{unknown}")
+        self._int8 = {path: kernels[path] for path in scales}
+
+        def hold(path, leaf):
+            if path not in scales:
+                return leaf
+            q, scale = np.asarray(leaf), np.asarray(scales[path], np.float32)
+            if q.dtype != np.int8:
+                raise ValueError(f"{path}: scales= takes int8 kernels, got {q.dtype}")
+            self._quantized[path] = torch.from_numpy(q.copy()).to(self.device)
+            self._scales[path] = torch.from_numpy(scale.copy()).to(self.device)
+            return q.astype(np.float32) * scale
+
+        return map_leaves(params, hold)
+
+    def param_bytes(self) -> Dict[str, int]:
+        """Bytes of the weights held on the device: the module's parameters
+        and BatchNorm statistics (``module``), the int8 kernels (``int8``)
+        and their scales (``scales``)."""
+        tensors = {"module": [*self.model.parameters(), *self.model.buffers()],
+                   "int8": list(self._quantized.values()), "scales": list(self._scales.values())}
+        return {k: sum(t.numel() * t.element_size() for t in v) for k, v in tensors.items()}
+
+    def _apply(self, pts: torch.Tensor):
+        """The model on a padded bucket: through the dequantized int8
+        kernels when there are any; on the stacked views and their combine
+        when ``tta_views > 1``."""
+        if self.tta_views > 1:
+            pts = rotate_views(pts, self._rots)
+        if self._quantized:
+            deq = dequantize_params(self._quantized, self._scales)
+            weights = {name: deq[path].reshape(cin, -1).t() for path, (name, cin)
+                       in self._int8.items()}
+            out = functional_call(self.model, weights, (pts, self.generator))
+        else:
+            out = self.model(pts, self.generator)
+        if self.tta_views == 1:
+            return out
+        return tta_combine(self._tta_mode, out, self._angles, self._rots)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, model: str = "pointnet_pp_8dir",
@@ -114,6 +294,16 @@ class OrientationPredictor:
 
         params, stats = load_torch_checkpoint(path, model)
         return cls(model, params, stats, **kw)
+
+    @classmethod
+    def from_quantized_checkpoint(cls, path: str, model: str, **kw) -> "OrientationPredictor":
+        """Serve an int8 ``.npz`` artifact
+        (:func:`.utils.quantize.save_quantized_checkpoint`, or the JAX
+        package's); ``kw`` as the constructor's."""
+        from .utils.quantize import load_quantized_checkpoint
+
+        quantized, scales, batch_stats = load_quantized_checkpoint(path)
+        return cls(model, quantized, batch_stats, scales=scales, **kw)
 
     def _bucket(self, b: int) -> int:
         bucket = 1
@@ -141,10 +331,13 @@ class OrientationPredictor:
         the model's input width, for the original B: logits ``(B, 8)``
         (8-dir), unit vectors ``(B, 3)`` (forward), the tuple ``(mu (B,),
         kappa (B,))`` (vM) or ``(mu, kappa, weight)``, each ``(B, max_K)``
-        (MvM), raw vectors ``(B, 3)`` (``pointnet_pp``), the tuple of two
-        ``(B, 3)`` axes (the two-axis heads), log-probabilities ``(B,
-        num_classes)`` (classifier); above
-        ``max_batch`` the request is served in chunks of ``max_batch``."""
+        (MvM; ``(B, V * max_K)`` under TTA), raw vectors ``(B, 3)``
+        (``pointnet_pp``, ``simple_pointnet``, ``pointnet``, the
+        transformer), the tuple of two ``(B, 3)`` axes (the two-axis heads),
+        log-probabilities ``(B, num_classes)`` (``pointnet_pp_cls``), the
+        tuple ``(log-probabilities, feature transform (B, 64, 64))``
+        (``pointnet_cls``); above ``max_batch`` the request is served in
+        chunks of ``max_batch``."""
         clouds = np.asarray(clouds, np.float32)
         c = self.channels
         if clouds.ndim != 3 or clouds.shape[-1] != c or clouds.shape[0] < 1 or clouds.shape[1] < 1:
@@ -156,7 +349,7 @@ class OrientationPredictor:
                 return tuple(np.concatenate(xs, axis=0) for xs in zip(*chunks))
             return np.concatenate(chunks, axis=0)
         pts = torch.from_numpy(np.ascontiguousarray(self._pad(clouds))).to(self.device)
-        out = self.model(pts, self.generator)
+        out = self._apply(pts)
         if isinstance(out, tuple):
             return tuple(o[:b].cpu().numpy() for o in out)
         return out[:b].cpu().numpy()
@@ -168,7 +361,10 @@ class OrientationPredictor:
         the two-axis heads the last head's output (forward; ``head_y`` for
         ``pointnet_pp_xyz``); the forward heads' output as it is (and the
         classifier's ``(B, num_classes)``, as the JAX package's fall-through
-        branch does); normalised."""
+        branch does); normalised. ``pointnet_cls``'s tuple has no such
+        decode (``ValueError``; the JAX fall-through fails on it too)."""
+        if self.model_name == "pointnet_cls":
+            raise ValueError("pointnet_cls returns (log_probs, trans_feat): no forward vector")
         out = self(clouds)
         if self.model_name == "pointnet_pp_8dir":
             out = (torch.softmax(torch.from_numpy(out), dim=-1) @ DIRS_8).numpy()

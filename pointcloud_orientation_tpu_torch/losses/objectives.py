@@ -1,8 +1,8 @@
 """The yaw-task objectives and the classifier's. Counterpart of
 ``pointcloud_orientation_tpu/losses/objectives.py`` (``soft_label_kl_8dir``,
 ``softmax_mse_8dir_loss``, ``projected_probs_mse_loss``,
-``single_peak_vm_kl_loss``, ``mvm_matched_loss``, ``nll_loss``); each
-returns ``(scalar_loss, per_sample (B,))``."""
+``single_peak_vm_kl_loss``, ``mvm_matched_loss``, ``nll_loss``,
+``pointnet_cls_loss``); each returns ``(scalar_loss, per_sample (B,))``."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from ..models.pointnet import feature_transform_regularizer
 from ..ops.dirs8 import forward_to_8dir_probs
 from ..ops.matching import matched_mvm_loss
 from ..ops.von_mises import kl_von_mises
@@ -60,3 +61,14 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> Loss:
     labels ``(B,)`` (torch's ``F.nll_loss`` with the per-sample values)."""
     per = -torch.gather(log_probs, -1, labels.long()[:, None])[:, 0]
     return per.mean(), per
+
+
+def pointnet_cls_loss(log_probs: torch.Tensor, labels: torch.Tensor, trans_feat: torch.Tensor,
+                      mat_diff_loss_scale: float = 0.001) -> Loss:
+    """The PointNet classifier's NLL plus ``mat_diff_loss_scale`` times the
+    feature transform's orthogonality penalty
+    (:func:`..models.pointnet.feature_transform_regularizer`); the
+    per-sample values are the NLL's (the reference's ``get_loss``,
+    `PointNetDemo.py:163-172`)."""
+    scalar, per = nll_loss(log_probs, labels)
+    return scalar + mat_diff_loss_scale * feature_transform_regularizer(trans_feat), per

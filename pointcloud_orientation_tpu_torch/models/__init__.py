@@ -1,10 +1,13 @@
 """PyTorch models of the port: the PointNet++ yaw heads (8-dir, unit
 forward, von Mises, mixture of von Mises), the SO(3) heads (raw forward
-vector, the two two-axis heads), the PointNet++ ModelNet40 classifier and
-the point transformer, in eval and train mode."""
+vector, the two two-axis heads), the PointNet++ ModelNet40 classifier, the
+point transformer, and the PointNet backbones (the simple baseline, PointNet
+regression and the PointNet ModelNet40 classifier), in eval and train
+mode."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
 from .point_transformer import PointTransformer
+from .pointnet import PointNet, PointNetCls, PointNetEncoder, STN3d, STNkd
 from .pointnet_pp import (
     PointNetPP,
     PointNetPP8Dir,
@@ -15,8 +18,12 @@ from .pointnet_pp import (
     PointNetPPXYZ,
     PointNetPPXYZSchmidt,
 )
+from .simple_pointnet import SimplePointNet
 
 MODEL_REGISTRY = {
+    "simple_pointnet": SimplePointNet,
+    "pointnet": PointNet,
+    "pointnet_cls": PointNetCls,
     "pointnet_pp_8dir": PointNetPP8Dir,
     "pointnet_pp_fwd": PointNetPPFwd,
     "pointnet_pp_von_mises": PointNetPPVonMises,
@@ -30,6 +37,9 @@ MODEL_REGISTRY = {
 
 __all__ = [
     "MODEL_REGISTRY",
+    "PointNet",
+    "PointNetCls",
+    "PointNetEncoder",
     "PointNetPP",
     "PointNetPP8Dir",
     "PointNetPPCls",
@@ -40,6 +50,9 @@ __all__ = [
     "PointNetPPXYZSchmidt",
     "PointNetPPTrunk",
     "PointTransformer",
+    "STN3d",
+    "STNkd",
     "SetAbstraction",
     "SharedMLP",
+    "SimplePointNet",
 ]

@@ -69,7 +69,7 @@ def set_knn_impl(impl: str, recall_target: Optional[float] = None,
     if impl == "approx":
         raise NotImplementedError(
             "knn impl 'approx' (jax.lax.approx_min_k in the JAX package) is not ported; "
-            "see ROADMAP.md queue 1 item 8b")
+            "see ROADMAP.md, queue 1, 'The approximate kNN'")
     _KNN_IMPL = impl
     if approx_min_n is not None:
         _KNN_APPROX_MIN_N = approx_min_n

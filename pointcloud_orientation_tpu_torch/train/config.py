@@ -1,7 +1,9 @@
 """Training configuration of the port.
 
 Counterpart of ``pointcloud_orientation_tpu/train/config.py`` for the fields
-the PointNet++ tasks use and their presets: the SO(3) tasks
+the PointNet++ and PointNet tasks use and their presets: ``simple_pointnet``
+(SimplePointNet, ``forward_mse`` on axes row 0, SO(3) rotations, one
+category), the SO(3) tasks
 ``pointnet_pp_forward`` (PointNetPP, ``forward_mse`` on axes row
 ``target_row``) and ``axes_all_labels`` (PointNetPPXYZSchmidt, task
 ``axes``, one model per label), ``8dir`` (per label), ``8dir_kl`` and
@@ -15,9 +17,11 @@ MvM categories, 100 epochs, gradient clip 1.0): N=10,000, B=16, Adam at
 trains the point transformer on ``forward_mse`` (SO(3) rotations, one
 category, N=1,024) with ``transformer_attention`` "xla" or "flash" (the
 flash kernels, O(N) attention memory). The
-``classification`` task trains ``pointnet_pp_cls``; no preset names it, as
-in the JAX package: ``TrainConfig(task="classification",
-model="pointnet_pp_cls")``. The JAX config's other fields are accepted by
+``classification`` task trains ``pointnet_pp_cls`` or ``pointnet_cls``
+(whose loss reads the first of its outputs, the log-probabilities); no
+preset names it, as in the JAX package: ``TrainConfig(task="classification",
+model="pointnet_pp_cls")``. ``pointnet`` (PointNet regression) trains on the
+vector tasks by config. The JAX config's other fields are accepted by
 :func:`preset` and :meth:`TrainConfig.replace` at their default values
 only; any other value raises ``NotImplementedError``.
 """
@@ -41,7 +45,8 @@ PORTED_TASKS = ("forward_mse", "axes", "8dir_kl", "8dir_mse", "multi_8dir", "vm_
                 "classification")
 PORTED_MODELS = ("pointnet_pp", "pointnet_pp_xyz", "pointnet_pp_xyz_schmidt",
                  "pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
-                 "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer")
+                 "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer", "simple_pointnet",
+                 "pointnet", "pointnet_cls")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that this slice does not carry,
@@ -133,6 +138,11 @@ def _ported_overrides(kw: dict) -> dict:
 
 
 PRESETS = {
+    # simple_pointnet_train.py: SimplePointNet, MSE on the first axes row,
+    # one category (chair), SO(3)-rotated
+    "simple_pointnet": TrainConfig(task="forward_mse", model="simple_pointnet",
+                                   rotation_mode="so3", classes=("chair",), target_row=0,
+                                   num_points=10_000),
     # PointNet++_train.py: inline PointNetPP, MSE forward, one category
     "pointnet_pp_forward": TrainConfig(task="forward_mse", model="pointnet_pp",
                                        rotation_mode="so3", classes=("bookshelf",),

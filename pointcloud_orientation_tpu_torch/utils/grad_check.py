@@ -9,8 +9,10 @@ against noise:
   (:func:`zero_gradient_leaves`).
 
 * a Dense bias whose output a train-mode BatchNorm normalises (every
-  shared-MLP layer's, and the BatchNorm funnel's ``fc1``/``fc2``): the
-  batch mean removes it whatever the data. These leaves are left out.
+  shared-MLP layer's, the BatchNorm funnel's ``fc1``/``fc2``, and each
+  ``DenseBN`` of the PointNet backbones, which name them in
+  ``bn_fed_biases``): the batch mean removes it whatever the data. These
+  leaves are left out.
 * the shift of a group-all stage's last layer (``sa3.mlp.bns.2.bias``)
   where its pooled output feeds ``fc1`` and a train-mode BatchNorm: the
   BatchNorm centres ``fc1``'s gradient over the batch, so a shift that
@@ -59,6 +61,8 @@ def bias_leaves_feeding_batch_norm(model: nn.Module) -> Set[str]:
         elif isinstance(m, PointNetPPCls) or (isinstance(m, PointNetPPTrunk)
                                               and m.fc_norm == "batch"):
             names.update((f"{prefix}fc1.bias", f"{prefix}fc2.bias"))
+        elif hasattr(m, "bn_fed_biases"):
+            names.update(prefix + n for n in m.bn_fed_biases())
     return names
 
 
@@ -81,6 +85,10 @@ def group_all_shift_leaves(model: nn.Module) -> Dict[str, str]:
     for stage, sa in _group_all_stages(model).items():
         last = len(sa.mlp.bns) - 1
         out[f"{stage}.mlp.bns.{last}.bias"] = f"{stage}.mlp.bns.{last}.weight"
+    for mname, m in model.named_modules():
+        if hasattr(m, "shift_biases"):
+            prefix = f"{mname}." if mname else ""
+            out.update({prefix + b: prefix + w for b, w in m.shift_biases().items()})
     return out
 
 

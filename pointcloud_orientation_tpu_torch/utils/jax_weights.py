@@ -2,8 +2,9 @@
 variable tree with numpy alone, for the models of the port: the PointNet++
 yaw heads (``PointNetPP8Dir``, ``PointNetPPFwd``, ``PointNetPPVonMises``,
 ``PointNetPPMvM``), the SO(3) heads (``PointNetPP``, ``PointNetPPXYZ``,
-``PointNetPPXYZSchmidt``), the classifier (``PointNetPPCls``) and the point
-transformer (``PointTransformer``).
+``PointNetPPXYZSchmidt``), the classifier (``PointNetPPCls``), the point
+transformer (``PointTransformer``) and the PointNet backbones
+(``SimplePointNet``, ``PointNet``, ``PointNetCls``).
 
 A tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
 arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from ..models.point_transformer import PointTransformer
+from ..models.pointnet import PointNet, PointNetCls, PointNetEncoder, _PointNetHead, _STN
 from ..models.pointnet_pp import (
     PointNetPPCls,
     PointNetPPMvM,
@@ -32,6 +34,7 @@ from ..models.pointnet_pp import (
     PointNetPPXYZSchmidt,
     mu_bias_init,
 )
+from ..models.simple_pointnet import SimplePointNet
 
 # MLP widths of each set abstraction (the grouped input width is 3 plus the
 # previous stage's output, or plus the cloud's features for the first)
@@ -44,6 +47,10 @@ _SCOPE = {"pointnet_pp_8dir": _TRUNK, "pointnet_pp_fwd": _TRUNK,
           "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": (),
           "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK,
           "point_transformer": ()}
+# the PointNet backbones: their flax trees are read off the port's module
+# (:func:`_pointnet_pairs`), not written out here
+POINTNET_MODELS = {"simple_pointnet": SimplePointNet, "pointnet": PointNet,
+                   "pointnet_cls": PointNetCls}
 _MHA = "MultiHeadDotProductAttention_0"
 _MVM_HEADS = ("head_pi", "head_mu", "head_kappa")
 # the two-axis heads' Dense scopes, each 3 wide
@@ -67,6 +74,40 @@ def _transformer_pairs(model: PointTransformer) -> Iterator[Tuple]:
     yield ("Dense_1",), model.head, None, None, None
 
 
+def _dense_bn(scope: Tuple[str, ...], blocks) -> Iterator[Tuple]:
+    """The ``DenseBN`` blocks in order as flax's auto-named ``Dense_i`` and
+    ``BatchNorm_i`` under ``scope``."""
+    for i, block in enumerate(blocks):
+        yield scope + (f"Dense_{i}",), block.lin, scope + (f"BatchNorm_{i}",), block.bn, None
+
+
+def _pointnet_pairs(model: nn.Module) -> Iterator[Tuple]:
+    """The PointNet backbones' layers under flax's auto-names: an STN's
+    ``Dense_0..5`` (its three pointwise and three FC layers) and
+    ``BatchNorm_0..4``; the encoder's ``STN3d_0``, ``STNkd_0`` and its
+    ``Dense_0..2``/``BatchNorm_0..2``; a head's ``PointNetEncoder_0``,
+    ``Dense_0..2`` and ``BatchNorm_0..1``; ``SimplePointNet``'s
+    ``Dense_0..4`` and ``BatchNorm_0..3``."""
+    if isinstance(model, SimplePointNet):
+        yield from _dense_bn((), (model.conv1, model.conv2, model.conv3, model.fc1))
+        yield ("Dense_4",), model.fc2, None, None, None
+        return
+
+    def stn(scope, m: _STN):
+        yield from _dense_bn(scope, (m.conv1, m.conv2, m.conv3, m.fc1, m.fc2))
+        yield scope + ("Dense_5",), m.fc3, None, None, None
+
+    enc: PointNetEncoder = model.encoder
+    top = ("PointNetEncoder_0",)
+    yield from stn(top + ("STN3d_0",), enc.stn)
+    if enc.fstn is not None:
+        yield from stn(top + ("STNkd_0",), enc.fstn)
+    yield from _dense_bn(top, (enc.conv1, enc.conv2, enc.conv3))
+    yield ("Dense_0",), model.fc1.lin, ("BatchNorm_0",), model.fc1.bn, None
+    yield ("Dense_1",), model.fc2, ("BatchNorm_1",), model.bn2, None
+    yield ("Dense_2",), model.fc3, None, None, None
+
+
 def _pairs(model: nn.Module) -> Iterator[Tuple]:
     """(Dense scope, Linear, norm scope, norm module, flax shapes) for every
     layer of the model, the norm None for a layer without one; the norm is
@@ -75,6 +116,9 @@ def _pairs(model: nn.Module) -> Iterator[Tuple]:
     None for a plain Dense."""
     if isinstance(model, PointTransformer):
         yield from _transformer_pairs(model)
+        return
+    if isinstance(model, (SimplePointNet, _PointNetHead)):
+        yield from _pointnet_pairs(model)
         return
     if isinstance(model, PointNetPPCls):
         top, sas = (), (model.sa1, model.sa2, model.sa3)
@@ -208,6 +252,17 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
     return {"params": params} if grads else {"params": params, "batch_stats": stats}
 
 
+def kernel_parameters(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """Each Dense kernel of ``model``'s flax tree by its ``/``-joined path
+    (``.../Dense_0/kernel``, the key of :mod:`.quantize`'s scales): the name
+    of the ``nn.Linear`` weight that holds it in the port's module and that
+    Linear's ``in_features`` (a kernel reshaped to ``(in_features, -1)`` and
+    transposed is the weight)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"/".join(lin_path + ("kernel",)): (names[id(lin.weight)], lin.in_features)
+            for lin_path, lin, _, _, _ in _pairs(model)}
+
+
 def transformer_kwargs(params: Dict) -> Dict[str, int]:
     """``PointTransformer`` constructor arguments read from a flax
     ``params`` tree: ``in_dim`` and ``embed_dim`` from the embedding Dense,
@@ -227,15 +282,36 @@ def transformer_kwargs(params: Dict) -> Dict[str, int]:
             "num_heads": int(query[1]), "ffn_dim": int(ffn[1])}
 
 
+def pointnet_kwargs(model: str, params: Dict) -> Dict:
+    """Constructor arguments of a PointNet backbone read from its flax
+    ``params`` tree: ``in_channels`` from the first Dense (the input
+    transform's for ``pointnet``/``pointnet_cls``), ``num_classes`` from
+    ``pointnet_cls``'s output Dense, ``feature_transform`` from whether
+    ``pointnet``'s encoder has ``STNkd_0``."""
+    if model == "simple_pointnet":
+        return {"in_channels": int(np.shape(_get(params, ("Dense_0",), "params")["kernel"])[0])}
+    enc = _get(params, ("PointNetEncoder_0",), "params")
+    first = _get(enc, ("STN3d_0", "Dense_0"), "params")
+    out = {"in_channels": int(np.shape(first["kernel"])[0])}
+    if model == "pointnet_cls":
+        out["num_classes"] = int(np.shape(_get(params, ("Dense_2",), "params")["kernel"])[1])
+    else:
+        out["feature_transform"] = "STNkd_0" in enc
+    return out
+
+
 def model_kwargs(model: str, params: Dict) -> Dict:
     """Constructor arguments of the port's ``model`` that its flax tree
     fixes: the classifier's :func:`cls_kwargs`, the transformer's
-    :func:`transformer_kwargs`, the vM head's ``mu_parameterization`` (the
+    :func:`transformer_kwargs`, the PointNet backbones'
+    :func:`pointnet_kwargs`, the vM head's ``mu_parameterization`` (the
     tanh head is 2 wide, the atan2 head 3), the MvM head's ``max_K``; none
     for the others (the two-axis heads' ``gram_schmidt`` and
     ``normalize_heads`` are not in the tree)."""
     if model == "pointnet_pp_cls":
         return cls_kwargs(params)
+    if model in POINTNET_MODELS:
+        return pointnet_kwargs(model, params)
     if model == "point_transformer":
         return transformer_kwargs(params)
     if model == "pointnet_pp_von_mises":
@@ -260,10 +336,12 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
     ``max_K`` and ``mu_init`` (``"spread"``: ``head_mu``'s bias is the
     spread initialisation, the unit vectors at ``2 pi k / max_K``);
     ``point_transformer`` ``in_channels`` (its ``in_dim``), ``embed_dim``,
-    ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``."""
-    if model not in _SCOPE:
-        raise NotImplementedError(f"model {model!r}: the port has {sorted(_SCOPE)}")
-    top = _SCOPE[model]
+    ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``;
+    ``simple_pointnet`` and ``pointnet`` ``in_channels``; ``pointnet_cls``
+    ``in_channels`` and ``num_classes``."""
+    if model not in _SCOPE and model not in POINTNET_MODELS:
+        raise NotImplementedError(
+            f"model {model!r}: the port has {sorted([*_SCOPE, *POINTNET_MODELS])}")
     rng = np.random.default_rng(seed)
     params: Dict = {}
     stats: Dict = {}
@@ -285,6 +363,16 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32),
             })
 
+    if model in POINTNET_MODELS:
+        kw = {"in_channels": in_channels}
+        if model == "pointnet_cls":
+            kw["num_classes"] = num_classes
+        for lin_path, lin, bn_path, bn, _ in _pairs(POINTNET_MODELS[model](**kw)):
+            dense(lin_path, lin.in_features, lin.out_features)
+            if bn is not None:
+                norm(bn_path, bn.num_features)
+        return {"params": params, "batch_stats": stats}
+    top = _SCOPE[model]
     if model == "point_transformer":
         head_dim = embed_dim // num_heads
         dense(("Dense_0",), in_channels, embed_dim)

@@ -8,8 +8,8 @@ model classes load with ``load_state_dict(..., strict=True)``. A Dense
 kernel ``(Cin, Cout)`` becomes a ``Conv2d`` weight ``(Cout, Cin, 1, 1)`` in
 the set abstractions and a ``Linear`` weight ``(out, in)`` elsewhere;
 BatchNorm gets ``weight``/``bias``/``running_mean``/``running_var`` and a
-zero ``num_batches_tracked``. The PointNet backbone's layout waits for that
-backbone's port.
+zero ``num_batches_tracked``; the PointNet backbones' pointwise layers are
+``Conv1d`` weights ``(Cout, Cin, 1)``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,16 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .torch_import import HEADS, TRANSFORMER
+from .torch_import import (
+    ENCODER_MAP,
+    HEADS,
+    PN_HEAD_MAP,
+    POINTNET,
+    SIMPLE_MAP,
+    STN_MAP,
+    STNS,
+    TRANSFORMER,
+)
 
 _TRUNK = "PointNetPPTrunk_0"
 
@@ -78,6 +87,53 @@ def export_pointnet_pp_state_dict(params: Mapping[str, Any],
     return out
 
 
+def _emit_block(out: Dict, p_node: Mapping, s_node: Mapping, torch_name: str, kind: str,
+                idx: int) -> None:
+    """One reference layer from ``Dense_{idx}`` (``"conv"``: a ``Conv1d``
+    weight ``(out, in, 1)``; ``"fc"``: a ``Linear`` weight) or
+    ``BatchNorm_{idx}`` (``"bn"``) of a flax node."""
+    if kind == "bn":
+        _batch_norm(out, torch_name, p_node[f"BatchNorm_{idx}"],
+                    (s_node or {}).get(f"BatchNorm_{idx}", {}))
+        return
+    d = p_node[f"Dense_{idx}"]
+    w = _np(d["kernel"]).T
+    out[f"{torch_name}.weight"] = w[:, :, None] if kind == "conv" else w
+    out[f"{torch_name}.bias"] = _np(d["bias"])
+
+
+def export_pointnet_state_dict(params: Mapping[str, Any],
+                               batch_stats: Optional[Mapping[str, Any]] = None,
+                               model: str = "pointnet") -> Dict[str, np.ndarray]:
+    """A PointNet-family flax tree as the reference's ``state_dict``
+    (``"pointnet"``, ``"pointnet_cls"``, ``"simple_pointnet"``; the inverse
+    of ``torch_import.import_pointnet_state_dict``); a missing running
+    statistic is written as mean 0, var 1, and an encoder without
+    ``STNkd_0`` writes no ``fstn``."""
+    if model not in POINTNET:
+        raise ValueError(f"unsupported model for export: {model}")
+    stats = batch_stats or {}
+    out: Dict[str, np.ndarray] = {}
+    if model == "simple_pointnet":
+        for tname, (kind, idx) in SIMPLE_MAP.items():
+            _emit_block(out, params, stats, tname, kind, idx)
+        return out
+    enc_attr = POINTNET[model]
+    enc_p = params["PointNetEncoder_0"]
+    enc_s = stats.get("PointNetEncoder_0", {})
+    for tname, (kind, idx) in ENCODER_MAP.items():
+        _emit_block(out, enc_p, enc_s, f"{enc_attr}.{tname}", kind, idx)
+    for stn_attr, stn_mod in STNS.items():
+        if stn_mod not in enc_p:
+            continue
+        for tname, (kind, idx) in STN_MAP.items():
+            _emit_block(out, enc_p[stn_mod], enc_s.get(stn_mod, {}),
+                        f"{enc_attr}.{stn_attr}.{tname}", kind, idx)
+    for tname, (kind, idx) in PN_HEAD_MAP.items():
+        _emit_block(out, params, stats, tname, kind, idx)
+    return out
+
+
 def export_point_transformer_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The ``point_transformer`` flax tree as the reference
     ``nn.TransformerEncoder`` model's ``state_dict`` (q, k, v stacked as the
@@ -125,8 +181,11 @@ def export_state_dict(params: Mapping[str, Any], batch_stats: Optional[Mapping[s
         return export_pointnet_pp_state_dict(params, batch_stats, model)
     if model == TRANSFORMER:
         return export_point_transformer_state_dict(params)
+    if model in POINTNET:
+        return export_pointnet_state_dict(params, batch_stats, model)
     raise NotImplementedError(
-        f"model {model!r}: the PointNet backbone is not ported (ROADMAP.md queue 1 item 8)")
+        f"model {model!r}: its layout is not ported "
+        "(ROADMAP.md, queue 1, 'The MoE transformer, on one card')")
 
 
 def to_torch_state_dict(np_state_dict: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

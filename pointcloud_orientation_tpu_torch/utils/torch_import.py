@@ -1,5 +1,6 @@
 """Read the reference's PyTorch checkpoints (raw ``state_dict``s of its
-PointNet++ family and its point transformer) into the port.
+PointNet++ family, its point transformer and its PointNet backbones) into
+the port.
 
 Counterpart of ``pointcloud_orientation_tpu/utils/torch_import.py``: a
 reference ``state_dict`` becomes a flax-layout ``(params, batch_stats)``
@@ -12,11 +13,13 @@ weight ``(Cout, Cin, 1, 1)``) and ``sa{k}.bns.{i}`` for the set
 abstractions, ``fc1``/``fc2`` with ``bn1``/``bn2`` (``ln1``/``ln2`` on the
 MvM trunk), then the heads; the transformer's ``input_proj``,
 ``transformer.layers.{i}`` (``nn.TransformerEncoderLayer``: q, k, v as the
-row thirds of ``in_proj_weight``) and ``fc_out``. A ``Linear`` weight ``(out,
-in)`` is a Dense kernel transposed; BatchNorm's ``weight``/``bias``/
-``running_mean``/``running_var`` are ``scale``/``bias`` and ``mean``/``var``.
-The PointNet backbone's layout (``import_pointnet_state_dict``) waits for
-that backbone's port.
+row thirds of ``in_proj_weight``) and ``fc_out``; the PointNet backbones'
+``conv{1..3}`` (``Conv1d(Cin, Cout, 1)``, weight ``(Cout, Cin, 1)``),
+``bn{i}`` and ``fc{i}``, under the encoder (``encoder`` in
+`models/pointnet.py`, ``feat`` in `PointNetDemo.py`) with its ``stn`` and
+``fstn``. A ``Linear`` weight ``(out, in)`` is a Dense kernel transposed;
+BatchNorm's ``weight``/``bias``/``running_mean``/``running_var`` are
+``scale``/``bias`` and ``mean``/``var``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ HEADS = {
     "pointnet_pp_mvm": {"head_pi": "head_pi", "head_mu": "head_mu", "head_kappa": "head_kappa"},
 }
 TRANSFORMER = "point_transformer"
+# the PointNet backbones, with the reference's attribute of each one's encoder
+POINTNET = {"pointnet": "encoder", "pointnet_cls": "feat", "simple_pointnet": None}
 _TRUNK = ("PointNetPPTrunk_0",)
 _BN_LEAVES = {"weight": (0, "scale"), "bias": (0, "bias"), "running_mean": (1, "mean"),
               "running_var": (1, "var")}
@@ -148,11 +153,70 @@ def import_point_transformer_state_dict(state_dict: Mapping[str, Any], num_heads
     return params, {}
 
 
-def import_pointnet_state_dict(state_dict: Mapping[str, Any], model: str = "pointnet"):
-    """The PointNet family's layout (``pointnet``, ``pointnet_cls``,
-    ``simple_pointnet``): not ported until that backbone is."""
-    raise NotImplementedError(
-        f"model {model!r}: the PointNet backbone is not ported (ROADMAP.md queue 1 item 8)")
+def _convert_block(params: Dict, stats: Dict, base: Tuple[str, ...], kind: str, idx: int,
+                   leaf: str, arr: np.ndarray) -> None:
+    """One reference layer entry under ``base``: ``"conv"`` (a ``Conv1d``
+    weight ``(out, in, 1)``) and ``"fc"`` (a ``Linear`` weight ``(out,
+    in)``) as ``Dense_{idx}``, ``"bn"`` as ``BatchNorm_{idx}``."""
+    if kind in ("conv", "fc"):
+        if leaf == "weight":
+            kernel = arr[:, :, 0].T if arr.ndim == 3 else arr.T
+            _set(params, base + (f"Dense_{idx}", "kernel"), kernel)
+        else:
+            _set(params, base + (f"Dense_{idx}", "bias"), arr)
+    elif leaf in _BN_LEAVES:
+        which, name = _BN_LEAVES[leaf]
+        _set((params, stats)[which], base + (f"BatchNorm_{idx}", name), arr)
+
+
+# reference layer -> (kind, flax index) of the STNs, the encoder, the heads
+# and SimplePointNet
+STN_MAP = {"conv1": ("conv", 0), "conv2": ("conv", 1), "conv3": ("conv", 2),
+           "bn1": ("bn", 0), "bn2": ("bn", 1), "bn3": ("bn", 2),
+           "fc1": ("fc", 3), "fc2": ("fc", 4), "fc3": ("fc", 5),
+           "bn4": ("bn", 3), "bn5": ("bn", 4)}
+ENCODER_MAP = {"conv1": ("conv", 0), "conv2": ("conv", 1), "conv3": ("conv", 2),
+               "bn1": ("bn", 0), "bn2": ("bn", 1), "bn3": ("bn", 2)}
+PN_HEAD_MAP = {"fc1": ("fc", 0), "fc2": ("fc", 1), "fc3": ("fc", 2),
+               "bn1": ("bn", 0), "bn2": ("bn", 1)}
+SIMPLE_MAP = {"conv1": ("conv", 0), "conv2": ("conv", 1), "conv3": ("conv", 2),
+              "bn1": ("bn", 0), "bn2": ("bn", 1), "bn3": ("bn", 2),
+              "fc1": ("fc", 3), "bn4": ("bn", 3), "fc2": ("fc", 4)}
+# the encoder's transform nets: reference attribute -> flax scope
+STNS = {"stn": "STN3d_0", "fstn": "STNkd_0"}
+
+
+def import_pointnet_state_dict(state_dict: Mapping[str, Any], model: str = "pointnet"
+                               ) -> Tuple[Dict, Dict]:
+    """A reference PointNet-family ``state_dict`` as the flax ``(params,
+    batch_stats)`` of ``model``: ``"pointnet"`` (``PointNet``,
+    `models/pointnet.py:111-129`, encoder ``encoder``), ``"pointnet_cls"``
+    (``get_model``, `PointNetDemo.py:139-161`, encoder ``feat``) or
+    ``"simple_pointnet"`` (`simple_pointnet_train.py:86-113`).
+    ``num_batches_tracked`` is dropped; an entry it does not map raises
+    ``KeyError``."""
+    if model not in POINTNET:
+        raise ValueError(f"unsupported model for import: {model}")
+    params: Dict = {}
+    stats: Dict = {}
+    enc_attr = POINTNET[model]
+    for name, tensor in state_dict.items():
+        arr = _to_np(tensor)
+        parts = name.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if model == "simple_pointnet":
+            _convert_block(params, stats, (), *SIMPLE_MAP[parts[0]], parts[1], arr)
+        elif parts[0] == enc_attr:
+            enc = ("PointNetEncoder_0",)
+            if parts[1] in STNS:
+                _convert_block(params, stats, enc + (STNS[parts[1]],), *STN_MAP[parts[2]],
+                               parts[3], arr)
+            else:
+                _convert_block(params, stats, enc, *ENCODER_MAP[parts[1]], parts[2], arr)
+        else:
+            _convert_block(params, stats, (), *PN_HEAD_MAP[parts[0]], parts[1], arr)
+    return params, stats
 
 
 def import_state_dict(state_dict: Mapping[str, Any], model: str) -> Tuple[Dict, Dict]:
@@ -161,7 +225,11 @@ def import_state_dict(state_dict: Mapping[str, Any], model: str) -> Tuple[Dict, 
         return import_pointnet_pp_state_dict(state_dict, model)
     if model == TRANSFORMER:
         return import_point_transformer_state_dict(state_dict)
-    return import_pointnet_state_dict(state_dict, model)
+    if model in POINTNET:
+        return import_pointnet_state_dict(state_dict, model)
+    raise NotImplementedError(
+        f"model {model!r}: its layout is not ported "
+        "(ROADMAP.md, queue 1, 'The MoE transformer, on one card')")
 
 
 def load_torch_checkpoint(path: str, model: str = "pointnet_pp_8dir") -> Tuple[Dict, Dict]:

@@ -406,7 +406,7 @@ def test_classifier_config_builds_an_f32_model_whatever_the_compute_dtype():
     assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
     assert not any(torch.count_nonzero(lin.bias) for lin in (trainer.model.fc1, trainer.model.fc3))
     with pytest.raises(NotImplementedError):
-        TrainConfig(task="classification", model="pointnet")
+        TrainConfig(task="classification", model="moe_point_transformer")
 
 
 def _sweep(seeds=range(12)):

@@ -126,7 +126,7 @@ def _loss_rtol(want_loss, jax_f32_loss) -> float:
     float32 step's loss lies 7.5e-5 from float64 and the port's 1.4e-5 on an
     x86 CPU with AVX-512 (under 1e-5 on others), while at every stage of the
     forward the port lies 10-20x nearer to float64 than JAX's float32
-    (ROADMAP.md, queue 3 item 4)."""
+    (ROADMAP.md, queue 3, "A limit of float32 comparisons")."""
     want = float(want_loss)
     return max(1e-5, abs(float(jax_f32_loss) - want) / abs(want))
 

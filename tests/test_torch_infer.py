@@ -64,16 +64,27 @@ def test_forward_vectors_are_unit_and_follow_the_logits(predictors, rng):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"model_name": "simple_pointnet"}, {"tta_views": 2}, {"ensemble_size": 2},
-    {"quantize": "int8"}, {"mesh": object()},
-], ids=["other-model", "tta", "ensemble", "int8", "mesh"])
-def test_predictor_refuses_what_is_not_ported(kwargs):
+@pytest.mark.parametrize("kwargs, error", [
+    ({"model_name": "moe_point_transformer"}, NotImplementedError),
+    ({"tta_views": 3}, ValueError),
+    ({"model_name": "pointnet_pp_cls", "tta_views": 2}, ValueError),
+    ({"tta_views": 0}, ValueError),
+    ({"ensemble_size": 2}, NotImplementedError),
+    ({"quantize": "int4"}, ValueError),
+    ({"mesh": object()}, NotImplementedError),
+], ids=["other-model", "tta", "tta-head", "tta-zero", "ensemble", "int8", "mesh"])
+def test_predictor_refuses_what_is_not_ported(kwargs, error):
+    """What the port still refuses (an unported model, ensembles, meshes:
+    ``NotImplementedError``) and the JAX predictor's own ``ValueError``s:
+    an 8-dir TTA view count outside (2, 4, 8), TTA on a head that is not
+    yaw-equivariant, no views, an unknown quantization mode."""
     v = random_flax_variables(0)
     args = dict(model_name="pointnet_pp_8dir", params=v["params"],
                 batch_stats=v["batch_stats"], device="cpu")
     args.update(kwargs)
-    with pytest.raises(NotImplementedError):
+    if args["model_name"] == "pointnet_pp_cls":
+        args.update(params=random_flax_variables(0, "pointnet_pp_cls")["params"])
+    with pytest.raises(error):
         OrientationPredictor(**args)
 
 

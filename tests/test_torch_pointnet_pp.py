@@ -10,6 +10,9 @@ import torch
 from pointcloud_orientation_tpu.models import PointNetPP8Dir as JaxPointNetPP8Dir
 from pointcloud_orientation_tpu.ops.geometry import set_pallas_mode
 from pointcloud_orientation_tpu_torch.models import (
+    PointNet,
+    PointNetCls,
+    SimplePointNet,
     MODEL_REGISTRY,
     PointNetPP,
     PointNetPP8Dir,
@@ -134,7 +137,10 @@ def test_registry_holds_the_ported_model():
                               "pointnet_pp": PointNetPP,
                               "pointnet_pp_xyz": PointNetPPXYZ,
                               "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt,
-                              "point_transformer": PointTransformer}
+                              "point_transformer": PointTransformer,
+                              "simple_pointnet": SimplePointNet,
+                              "pointnet": PointNet,
+                              "pointnet_cls": PointNetCls}
 
 
 def test_random_sampling_uses_the_generator(rng):

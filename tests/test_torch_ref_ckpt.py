@@ -137,9 +137,9 @@ def test_reference_checkpoint_serves_as_in_jax(tmp_path, rng, model):
 
 def test_unported_layouts_raise():
     with pytest.raises(NotImplementedError):
-        import_state_dict({}, "pointnet_cls")
+        import_state_dict({}, "moe_point_transformer")
     with pytest.raises(NotImplementedError):
-        export_state_dict({}, None, "simple_pointnet")
+        export_state_dict({}, None, "moe_point_transformer")
     with pytest.raises(KeyError):
         import_state_dict({"nonsense.weight": np.zeros(3)}, "pointnet_pp_8dir")
     assert set(HEADS) == set(jax_import._HEADS)
@@ -169,7 +169,7 @@ def test_predictor_from_a_pth_reproduces_the_trained_weights_bit_for_bit(tmp_pat
         for a, b in zip(other.state_dict().values(), module.state_dict().values()):
             if a.is_floating_point():
                 assert torch.equal(a, b)
-    for kw in ({"quantize": "int8"}, {"tta_views": 4}, {"ensemble_size": 2}):
+    for kw in ({"mesh": object()}, {"ensemble_size": 2}):
         with pytest.raises(NotImplementedError):
             OrientationPredictor.from_torch_checkpoint(path, "point_transformer", device="cpu",
                                                        **kw)

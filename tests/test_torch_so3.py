@@ -561,14 +561,14 @@ def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
     trainer = Trainer(cfg, ds, device="cpu", sampling="fps", grouping="ball")
     hist = trainer.fit(log_every=0)
     assert math.isfinite(hist["train"][0]) and 0 <= hist["val_ang"][0] <= 180
-    for bad in ("simple_pointnet", "moe_point_transformer"):
+    for bad in ("moe_point_transformer",):
         assert bad in jax_config.PRESETS
         with pytest.raises(NotImplementedError):
             preset(bad)
     with pytest.raises(NotImplementedError):
         TrainConfig(rotation_mode="so2")
     with pytest.raises(NotImplementedError):
-        TrainConfig(model="simple_pointnet")
+        TrainConfig(model="moe_point_transformer")
     with pytest.raises(NotImplementedError):
         preset("pointnet_pp_forward", optimizer="sgd")
     stored = OrientationDataset.synthetic(samples_per_class=1, num_points=N)

@@ -393,7 +393,7 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
     assert preset("8dir_mse").task == "8dir_mse"
     assert preset("8dir_kl", compute_dtype=None).task == "8dir_kl"  # a default is fine
     with pytest.raises(NotImplementedError):
-        preset("simple_pointnet")
+        preset("moe_point_transformer")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
