@@ -70,6 +70,20 @@ predictor, with its weight bytes on the card. The PointNet backbones
 (``pointnet``, cuBLAS only): ``pointnet_cls`` and ``pointnet`` served and
 the ``simple_pointnet`` preset and ``pointnet_cls`` classification trained
 against the port on the CPU; then all of these timed (``timing_serving``).
+The Trainer's other paths and the protocols (``protocols``, 8dir_kl at
+B=16 N=1,024): the cosine schedule with warmup under Adam and SGD (each
+step's learning rate the schedule's), a run preempted by a
+``PreemptionGuard`` after epoch 2 and resumed from its asynchronous
+checkpoint bit-equal to an uninterrupted one, the per-label protocol over
+two labels of unequal size and three seeds preempted and resumed, in
+lockstep, each member bit-equal to its own sequential run, 3-member
+ensembles (8-dir from that protocol checkpoint, vM and MvM from random
+weights) at B=64 equal to the host's combine of their single members and
+S times a single request's launches, and the point transformer's flash
+step accumulated over 4 microbatches against the whole batch's gradient;
+then timed (``timing_protocols``: ensemble requests at S=1 and 3, a
+member's epoch in lockstep against a sequential one, a synchronous
+checkpoint's stall against an asynchronous one's).
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -86,9 +100,11 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from unittest import mock
@@ -112,6 +128,12 @@ from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
 from pointcloud_orientation_tpu_torch.train import evaluate as EV
+from pointcloud_orientation_tpu_torch.train import trainer as TR
+from pointcloud_orientation_tpu_torch.train.accum import make_accum_train_step
+from pointcloud_orientation_tpu_torch.train.metrics import have_matplotlib
+from pointcloud_orientation_tpu_torch.train.ensemble import run_per_label_vmapped
+from pointcloud_orientation_tpu_torch.train.multiseed import run_multi_seed
+from pointcloud_orientation_tpu_torch.train.reliability import PreemptionGuard
 from pointcloud_orientation_tpu_torch.train.run import load_dataset, run_per_label, run_single
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
 from pointcloud_orientation_tpu_torch.utils import grad_check as GC
@@ -3053,7 +3075,9 @@ def phase_real_data(dev, train: dict) -> dict:
                                            mvm_dir, str(dev))
         torch.cuda.synchronize()
         launches = K.launch_counts()
-        evals = batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16) + 1  # PLYs
+        # the prediction PLYs' request, and the polar plots' where matplotlib imports
+        evals = (batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16) + 1
+                 + int(have_matplotlib()))
         run = check_run("mvm", mvm_dir, trainer, test_acc, launches,
                         knn_trunk_launches(batches_of(trainer.train_ds, 16), evals, False))
         with open(os.path.join(mvm_dir, "results.txt")) as f:
@@ -3417,6 +3441,441 @@ def phase_timing_serving(dev, card: str, tta: dict, int8: dict, pn: dict) -> Non
 
 
 
+# The protocols slice: the Trainer's other paths, the lockstep protocols and
+# ensemble serving, at full width on PointNetPP8Dir (8dir_kl, f32, B=16,
+# N=1,024) on synthetic clouds, and gradient accumulation on the point
+# transformer's flash backend.
+PR_N = 1024
+PR_EPOCHS = 3
+PR_SEEDS = (1, 2, 3)
+PR_PER_LABEL = (("chair", 24), ("bottle", 40))  # train splits of 16 and 28: 1 and 2 steps
+ENS_B, ENS_S = 64, 3
+ENS_TOL = {"pointnet_pp_8dir": 1e-6, "pointnet_pp_von_mises": 1e-6, "pointnet_pp_mvm": 1e-5}
+ACCUM_MICRO = 4
+ACCUM_TOL = 1e-5  # relative in norm, leaf by leaf
+
+
+def protocol_cfg(**kw):
+    return preset("8dir_kl", **{"num_points": PR_N, "epochs": PR_EPOCHS, **kw})
+
+
+def protocol_dataset() -> OrientationDataset:
+    return OrientationDataset(*synthetic_modelnet(num_points=PR_N, samples_per_class=8))
+
+
+def per_label_dataset() -> OrientationDataset:
+    """Two labels of unequal size (24 chairs, 40 bottles)."""
+    ds = OrientationDataset(*synthetic_modelnet(num_points=PR_N, samples_per_class=40,
+                                                class_names=[c for c, _ in PR_PER_LABEL]))
+    keep = np.ones(len(ds), bool)
+    for label, n in PR_PER_LABEL:
+        keep[np.nonzero(ds.labels == ds.class_names.index(label))[0][n:]] = False
+    return ds.subset(np.nonzero(keep)[0])
+
+
+def trainer_state(trainer) -> tuple:
+    """Weights and statistics, optimizer state and step, on the host."""
+    opt = trainer.optimizer.state_dict()["state"]
+    return ({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+            {i: {k: v.detach().cpu().clone() for k, v in s.items()} for i, s in opt.items()},
+            trainer.step)
+
+
+def same_state(a: tuple, b: tuple) -> bool:
+    return (a[2] == b[2] and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and all(torch.equal(a[1][i][k], b[1][i][k]) for i in a[1] for k in a[1][i]))
+
+
+def same_record(a, b) -> bool:
+    """Equal, NaN equal to NaN (an uniform class has no angular error)."""
+    try:
+        np.testing.assert_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def same_tree(a, b) -> bool:
+    """Two nested dicts of arrays with the same keys and equal arrays, bit
+    for bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def requesting_after(trainer, epoch: int, guard):
+    """Make ``guard.request()`` fire once ``trainer`` finishes ``epoch``: the
+    signal a preempted job gets, at a known point."""
+    run_epoch = trainer.run_epoch
+
+    def wrapped(e):
+        out = run_epoch(e)
+        if e == epoch:
+            guard.request()
+        return out
+
+    trainer.run_epoch = wrapped
+
+
+def sequential_run(cfg, ds, dev) -> tuple:
+    """A plain ``Trainer`` run of ``cfg`` with its test pass: (trainer, test
+    accumulator, launches)."""
+    t = Trainer(cfg, ds, device=dev)
+    K.reset_launch_counts()
+    t.fit(log_every=0)
+    test = t.test()
+    torch.cuda.synchronize()
+    return t, test, K.launch_counts()
+
+
+def phase_protocols(dev) -> dict:
+    """The Trainer's other paths and the protocols on the card (8dir_kl, f32,
+    B=16, N=1,024, synthetic clouds), every check failing the run:
+
+    * ``schedule``: the cosine schedule with a warmup epoch under Adam and
+      under SGD: every step's learning rate equals the port's schedule
+      function at the count before it, finite losses, exact launches;
+    * ``preemption``: ``checkpoint_every=1``, asynchronous writes, a
+      ``PreemptionGuard`` requested after epoch 2. ``epoch_1.pt`` is
+      written by the writer thread alone (the preemption save drains it and
+      rewrites ``epoch_2.pt`` in the caller's thread, as the JAX ``fit``
+      does); both files byte for byte the uninterrupted run's synchronous
+      saves. Resumed from the asynchronous ``epoch_1.pt`` to epoch 4: the
+      history, weights, statistics and optimizer state bit-equal to the
+      uninterrupted run (the path has no float atomics: ``sa_scatter``
+      sorts);
+    * ``per_label``: two labels of unequal size (1 and 2 steps an epoch) in
+      lockstep, each label's results bit-equal to its own sequential run,
+      the launches the sum of theirs;
+    * ``multi_seed``: three seeds preempted after epoch 2 and resumed from
+      the protocol checkpoint, each seed's results and returned best-val
+      weights bit-equal to its sequential run's, the resumed run's
+      launches those of its last epoch and test pass for each seed;
+    * ``ensembles``: 8-dir from that checkpoint
+      (``from_protocol_checkpoint``), vM and MvM from ``from_seed_sweep``
+      over random flax weights, S=3, B=64 N=1,024: each request equal to
+      the host's combine of its S single members' outputs, its launches S
+      times a single request's;
+    * ``accumulation``: ``make_accum_train_step`` on the point transformer
+      with flash attention, B=16, 4 microbatches: its gradient against the
+      whole-batch step's within 1e-5 relative in norm, leaf by leaf (the
+      key biases, zero in exact arithmetic, held absolutely), exact
+      launches."""
+    out = {"launches": {}}
+    ds = protocol_dataset()
+    steps = val = None
+
+    for opt in ("adam", "sgd"):
+        cfg = protocol_cfg(lr_schedule="cosine", warmup_epochs=1, optimizer=opt)
+        t = Trainer(cfg, ds, device=dev)
+        steps, val = batches_of(t.train_ds, 16), batches_of(t.val_ds, 16)
+        seen = []
+        real = t.optimizer.step
+
+        def stepping(*a, _seen=seen, _real=real, _t=t, **k):
+            _seen.append(_t.optimizer.param_groups[0]["lr"])
+            return _real(*a, **k)
+
+        t.optimizer.step = stepping
+        K.reset_launch_counts()
+        hist = t.fit(log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expected = knn_trunk_launches(steps * PR_EPOCHS, val * PR_EPOCHS, False)
+        want = [t.lr_schedule(i) for i in range(steps * PR_EPOCHS)]
+        ok = (seen == want and seen[0] == 0.0 and max(seen) == cfg.lr and launches == expected
+              and isinstance(t.optimizer, torch.optim.SGD if opt == "sgd" else torch.optim.Adam)
+              and all(math.isfinite(x) for x in hist["train"] + hist["val"] + t.step_losses))
+        emit("protocols_schedule", optimizer=opt, lrs=seen, train=hist["train"], val=hist["val"],
+             launches=launches, expected_launches=expected, ok=ok)
+        if not ok:
+            fail(f"protocols schedule {opt}: lrs {seen} (schedule {want}), launches {launches} "
+                 f"(expected {expected}), history {hist}")
+        out["launches"][f"schedule {opt}"] = launches
+
+    cfg = protocol_cfg(epochs=4, checkpoint_every=1, async_checkpoint=True)
+    writes = []
+    write = TR.write_torch_file
+
+    def recording(payload, path):
+        writes.append((os.path.basename(path), threading.current_thread().name))
+        write(payload, path)
+
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.object(TR, "write_torch_file", recording):
+        full = Trainer(cfg.replace(async_checkpoint=False), ds, device=dev)
+        full.fit(log_every=0, checkpoint_dir=os.path.join(d, "full"))
+        writes.clear()
+        run = Trainer(cfg, ds, device=dev)
+        ckpt = os.path.join(d, "run")
+        with PreemptionGuard() as guard:
+            requesting_after(run, 2, guard)
+            K.reset_launch_counts()
+            with contextlib.redirect_stdout(sys.stderr):
+                run.fit(log_every=0, checkpoint_dir=ckpt, preemption_guard=guard)
+        async_file = [(f, name.startswith("checkpoint")) for f, name in writes] == [
+            ("epoch_1.pt", True), ("epoch_2.pt", True), ("epoch_2.pt", False)]
+        same_bytes = {}
+        for f in ("epoch_1.pt", "epoch_2.pt"):
+            with open(os.path.join(ckpt, f), "rb") as a, \
+                    open(os.path.join(d, "full", f), "rb") as b:
+                same_bytes[f] = a.read() == b.read()
+        files = sorted(os.listdir(ckpt))
+        resumed = Trainer(cfg, ds, device=dev)
+        resumed.restore_checkpoint(os.path.join(ckpt, "epoch_1.pt"))
+        resumed.fit(start_epoch=2, log_every=0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    history_equal = resumed.history == full.history
+    state_equal = same_state(trainer_state(resumed), trainer_state(full))
+    ok = (async_file and all(same_bytes.values()) and files == ["epoch_1.pt", "epoch_2.pt"]
+          and len(run.history["val"]) == 2 and history_equal and state_equal
+          and launches == knn_trunk_launches(steps * 5, val * 5, False))
+    emit("protocols_preemption", stopped_after=run.epoch, files=files, writes=writes,
+         resumed_from="epoch_1.pt", bytes_equal_uninterrupted_sync=same_bytes,
+         history_equal=history_equal, state_equal=state_equal,
+         val=resumed.history["val"], launches=launches, ok=ok)
+    if not ok:
+        fail(f"protocols preemption: writes {writes}, bytes equal {same_bytes}, files {files}, "
+             f"history {resumed.history} vs {full.history}, state equal {state_equal}, "
+             f"launches {launches}")
+    out["launches"]["preempt and resume"] = launches
+
+    lds = per_label_dataset()
+    cfg = protocol_cfg(classes=tuple(c for c, _ in PR_PER_LABEL))
+    seq, seq_launches = {}, {}
+    for label, _ in PR_PER_LABEL:
+        t, test, n = sequential_run(cfg.replace(classes=(label,), per_label=False),
+                                    lds.select_classes([label]), dev)
+        seq[label] = (t, test)
+        seq_launches = add_launches(seq_launches, n)
+    K.reset_launch_counts()
+    res = run_per_label_vmapped(cfg, lds, log_every=0, device=str(dev))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    rows = {}
+    for label, (t, test) in seq.items():
+        rows[label] = {"steps_an_epoch": batches_of(t.train_ds, 16),
+                       "equal": same_record(res[label]["history"], t.history)
+                       and res[label]["best_val"] == t.best_val
+                       and res[label]["test_loss"] == test.mean_loss,
+                       "val": res[label]["history"]["val"], "test_loss": res[label]["test_loss"]}
+    ok = all(r["equal"] for r in rows.values()) and launches == {
+        k: seq_launches.get(k, 0) for k in launches}
+    emit("protocols_per_label", labels=rows, launches=launches,
+         sequential_launches_summed=seq_launches, ok=ok)
+    if not ok:
+        fail(f"protocols per_label: {rows}, launches {launches} vs {seq_launches}")
+    out["launches"]["per_label lockstep"] = launches
+
+    seq = {s: sequential_run(protocol_cfg(seed=s), ds, dev)[:2] for s in PR_SEEDS}
+    resumed_expected = {}
+    for t, _ in seq.values():  # epoch 3 of each seed, then its test pass
+        resumed_expected = add_launches(resumed_expected, knn_trunk_launches(
+            batches_of(t.train_ds, 16) * (PR_EPOCHS - 2),
+            batches_of(t.val_ds, 16) * (PR_EPOCHS - 2) + batches_of(t.test_ds, 16), False))
+    d = tempfile.mkdtemp()
+    out["tmp"] = d
+    cfg = protocol_cfg(checkpoint_every=1)
+    with PreemptionGuard() as guard:
+        real_init = Trainer.__init__
+        first = []
+
+        def init(self, *a, **k):
+            real_init(self, *a, **k)
+            if not first:
+                first.append(self)
+                requesting_after(self, 2, guard)
+
+        with mock.patch.object(Trainer, "__init__", init), \
+                contextlib.redirect_stdout(sys.stderr):
+            stopped = run_multi_seed(cfg, ds, list(PR_SEEDS), log_every=0, device=str(dev),
+                                     checkpoint_dir=d, preemption_guard=guard)
+    step = os.path.join(d, "step_2")
+    K.reset_launch_counts()
+    res = run_multi_seed(cfg, ds, list(PR_SEEDS), log_every=0, device=str(dev),
+                         checkpoint_dir=d, resume_from=step, return_params=True)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    rows = {s: {"equal": same_record(res[s]["history"], t.history)
+                and res[s]["best_val"] == t.best_val and res[s]["test_loss"] == test.mean_loss,
+                "weights_equal": same_tree(
+                    {k: res[s][k] for k in ("params", "batch_stats")},
+                    to_flax_variables(t.model)),  # both the best-val weights
+                "val": res[s]["history"]["val"], "test_loss": res[s]["test_loss"]}
+            for s, (t, test) in seq.items()}
+    saved = sorted(os.listdir(d))
+    resumed_expected = {k: resumed_expected.get(k, 0) for k in launches}
+    ok = (stopped is None and saved == ["step_1", "step_2"] and launches == resumed_expected
+          and all(r["equal"] and r["weights_equal"] for r in rows.values()))
+    emit("protocols_multi_seed", seeds=list(PR_SEEDS), preempted_returned_none=stopped is None,
+         saved=saved, seeds_results=rows, launches_resumed=launches,
+         expected_launches_resumed=resumed_expected, ok=ok)
+    if not ok:
+        fail(f"protocols multi_seed: stopped {stopped}, saved {saved}, {rows}, launches "
+             f"{launches} vs {resumed_expected}")
+    out["launches"]["multi_seed resumed"] = launches
+    out["step"] = step
+
+    x = so3_clouds(ENS_B, PR_N, SEED + 81)
+    out["ensembles"] = {}
+    kw = dict(num_points=PR_N, max_batch=ENS_B, seed=SEED, device=dev)
+    for model in ENS_TOL:
+        if model == "pointnet_pp_8dir":
+            ens = OrientationPredictor.from_protocol_checkpoint(step, model, **kw)
+            singles = [OrientationPredictor.from_protocol_checkpoint(step, model, members=[i],
+                                                                     **kw)
+                       for i in range(ENS_S)]
+        else:
+            members = []
+            for i in range(ENS_S):
+                v = random_flax_variables(SEED + 83 + i, model)
+                members.append({"params": v["params"], "batch_stats": v["batch_stats"]})
+            ens = OrientationPredictor.from_seed_sweep(model, members, **kw)
+            singles = [OrientationPredictor.from_seed_sweep(model, [m], **kw) for m in members]
+        K.reset_launch_counts()
+        got = ens(x)
+        torch.cuda.synchronize()
+        n_ens = K.launch_counts()
+        outs = []
+        for p in singles:
+            K.reset_launch_counts()
+            outs.append(p(x))
+            torch.cuda.synchronize()
+        n_one = K.launch_counts()
+        want = combine_members(model, outs)
+        diff = tta_diff(model, got, want)
+        finite = all(np.isfinite(o).all() and o.shape[0] == ENS_B for o in as_tuple(got))
+        ok = (finite and diff <= ENS_TOL[model] and ens.ensemble_size == ENS_S
+              and n_ens == {k: ENS_S * v for k, v in n_one.items()} and any(n_one.values()))
+        emit("protocols_ensemble", model=model, members=ENS_S, B=ENS_B, N=PR_N,
+             max_abs_diff_vs_host_combine=diff, tol=ENS_TOL[model], launches=n_ens,
+             single_member_launches=n_one, ok=ok)
+        if not ok:
+            fail(f"protocols ensemble {model}: {diff} from the host combine (tol "
+                 f"{ENS_TOL[model]}), launches {n_ens} vs {ENS_S} x {n_one}, finite {finite}")
+        out["launches"][f"ensemble {model}"] = n_ens
+        out["ensembles"][model] = (ens, singles[0])
+    out["clouds"] = x
+
+    tds = transformer_dataset(PR_N, 64)
+    t = Trainer(preset("point_transformer", transformer_attention="flash"), tds, device=dev)
+    idx, valid, _ = next(tds.batches(16))
+    batch, _, _ = t.device_batch(tds, idx, valid, t.generator(0, 96, 0))
+    xb, target = batch["points"], batch["forward"]
+    grads, counts = {}, {}
+    for n_micro in (1, ACCUM_MICRO):
+        opt = torch.optim.SGD(t.model.parameters(), lr=0.0)  # the weights stay as they are
+        step_fn = make_accum_train_step(t.model, opt, n_micro)
+        K.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the flash backend's dropout warning
+            loss = float(step_fn(xb, target))
+        torch.cuda.synchronize()
+        counts[n_micro] = K.launch_counts()
+        grads[n_micro] = ({n: p.grad.detach().clone() for n, p in t.model.named_parameters()},
+                          loss)
+    skip = GC.zero_gradient_leaves(t.model)
+    worst, worst_name, key_bias = 0.0, None, 0.0
+    for name, g in grads[ACCUM_MICRO][0].items():
+        w = grads[1][0][name]
+        if name in skip:
+            key_bias = max(key_bias, float((g - w).abs().max()))
+            continue
+        err = float((g - w).norm()) / max(float(w.norm()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    expected = {m: expected_launches(flash_attention_fwd=PT_DEPTH * m,
+                                     flash_attention_bwd_dkv=PT_DEPTH * m,
+                                     flash_attention_bwd_dq=PT_DEPTH * m)
+                for m in (1, ACCUM_MICRO)}
+    loss_err = abs(grads[ACCUM_MICRO][1] - grads[1][1]) / abs(grads[1][1])
+    ok = (worst <= ACCUM_TOL and key_bias <= 1e-6 and loss_err <= ACCUM_TOL
+          and counts == expected)
+    emit("protocols_accumulation", B=16, N=PR_N, n_micro=ACCUM_MICRO, attention="flash",
+         worst_leaf=worst_name, norm_rel_err=worst, tol=ACCUM_TOL, key_bias_max_abs=key_bias,
+         loss_rel_err=loss_err, launches=counts, expected_launches=expected, ok=ok)
+    if not ok:
+        fail(f"protocols accumulation: {worst_name} {worst} (tol {ACCUM_TOL}), key bias "
+             f"{key_bias}, loss {loss_err}, launches {counts} vs {expected}")
+    out["launches"]["accumulated step"] = counts[ACCUM_MICRO]
+    emit("protocols", paths=sorted(out["launches"]), launches=out["launches"])
+    return out
+
+
+def combine_members(model: str, outs: list):
+    """The ensemble combine of S single-member outputs, on the host: 8-dir
+    the log of the mean softmax; vM the mean first moment; MvM the
+    member-major mixture of S*K components, weights over S."""
+    if model == "pointnet_pp_8dir":
+        probs = [np.exp(o - o.max(-1, keepdims=True)) for o in outs]
+        return np.log(np.mean([p / p.sum(-1, keepdims=True) for p in probs], 0) + 1e-12)
+    if model == "pointnet_pp_von_mises":
+        return np.mean([vm_moment(mu, kappa) for mu, kappa in outs], 0)
+    b = outs[0][0].shape[0]
+    mu, kappa, w = (np.stack([o[j] for o in outs], 1).reshape(b, -1) for j in range(3))
+    return mu, kappa, w / len(outs)
+
+
+def phase_timing_protocols(dev, card: str, protocols: dict) -> None:
+    """Times of the protocols slice, with the card's name and power limit
+    (``card``, nvidia-smi's): ensemble requests at S=1 and S=3 (B=64
+    N=1,024, in turns); the per-member epoch in lockstep (3 seeds, each
+    member's epoch in turn) against one sequential trainer's epoch (8dir_kl,
+    B=16 N=1,024, 48 clouds; host clock, synchronised, 3 epochs each after
+    one); and the caller's stall of a synchronous checkpoint against an
+    asynchronous one (host copy, then the write on a background thread),
+    and the background write's own time."""
+    x = protocols["clouds"]
+    requests = {}
+    for model, (ens, single) in protocols["ensembles"].items():
+        for turn, (what, p) in enumerate((("S=1", single), ("S=3", ens), ("S=3", ens),
+                                          ("S=1", single))):
+            requests[f"{model} {what} turn {turn}"] = request_latency(p, x)
+    ds = protocol_dataset()
+    members = [Trainer(protocol_cfg(seed=s), ds, device=dev) for s in PR_SEEDS]
+    alone = Trainer(protocol_cfg(seed=PR_SEEDS[0]), ds, device=dev)
+
+    def epochs(trainers, first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(first, first + 3):
+            for tr in trainers:
+                tr.run_epoch(e)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3
+
+    for tr in members + [alone]:
+        tr.run_epoch(1)  # warm-up
+    lockstep = [epochs(members, 2), epochs(members, 5)]
+    sequential = [epochs([alone], 2), epochs([alone], 5)]
+    stalls = {"sync_ms": [], "async_ms": [], "async_write_ms": []}
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alone.save_checkpoint(os.path.join(d, f"s{i}"))
+            stalls["sync_ms"].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alone.save_checkpoint(os.path.join(d, f"a{i}"), asynchronous=True)
+            t1 = time.perf_counter()
+            alone.wait_for_checkpoints()
+            stalls["async_ms"].append((t1 - t0) * 1e3)
+            stalls["async_write_ms"].append((time.perf_counter() - t1) * 1e3)
+    emit("timing_protocols", device=card, ensemble_requests=requests,
+         lockstep_epoch_s_per_member=[v / len(members) for v in lockstep],
+         lockstep_epoch_s=lockstep, sequential_epoch_s=sequential, members=len(members),
+         checkpoint=stalls, checkpoint_bytes=os.path.getsize(os.path.join(
+             protocols["tmp"], "step_2", "carry.pt")) // len(members))
+    shutil.rmtree(protocols["tmp"], ignore_errors=True)
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -3449,6 +3908,7 @@ def main() -> None:
     serve_tta = phase_serve_tta(dev)
     serve_int8 = phase_serve_int8(dev)
     pointnet = phase_pointnet(dev)
+    protocols = phase_protocols(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -3459,6 +3919,7 @@ def main() -> None:
     phase_timing_so3(serve, serve_bf16, train, serve_so3, train_so3)
     flash_rows = phase_timing_transformer(dev, checks, serve_transformer, train_transformer)
     phase_timing_serving(dev, info["nvidia_smi"], serve_tta, serve_int8, pointnet)
+    phase_timing_protocols(dev, info["nvidia_smi"], protocols)
     so3_paths = {**{f"serve {case}": n for case, n in serve_so3["launches"].items()},
                  **{f"train {path}": run["launches"] for path, run in train_so3.items()}}
     for row in summary:  # the classifier's and the SO(3) paths, beside each row's own path
@@ -3479,6 +3940,10 @@ def main() -> None:
             row["launches_tta"] = tta
         if serve_int8["launches"].get(row["name"]):
             row["launches_int8"] = {"8dir B=64 N=1024": serve_int8["launches"][row["name"]]}
+        paths = {path: n[row["name"]] for path, n in protocols["launches"].items()
+                 if n.get(row["name"])}
+        if paths:
+            row["launches_protocols"] = paths
     summary += flash_rows
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,

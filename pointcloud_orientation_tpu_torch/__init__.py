@@ -2,9 +2,9 @@
 
 The port serves every head the JAX package serves on one device (the
 PointNet++ heads and classifier, the point transformer, the PointNet
-backbones; yaw-voting TTA, int8 weights) through
+backbones; yaw-voting TTA, int8 weights, deep ensembles) through
 ``infer.OrientationPredictor``, and trains them (``train.Trainer`` and its
-presets), through the CUDA kernels written for Hopper (``csrc/``): fused
+presets, the per-label and multi-seed protocols in lockstep), through the CUDA kernels written for Hopper (``csrc/``): fused
 set-abstraction grouping and its scatter-add gradient, fused shared-MLP +
 max and its recompute backward, kNN, farthest-point sampling, the radius
 ball query, the grid stage's top-k and the flash attention. Importing the package builds nothing and

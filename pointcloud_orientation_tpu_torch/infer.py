@@ -15,7 +15,10 @@ Requests are padded to power-of-two batch buckets (clamped to
 ``max_batch``) and to ``num_points`` points, exactly as the JAX predictor
 pads them. ``tta_views`` votes over yaw-rotated views of each request and
 ``quantize="int8"`` serves int8 weights dequantized on the device, as there;
-ensembles and meshes are not ported.
+``ensemble_size`` serves a deep ensemble of S members (stacked flax trees,
+:meth:`OrientationPredictor.from_seed_sweep`,
+:meth:`OrientationPredictor.from_protocol_checkpoint`); meshes are not
+ported.
 
 Example
 -------
@@ -31,6 +34,7 @@ Example
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -89,45 +93,72 @@ def rotate_views(pts: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
     return _apply3(rots[:, None, None], pts[None]).reshape(-1, *pts.shape[1:])
 
 
-def derotate_mean(vecs: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
-    """The views' vectors ``(V * B, 3)`` rotated back by ``R^T`` and
-    averaged over the views: ``(B, 3)``."""
+def derotate_mean(vecs: torch.Tensor, rots: torch.Tensor, members: int = 1) -> torch.Tensor:
+    """The vectors ``(S * V * B, 3)`` of ``members`` S by ``V`` views,
+    each rotated back by its view's ``R^T`` and averaged over members and
+    views: ``(B, 3)``."""
     V = rots.shape[0]
-    vv = vecs.reshape(V, -1, 3)
-    return _apply3(rots.transpose(1, 2)[:, None], vv).mean(dim=0)
+    vv = vecs.reshape(members, V, -1, 3)
+    return _apply3(rots.transpose(1, 2)[None, :, None], vv).mean(dim=(0, 1))
 
 
-def tta_combine(mode: str, out, angles: torch.Tensor, rots: torch.Tensor):
-    """The JAX predictor's combine of a model output over ``V`` views
-    stacked view by view (``V * B`` rows): 8-dir ``log(mean of each view's
-    softmax rolled back by its slots + 1e-12)``; vector and two-axis heads
-    the derotated mean; vM each mu shifted by its view's angle, then
-    :func:`.ops.von_mises.vm_mixture_moment_match` over the views; MvM the
-    exact mixture of ``V * K`` components (mu shifted and wrapped, weights
-    divided by ``V``), component axis ordered view-major as the JAX
-    package's ``moveaxis``."""
-    V = angles.shape[0]
+def tta_combine(mode: str, out, angles: torch.Tensor, rots: torch.Tensor, members: int = 1):
+    """The JAX predictor's combine of a model output over ``members`` S by
+    ``V`` views, stacked member-major, then view by view (``S * V * B``
+    rows; ensemble members are views at angle 0): 8-dir ``log(mean over
+    members and views of each view's softmax rolled back by its slots +
+    1e-12)``; vector and two-axis heads the derotated mean; vM each mu
+    shifted by its view's angle, then
+    :func:`.ops.von_mises.vm_mixture_moment_match` over all S * V; MvM the
+    exact mixture of ``S * V * K`` components (mu shifted and wrapped,
+    weights divided by ``S * V``), the component axis ordered member-major,
+    then view, then component, as the JAX package's ``moveaxis`` leaves
+    it."""
+    S, V = members, angles.shape[0]
     if mode == "slots":
         step = 8 // V
-        probs = torch.softmax(out, dim=-1).reshape(V, -1, 8)
-        unshifted = torch.stack([torch.roll(probs[i], i * step, dims=-1) for i in range(V)])
-        return torch.log(unshifted.mean(dim=0) + 1e-12)
+        probs = torch.softmax(out, dim=-1).reshape(S, V, -1, 8)
+        unshifted = torch.stack([torch.roll(probs[:, i], i * step, dims=-1) for i in range(V)],
+                                dim=1)
+        return torch.log(unshifted.mean(dim=(0, 1)) + 1e-12)
     if mode == "vm":
         mu, kappa = out
-        mu = mu.reshape(V, -1) + angles[:, None]
-        return vm_mixture_moment_match(mu, kappa.reshape(V, -1), dim=0)
+        mu = mu.reshape(S, V, -1) + angles[None, :, None]
+        return vm_mixture_moment_match(mu.reshape(S * V, -1), kappa.reshape(S * V, -1), dim=0)
     if mode == "mvm":
         mu, kappa, w = out
         K = mu.shape[-1]
-        mu = wrap_angle(mu.reshape(V, -1, K) + angles[:, None, None])
+        mu = wrap_angle(mu.reshape(S, V, -1, K) + angles[None, :, None, None])
 
-        def view_major(t):
-            return t.reshape(V, -1, K).transpose(0, 1).reshape(-1, V * K)
+        def member_view_major(t):
+            return t.reshape(S * V, -1, K).transpose(0, 1).reshape(-1, S * V * K)
 
-        return view_major(mu), view_major(kappa), view_major(w) / V
+        return member_view_major(mu), member_view_major(kappa), member_view_major(w) / (S * V)
     if mode == "tuple":
-        return tuple(derotate_mean(v, rots) for v in out)
-    return derotate_mean(out, rots)
+        return tuple(derotate_mean(v, rots, S) for v in out)
+    return derotate_mean(out, rots, S)
+
+
+ENSEMBLE_MODELS = TTA_VECTOR + TTA_TUPLE + TTA_DIST + ("pointnet_pp_8dir",)
+
+
+def _member(tree: Optional[Dict], i: int) -> Optional[Dict]:
+    """Member ``i`` of a flax tree stacked on a leading member axis."""
+    return None if tree is None else map_leaves(tree, lambda _, x: np.asarray(x)[i])
+
+
+def _leaves(tree):
+    """The leaves of a nested dict, depth first."""
+    for value in tree.values():
+        yield from (_leaves(value) if isinstance(value, dict) else (value,))
+
+
+def _stack(trees) -> Dict:
+    """Flax trees stacked leaf by leaf on a new leading member axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
 
 
 class OrientationPredictor:
@@ -160,10 +191,17 @@ class OrientationPredictor:
     :meth:`from_quantized_checkpoint` loads them). The int8 kernels and
     their scales stay on the device and each request dequantizes them
     there and runs the model through ``torch.func.functional_call``; the
-    module keeps no f32 copy of them. ``ensemble_size > 1`` and ``mesh``
-    are not ported (``NotImplementedError``); the JAX package's
-    ``ValueError``s stand: ``tta_views < 1``, an 8-dir V outside (2, 4, 8),
-    TTA on a head that is not yaw-equivariant, an unknown ``quantize``.
+    module keeps no f32 copy of them. ``ensemble_size`` S: a deep ensemble
+    whose ``params``/``batch_stats`` carry a leading member axis of S (see
+    :meth:`from_seed_sweep`); a request runs the S member modules one after
+    another on the same (view-stacked) batch, each from the same generator
+    state (the JAX predictor passes one ``rng`` to every member), and
+    combines the S * V outputs by :func:`tta_combine`: S times a single
+    request's launches. ``mesh`` is not ported (``NotImplementedError``);
+    the JAX package's ``ValueError``s stand: ``tta_views < 1``, an 8-dir V
+    outside (2, 4, 8), TTA or an ensemble on a head with no combine, an
+    ensemble with int8 weights, ``ensemble_size < 1``, an unknown
+    ``quantize``; and ``params`` without the leading member axis.
     """
 
     def __init__(
@@ -199,9 +237,20 @@ class OrientationPredictor:
                     "yaw-voting TTA needs a yaw-equivariant head (8-dir slot shift, "
                     "forward/axes vector derotation, or vM/MvM angle derotation); model "
                     f"{model_name!r} is unsupported")
-        for name, value, default in (("mesh", mesh, None), ("ensemble_size", ensemble_size, 1)):
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r} is not ported")
+        if ensemble_size > 1:
+            if model_name not in ENSEMBLE_MODELS:
+                raise ValueError(
+                    "ensemble combining needs a head family with a defined average (8-dir "
+                    f"probs, vectors, vM/MvM densities); model {model_name!r} is unsupported")
+            if quantize is not None or scales is not None:
+                raise ValueError("ensemble_size > 1 with int8 quantization is unsupported "
+                                 "(per-member scale trees don't stack)")
+            lead = {np.shape(x)[0] if np.ndim(x) else None for x in _leaves(params)}
+            if lead != {ensemble_size}:
+                raise ValueError(f"ensemble_size={ensemble_size} needs params stacked on a "
+                                 f"leading member axis of {ensemble_size}; leading sizes {lead}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh={mesh!r} is not ported")
         if scales is None and quantize is not None:
             if quantize != "int8":
                 raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -213,9 +262,13 @@ class OrientationPredictor:
         self.num_points = num_points
         self.max_batch = max_batch
         self.tta_views = tta_views
+        self.ensemble_size = ensemble_size
         self._tta_mode = tta_mode(model_name)
         self._angles = tta_angles(self._tta_mode, tta_views).to(self.device)
         self._rots = yaw_matrix(self._angles)
+        members = ([(_member(params, i), _member(batch_stats, i)) for i in range(ensemble_size)]
+                   if ensemble_size > 1 else [(params, batch_stats)])
+        params, batch_stats = members[0]
         model_kwargs = {**tree_kwargs(model_name, params), **model_kwargs}
         model = MODEL_REGISTRY[model_name](**model_kwargs)
         self.channels = getattr(model, "in_channels", 3)
@@ -229,6 +282,11 @@ class OrientationPredictor:
             owner, leaf = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
             setattr(owner, leaf, nn.Parameter(torch.empty(0), requires_grad=False))
         self.model = model.to(self.device).eval()
+        self.members = [self.model]  # the ensemble's modules, member 0 first
+        for p, bs in members[1:]:
+            other = MODEL_REGISTRY[model_name](**model_kwargs)
+            load_flax_variables(other, {"params": p, "batch_stats": bs})
+            self.members.append(other.to(self.device).eval())
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         f32_matmuls()  # the FC funnel runs in cuBLAS; the JAX side is full f32
@@ -263,14 +321,15 @@ class OrientationPredictor:
         """Bytes of the weights held on the device: the module's parameters
         and BatchNorm statistics (``module``), the int8 kernels (``int8``)
         and their scales (``scales``)."""
-        tensors = {"module": [*self.model.parameters(), *self.model.buffers()],
+        tensors = {"module": [t for m in self.members for t in (*m.parameters(), *m.buffers())],
                    "int8": list(self._quantized.values()), "scales": list(self._scales.values())}
         return {k: sum(t.numel() * t.element_size() for t in v) for k, v in tensors.items()}
 
     def _apply(self, pts: torch.Tensor):
         """The model on a padded bucket: through the dequantized int8
-        kernels when there are any; on the stacked views and their combine
-        when ``tta_views > 1``."""
+        kernels when there are any; on the stacked views when ``tta_views >
+        1``; once a member, each from the same generator state, when
+        ``ensemble_size > 1``; then the combine."""
         if self.tta_views > 1:
             pts = rotate_views(pts, self._rots)
         if self._quantized:
@@ -278,11 +337,19 @@ class OrientationPredictor:
             weights = {name: deq[path].reshape(cin, -1).t() for path, (name, cin)
                        in self._int8.items()}
             out = functional_call(self.model, weights, (pts, self.generator))
+        elif self.ensemble_size > 1:
+            state = self.generator.get_state()
+            outs = []
+            for member in self.members:
+                self.generator.set_state(state)
+                outs.append(member(pts, self.generator))
+            out = (tuple(torch.cat(o) for o in zip(*outs)) if isinstance(outs[0], tuple)
+                   else torch.cat(outs))
         else:
             out = self.model(pts, self.generator)
-        if self.tta_views == 1:
+        if self.tta_views == 1 and self.ensemble_size == 1:
             return out
-        return tta_combine(self._tta_mode, out, self._angles, self._rots)
+        return tta_combine(self._tta_mode, out, self._angles, self._rots, self.ensemble_size)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, model: str = "pointnet_pp_8dir",
@@ -304,6 +371,96 @@ class OrientationPredictor:
 
         quantized, scales, batch_stats = load_quantized_checkpoint(path)
         return cls(model, quantized, batch_stats, scales=scales, **kw)
+
+    @classmethod
+    def from_seed_sweep(cls, model: str, members, **kw) -> "OrientationPredictor":
+        """A deep ensemble from per-member weight trees, e.g. the multi-seed
+        protocol's (``train.multiseed.run_multi_seed(...,
+        return_params=True)``)::
+
+            res = run_multi_seed(cfg, ds, seeds=[42, 43, 44], return_params=True)
+            pred = OrientationPredictor.from_seed_sweep(cfg.model, [res[s] for s in sorted(res)])
+
+        ``members``: ``{"params": tree, "batch_stats": tree}`` dicts
+        (``batch_stats`` present for every member or none), stacked on a
+        leading member axis; one member serves as the plain predictor."""
+        members = list(members)
+        if not members:
+            raise ValueError("from_seed_sweep needs at least one member")
+        if len(members) == 1:
+            return cls(model, members[0]["params"], members[0].get("batch_stats"), **kw)
+        stats = [m.get("batch_stats") for m in members]
+        if any(s is not None for s in stats) and any(s is None for s in stats):
+            raise ValueError("batch_stats must be present for every member or none")
+        return cls(model, _stack([m["params"] for m in members]),
+                   _stack(stats) if stats[0] is not None else None,
+                   ensemble_size=len(members), **kw)
+
+    @classmethod
+    def from_protocol_checkpoint(cls, path: str, model: str, members=None,
+                                 **kw) -> "OrientationPredictor":
+        """A deep ensemble from a multi-seed protocol checkpoint's
+        ``step_<E>`` directory (``--seeds ... --checkpoint-every``,
+        ``train/protocol_ckpt.py``): each member's best-val weights;
+        ``members`` selects some by index.
+
+        Not for the per-label protocol's checkpoints (the same layout): their
+        members answer different questions, and averaging them is not an
+        ensemble. ``history.json``'s keys must parse as seeds unless
+        ``allow_label_keys=True`` (``ValueError``). A member whose val loss
+        never improved (non-finite ``best_val``) is left out by default, with
+        a warning; selected by ``members``, it serves its final weights (the
+        JAX package's slot holds its initial ones), with a warning. The JAX
+        package's Orbax checkpoints are not read (``NotImplementedError``)."""
+        import json
+        import warnings
+
+        from .train.config import TrainConfig
+        from .train.protocol_ckpt import read_protocol_carry
+        from .train.trainer import config_model_kwargs
+        from .utils.jax_weights import to_flax_variables
+
+        allow_label_keys = kw.pop("allow_label_keys", False)
+        hist_path = os.path.join(path, "history.json")
+        if not allow_label_keys and os.path.exists(hist_path):
+            with open(hist_path) as f:
+                keys = json.load(f).get("keys", [])
+            try:
+                [int(k) for k in keys]
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"checkpoint at {path} has non-seed keys {keys!r} — this looks like a "
+                    "per-LABEL protocol checkpoint (per-class models; averaging them is not "
+                    "an ensemble). Pass allow_label_keys=True to override.") from None
+        carry = read_protocol_carry(path)
+        states, configs = carry["members"], carry["configs"]
+        finite = np.isfinite(np.asarray([s["best_val"] for s in states], np.float64))
+        if members is None and not finite.all():
+            warnings.warn(f"protocol checkpoint members {np.nonzero(~finite)[0].tolist()} have "
+                          "non-finite best_val (validation never improved) — excluding them "
+                          "from the ensemble. Pass members= explicitly to override.",
+                          stacklevel=2)
+            members = np.nonzero(finite)[0].tolist()
+        idx = list(range(len(states))) if members is None else [int(i) for i in members]
+        if not idx:
+            raise ValueError(f"no usable ensemble members in {path}: every saved best_val is "
+                             "non-finite (all seeds diverged).")
+        if not finite[idx].all():
+            warnings.warn(f"selected members {[i for i in idx if not finite[i]]} have "
+                          "non-finite best_val — they serve their final weights.", stacklevel=2)
+        trees = []
+        for i in idx:
+            cfg = TrainConfig(**configs[i])
+            if cfg.model != model:
+                raise ValueError(f"{path} member {i} trained {cfg.model!r}, not {model!r}")
+            module = MODEL_REGISTRY[model](**config_model_kwargs(cfg))
+            state = states[i]
+            module.load_state_dict(state["best_state"] if state["best_state"] is not None
+                                   else state["model"])
+            trees.append(to_flax_variables(module))
+        stats = [t["batch_stats"] or None for t in trees]
+        return cls.from_seed_sweep(model, [{"params": t["params"], "batch_stats": s}
+                                           for t, s in zip(trees, stats)], **kw)
 
     def _bucket(self, b: int) -> int:
         bucket = 1

@@ -1,5 +1,7 @@
 """Training of the port: configuration, task adapters, metrics, the
-single-GPU ``Trainer`` and the ``run`` CLI."""
+single-GPU ``Trainer`` (with ``reliability.PreemptionGuard``), the lockstep
+protocols (``ensemble``, ``multiseed``, ``protocol_ckpt``), gradient
+accumulation (``accum``) and the ``run`` CLI."""
 
 from .config import PRESETS, TrainConfig, preset
 from .trainer import Trainer

@@ -21,9 +21,14 @@ flash kernels, O(N) attention memory). The
 (whose loss reads the first of its outputs, the log-probabilities); no
 preset names it, as in the JAX package: ``TrainConfig(task="classification",
 model="pointnet_pp_cls")``. ``pointnet`` (PointNet regression) trains on the
-vector tasks by config. The JAX config's other fields are accepted by
-:func:`preset` and :meth:`TrainConfig.replace` at their default values
-only; any other value raises ``NotImplementedError``.
+vector tasks by config. ``optimizer`` ("adam", the reference's, or
+"sgd"), ``lr_schedule`` (None, the reference's constant rate, or "cosine"
+with ``warmup_epochs`` of linear warmup), ``async_checkpoint``,
+``host_resident`` and ``keep_best`` are the JAX config's (the last two
+change nothing here, as there; see :class:`.trainer.Trainer`). The JAX
+config's other fields (the MoE transformer's and ``bn_sync_axis``) are
+accepted by :func:`preset` and :meth:`TrainConfig.replace` at their default
+values only; any other value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,17 +57,11 @@ PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 # Fields of the JAX package's TrainConfig that this slice does not carry,
 # with their defaults there.
 UNPORTED_DEFAULTS = {
-    "optimizer": "adam",
-    "lr_schedule": None,
-    "warmup_epochs": 0,
     "moe_experts": 4,
     "moe_aux_weight": 0.01,
     "moe_dispatch": "masked",
     "moe_capacity_factor": 1.25,
-    "async_checkpoint": False,
-    "host_resident": False,
     "bn_sync_axis": None,
-    "keep_best": True,
 }
 
 
@@ -77,10 +76,15 @@ class TrainConfig:
     classes: Optional[Sequence[str]] = SIX_CLASS_MIX
     per_label: bool = False  # one model per category (train/run.py run_per_label)
     target_row: int = 2  # the axes row forward_mse regresses (2 = forward)
-    # optimization (Adam)
+    # optimization
     batch_size: int = 16
     epochs: int = 200
     lr: float = 1e-3
+    # None: the reference's constant lr; "cosine": cosine decay from lr to 0
+    # over `epochs`, after `warmup_epochs` of linear warmup from 0
+    lr_schedule: Optional[str] = None
+    warmup_epochs: int = 0
+    optimizer: str = "adam"  # "adam" (the reference's) or "sgd"
     seed: int = 42
     grad_clip: Optional[float] = None
     compute_dtype: Optional[str] = None  # "bfloat16": the trunk computes in bf16
@@ -102,7 +106,12 @@ class TrainConfig:
     # runtime
     out_dir: str = "results"
     checkpoint_every: int = 0  # epochs between checkpoints (0 = off)
+    async_checkpoint: bool = False  # periodic checkpoints written on a background thread
+    keep_best: bool = True  # read nowhere, as in the JAX package
     debug_checks: bool = False  # per-step finite checks and debug_log.txt in out_dir
+    # the JAX package's streaming path (one batch gathered on the host a
+    # step); the port's step path already does that, so it changes nothing
+    host_resident: bool = False
 
     def __post_init__(self):
         checks = (

@@ -2,7 +2,8 @@
 
 Counterpart of ``pointcloud_orientation_tpu/train/metrics.py``
 (``masked_angular_mean``, ``MetricsAccumulator``, ``write_summary_txt``,
-``write_mvm_results_txt``; the loss-curve PNG is not ported yet).
+``write_mvm_results_txt``, ``plot_loss_curves``; matplotlib is imported
+only when a curve is drawn).
 """
 
 from __future__ import annotations
@@ -107,3 +108,37 @@ def write_mvm_results_txt(path: str, categories: Sequence[str],
             tr = hist[cat]["train"][last] if hist[cat]["train"] else float("nan")
             va = hist[cat]["val"][last] if hist[cat]["val"] else float("nan")
             f.write(f"[{cat}] Train={_fmt(tr)} Val={_fmt(va)}\n")
+
+
+def have_matplotlib() -> bool:
+    """Whether matplotlib imports here (the card's machine has none)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def plot_loss_curves(train_losses: Sequence[float], val_losses: Sequence[float], path: str,
+                     ylabel: str = "Loss", title: Optional[str] = None):
+    """The train and val loss curves as a PNG at ``path``. Imports
+    matplotlib here, so a machine without it fails only this call."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    xs = range(1, len(train_losses) + 1)
+    plt.figure()
+    plt.plot(xs, train_losses, label="Train")
+    plt.plot(xs, val_losses, "--", label="Val")
+    plt.xlabel("Epoch")
+    plt.ylabel(ylabel)
+    if title:
+        plt.title(title)
+    plt.grid(True)
+    plt.legend()
+    plt.tight_layout()
+    plt.savefig(path)
+    plt.close()

@@ -18,8 +18,9 @@ a label (:func:`run_per_label`).
 After training, :func:`run_single` also writes ``pred_ply/`` (up to 10 test
 clouds with their predicted axes), for the 8-direction tasks two lines of
 mean ground-truth and predicted distributions at the end of
-``summary.txt``, and for ``mvm`` ``results.txt``. Not ported yet: the
-loss-curve PNG and the MvM polar plots (matplotlib).
+``summary.txt``, for ``mvm`` ``results.txt`` and the polar plots of a few
+test predictions (``figs/``), and ``loss_curve.png``; the PNGs only where
+matplotlib imports (the card's machine has none: one printed line says so).
 
 Data (:func:`load_dataset`): ``synthetic``, ``hdf5:DIR`` (the ModelNet40
 archive, needs h5py), ``ply:DIR`` (a PLY tree ``DIR/<class>/*.ply``) or
@@ -30,17 +31,39 @@ sets ``rotation_mode="none"`` so that the stored targets are trained on):
         --data plygt:data/rotated --out results/torch_8dir_kl
 
 The grid-pruned kNN is reached through ``PCOT_KNN=grid``, as in the JAX
-package (whose ``--knn`` flag offers only ``exact`` and the unported
-``approx``). The vmapped protocols (``--seeds``, ``--vmap-labels``,
-``--resume-from``) are not ported.
+package; ``--knn`` offers the JAX flag's ``exact`` and ``approx`` (not
+ported: it raises). The run is wrapped in a
+:class:`.reliability.PreemptionGuard`: SIGTERM stops it after the epoch,
+with a checkpoint under ``--out/ckpt`` when ``--checkpoint-every`` is set.
+
+The protocols (``train/ensemble.py``, ``train/multiseed.py``): ``--seeds
+1,2,3`` trains a single-model preset once per seed into
+``--out/seed_<s>/`` with ``seeds_summary.json``; ``--vmap-labels`` trains a
+per-label preset's labels together (the JAX flag's name; the port trains
+them in lockstep, one model after another each epoch, not as one mapped
+program). Both save protocol checkpoints under ``--out/ckpt/step_<E>`` with
+``--checkpoint-every`` and continue one with ``--resume-from``:
+
+    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \
+        --seeds 1,2,3 --epochs 10 --checkpoint-every 2 --out results/seeds
+    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \
+        --seeds 1,2,3 --epochs 10 --checkpoint-every 2 --out results/seeds \
+        --resume-from results/seeds/ckpt/step_4
+
+``--lr-schedule cosine --warmup-epochs E``, ``--async-checkpoint``,
+``--host-resident``, ``--debug-checks`` set the config's fields;
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run to
+``DIR/trace.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -51,7 +74,8 @@ from ..data.ply import write_ply_with_axes
 from ..ops.dirs8 import DIRS_8
 from ..viz.axes_export import axes_from_two_heads
 from .config import PRESETS, preset
-from .metrics import write_mvm_results_txt, write_summary_txt
+from .metrics import have_matplotlib, write_mvm_results_txt, write_summary_txt
+from .reliability import PreemptionGuard
 from .trainer import _EVAL, Trainer
 
 
@@ -159,11 +183,15 @@ def _write_8dir_distribution_summary(trainer: Trainer, out_dir: str, max_count: 
 
 def run_single(cfg, dataset: OrientationDataset, out_dir: str, device: str,
                fused_mlp_train: bool = False, label: Optional[str] = None):
-    """Train, test the best-val weights and write the artifacts to
-    ``out_dir``: ``metrics.json``, ``summary.txt``, ``pred_ply/``, the
-    8-direction summary lines and, for ``mvm``, ``results.txt``."""
+    """Train under a :class:`.reliability.PreemptionGuard`, test the
+    best-val weights and write the artifacts to ``out_dir``:
+    ``metrics.json``, ``summary.txt``, ``loss_curve.png``, ``pred_ply/``,
+    the 8-direction summary lines and, for ``mvm``, ``results.txt`` and
+    ``figs/pred_density_<i>.png``."""
     trainer = Trainer(cfg, dataset, device=device, fused_mlp_train=fused_mlp_train)
-    trainer.fit(checkpoint_dir=os.path.join(out_dir, "ckpt") if cfg.checkpoint_every else None)
+    with PreemptionGuard() as guard:
+        trainer.fit(checkpoint_dir=os.path.join(out_dir, "ckpt") if cfg.checkpoint_every
+                    else None, preemption_guard=guard)
     test_acc = trainer.test()
     trainer.write_artifacts(out_dir, test_acc)
     export_test_predictions(trainer, os.path.join(out_dir, "pred_ply"))
@@ -177,6 +205,16 @@ def run_single(cfg, dataset: OrientationDataset, out_dir: str, device: str,
                 **trainer.class_history}
         write_mvm_results_txt(os.path.join(out_dir, "results.txt"), trainer.class_names, hist,
                               test_kl=test_acc.mean_loss, best_val_epoch=trainer.best_val_epoch)
+        n = min(4, len(trainer.test_ds))  # polar plots of a few test predictions
+        if n and not have_matplotlib():
+            print("figs/pred_density_*.png not written: no matplotlib", flush=True)
+        elif n:
+            from ..viz.polar import plot_predicted_density
+
+            mu, kappa, w = trainer.predict(trainer.test_ds.points[:n, :trainer.num_points])
+            for i in range(n):
+                plot_predicted_density(mu[i], kappa[i], w[i],
+                                       os.path.join(out_dir, "figs", f"pred_density_{i}.png"))
     return trainer, test_acc
 
 
@@ -243,12 +281,45 @@ def main(argv=None):
                     help="train the shared MLPs through the fused MLP+max kernel and its "
                          "backward kernel with ghost-row BatchNorm statistics (the JAX "
                          "package's PCOT_FUSED_MLP=1)")
+    ap.add_argument("--profile-dir", default=None, dest="profile_dir",
+                    help="write a torch.profiler trace of the run to DIR/trace.json")
+    ap.add_argument("--async-checkpoint", action="store_true", dest="async_checkpoint",
+                    help="write periodic checkpoints on a background thread; fit waits for "
+                         "the last write")
+    ap.add_argument("--debug-checks", action="store_true", dest="debug_checks")
+    ap.add_argument("--host-resident", action="store_true", dest="host_resident",
+                    help="the JAX package's streaming flag; the port's step path already "
+                         "gathers one batch a step on the host, so it changes nothing")
+    ap.add_argument("--lr-schedule", default=None, dest="lr_schedule", choices=("cosine",),
+                    help="learning-rate schedule (default: the reference's constant lr)")
+    ap.add_argument("--warmup-epochs", type=int, default=None, dest="warmup_epochs")
+    ap.add_argument("--vmap-labels", action="store_true", dest="vmap_labels",
+                    help="a per-label preset's labels trained together (the JAX flag's name: "
+                         "the port trains them in lockstep, one model after another each "
+                         "epoch; see train/ensemble.py)")
+    ap.add_argument("--seeds", default=None,
+                    help="comma-separated seeds, e.g. 42,43,44: train every seed in lockstep "
+                         "(single-model presets; writes seed_<s>/metrics.json and "
+                         "seeds_summary.json; see train/multiseed.py)")
+    ap.add_argument("--resume-from", default=None, dest="resume_from",
+                    help="--seeds / --vmap-labels: continue from a protocol checkpoint's "
+                         "step_<E> directory (written with --checkpoint-every)")
+    ap.add_argument("--knn", default=None, choices=("exact", "approx"),
+                    help="neighbour selection: exact (the default); approx is not ported "
+                         "and raises")
     args = ap.parse_args(argv)
 
+    if args.knn:
+        from ..ops import set_knn_impl
+
+        set_knn_impl(args.knn)
     overrides = {k: getattr(args, k) for k in
                  ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every",
-                  "compute_dtype", "transformer_attention")
+                  "compute_dtype", "transformer_attention", "lr_schedule", "warmup_epochs")
                  if getattr(args, k) is not None}
+    for flag in ("debug_checks", "host_resident", "async_checkpoint"):
+        if getattr(args, flag):
+            overrides[flag] = True
     if args.classes:
         overrides["classes"] = tuple(args.classes.split(","))
     if args.data.startswith("plygt:"):
@@ -257,9 +328,47 @@ def main(argv=None):
     dataset = load_dataset(args.data, cfg.num_points, classes=cfg.classes)
     out_dir = args.out or os.path.join(cfg.out_dir, "torch_" + args.preset)
     cfg = cfg.replace(out_dir=out_dir)  # debug_checks log beside the run's artifacts
+    protocol = bool(args.seeds or (cfg.per_label and args.vmap_labels))
+    if protocol:
+        unsupported = []
+        if cfg.async_checkpoint:
+            unsupported.append("--async-checkpoint (the protocols' saves are synchronous)")
+        if cfg.host_resident:
+            unsupported.append("--host-resident (it changes nothing in the port)")
+        if unsupported:
+            warnings.warn("ignored by the protocols (--seeds / --vmap-labels): "
+                          + "; ".join(unsupported), stacklevel=1)
+    if args.resume_from and not protocol:
+        raise SystemExit("--resume-from applies to the protocols only (--seeds / --vmap-labels); "
+                         "sequential runs resume from the trainer's own checkpoints "
+                         "(Trainer.restore_checkpoint, --checkpoint-every)")
+    ckpt_dir = os.path.join(out_dir, "ckpt") if cfg.checkpoint_every else None
+    kw = dict(device=args.device, fused_mlp_train=args.fused_mlp_train)
+    profile = contextlib.nullcontext()
+    if args.profile_dir:
+        from ..utils.profiling import capture_trace
+
+        profile = capture_trace(args.profile_dir)
     t0 = time.time()
-    run = run_per_label if cfg.per_label else run_single
-    run(cfg, dataset, out_dir, args.device, args.fused_mlp_train)
+    with profile:
+        if args.seeds:
+            from .multiseed import run_multi_seed
+
+            with PreemptionGuard() as guard:
+                run_multi_seed(cfg, dataset, [int(s) for s in args.seeds.split(",")], out_dir,
+                               checkpoint_dir=ckpt_dir, resume_from=args.resume_from,
+                               preemption_guard=guard, **kw)
+        elif protocol:
+            from .ensemble import run_per_label_vmapped
+
+            with PreemptionGuard() as guard:
+                run_per_label_vmapped(cfg, dataset, out_dir, checkpoint_dir=ckpt_dir,
+                                      resume_from=args.resume_from, preemption_guard=guard,
+                                      **kw)
+        elif cfg.per_label:
+            run_per_label(cfg, dataset, out_dir, **kw)
+        else:
+            run_single(cfg, dataset, out_dir, **kw)
     print(f"done in {(time.time() - t0) / 60:.1f} min; artifacts in {out_dir}", flush=True)
 
 

@@ -10,9 +10,15 @@ holds whatever the model has.
 Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
 step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
 epoch a train pass and a val pass -> best-val snapshot -> reload best ->
-test pass -> artifacts, with checkpoint and resume. Adam follows optax's
-defaults (b1 0.9, b2 0.999, eps 1e-8), and the optional global-norm clip
-optax's ``clip_by_global_norm``. The loss of a step is the masked mean
+test pass -> artifacts (``loss_curve.png`` where matplotlib imports), with
+checkpoint and resume, checkpoints written on a background thread
+(``async_checkpoint``) and a preemption guard polled at each epoch's end
+(:meth:`Trainer.fit`). The optimizer is the JAX package's optax chain: the
+optional global-norm clip (``clip_by_global_norm``), then Adam at optax's
+defaults (b1 0.9, b2 0.999, eps 1e-8) or plain SGD (no momentum, no weight
+decay), at a constant rate or on optax's ``warmup_cosine_decay_schedule``
+(:func:`lr_schedule_for`), read at the update count before the update as
+optax reads it. The loss of a step is the masked mean
 ``sum(per * valid) / max(sum(valid), 1)`` over a batch whose tail is padded
 by wrapping. Every random draw comes from a ``torch.Generator`` keyed by the
 run's seed and the absolute epoch and step, so that a resumed run
@@ -20,8 +26,10 @@ reproduces an uninterrupted one. A dataset's stored sidecar ``targets``
 replace the synthesized ones under ``rotation_mode="none"``
 (:meth:`Trainer.device_batch`). ``debug_checks`` runs the JAX package's
 per-step finite checks and ``debug_log.txt`` (:meth:`Trainer.debug_check`).
-Not ported yet (ROADMAP.md): the whole-epoch scan and block paths, meshes,
-asynchronous checkpoints, preemption, host-resident streaming.
+``host_resident`` changes nothing: this step path already gathers one batch
+a step on the host, which is what the flag selects in the JAX package.
+Not ported (ROADMAP.md): the whole-epoch scan and block paths (the JAX
+package's answer to dispatch cost) and meshes.
 
 Example
 -------
@@ -36,14 +44,16 @@ Example
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import inspect
+import io
 import json
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -52,7 +62,7 @@ from ..data import OrientationDataset, augment_batch
 from ..models import MODEL_REGISTRY
 from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from .config import TrainConfig
-from .metrics import MetricsAccumulator, write_summary_txt
+from .metrics import MetricsAccumulator, plot_loss_curves, write_summary_txt
 from .tasks import TASKS
 
 _TRAIN, _EVAL = 0, 1  # generator key streams
@@ -79,6 +89,84 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
     norm = torch.sqrt(sum((g * g).sum() for g in grads))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                  decay_steps: int, end_value: float = 0.0
+                                  ) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule`` as a function of the update
+    count: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then cosine decay to ``end_value`` over the
+    ``decay_steps - warmup_steps`` that follow (optax's ``decay_steps``
+    counts the warmup), flat after. Raises optax's ``ValueError`` when no
+    decay step is left."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps - warmup_steps}.")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = float(decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:  # optax's linear_schedule (none when warmup_steps <= 0)
+            return (init_value - peak_value) * (1.0 - count / warmup_steps) + peak_value
+        c = min(float(count - warmup_steps), cos_steps)
+        return peak_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / cos_steps))
+                             + alpha)
+
+    return schedule
+
+
+def lr_schedule_for(config: TrainConfig, steps_per_epoch: int) -> Optional[Callable[[int], float]]:
+    """The learning rate by update count that the JAX ``Trainer`` builds:
+    None for ``lr_schedule=None`` (the constant ``config.lr``); for
+    ``"cosine"``, :func:`warmup_cosine_decay_schedule` from 0 (``lr`` when
+    there is no warmup) to ``lr`` over ``warmup_epochs`` epochs, then down
+    to 0 at ``epochs``. Raises the JAX package's ``ValueError`` for another
+    schedule."""
+    if config.lr_schedule is None:
+        return None
+    if config.lr_schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule: {config.lr_schedule}")
+    warmup = steps_per_epoch * config.warmup_epochs
+    return warmup_cosine_decay_schedule(0.0 if warmup else config.lr, config.lr, warmup,
+                                        steps_per_epoch * config.epochs)
+
+
+def make_optimizer(config: TrainConfig, params, lr: float) -> torch.optim.Optimizer:
+    """optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8) or ``sgd`` (no
+    momentum, no weight decay) at ``lr``; the JAX package's ``ValueError``
+    for another optimizer."""
+    if config.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if config.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise ValueError(f"unknown optimizer: {config.optimizer}")
+
+
+def to_host(obj):
+    """A copy of ``obj`` whose tensors are detached copies in host memory
+    (dicts, lists and tuples copied through, other leaves deep-copied):
+    what a checkpoint holds when the device and the lists keep changing."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+def write_torch_file(payload: Dict[str, Any], path: str) -> None:
+    """``torch.save`` of ``payload`` into memory, then its bytes to a
+    temporary file renamed over ``path``: the bytes do not depend on the
+    file's name or on which thread writes them, and a reader never sees
+    half a file."""
+    buf = io.BytesIO()
+    torch.save(payload, buf)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getbuffer())
+    os.replace(tmp, path)
 
 
 def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
@@ -149,8 +237,12 @@ class Trainer:
         if hasattr(self.model, "reset_head_parameters"):  # the MvM heads' zero inits
             self.model.reset_head_parameters()
         self.model.to(self.device)
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=config.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        steps_per_epoch = max(1, -(-len(self.train_ds) // config.batch_size))
+        self.lr_schedule = lr_schedule_for(config, steps_per_epoch)
+        lr = config.lr if self.lr_schedule is None else self.lr_schedule(0)
+        self.optimizer = make_optimizer(config, self.model.parameters(), lr)
+        self._ckpt_writer: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._ckpt_pending: List[concurrent.futures.Future] = []
         self.step = 0
         self.epoch = 0  # last completed epoch
         self.history: Dict[str, List[float]] = {"train": [], "val": [], "train_ang": [],
@@ -224,6 +316,9 @@ class Trainer:
             metrics["grad_finite"] = dict(zip((n for n, _ in named), finite))
         if self.cfg.grad_clip is not None:
             clip_by_global_norm_(self.model.parameters(), self.cfg.grad_clip)
+        if self.lr_schedule is not None:  # optax reads the count before it increments
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(self.step)
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
@@ -317,40 +412,63 @@ class Trainer:
 
     # ---------- the protocol ----------
 
+    def run_epoch(self, epoch: int):
+        """One epoch: the train pass, the val pass, the histories and the
+        best-val snapshot. Returns the two passes' accumulators."""
+        tr = self.run_phase(self.train_ds, train=True, epoch=epoch)
+        va = self.run_phase(self.val_ds, train=False, epoch=epoch)
+        self.epoch = epoch
+        self.history["train"].append(tr.mean_loss)
+        self.history["val"].append(va.mean_loss)
+        self.history["train_ang"].append(tr.mean_angular_error)
+        self.history["val_ang"].append(va.mean_angular_error)
+        for c, v in tr.per_class_mean().items():
+            self.class_history[c]["train"].append(v)
+        for c, v in va.per_class_mean().items():
+            self.class_history[c]["val"].append(v)
+        if va.mean_loss < self.best_val:
+            self.best_val = va.mean_loss
+            self.best_state = {k: v.detach().cpu().clone()
+                               for k, v in self.model.state_dict().items()}
+            self.best_val_epoch = epoch
+        return tr, va
+
     def fit(self, epochs: Optional[int] = None, log_every: int = 1,
-            checkpoint_dir: Optional[str] = None, start_epoch: int = 1) -> Dict[str, List[float]]:
+            checkpoint_dir: Optional[str] = None, start_epoch: int = 1,
+            preemption_guard=None) -> Dict[str, List[float]]:
         """Train and validate from ``start_epoch`` to ``epochs`` inclusive.
         After :meth:`restore_checkpoint`, ``start_epoch = epoch + 1`` carries
-        on exactly where an uninterrupted run would be."""
+        on exactly where an uninterrupted run would be. Periodic checkpoints
+        (``checkpoint_every``) are written on a background thread under
+        ``async_checkpoint``. ``preemption_guard`` (a
+        :class:`.reliability.PreemptionGuard`) is polled at each epoch's
+        end: when it fires, the run drains the writes in flight, saves a
+        final checkpoint (with ``checkpoint_dir``) and returns early with a
+        consistent history. Every write has finished when ``fit`` returns."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
         t_start = time.time()
         for epoch in range(start_epoch, epochs + 1):
             t_ep = time.time()
-            tr = self.run_phase(self.train_ds, train=True, epoch=epoch)
-            va = self.run_phase(self.val_ds, train=False, epoch=epoch)
-            self.epoch = epoch
-            self.history["train"].append(tr.mean_loss)
-            self.history["val"].append(va.mean_loss)
-            self.history["train_ang"].append(tr.mean_angular_error)
-            self.history["val_ang"].append(va.mean_angular_error)
-            for c, v in tr.per_class_mean().items():
-                self.class_history[c]["train"].append(v)
-            for c, v in va.per_class_mean().items():
-                self.class_history[c]["val"].append(v)
-            if va.mean_loss < self.best_val:
-                self.best_val = va.mean_loss
-                self.best_state = {k: v.detach().cpu().clone()
-                                   for k, v in self.model.state_dict().items()}
-                self.best_val_epoch = epoch
+            tr, va = self.run_epoch(epoch)
             if checkpoint_dir and cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
-                self.save_checkpoint(checkpoint_dir)
+                self.save_checkpoint(checkpoint_dir, asynchronous=cfg.async_checkpoint)
+            if preemption_guard is not None and preemption_guard.requested:
+                if checkpoint_dir:
+                    # a write of this very epoch may be in flight to the same file
+                    self.wait_for_checkpoints()
+                    self.save_checkpoint(checkpoint_dir)
+                print(f"[preempt] graceful stop after epoch {epoch}"
+                      + (f"; checkpoint in {checkpoint_dir}" if checkpoint_dir else ""),
+                      flush=True)
+                break
             if log_every and epoch % log_every == 0:
                 eta = (time.time() - t_start) / (epoch - start_epoch + 1) * (epochs - epoch)
                 print(f"Ep {epoch:03}/{epochs}  Train {tr.mean_loss:.4f}  Val {va.mean_loss:.4f}  "
                       f"ang(val) {va.mean_angular_error:.2f}deg  {time.time() - t_ep:.1f}s  "
                       f"ETA {eta / 60:.1f}m  ({self.timings['train_clouds_per_sec']:.0f} clouds/s)",
                       flush=True)
+        self.wait_for_checkpoints()
         return self.history
 
     def load_best(self) -> None:
@@ -378,8 +496,10 @@ class Trainer:
     # ---------- artifacts and checkpoints ----------
 
     def write_artifacts(self, out_dir: str, test_acc: Optional[MetricsAccumulator] = None):
-        """``metrics.json`` (config, history, best val, timings, test) and
-        ``summary.txt`` (per-class loss, then Overall)."""
+        """``metrics.json`` (config, history, best val, timings, test),
+        ``loss_curve.png`` (where matplotlib imports; else one printed line
+        says it was not written) and ``summary.txt`` (per-class loss, then
+        Overall)."""
         os.makedirs(out_dir, exist_ok=True)
         payload = {
             "config": dataclasses.asdict(self.cfg),
@@ -396,6 +516,11 @@ class Trainer:
                                "per_class": test_acc.per_class_mean()}
         with open(os.path.join(out_dir, "metrics.json"), "w") as f:
             json.dump(payload, f, indent=2, default=float)
+        try:
+            plot_loss_curves(self.history["train"], self.history["val"],
+                             os.path.join(out_dir, "loss_curve.png"), title=f"{self.cfg.task} loss")
+        except ImportError as e:
+            print(f"loss_curve.png not written: {e}", flush=True)
         if test_acc is not None:
             per_class, overall = test_acc.per_class_mean(), test_acc.mean_loss
         else:
@@ -404,12 +529,12 @@ class Trainer:
             overall = self.history["val"][-1] if self.history["val"] else float("nan")
         write_summary_txt(os.path.join(out_dir, "summary.txt"), per_class, overall)
 
-    def save_checkpoint(self, directory: str) -> str:
-        """``torch.save`` of the model, the optimizer, the epoch and step,
-        the history and the best-val snapshot to ``directory/epoch_<E>.pt``."""
-        os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, f"epoch_{self.epoch}.pt")
-        torch.save({
+    def state_payload(self) -> Dict[str, Any]:
+        """The whole training state in host memory: the model, the optimizer
+        (moments and step count), the epoch and step, the histories and the
+        best-val snapshot. Reads the device, so it waits for the work queued
+        there."""
+        return to_host({
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "epoch": self.epoch,
@@ -419,13 +544,10 @@ class Trainer:
             "best_val": self.best_val,
             "best_val_epoch": self.best_val_epoch,
             "best_state": self.best_state,
-        }, path)
-        return path
+        })
 
-    def restore_checkpoint(self, path: str) -> int:
-        """Load a checkpoint written by :meth:`save_checkpoint`; returns its
-        epoch (resume with ``fit(start_epoch=epoch + 1)``)."""
-        ckpt = torch.load(path, map_location=self.device, weights_only=False)
+    def load_payload(self, ckpt: Dict[str, Any]) -> int:
+        """Restore a :meth:`state_payload`; returns its epoch."""
         self.model.load_state_dict(ckpt["model"])
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.epoch, self.step = ckpt["epoch"], ckpt["step"]
@@ -434,3 +556,43 @@ class Trainer:
         self.best_val, self.best_val_epoch = ckpt["best_val"], ckpt["best_val_epoch"]
         self.best_state = ckpt["best_state"]
         return self.epoch
+
+    def save_checkpoint(self, directory: str, asynchronous: bool = False) -> str:
+        """:meth:`state_payload` to ``directory/epoch_<E>.pt`` (see
+        :func:`write_torch_file`). The copy to host memory is made here, in
+        the caller's thread; ``asynchronous=True`` leaves the serialisation
+        and the file write to a background thread, one write at a time in
+        order, and returns at once. The file holds the same bytes either
+        way. :meth:`wait_for_checkpoints` (``fit`` calls it) waits for the
+        writes and raises a failed one's error."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"epoch_{self.epoch}.pt")
+        payload = self.state_payload()
+        if not asynchronous:
+            write_torch_file(payload, path)
+            return path
+        if self._ckpt_writer is None:
+            self._ckpt_writer = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="checkpoint")
+        self._ckpt_pending.append(self._ckpt_writer.submit(write_torch_file, payload, path))
+        return path
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every asynchronous checkpoint write has finished,
+        raise the first failed one's error, and stop the writer thread."""
+        pending, self._ckpt_pending = self._ckpt_pending, []
+        writer, self._ckpt_writer = self._ckpt_writer, None
+        try:
+            for future in pending:
+                future.result()
+        finally:
+            if writer is not None:
+                writer.shutdown(wait=True)
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Load a checkpoint written by :meth:`save_checkpoint`; returns its
+        epoch (resume with ``fit(start_epoch=epoch + 1)``). Read into host
+        memory: the loads copy the weights and moments to the device, and
+        the optimizer's step counts and the best-val snapshot stay on the
+        host, as in a run that was never interrupted."""
+        return self.load_payload(torch.load(path, map_location="cpu", weights_only=False))

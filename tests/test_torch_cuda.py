@@ -1284,3 +1284,85 @@ def test_point_transformer_flash_step_through_kernels_matches_plain_on_card(cuda
         with mock.patch.multiple(K, **plain):
             out_plain = trainer.model(batch["points"])
     assert float((out - out_plain).abs().max()) <= (1e-4 if dtype is None else 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["pointnet_pp_8dir", "pointnet_pp_von_mises",
+                                   "pointnet_pp_mvm"])
+def test_ensemble_request_is_its_members_combined_on_card(cuda_device, model):
+    """A 3-member ensemble request at B=16 N=1,024: three single requests'
+    launches, and its output equal to the host's combine of the three
+    single-member predictors' outputs (same sampling draws: one generator
+    state for every member)."""
+    members = [random_flax_variables(40 + i, model) for i in range(3)]
+    kw = dict(num_points=1024, max_batch=16, seed=5, device=cuda_device)
+    ens = OrientationPredictor.from_seed_sweep(model, members, **kw)
+    singles = [OrientationPredictor.from_seed_sweep(model, [m], **kw) for m in members]
+    x = np.random.default_rng(4).normal(size=(16, 1024, 3)).astype(np.float32)
+    before = K.launch_counts()
+    got = ens(x)
+    torch.cuda.synchronize()
+    n_ens = {k: v - before[k] for k, v in K.launch_counts().items()}
+    before = K.launch_counts()
+    outs = [p(x) for p in singles]
+    torch.cuda.synchronize()
+    n_one = {k: v - before[k] for k, v in K.launch_counts().items()}
+    assert n_ens == n_one and n_ens["sa_group"] == 6 and n_ens["sa_mlp_max"] == 9
+    if model == "pointnet_pp_8dir":
+        p = [torch.softmax(torch.from_numpy(o).double(), -1) for o in outs]
+        want = torch.log(sum(p) / 3 + 1e-12).numpy()
+        assert np.abs(got - want).max() <= 1e-6
+    elif model == "pointnet_pp_von_mises":
+        def moment(mu, kappa):
+            from pointcloud_orientation_tpu_torch.ops.von_mises import bessel_ratio
+            a = bessel_ratio(torch.from_numpy(np.asarray(kappa, np.float64))).numpy()
+            return np.stack([a * np.cos(mu), a * np.sin(mu)], -1)
+        want = np.mean([moment(*o) for o in outs], 0)
+        assert np.abs(moment(*got) - want).max() <= 1e-6
+    else:
+        mu, kappa, w = (np.concatenate([o[j] for o in outs], -1) for j in range(3))
+        d = np.mod(got[0] - mu + np.pi, 2 * np.pi) - np.pi
+        assert np.abs(d).max() <= 1e-5
+        assert np.abs(got[1] - kappa).max() <= 1e-5 and np.abs(got[2] - w / 3).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_preempted_run_resumes_bit_equal_on_card(cuda_device, tmp_path):
+    """8dir_kl at B=16 N=1,024, asynchronous checkpoints every epoch, a
+    guard requested after epoch 2 of 3: ``epoch_1.pt``, which only the
+    writer thread wrote (the preemption save rewrites ``epoch_2.pt``), is
+    byte for byte the uninterrupted run's synchronous ``epoch_1.pt``;
+    resumed from it, the history and every weight, statistic and optimizer
+    moment equal the uninterrupted run's bit for bit (no float atomics on
+    the path)."""
+    from pointcloud_orientation_tpu_torch.train.reliability import PreemptionGuard
+
+    ds = OrientationDataset.synthetic(samples_per_class=8, num_points=1024)
+    cfg = preset("8dir_kl", num_points=1024, epochs=3, checkpoint_every=1,
+                 async_checkpoint=True)
+    full = Trainer(cfg.replace(async_checkpoint=False), ds, device=cuda_device)
+    full.fit(log_every=0, checkpoint_dir=str(tmp_path / "full"))
+    run = Trainer(cfg, ds, device=cuda_device)
+    with PreemptionGuard() as guard:
+        real = run.run_epoch
+
+        def run_epoch(e):
+            out = real(e)
+            if e == 2:
+                guard.request()
+            return out
+
+        run.run_epoch = run_epoch
+        run.fit(log_every=0, checkpoint_dir=str(tmp_path / "run"), preemption_guard=guard)
+    assert run.epoch == 2
+    path = tmp_path / "run" / "epoch_1.pt"
+    assert path.read_bytes() == (tmp_path / "full" / "epoch_1.pt").read_bytes()
+    resumed = Trainer(cfg, ds, device=cuda_device)
+    resumed.restore_checkpoint(str(path))
+    resumed.fit(start_epoch=2, log_every=0)
+    assert resumed.history == full.history
+    for (k, a), b in zip(resumed.model.state_dict().items(), full.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                    full.optimizer.state_dict()["state"].values()):
+        assert all(a[k].device == b[k].device and torch.equal(a[k], b[k]) for k in a)

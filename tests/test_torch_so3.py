@@ -570,7 +570,7 @@ def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
     with pytest.raises(NotImplementedError):
         TrainConfig(model="moe_point_transformer")
     with pytest.raises(NotImplementedError):
-        preset("pointnet_pp_forward", optimizer="sgd")
+        preset("pointnet_pp_forward", bn_sync_axis="data")
     stored = OrientationDataset.synthetic(samples_per_class=1, num_points=N)
     stored.targets = {"axes": np.zeros((len(stored), 3, 3), np.float32)}
     t = Trainer(cfg.replace(rotation_mode="none"), stored, device="cpu")
