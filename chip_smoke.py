@@ -83,7 +83,17 @@ S times a single request's launches, and the point transformer's flash
 step accumulated over 4 microbatches against the whole batch's gradient;
 then timed (``timing_protocols``: ensemble requests at S=1 and 3, a
 member's epoch in lockstep against a sequential one, a synchronous
-checkpoint's stall against an asynchronous one's).
+checkpoint's stall against an asynchronous one's). The last modules
+(``train_moe``, ``approx_knn``, ``aot_export``): the MoE point transformer
+(``moe_point_transformer``, full width, B=16 N=1,024) one epoch in each
+dispatch and dtype with every hand-kernel counter at 0, its step time and
+peak memory, the card's first step against the port's float64 step on the
+host (B=4) with each layer's routing agreement, the capacity dispatch at
+factor 4 against the masked one, the tokens factor 1.25 drops; an 8-dir
+request at B=16 N=10,000 under ``set_knn_impl("approx")`` (one
+``topk_min`` launch, sa1's indices equal to the exact dispatch's) timed
+beside the exact one; the 8-dir ``.pt2`` artifact exported on the host,
+run on the card at B=1 and B=64 against the kernel-path request.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -126,6 +136,7 @@ from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.ops import von_mises as TVM
 from pointcloud_orientation_tpu_torch.ops.geometry import random_sample_indices
 from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, rotate_points
+from pointcloud_orientation_tpu_torch.parallel import ep as EP
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
 from pointcloud_orientation_tpu_torch.train import evaluate as EV
 from pointcloud_orientation_tpu_torch.train import trainer as TR
@@ -138,6 +149,11 @@ from pointcloud_orientation_tpu_torch.train.run import load_dataset, run_per_lab
 from pointcloud_orientation_tpu_torch.train.profile_step import device_events, profile_mode
 from pointcloud_orientation_tpu_torch.utils import grad_check as GC
 from pointcloud_orientation_tpu_torch.utils import save_torch_checkpoint, to_flax_variables
+from pointcloud_orientation_tpu_torch.utils.aot_export import (
+    export_orientation_model,
+    load_artifact,
+    save_artifact,
+)
 from pointcloud_orientation_tpu_torch.utils.quantize import save_quantized_checkpoint
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
@@ -3876,6 +3892,270 @@ def phase_timing_protocols(dev, card: str, protocols: dict) -> None:
     shutil.rmtree(protocols["tmp"], ignore_errors=True)
 
 
+# The last modules' slice: the MoE point transformer trained at the preset's
+# full width (embed 64, 4 heads, depth 6, FFN 2,048, 4 experts, N=1,024,
+# B=16), the approximate kNN through the topk_min kernel, and the
+# ahead-of-time artifact (torch.export) served on the card.
+MOE_N, MOE_B = 1024, 16
+MOE_CHECK_B = 4  # the batch of the card's step held against the float64 CPU step
+MOE_DISPATCHES = ("masked", "capacity")
+MOE_TOL = 1e-5  # capacity at factor 4 against masked on the card: other GEMM shapes
+MOE_LOSS_TOL = 1e-5  # the card's f32 step against the CPU's float64 step, relative
+MOE_GRAD_TOL = 1e-3  # relative in norm, leaf by leaf (each attention's key bias left out)
+APPROX_N = 10_000
+AOT_N, AOT_BATCHES = 1024, (1, 64)
+
+
+def moe_cfg(dispatch: str, dtype=None, **kw):
+    return preset("moe_point_transformer", **{"epochs": 1, "batch_size": MOE_B,
+                                              "num_points": MOE_N, "moe_dispatch": dispatch,
+                                              "compute_dtype": dtype, **kw})
+
+
+@contextlib.contextmanager
+def moe_routes(model):
+    """Within the block, each MoE layer's top-1 assignment of every forward
+    of ``model``, read from its router's output, appended (on the host) to
+    the yielded list."""
+    routes = []
+    hooks = [layer.moe.router.register_forward_hook(
+        lambda mod, args, out: routes.append(torch.argmax(torch.softmax(out, -1), -1).cpu()))
+        for layer in model.layers]
+    try:
+        yield routes
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def tokens_dropped(routes, n_experts: int, factor: float) -> list:
+    """Per layer, the tokens past their expert's capacity at ``factor``:
+    ``sum_k max(0, count_k - C)``."""
+    out = []
+    for a in routes:
+        cap = EP.expert_capacity(a.numel(), n_experts, factor)
+        counts = torch.bincount(a.reshape(-1), minlength=n_experts)
+        out.append(int((counts - cap).clamp_min(0).sum()))
+    return out
+
+
+def phase_train_moe(dev) -> dict:
+    """The ``moe_point_transformer`` preset at full width through
+    ``Trainer``, both dispatches, f32 and bf16: an epoch each (3 steps and
+    1 val batch at B=16 N=1,024, the CLI's 64 synthetic chairs) with every
+    hand-kernel counter at 0 (the path runs cuBLAS and stock operations
+    only), finite losses, step time and peak memory; the card's first step
+    (f32, dropout off) held against the port's float64 step on the host on
+    the same weights and batch (B=4; each layer's routing agreement
+    printed); the capacity dispatch at ``moe_capacity_factor=4`` equal to
+    the masked one on the card; the tokens the default factor 1.25 drops."""
+    ds = transformer_dataset(MOE_N, 64)
+    runs = {}
+    for dispatch in MOE_DISPATCHES:
+        for dname in ("float32", "bfloat16"):
+            trainer = Trainer(moe_cfg(dispatch, None if dname == "float32" else dname), ds,
+                              device=dev)
+            steps, val = batches_of(trainer.train_ds, MOE_B), batches_of(trainer.val_ds, MOE_B)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            K.reset_launch_counts()
+            trainer.fit(epochs=1, log_every=0)
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            losses = trainer.step_losses
+            timing = step_times(trainer, f"train_moe {dispatch} {dname}")
+            row = {"dispatch": dispatch, "dtype": dname, "train_steps": steps, "val_batches": val,
+                   "step_losses": losses, "val_loss": trainer.history["val"][0],
+                   "launches": launches, "epoch_peak_bytes": peak, "step": timing}
+            emit("train_moe_epoch", **row)
+            if launches != expected_launches():
+                fail(f"train_moe {dispatch} {dname}: hand-kernel launches {launches}")
+            if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                    and math.isfinite(trainer.history["val"][0])):
+                fail(f"train_moe {dispatch} {dname}: losses {losses}, "
+                     f"val {trainer.history['val']}")
+            runs[f"{dispatch} {dname}"] = row
+
+    # the card's first step against the float64 step on the host
+    idx, valid, _ = next(ds.batches(MOE_CHECK_B, shuffle=True, seed=1))
+    checks = {}
+    for dispatch in MOE_DISPATCHES:
+        cfg = moe_cfg(dispatch, batch_size=MOE_CHECK_B)
+        card = Trainer(cfg, ds, device=dev, dropout=0.0)
+        host = Trainer(cfg, ds, device="cpu", dropout=0.0)
+        host.model.load_state_dict(card.model.state_dict())
+        host.model.double()
+        batch, valid_dev, _ = card.device_batch(ds, idx, valid, card.generator(0, 99, 0))
+        batch64 = {k: (v.cpu().double() if v.is_floating_point() else v.cpu())
+                   for k, v in batch.items()}
+        with moe_routes(card.model) as r_card:
+            got = step_grads(card, batch, valid_dev, SEED)
+            loss = float(card.train_step(batch, valid_dev, None)["loss"])
+        with moe_routes(host.model) as r_host:
+            want = step_grads(host, batch64, valid_dev.cpu().double(), SEED)
+            host_loss = float(host.train_step(batch64, valid_dev.cpu().double(), None)["loss"])
+        depth = len(card.model.layers)
+        agree = [float((a == b).float().mean()) for a, b in zip(r_card[:depth], r_host[:depth])]
+        check = GC.compare_grads({k: v.cpu().double() for k, v in got.items()}, want,
+                                 MOE_GRAD_TOL, GC.zero_gradient_leaves(card.model), {}, False)
+        loss_err = abs(loss - host_loss) / abs(host_loss)
+        checks[dispatch] = {"B": MOE_CHECK_B, "routing_agreement_per_layer": agree,
+                            "loss": loss, "loss_f64": host_loss, "loss_rel_err": loss_err,
+                            "grads_worst": check["worst"], "grads_norm_rel_err":
+                            check["norm_rel_err"], "grads_median_norm_rel_err":
+                            check["median_norm_rel_err"], "tol": MOE_GRAD_TOL,
+                            "loss_tol": MOE_LOSS_TOL}
+        emit("train_moe_vs_f64", dispatch=dispatch, **checks[dispatch])
+        if not check["ok"] or loss_err > MOE_LOSS_TOL:
+            fail(f"train_moe {dispatch}: loss {loss_err}, gradient of {check['worst']} "
+                 f"{check['norm_rel_err']} from the float64 step (routing agreement {agree})")
+
+    # capacity at factor 4 against masked, each layer's FFN on the masked
+    # run's own input to it (the same routing by construction); the drops
+    # of the default factor 1.25 on that run's routing
+    x = torch.from_numpy(so3_clouds(MOE_B, MOE_N, SEED + 60)).to(dev)
+    model = Trainer(moe_cfg("masked"), ds, device=dev).model.eval()
+    inputs = []
+    hooks = [layer.moe.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for layer in model.layers]
+    with torch.no_grad(), moe_routes(model) as routes:
+        model(x)
+    for h in hooks:
+        h.remove()
+    errs = []
+    with torch.no_grad():
+        for layer, h in zip(model.layers, inputs):
+            moe = layer.moe
+            y_m, aux_m = moe(h)
+            moe.dispatch, moe.capacity_factor = "capacity", 4.0
+            y_c, aux_c = moe(h)
+            moe.dispatch, moe.capacity_factor = "masked", 1.25
+            errs.append(max(float((y_c - y_m).abs().max()), float((aux_c - aux_m).abs())))
+    dropped = tokens_dropped(routes, 4, 1.25)
+    emit("train_moe_capacity", B=MOE_B, N=MOE_N, capacity_4_vs_masked_max_abs_per_layer=errs,
+         tol=MOE_TOL, dropped_at_1_25_per_layer=dropped, tokens=MOE_B * MOE_N,
+         capacity_1_25=EP.expert_capacity(MOE_B * MOE_N, 4, 1.25))
+    if max(errs) > MOE_TOL:
+        fail(f"train_moe: capacity at factor 4 against masked {errs}")
+    return {"runs": runs, "checks": checks, "dropped": dropped,
+            "launches": {k: r["launches"] for k, r in runs.items()}}
+
+
+def phase_approx_knn(dev) -> dict:
+    """An 8-dir request at B=16 N=10,000 (sampling "first") under
+    ``set_knn_impl("approx")``: sa1 through the matmul-form distances and
+    the topk_min kernel (1 launch), sa2 on the fused grouping; its sa1
+    indices equal to the exact dispatch's (the fused grouping, the same
+    distances, first occurrence on ties) and to topk_min's plain version,
+    sorted distances equal, the request equal to the exact one within
+    LOGIT_TOL; then the request and the sa1 stage timed beside the exact
+    dispatch's."""
+    rng = np.random.default_rng(SEED + 61)
+    x = rng.normal(size=(16, APPROX_N, 3)).astype(np.float32)
+    v = random_flax_variables(SEED)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=APPROX_N, max_batch=16, seed=SEED, device=dev,
+                                sampling="first")
+    xyz = torch.from_numpy(x).to(dev)
+    c = xyz[:, :128].contiguous()
+    cidx = torch.arange(128, dtype=torch.int32, device=dev).expand(16, 128).contiguous()
+    try:
+        G.set_knn_impl("approx")
+        K.reset_launch_counts()
+        approx_out = pred(x)
+        launches = K.launch_counts()
+        if launches != expected_launches(topk_min=1, sa_group=1, sa_mlp_max=3):
+            fail(f"approx request: launches {launches}")
+        idx = G.approx_knn(c, xyz, 32)
+        dist = G.square_distance(c, xyz)
+        plain = K.topk_min_plain(dist, 32)
+        G.set_knn_impl("exact")
+        exact_out = pred(x)
+        fused = K.sa_group(xyz, None, cidx, 32)[2]
+        d_approx = torch.gather(dist, 2, idx.long()).sort(-1).values
+        d_exact = torch.gather(dist, 2, fused.long()).sort(-1).values
+        vs_fused, vs_plain = sets_differ(idx, fused), int((idx != plain).sum())
+        err = max_abs(approx_out, exact_out)
+        same_dist = torch.equal(d_approx, d_exact)
+        emit("approx_knn", B=16, N=APPROX_N, launches=launches,
+             sa1_rows_differing_from_exact=vs_fused, sa1_indices_equal_exact=torch.equal(
+                 idx, fused), sa1_entries_differing_from_plain=vs_plain,
+             sorted_distances_equal=same_dist, max_abs_err_vs_exact=err, tol=LOGIT_TOL,
+             finite=bool(np.isfinite(approx_out).all()))
+        if vs_fused or vs_plain or not same_dist or err > LOGIT_TOL:
+            fail(f"approx sa1: {vs_fused} rows differ from the exact sets, {vs_plain} entries "
+                 f"from the plain selection, distances equal {same_dist}; request {err}")
+
+        b_ms, b_by = bound_ms(*topk_min_cost(16, 128, APPROX_N, 32))
+        ms, host_ms = timed(lambda: K.topk_min(dist, 32))
+        sel = {"ms": ms, "host_ms": host_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": cuda_ms(lambda: K.topk_min_plain(dist, 32)),
+               "library_ms": cuda_ms(lambda: torch.topk(dist, 32, dim=-1, largest=False,
+                                                        sorted=True))}
+        stage = {"approx (square_distance + topk_min)": profiled_ms(
+                     lambda: G.approx_knn(c, xyz, 32)),
+                 "exact (sa_group)": profiled_ms(lambda: K.sa_group(xyz, None, cidx, 32))}
+        latency = []
+        for rnd, impl in enumerate(("exact", "approx", "approx", "exact")):
+            G.set_knn_impl(impl)
+            latency.append({"knn_impl": impl, "turn": rnd, **request_latency(pred, x)})
+        emit("timing_approx_knn", topk_min_sa1=sel, sa1_stage_device_ms=stage,
+             request=latency)
+    finally:
+        G.set_knn_impl("exact")
+    return {"launches": launches, "topk_min": sel}
+
+
+def phase_aot_export(dev) -> dict:
+    """The 8-dir model exported on the host's CPU with a symbolic batch
+    (``utils/aot_export.py``), saved, loaded onto the card and run at B=1
+    and B=64 (stock operations: no hand kernel launched), each held against
+    the port's kernel-path request on the same weights (sampling "first",
+    as the artifact) within LOGIT_TOL; then both timed in turns."""
+    v = random_flax_variables(SEED)
+    x = np.random.default_rng(SEED + 62).normal(size=(max(AOT_BATCHES), AOT_N, 3)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    exported = export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                        batch_size=None, num_points=AOT_N)
+    export_s = time.perf_counter() - t0
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=AOT_N, max_batch=max(AOT_BATCHES), seed=SEED,
+                                device=dev, sampling="first")
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "pointnet_pp_8dir.pt2")
+        save_artifact(path, exported)
+        size = os.path.getsize(path)
+        program = load_artifact(path, device=dev).module()
+    for b in AOT_BATCHES:
+        K.reset_launch_counts()
+        got = program(torch.from_numpy(x[:b]).to(dev)).cpu().numpy()
+        art_launches = K.launch_counts()
+        K.reset_launch_counts()
+        want = pred(x[:b])
+        req_launches = K.launch_counts()
+        err = max_abs(got, want)
+        rows.append({"B": b, "max_abs_err_vs_kernel_request": err, "tol": LOGIT_TOL,
+                     "artifact_launches": art_launches, "request_launches": req_launches,
+                     "shape": list(got.shape), "finite": bool(np.isfinite(got).all())})
+        if (err > LOGIT_TOL or got.shape != (b, 8) or art_launches != expected_launches()
+                or req_launches != expected_launches(sa_group=2, sa_mlp_max=3)):
+            fail(f"aot_export B={b}: {rows[-1]}")
+
+    class Artifact:  # request_latency's interface over the artifact
+        def __call__(self, clouds):
+            return program(torch.from_numpy(clouds).to(dev)).cpu().numpy()
+
+    latency = [{"path": name, "turn": i, **request_latency(p, x)}
+               for i, (name, p) in enumerate((("kernels", pred), ("artifact", Artifact()),
+                                              ("artifact", Artifact()), ("kernels", pred)))]
+    emit("aot_export", N=AOT_N, export_seconds=export_s, artifact_bytes=size, batches=rows,
+         request=latency)
+    return {"rows": rows}
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -3909,6 +4189,9 @@ def main() -> None:
     serve_int8 = phase_serve_int8(dev)
     pointnet = phase_pointnet(dev)
     protocols = phase_protocols(dev)
+    train_moe = phase_train_moe(dev)
+    approx = phase_approx_knn(dev)
+    phase_aot_export(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -3944,6 +4227,13 @@ def main() -> None:
                  if n.get(row["name"])}
         if paths:
             row["launches_protocols"] = paths
+        # the MoE transformer runs no hand kernel: its counts are printed, zeros
+        row["launches_moe"] = {path: n.get(row["name"], 0)
+                               for path, n in train_moe["launches"].items()}
+        if approx["launches"].get(row["name"]):
+            row["launches_approx"] = {"8dir B=16 N=10000": approx["launches"][row["name"]]}
+        if row["name"] == "topk_min":
+            row["shapes"]["approx sa1 B=16 M=10000"] = approx["topk_min"]
     summary += flash_rows
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,

@@ -42,7 +42,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from .models import MODEL_REGISTRY
+from .models import MODEL_REGISTRY, MULTI_OUTPUT_MODELS
 from .ops import DIRS_8
 from .models.layers import compute_dtype
 from .ops.cuda_kernels import bf16_matmuls, f32_matmuls
@@ -198,10 +198,11 @@ class OrientationPredictor:
     state (the JAX predictor passes one ``rng`` to every member), and
     combines the S * V outputs by :func:`tta_combine`: S times a single
     request's launches. ``mesh`` is not ported (``NotImplementedError``);
-    the JAX package's ``ValueError``s stand: ``tta_views < 1``, an 8-dir V
-    outside (2, 4, 8), TTA or an ensemble on a head with no combine, an
-    ensemble with int8 weights, ``ensemble_size < 1``, an unknown
-    ``quantize``; and ``params`` without the leading member axis.
+    the JAX package's ``ValueError``s stand: a model that returns ``(out,
+    aux)`` (``MULTI_OUTPUT_MODELS``, the MoE transformer), ``tta_views <
+    1``, an 8-dir V outside (2, 4, 8), TTA or an ensemble on a head with no
+    combine, an ensemble with int8 weights, ``ensemble_size < 1``, an
+    unknown ``quantize``; and ``params`` without the leading member axis.
     """
 
     def __init__(
@@ -220,6 +221,12 @@ class OrientationPredictor:
         device: str | torch.device = "cuda",
         **model_kwargs: Any,
     ):
+        if model_name in MULTI_OUTPUT_MODELS:
+            raise ValueError(
+                f"{model_name!r} returns (out, aux_loss) — a training-only "
+                "contract (task 'forward_mse_aux'); the serving predictor "
+                "requires a single-output head. Serve 'point_transformer' "
+                "(the dense variant) instead.")
         if model_name not in MODEL_REGISTRY:
             raise NotImplementedError(
                 f"model {model_name!r} is not ported; the port serves {sorted(MODEL_REGISTRY)}")

@@ -1,11 +1,12 @@
 """PyTorch models of the port: the PointNet++ yaw heads (8-dir, unit
 forward, von Mises, mixture of von Mises), the SO(3) heads (raw forward
 vector, the two two-axis heads), the PointNet++ ModelNet40 classifier, the
-point transformer, and the PointNet backbones (the simple baseline, PointNet
-regression and the PointNet ModelNet40 classifier), in eval and train
-mode."""
+point transformer and its mixture-of-experts variant, and the PointNet
+backbones (the simple baseline, PointNet regression and the PointNet
+ModelNet40 classifier), in eval and train mode."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
+from .moe_transformer import MoEPointTransformer
 from .point_transformer import PointTransformer
 from .pointnet import PointNet, PointNetCls, PointNetEncoder, STN3d, STNkd
 from .pointnet_pp import (
@@ -33,10 +34,19 @@ MODEL_REGISTRY = {
     "pointnet_pp_xyz": PointNetPPXYZ,
     "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt,
     "point_transformer": PointTransformer,
+    # returns (out, aux_loss): the task "forward_mse_aux" consumes the tuple
+    "moe_point_transformer": MoEPointTransformer,
 }
+
+# Models whose forward returns a tuple with an auxiliary loss rather than a
+# head output. The serving predictor and the .pth layouts refuse them, as
+# the JAX package's do.
+MULTI_OUTPUT_MODELS = frozenset({"moe_point_transformer"})
 
 __all__ = [
     "MODEL_REGISTRY",
+    "MULTI_OUTPUT_MODELS",
+    "MoEPointTransformer",
     "PointNet",
     "PointNetCls",
     "PointNetEncoder",

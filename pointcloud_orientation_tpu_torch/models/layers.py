@@ -32,6 +32,7 @@ bf16 features to f32. The trunk returns f32, and geometry is f32 throughout.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -67,6 +68,15 @@ def _widen(x: torch.Tensor) -> torch.Tensor:
     """bf16 widened to f32 (flax computes BatchNorm in at least f32); any
     other type as it is."""
     return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` in place: a normal truncated at two standard
+    deviations, rescaled to variance ``1/fan_in``."""
+    # the standard deviation of a unit normal truncated at +-2 is 0.8796...
+    s = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:

@@ -3,6 +3,7 @@ assignments and the CUDA kernels of the port."""
 
 from .dirs8 import DIRS_8, forward_to_8dir_probs
 from .geometry import (
+    approx_knn,
     ball_query,
     diff_square_distance,
     exact_full_knn,
@@ -24,6 +25,7 @@ from .von_mises import bessel_ratio, kl_von_mises, log_i0, von_mises_pdf
 
 __all__ = [
     "DIRS_8",
+    "approx_knn",
     "ball_query",
     "bessel_ratio",
     "diff_square_distance",

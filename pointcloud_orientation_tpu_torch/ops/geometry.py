@@ -1,8 +1,9 @@
 """Point-cloud geometry for the PointNet++ serving and training paths, in PyTorch.
 
 Counterpart of ``pointcloud_orientation_tpu/ops/geometry.py``: ``first``,
-``random`` or farthest-point (``fps``) centroids, exact kNN or radius ball
-query (``ball``) grouping, neighbour-major layout. Other modes raise.
+``random`` or farthest-point (``fps``) centroids, kNN (exact, ``approx`` or
+``grid``: :func:`set_knn_impl`) or radius ball query (``ball``) grouping,
+neighbour-major layout. Other modes raise.
 
 kNN grouping follows the JAX package's dispatch on the TPU by cloud size:
 the fused grouping kernel up to ``FUSED_GROUP_MAX_N`` points, the kNN kernel
@@ -44,35 +45,40 @@ KNN_KERNEL_MAX_N = 20_480
 BALL_KERNEL_MIN_N = 1024
 
 # kNN formulation, as the JAX package's module state (``set_knn_impl``
-# there): "exact" or "grid" for stages of at least _KNN_APPROX_MIN_N points.
+# there): "exact", or "approx" or "grid" for stages of at least
+# _KNN_APPROX_MIN_N points; the recall target that "approx" keeps.
 _KNN_IMPL = "exact"
+_KNN_RECALL = 0.95
 _KNN_APPROX_MIN_N = 4096
 
 
 def set_knn_impl(impl: str, recall_target: Optional[float] = None,
                  approx_min_n: Optional[int] = None) -> None:
-    """Select the kNN grouping formulation: ``"exact"`` (default) or
-    ``"grid"`` (exact spatial pruning for stages with at least
-    ``approx_min_n`` candidate points; :func:`grid_pruned_knn`). Validates
-    every argument as the JAX package does before changing anything, so a
-    failed call leaves the state as it was. ``"approx"`` raises
-    ``NotImplementedError``: the JAX package's ``jax.lax.approx_min_k`` is
-    not ported (ROADMAP.md). ``recall_target`` is validated as there; only
-    ``"approx"`` would read it."""
-    global _KNN_IMPL, _KNN_APPROX_MIN_N
+    """Select the kNN grouping formulation: ``"exact"`` (default),
+    ``"approx"`` (:func:`approx_knn` for stages with at least
+    ``approx_min_n`` candidate points) or ``"grid"`` (exact spatial pruning
+    for the same stages; :func:`grid_pruned_knn`). Validates every argument
+    as the JAX package does before changing anything, so a failed call
+    leaves the state as it was. ``recall_target`` is stored as there; the
+    port's ``"approx"`` selects exactly (recall 1), which meets any
+    target."""
+    global _KNN_IMPL, _KNN_RECALL, _KNN_APPROX_MIN_N
     if impl not in ("exact", "approx", "grid"):
         raise ValueError(f"bad knn impl: {impl}")
     if recall_target is not None and not 0.0 < recall_target <= 1.0:
         raise ValueError(f"bad recall_target: {recall_target}")
     if approx_min_n is not None and approx_min_n < 1:
         raise ValueError(f"bad approx_min_n: {approx_min_n}")
-    if impl == "approx":
-        raise NotImplementedError(
-            "knn impl 'approx' (jax.lax.approx_min_k in the JAX package) is not ported; "
-            "see ROADMAP.md, queue 1, 'The approximate kNN'")
     _KNN_IMPL = impl
+    if recall_target is not None:
+        _KNN_RECALL = recall_target
     if approx_min_n is not None:
         _KNN_APPROX_MIN_N = approx_min_n
+
+
+def approx_eligible(n: int) -> bool:
+    """Whether a stage of ``n`` candidate points takes the approx path."""
+    return _KNN_IMPL == "approx" and n >= _KNN_APPROX_MIN_N
 
 
 def grid_eligible(n: int) -> bool:
@@ -157,11 +163,27 @@ def exact_full_knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> to
     return knn_query(new_xyz, xyz, nsample)
 
 
+def approx_knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
+    """kNN indices ``(B, S, nsample)`` int32 of the JAX package's
+    ``"approx"`` path (``_approx_knn``: ``jax.lax.approx_min_k`` over the
+    matmul-form distances): :func:`square_distance`, then each row's
+    ``nsample`` smallest through the ``topk_min`` kernel (its plain version
+    on the CPU). The card gives the exact K nearest, nearest first, equal
+    distances to the first occurrence: recall 1, whatever the recall target
+    (off the TPU, ``approx_min_k`` is an exact selection too). ``nsample``
+    is at most the kernel's ``TOPK_MIN_MAX_K``."""
+    from . import cuda_kernels as K
+
+    return K.topk_min(square_distance(new_xyz, xyz).contiguous(), nsample)
+
+
 def knn_indices(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
     """kNN indices ``(B, S, nsample)`` through the formulation
     :func:`set_knn_impl` selected for a stage of this size (the JAX
-    package's ``knn_query`` dispatch): :func:`grid_pruned_knn` or
-    :func:`exact_full_knn`."""
+    package's ``knn_query`` dispatch): :func:`approx_knn`,
+    :func:`grid_pruned_knn` or :func:`exact_full_knn`."""
+    if approx_eligible(xyz.shape[1]):
+        return approx_knn(new_xyz, xyz, nsample)
     if grid_eligible(xyz.shape[1]):
         return grid_pruned_knn(new_xyz, xyz, nsample)
     return exact_full_knn(new_xyz, xyz, nsample)
@@ -358,7 +380,8 @@ def sample_and_group(
     ``new_xyz (B,S,3)`` and the grouped ``[centered xyz | feats]``,
     ``(B,S,K,3+D)``, or ``(B,K,S,3+D)`` with ``neighbor_major``. kNN up to
     ``FUSED_GROUP_MAX_N`` points runs through the ``sa_group`` kernel
-    wrapper unless the stage takes the grid path (:func:`grid_eligible`);
+    wrapper unless the stage takes the approx or the grid path
+    (:func:`approx_eligible`, :func:`grid_eligible`);
     otherwise the centroids, the indices (:func:`knn_indices` or
     :func:`ball_query`) and the rows are gathered apart, as the JAX
     package does (each wrapper takes its plain version for CPU tensors).
@@ -384,7 +407,8 @@ def sample_and_group(
         raise NotImplementedError(
             f"sampling={sampling!r}: only 'first', 'random' and 'fps' are ported")
     cidx = cidx.to(torch.int32).contiguous()
-    if grouping == "knn" and N <= FUSED_GROUP_MAX_N and not grid_eligible(N):
+    if grouping == "knn" and N <= FUSED_GROUP_MAX_N and not approx_eligible(N) \
+            and not grid_eligible(N):
         if points is None:  # coordinates carry no parameters: nothing to differentiate
             new_xyz, grouped, _ = K.sa_group(xyz.contiguous(), None, cidx, nsample)
         else:

@@ -25,10 +25,13 @@ vector tasks by config. ``optimizer`` ("adam", the reference's, or
 "sgd"), ``lr_schedule`` (None, the reference's constant rate, or "cosine"
 with ``warmup_epochs`` of linear warmup), ``async_checkpoint``,
 ``host_resident`` and ``keep_best`` are the JAX config's (the last two
-change nothing here, as there; see :class:`.trainer.Trainer`). The JAX
-config's other fields (the MoE transformer's and ``bn_sync_axis``) are
-accepted by :func:`preset` and :meth:`TrainConfig.replace` at their default
-values only; any other value raises ``NotImplementedError``.
+change nothing here, as there; see :class:`.trainer.Trainer`). The MoE point
+transformer (preset ``moe_point_transformer``, task ``forward_mse_aux``)
+takes ``moe_experts``, ``moe_aux_weight``, ``moe_dispatch`` ("masked" or
+"capacity") and ``moe_capacity_factor``. The JAX config's other field,
+``bn_sync_axis``, is accepted by :func:`preset` and
+:meth:`TrainConfig.replace` at its default value only; any other value
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,21 +49,17 @@ MVM_CLASSES: Tuple[str, ...] = (
     "sofa", "toilet", "door", "curtain", "bathtub", "glass_box",
 )
 
-PORTED_TASKS = ("forward_mse", "axes", "8dir_kl", "8dir_mse", "multi_8dir", "vm_kl", "mvm",
-                "classification")
+PORTED_TASKS = ("forward_mse", "forward_mse_aux", "axes", "8dir_kl", "8dir_mse", "multi_8dir",
+                "vm_kl", "mvm", "classification")
 PORTED_MODELS = ("pointnet_pp", "pointnet_pp_xyz", "pointnet_pp_xyz_schmidt",
                  "pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
-                 "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer", "simple_pointnet",
-                 "pointnet", "pointnet_cls")
+                 "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer",
+                 "moe_point_transformer", "simple_pointnet", "pointnet", "pointnet_cls")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
-# Fields of the JAX package's TrainConfig that this slice does not carry,
+# Fields of the JAX package's TrainConfig that the port does not carry,
 # with their defaults there.
 UNPORTED_DEFAULTS = {
-    "moe_experts": 4,
-    "moe_aux_weight": 0.01,
-    "moe_dispatch": "masked",
-    "moe_capacity_factor": 1.25,
     "bn_sync_axis": None,
 }
 
@@ -98,6 +97,11 @@ class TrainConfig:
     # distribution heads
     kappa_default: float = 8.0
     max_k: int = 4
+    # the MoE transformer (task "forward_mse_aux")
+    moe_experts: int = 4
+    moe_aux_weight: float = 0.01  # the switch load-balance coefficient
+    moe_dispatch: str = "masked"  # "capacity": the switch gather dispatch
+    moe_capacity_factor: float = 1.25  # slots an expert: T/K * factor
     # the JAX package's improvements over the reference (0/"zero"/"tanh" = parity)
     mvm_unmatched_penalty: float = 0.0  # guard against the weight-collapse minimum
     mvm_weight_floor: float = 0.0  # w = (1-f)*softmax + f/K
@@ -164,6 +168,11 @@ PRESETS = {
     # the point transformer (models/point_transformer.py): MSE forward, one category
     "point_transformer": TrainConfig(task="forward_mse", model="point_transformer",
                                      rotation_mode="so3", classes=("chair",), num_points=1024),
+    # the conditional-capacity variant: the same data and objective, MoE FFNs
+    # and the switch aux loss
+    "moe_point_transformer": TrainConfig(task="forward_mse_aux", model="moe_point_transformer",
+                                         rotation_mode="so3", classes=("chair",),
+                                         num_points=1024),
     "8dir": TrainConfig(task="8dir_mse", model="pointnet_pp_8dir", rotation_mode="yaw",
                         classes=("chair",), per_label=True, num_points=10_000),
     # train_8dir_MSE.py: 8-dir softmax-MSE, 6-class mix

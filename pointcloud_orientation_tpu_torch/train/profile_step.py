@@ -1,14 +1,16 @@
 """Trace train steps on the card: where a step's time goes.
 
     python -m pointcloud_orientation_tpu_torch.train.profile_step [--out DIR] \
-        [--preset NAME] [--compute-dtype bfloat16]
+        [--preset NAME] [--compute-dtype bfloat16] [--moe-dispatch capacity]
 
 Builds the ``Trainer`` of a preset (``8dir_kl`` by default, or any other of
-``train/config.py``: B=16, N=10,000, full width, initialised from the
-preset's seed; the trunk in f32 or, with ``--compute-dtype bfloat16``, in
-bf16) on a synthetic set of the preset's classes, warms up, then runs ``STEPS``
-train steps in each train configuration twice: once timed with the host
-clock around synchronised steps, once under ``torch.profiler``. Prints one
+``train/config.py``: its batch and cloud size, full width, initialised from
+the preset's seed; the trunk in f32 or, with ``--compute-dtype bfloat16``,
+in bf16; ``--moe-dispatch`` for the MoE transformer) on a synthetic set of
+the preset's classes, warms up, then runs ``STEPS`` train steps in each
+train configuration (the shared MLPs' two; one for a model without them)
+twice: once timed with the host clock around synchronised steps, once
+under ``torch.profiler``. Prints one
 JSON line per configuration: wall ms per step, device busy ms per step (the
 sum of the CUDA kernels' and copies' durations on the card, one stream),
 the device's idle share, kernel launches per step, and the kernels with the
@@ -19,6 +21,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -28,6 +31,7 @@ from collections import defaultdict
 import torch
 
 from ..data import OrientationDataset, synthetic_modelnet
+from ..models import MODEL_REGISTRY
 from .config import PRESETS, preset
 from .trainer import Trainer
 
@@ -94,15 +98,21 @@ def main(argv=None) -> None:
     ap.add_argument("--preset", default="8dir_kl", choices=sorted(PRESETS))
     ap.add_argument("--compute-dtype", default=None, dest="compute_dtype",
                     help="trunk compute dtype: float32 (default) or bfloat16")
+    ap.add_argument("--moe-dispatch", default=None, dest="moe_dispatch",
+                    choices=("masked", "capacity"),
+                    help="moe_point_transformer's dispatch (the preset's own by default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
-    cfg = preset(args.preset, compute_dtype=args.compute_dtype)
+    cfg = preset(args.preset, compute_dtype=args.compute_dtype,
+                 **({"moe_dispatch": args.moe_dispatch} if args.moe_dispatch else {}))
     ds = OrientationDataset(*synthetic_modelnet(num_points=cfg.num_points, samples_per_class=8,
                                                 class_names=list(cfg.classes)))
     tag = (f"_{args.preset}" if args.preset != "8dir_kl" else "") + (
-        f"_{cfg.compute_dtype}" if cfg.compute_dtype else "")
-    for mode in ("default", "fused"):
+        f"_{cfg.compute_dtype}" if cfg.compute_dtype else "") + (
+        f"_{args.moe_dispatch}" if args.moe_dispatch else "")
+    shared_mlp = "fused_mlp_train" in inspect.signature(MODEL_REGISTRY[cfg.model]).parameters
+    for mode in ("default", "fused") if shared_mlp else ("default",):
         trainer = Trainer(cfg, ds, device="cuda", fused_mlp_train=mode == "fused")
         print(json.dumps(profile_mode(trainer, STEPS, args.out, mode + tag)), flush=True)
 

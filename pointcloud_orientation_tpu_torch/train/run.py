@@ -3,6 +3,7 @@
 Counterpart of ``pointcloud_orientation_tpu/train/run.py`` for the flags
 the port supports. Trains a preset (``pointnet_pp_forward``,
 ``point_transformer`` (``--attention xla|flash``), ``axes_all_labels``,
+``moe_point_transformer`` (``--moe-dispatch masked|capacity``),
 ``8dir``, ``8dir_kl``, ``8dir_mse``, ``multi_8dir``,
 ``vm_kl``, ``vm_kl_atan2``, ``mvm``, ``mvm_guarded``, ``mvm_spread``,
 ``mvm_robust``, ``mvm_debug``) on the card (``--device cuda``, the default)
@@ -31,8 +32,9 @@ sets ``rotation_mode="none"`` so that the stored targets are trained on):
         --data plygt:data/rotated --out results/torch_8dir_kl
 
 The grid-pruned kNN is reached through ``PCOT_KNN=grid``, as in the JAX
-package; ``--knn`` offers the JAX flag's ``exact`` and ``approx`` (not
-ported: it raises). The run is wrapped in a
+package; ``--knn`` offers the JAX flag's ``exact`` and ``approx`` (the
+matmul-form distances and the ``topk_min`` kernel: the exact K nearest on
+the card, see ``ops/geometry.py``). The run is wrapped in a
 :class:`.reliability.PreemptionGuard`: SIGTERM stops it after the epoch,
 with a checkpoint under ``--out/ckpt`` when ``--checkpoint-every`` is set.
 
@@ -304,9 +306,14 @@ def main(argv=None):
     ap.add_argument("--resume-from", default=None, dest="resume_from",
                     help="--seeds / --vmap-labels: continue from a protocol checkpoint's "
                          "step_<E> directory (written with --checkpoint-every)")
+    ap.add_argument("--moe-dispatch", default=None, choices=("masked", "capacity"),
+                    dest="moe_dispatch",
+                    help="MoE FFN dispatch (moe_point_transformer): masked dense (the "
+                         "default, every expert over every token) or the switch-style "
+                         "capacity-factor gather (parallel/ep.py)")
     ap.add_argument("--knn", default=None, choices=("exact", "approx"),
-                    help="neighbour selection: exact (the default); approx is not ported "
-                         "and raises")
+                    help="neighbour selection: exact (the default) or approx (matmul-form "
+                         "distances selected by the topk_min kernel; exact on the card)")
     args = ap.parse_args(argv)
 
     if args.knn:
@@ -315,7 +322,8 @@ def main(argv=None):
         set_knn_impl(args.knn)
     overrides = {k: getattr(args, k) for k in
                  ("epochs", "batch_size", "num_points", "lr", "seed", "checkpoint_every",
-                  "compute_dtype", "transformer_attention", "lr_schedule", "warmup_epochs")
+                  "compute_dtype", "transformer_attention", "lr_schedule", "warmup_epochs",
+                  "moe_dispatch")
                  if getattr(args, k) is not None}
     for flag in ("debug_checks", "host_resident", "async_checkpoint"):
         if getattr(args, flag):

@@ -2,9 +2,10 @@
 angular error in degrees (NaN where undefined; no adapter where the task has
 none, as classification).
 
-Counterpart of the ``forward_mse``, ``axes``, ``8dir_kl``, ``8dir_mse``,
-``multi_8dir``, ``vm_kl``, ``mvm`` and ``classification`` entries of
-``pointcloud_orientation_tpu/train/tasks.py``.
+Counterpart of ``pointcloud_orientation_tpu/train/tasks.py``: the
+``forward_mse``, ``forward_mse_aux`` (the MoE transformer's ``(out, aux)``),
+``axes``, ``8dir_kl``, ``8dir_mse``, ``multi_8dir``, ``vm_kl``, ``mvm`` and
+``classification`` entries.
 """
 
 from __future__ import annotations
@@ -58,6 +59,18 @@ def _forward_mse(outputs, batch, cfg):
 
 def _forward_mse_ang(outputs, batch, cfg):
     return _vec_angle_deg(outputs, batch["axes"][:, cfg.target_row])
+
+
+def _forward_mse_aux(outputs, batch, cfg):
+    """Forward MSE of a model that returns ``(out, aux)``: the scalar aux
+    adds to every per-sample loss, so the masked batch mean takes exactly
+    ``moe_aux_weight * aux``."""
+    out, aux = outputs
+    return _forward_mse(out, batch, cfg) + cfg.moe_aux_weight * aux
+
+
+def _forward_mse_aux_ang(outputs, batch, cfg):
+    return _forward_mse_ang(outputs[0], batch, cfg)
 
 
 def _axes(outputs, batch, cfg):
@@ -147,6 +160,7 @@ def _cls(outputs, batch, cfg):
 
 TASKS: Dict[str, TaskAdapter] = {
     "forward_mse": TaskAdapter(_forward_mse, _forward_mse_ang),
+    "forward_mse_aux": TaskAdapter(_forward_mse_aux, _forward_mse_aux_ang),
     "axes": TaskAdapter(_axes, _axes_ang),
     "8dir_kl": TaskAdapter(_8dir_kl, _8dir_ang),
     "8dir_mse": TaskAdapter(_8dir_mse, _8dir_ang),

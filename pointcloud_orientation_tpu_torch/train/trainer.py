@@ -1,7 +1,8 @@
 """Single-GPU trainer of the port: the yaw tasks on the PointNet++ heads
 (8-dir, unit forward, von Mises, mixture of von Mises), the SO(3) tasks
-(``forward_mse`` on ``PointNetPP`` and on the point transformer, ``axes``
-on the two-axis heads) and the ModelNet40 classifier (task
+(``forward_mse`` on ``PointNetPP`` and on the point transformer,
+``forward_mse_aux`` on the MoE transformer's ``(out, aux)``, ``axes`` on
+the two-axis heads) and the ModelNet40 classifier (task
 ``classification``, whose angular error is NaN). A model may hold
 BatchNorm running statistics or, as the transformer, none: the step, the
 checkpoint and the best-val snapshot go through ``state_dict``, which
@@ -60,7 +61,9 @@ import torch
 
 from ..data import OrientationDataset, augment_batch
 from ..models import MODEL_REGISTRY
+from ..models.layers import lecun_normal_
 from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
+from ..parallel.ep import MoEFeedForward
 from .config import TrainConfig
 from .metrics import MetricsAccumulator, plot_loss_curves, write_summary_txt
 from .tasks import TASKS
@@ -71,15 +74,18 @@ _TRAIN, _EVAL = 0, 1  # generator key streams
 def flax_dense_init_(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Initialise every ``nn.Linear`` as flax's ``Dense`` does: LeCun-normal
     kernels (a normal truncated at two standard deviations, rescaled to
-    variance 1/fan_in) and zero biases. BatchNorm keeps scale 1, bias 0."""
+    variance 1/fan_in) and zero biases (the MoE router has none), and the
+    MoE experts' stacked kernels as flax's ``lecun_normal`` does
+    (:meth:`.MoEFeedForward.reset_parameters`). BatchNorm keeps scale 1,
+    bias 0."""
     for m in model.modules():
         if isinstance(m, torch.nn.Linear):
-            # the standard deviation of a unit normal truncated at +-2 is 0.8796...
-            s = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
-            with torch.no_grad():
-                torch.nn.init.trunc_normal_(m.weight, 0.0, s, -2.0 * s, 2.0 * s,
-                                            generator=generator)
-                m.bias.zero_()
+            lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, MoEFeedForward):
+            m.reset_parameters(generator)
 
 
 def clip_by_global_norm_(params, max_norm: float) -> None:
@@ -174,8 +180,9 @@ def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
     package's ``Trainer._build_model`` sets them: ``compute_dtype`` only to
     a model that takes a ``dtype`` (not the classifier, which stays f32),
     the axes task's ``axes_gram_schmidt`` and ``axes_normalize_heads`` to a
-    model that takes ``gram_schmidt`` or ``normalize_heads``, and
-    ``transformer_attention`` to a model that takes ``attention_impl``."""
+    model that takes ``gram_schmidt`` or ``normalize_heads``,
+    ``transformer_attention`` to a model that takes ``attention_impl``, and
+    the MoE fields to a model that takes ``n_experts`` and ``dispatch``."""
     kwargs: Dict[str, Any] = {}
     takes = inspect.signature(MODEL_REGISTRY[config.model]).parameters
     if "dtype" in takes:
@@ -186,6 +193,10 @@ def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
         kwargs["gram_schmidt"] = config.axes_gram_schmidt
     if "normalize_heads" in takes:
         kwargs["normalize_heads"] = config.axes_normalize_heads
+    if "n_experts" in takes:
+        kwargs["n_experts"] = config.moe_experts
+    if "dispatch" in takes:
+        kwargs.update(dispatch=config.moe_dispatch, capacity_factor=config.moe_capacity_factor)
     if config.model == "pointnet_pp_mvm":
         kwargs.update(max_K=config.max_k, weight_floor=config.mvm_weight_floor,
                       mu_init=config.mvm_mu_init)

@@ -3,8 +3,9 @@ variable tree with numpy alone, for the models of the port: the PointNet++
 yaw heads (``PointNetPP8Dir``, ``PointNetPPFwd``, ``PointNetPPVonMises``,
 ``PointNetPPMvM``), the SO(3) heads (``PointNetPP``, ``PointNetPPXYZ``,
 ``PointNetPPXYZSchmidt``), the classifier (``PointNetPPCls``), the point
-transformer (``PointTransformer``) and the PointNet backbones
-(``SimplePointNet``, ``PointNet``, ``PointNetCls``).
+transformer (``PointTransformer``) and its MoE variant
+(``MoEPointTransformer``), and the PointNet backbones (``SimplePointNet``,
+``PointNet``, ``PointNetCls``).
 
 A tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
 arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
@@ -13,8 +14,11 @@ attention's ``query``/``key``/``value`` kernels are ``(E, H, D)`` with
 biases ``(H, D)`` and its ``out`` kernel ``(H, D, E)``, the same numbers as
 the Linear's flattened. BatchNorm has ``scale``/``bias`` params and
 ``mean``/``var`` statistics, LayerNorm (the MvM trunk's funnel, the
-transformer) ``scale``/``bias`` params only; the transformer has no
-``batch_stats``.
+transformer) ``scale``/``bias`` params only; the transformers have no
+``batch_stats``. The MoE layer's ``MoEFeedForward_0`` holds a ``router``
+Dense without bias (``kernel (E, K)``) and the experts' stacked ``wi (K, E,
+F)``, ``bi (K, F)``, ``wo (K, F, E)``, ``bo (K, E)``, the port's parameters
+as they are.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.moe_transformer import MoEPointTransformer
 from ..models.point_transformer import PointTransformer
 from ..models.pointnet import PointNet, PointNetCls, PointNetEncoder, _PointNetHead, _STN
 from ..models.pointnet_pp import (
@@ -46,7 +51,7 @@ _TRUNK = ("PointNetPPTrunk_0",)
 _SCOPE = {"pointnet_pp_8dir": _TRUNK, "pointnet_pp_fwd": _TRUNK,
           "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": (),
           "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK,
-          "point_transformer": ()}
+          "point_transformer": (), "moe_point_transformer": ()}
 # the PointNet backbones: their flax trees are read off the port's module
 # (:func:`_pointnet_pairs`), not written out here
 POINTNET_MODELS = {"simple_pointnet": SimplePointNet, "pointnet": PointNet,
@@ -58,20 +63,47 @@ _AXES_HEADS = {"pointnet_pp_xyz": PointNetPPXYZ.HEADS,
                "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt.HEADS}
 
 
+def _attention_pairs(scope: Tuple[str, ...], attn) -> Iterator[Tuple]:
+    heads, width = attn.num_heads, attn.query.out_features
+    qkv = ((width, heads, width // heads), (heads, width // heads))
+    for name in ("query", "key", "value"):
+        yield scope + (_MHA, name), getattr(attn, name), None, None, qkv
+    yield (scope + (_MHA, "out"), attn.out, None, None,
+           ((heads, width // heads, width), (width,)))
+
+
 def _transformer_pairs(model: PointTransformer) -> Iterator[Tuple]:
     yield ("Dense_0",), model.embed, None, None, None
     for i, layer in enumerate(model.layers):
         scope = (f"TransformerEncoderLayer_{i}",)
-        attn = layer.attn
-        heads, width = attn.num_heads, attn.query.out_features
-        qkv = ((width, heads, width // heads), (heads, width // heads))
-        for name in ("query", "key", "value"):
-            yield scope + (_MHA, name), getattr(attn, name), None, None, qkv
-        yield (scope + (_MHA, "out"), attn.out, None, None,
-               ((heads, width // heads, width), (width,)))
+        yield from _attention_pairs(scope, layer.attn)
         yield scope + ("Dense_0",), layer.ffn1, scope + ("LayerNorm_0",), layer.ln1, None
         yield scope + ("Dense_1",), layer.ffn2, scope + ("LayerNorm_1",), layer.ln2, None
     yield ("Dense_1",), model.head, None, None, None
+
+
+def _moe_pairs(model: MoEPointTransformer) -> Iterator[Tuple]:
+    """The MoE transformer's Dense layers, the two LayerNorms of a layer
+    paired with its router (no bias) and its attention's ``out``."""
+    yield ("Dense_0",), model.embed, None, None, None
+    for i, layer in enumerate(model.layers):
+        scope = (f"MoETransformerEncoderLayer_{i}",)
+        *qkv, (out_path, out, _, _, out_shapes) = _attention_pairs(scope, layer.attn)
+        yield from qkv
+        yield out_path, out, scope + ("LayerNorm_0",), layer.ln1, out_shapes
+        yield (scope + ("MoEFeedForward_0", "router"), layer.moe.router,
+               scope + ("LayerNorm_1",), layer.ln2, None)
+    yield ("Dense_1",), model.head, None, None, None
+
+
+def _expert_leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], Dict]]:
+    """The MoE layers' stacked expert parameters by their flax scope:
+    ``{"wi", "bi", "wo", "bo"}``, the same arrays in both layouts."""
+    if isinstance(model, MoEPointTransformer):
+        for i, layer in enumerate(model.layers):
+            moe = layer.moe
+            yield ((f"MoETransformerEncoderLayer_{i}", "MoEFeedForward_0"),
+                   {"wi": moe.wi, "bi": moe.bi, "wo": moe.wo, "bo": moe.bo})
 
 
 def _dense_bn(scope: Tuple[str, ...], blocks) -> Iterator[Tuple]:
@@ -116,6 +148,9 @@ def _pairs(model: nn.Module) -> Iterator[Tuple]:
     None for a plain Dense."""
     if isinstance(model, PointTransformer):
         yield from _transformer_pairs(model)
+        return
+    if isinstance(model, MoEPointTransformer):
+        yield from _moe_pairs(model)
         return
     if isinstance(model, (SimplePointNet, _PointNetHead)):
         yield from _pointnet_pairs(model)
@@ -185,7 +220,8 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     for lin_path, lin, norm_path, norm, shapes in _pairs(model):
         dense = _get(params, lin_path, "params")
         name = "/".join(lin_path)
-        kernel, bias = np.asarray(dense["kernel"]), np.asarray(dense["bias"])
+        kernel = np.asarray(dense["kernel"])
+        bias = None if lin.bias is None else np.asarray(dense["bias"])
         if shapes is not None:  # an attention Dense: check its flax shapes, then flatten
             for what, arr, shape in (("kernel", kernel, shapes[0]), ("bias", bias, shapes[1])):
                 if arr.shape != shape:
@@ -193,7 +229,8 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
                                      f"{shape}")
             kernel, bias = kernel.reshape(lin.in_features, -1), bias.reshape(-1)
         _copy(lin.weight, kernel.T, name + "/kernel")
-        _copy(lin.bias, bias, name + "/bias")
+        if bias is not None:
+            _copy(lin.bias, bias, name + "/bias")
         if norm is None:
             continue
         p = _get(params, norm_path, "params")
@@ -207,6 +244,10 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
         st = _get(stats, norm_path, "batch_stats")
         _copy(norm.running_mean, st["mean"], name + "/mean")
         _copy(norm.running_var, st["var"], name + "/var")
+    for path, leaves in _expert_leaves(model):
+        tree = _get(params, path, "params")
+        for leaf, p in leaves.items():
+            _copy(p, tree[leaf], "/".join(path + (leaf,)))
     return model
 
 
@@ -237,10 +278,14 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
 
     for lin_path, lin, norm_path, norm, shapes in _pairs(model):
         name = "/".join(lin_path)
-        kernel, bias = value(lin.weight, name + "/kernel").T.copy(), value(lin.bias, name + "/bias")
-        if shapes is not None:
-            kernel, bias = kernel.reshape(shapes[0]), bias.reshape(shapes[1])
-        _set(params, lin_path, {"kernel": kernel, "bias": bias})
+        kernel = value(lin.weight, name + "/kernel").T.copy()
+        if lin.bias is None:  # the MoE router
+            _set(params, lin_path, {"kernel": kernel})
+        else:
+            bias = value(lin.bias, name + "/bias")
+            if shapes is not None:
+                kernel, bias = kernel.reshape(shapes[0]), bias.reshape(shapes[1])
+            _set(params, lin_path, {"kernel": kernel, "bias": bias})
         if norm is None:
             continue
         name = "/".join(norm_path)
@@ -249,6 +294,9 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
         if not isinstance(norm, nn.LayerNorm):
             _set(stats, norm_path, {"mean": _np(norm.running_mean, name + "/mean"),
                                     "var": _np(norm.running_var, name + "/var")})
+    for path, leaves in _expert_leaves(model):  # beside the router, set above
+        _get(params, path, "params").update(
+            {leaf: value(p, "/".join(path + (leaf,))) for leaf, p in leaves.items()})
     return {"params": params} if grads else {"params": params, "batch_stats": stats}
 
 
@@ -263,23 +311,29 @@ def kernel_parameters(model: nn.Module) -> Dict[str, Tuple[str, int]]:
             for lin_path, lin, _, _, _ in _pairs(model)}
 
 
-def transformer_kwargs(params: Dict) -> Dict[str, int]:
-    """``PointTransformer`` constructor arguments read from a flax
-    ``params`` tree: ``in_dim`` and ``embed_dim`` from the embedding Dense,
-    ``depth`` from the layers' count, ``num_heads`` from the first layer's
-    query kernel ``(E, H, D)``, ``ffn_dim`` from its first feed-forward
-    Dense."""
+def transformer_kwargs(params: Dict, moe: bool = False) -> Dict[str, int]:
+    """``PointTransformer`` (or, with ``moe``, ``MoEPointTransformer``)
+    constructor arguments read from a flax ``params`` tree: ``in_dim`` and
+    ``embed_dim`` from the embedding Dense, ``depth`` from the layers'
+    count, ``num_heads`` from the first layer's query kernel ``(E, H, D)``,
+    ``ffn_dim`` from its first feed-forward Dense (the MoE layer's ``wi (K,
+    E, F)``, which also gives ``n_experts``)."""
+    layer = "MoETransformerEncoderLayer" if moe else "TransformerEncoderLayer"
     embed = np.shape(_get(params, ("Dense_0",), "params")["kernel"])
     depth = 0
-    while f"TransformerEncoderLayer_{depth}" in params:
+    while f"{layer}_{depth}" in params:
         depth += 1
     if depth == 0:
-        raise KeyError("params has no TransformerEncoderLayer_0")
-    first = ("TransformerEncoderLayer_0",)
+        raise KeyError(f"params has no {layer}_0")
+    first = (f"{layer}_0",)
     query = np.shape(_get(params, first + (_MHA, "query"), "params")["kernel"])
+    out = {"in_dim": int(embed[0]), "embed_dim": int(embed[1]), "depth": depth,
+           "num_heads": int(query[1])}
+    if moe:
+        wi = np.shape(_get(params, first + ("MoEFeedForward_0",), "params")["wi"])
+        return {**out, "ffn_dim": int(wi[2]), "n_experts": int(wi[0])}
     ffn = np.shape(_get(params, first + ("Dense_0",), "params")["kernel"])
-    return {"in_dim": int(embed[0]), "embed_dim": int(embed[1]), "depth": depth,
-            "num_heads": int(query[1]), "ffn_dim": int(ffn[1])}
+    return {**out, "ffn_dim": int(ffn[1])}
 
 
 def pointnet_kwargs(model: str, params: Dict) -> Dict:
@@ -303,7 +357,7 @@ def pointnet_kwargs(model: str, params: Dict) -> Dict:
 def model_kwargs(model: str, params: Dict) -> Dict:
     """Constructor arguments of the port's ``model`` that its flax tree
     fixes: the classifier's :func:`cls_kwargs`, the transformer's
-    :func:`transformer_kwargs`, the PointNet backbones'
+    :func:`transformer_kwargs` (the MoE transformer's too), the PointNet backbones'
     :func:`pointnet_kwargs`, the vM head's ``mu_parameterization`` (the
     tanh head is 2 wide, the atan2 head 3), the MvM head's ``max_K``; none
     for the others (the two-axis heads' ``gram_schmidt`` and
@@ -312,8 +366,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
         return cls_kwargs(params)
     if model in POINTNET_MODELS:
         return pointnet_kwargs(model, params)
-    if model == "point_transformer":
-        return transformer_kwargs(params)
+    if model in ("point_transformer", "moe_point_transformer"):
+        return transformer_kwargs(params, moe=model == "moe_point_transformer")
     if model == "pointnet_pp_von_mises":
         width = np.shape(_get(params, ("Dense_0",), "params")["kernel"])[1]
         return {"mu_parameterization": "atan2" if width == 3 else "tanh"}
@@ -325,7 +379,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
 def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channels: int = 3,
                           num_classes: int = 40, mu_parameterization: str = "tanh",
                           max_K: int = 4, mu_init: str = "zero", embed_dim: int = 64,
-                          num_heads: int = 4, depth: int = 6, ffn_dim: int = 2048) -> Dict:
+                          num_heads: int = 4, depth: int = 6, ffn_dim: int = 2048,
+                          n_experts: int = 4) -> Dict:
     """A variable tree of the JAX package's ``model`` in its layout, made
     with numpy from ``seed``: LeCun-normal kernels, small random biases,
     BatchNorm with random scale, shift, mean and variance (var in [0.5,
@@ -336,7 +391,9 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
     ``max_K`` and ``mu_init`` (``"spread"``: ``head_mu``'s bias is the
     spread initialisation, the unit vectors at ``2 pi k / max_K``);
     ``point_transformer`` ``in_channels`` (its ``in_dim``), ``embed_dim``,
-    ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``;
+    ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``, and
+    ``moe_point_transformer`` the same and ``n_experts`` (random expert
+    biases, so that an empty capacity slot's bias output would show);
     ``simple_pointnet`` and ``pointnet`` ``in_channels``; ``pointnet_cls``
     ``in_channels`` and ``num_classes``."""
     if model not in _SCOPE and model not in POINTNET_MODELS:
@@ -373,11 +430,12 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
                 norm(bn_path, bn.num_features)
         return {"params": params, "batch_stats": stats}
     top = _SCOPE[model]
-    if model == "point_transformer":
+    if model in ("point_transformer", "moe_point_transformer"):
+        moe = model == "moe_point_transformer"
         head_dim = embed_dim // num_heads
         dense(("Dense_0",), in_channels, embed_dim)
         for i in range(depth):
-            scope = (f"TransformerEncoderLayer_{i}",)
+            scope = (f"{'MoE' if moe else ''}TransformerEncoderLayer_{i}",)
             for name in ("query", "key", "value", "out"):
                 dense(scope + (_MHA, name), embed_dim, embed_dim)
                 p = params[scope[0]][_MHA][name]
@@ -386,8 +444,18 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
                 else:
                     p["kernel"] = p["kernel"].reshape(embed_dim, num_heads, head_dim)
                     p["bias"] = p["bias"].reshape(num_heads, head_dim)
-            dense(scope + ("Dense_0",), embed_dim, ffn_dim)
-            dense(scope + ("Dense_1",), ffn_dim, embed_dim)
+            if moe:
+                K, E, F = n_experts, embed_dim, ffn_dim
+                _set(params, scope + ("MoEFeedForward_0",), {
+                    "router": {"kernel": (rng.standard_normal((E, K)) / np.sqrt(E))
+                               .astype(np.float32)},
+                    "wi": (rng.standard_normal((K, E, F)) / np.sqrt(E)).astype(np.float32),
+                    "bi": (0.1 * rng.standard_normal((K, F))).astype(np.float32),
+                    "wo": (rng.standard_normal((K, F, E)) / np.sqrt(F)).astype(np.float32),
+                    "bo": (0.1 * rng.standard_normal((K, E))).astype(np.float32)})
+            else:
+                dense(scope + ("Dense_0",), embed_dim, ffn_dim)
+                dense(scope + ("Dense_1",), ffn_dim, embed_dim)
             norm(scope + ("LayerNorm_0",), embed_dim, running_stats=False)
             norm(scope + ("LayerNorm_1",), embed_dim, running_stats=False)
         dense(("Dense_1",), embed_dim, 3)

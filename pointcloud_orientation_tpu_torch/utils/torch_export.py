@@ -176,16 +176,15 @@ def export_state_dict(params: Mapping[str, Any], batch_stats: Optional[Mapping[s
                       model: str = "pointnet_pp_8dir") -> Dict[str, np.ndarray]:
     """Any supported model's flax tree as the reference's ``state_dict``;
     for a port module: ``export_state_dict(**to_flax_variables(module),
-    model=...)``."""
+    model=...)``. The JAX package's ``ValueError`` for another model (the
+    MoE transformer has no reference layout)."""
     if model in HEADS:
         return export_pointnet_pp_state_dict(params, batch_stats, model)
     if model == TRANSFORMER:
         return export_point_transformer_state_dict(params)
     if model in POINTNET:
         return export_pointnet_state_dict(params, batch_stats, model)
-    raise NotImplementedError(
-        f"model {model!r}: its layout is not ported "
-        "(ROADMAP.md, queue 1, 'The MoE transformer, on one card')")
+    raise ValueError(f"unsupported model for export: {model}")
 
 
 def to_torch_state_dict(np_state_dict: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -220,16 +220,16 @@ def import_pointnet_state_dict(state_dict: Mapping[str, Any], model: str = "poin
 
 
 def import_state_dict(state_dict: Mapping[str, Any], model: str) -> Tuple[Dict, Dict]:
-    """Any supported model's reference ``state_dict`` as its flax trees."""
+    """Any supported model's reference ``state_dict`` as its flax trees;
+    the JAX package's ``ValueError`` for another (the MoE transformer has no
+    reference layout)."""
     if model in HEADS:
         return import_pointnet_pp_state_dict(state_dict, model)
     if model == TRANSFORMER:
         return import_point_transformer_state_dict(state_dict)
     if model in POINTNET:
         return import_pointnet_state_dict(state_dict, model)
-    raise NotImplementedError(
-        f"model {model!r}: its layout is not ported "
-        "(ROADMAP.md, queue 1, 'The MoE transformer, on one card')")
+    raise ValueError(f"unsupported model for import: {model}")
 
 
 def load_torch_checkpoint(path: str, model: str = "pointnet_pp_8dir") -> Tuple[Dict, Dict]:

@@ -33,6 +33,7 @@ from flax import linen as nn
 from pointcloud_orientation_tpu.losses import nll_loss as jax_nll_loss
 from pointcloud_orientation_tpu.models import PointNetPPCls as JaxPointNetPPCls
 from pointcloud_orientation_tpu.ops.geometry import set_pallas_mode
+from pointcloud_orientation_tpu.train import config as jax_config
 from pointcloud_orientation_tpu.train import tasks as jax_tasks
 from pointcloud_orientation_tpu.train.metrics import MetricsAccumulator as JaxMetrics
 from pointcloud_orientation_tpu_torch import losses as TL
@@ -397,7 +398,9 @@ def test_classifier_config_builds_an_f32_model_whatever_the_compute_dtype():
     """No preset names the classifier (nor in the JAX package): a config
     does. Its model has no ``dtype``, as the JAX model, so the trainer
     leaves it in f32 under ``compute_dtype="bfloat16"`` too, with flax's
-    Dense initialisation; the 40 ModelNet classes by default."""
+    Dense initialisation; the 40 ModelNet classes by default. A model the
+    port has is accepted as the JAX config accepts it; one it has not (the
+    sequence-parallel transformer) raises."""
     cfg = TrainConfig(task="classification", model="pointnet_pp_cls", compute_dtype="bfloat16",
                       batch_size=4, num_points=N, epochs=1)
     trainer = Trainer(cfg, _tiny_dataset(), device="cpu")
@@ -405,8 +408,11 @@ def test_classifier_config_builds_an_f32_model_whatever_the_compute_dtype():
     assert trainer.model.fc3.out_features == 40
     assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
     assert not any(torch.count_nonzero(lin.bias) for lin in (trainer.model.fc1, trainer.model.fc3))
+    # the JAX config takes any model name; the MoE transformer is the port's too
+    assert (TrainConfig(task="classification", model="moe_point_transformer").model
+            == jax_config.TrainConfig(task="classification", model="moe_point_transformer").model)
     with pytest.raises(NotImplementedError):
-        TrainConfig(task="classification", model="moe_point_transformer")
+        TrainConfig(task="classification", model="ring_point_transformer")
 
 
 def _sweep(seeds=range(12)):

@@ -32,7 +32,7 @@ def _restore_knn_impl():
     """Both packages keep the kNN formulation in module state: every test
     leaves the defaults behind it."""
     yield
-    G.set_knn_impl("exact", approx_min_n=4096)
+    G.set_knn_impl("exact", recall_target=0.95, approx_min_n=4096)
     JG.set_knn_impl("exact", recall_target=0.95, approx_min_n=4096)
 
 
@@ -229,7 +229,7 @@ for i, env in enumerate(json.loads(sys.argv[1])):
     try:
         spec.loader.exec_module(G)
         print(G._KNN_IMPL, G._KNN_APPROX_MIN_N, G._KNN_GRID_G, G._KNN_GRID_R, G._KNN_GRID_M,
-              G.grid_eligible(10000))
+              G.grid_eligible(10000), G.approx_eligible(10000), G._KNN_RECALL)
     except Exception as e:
         print(type(e).__name__, str(e).replace(chr(10), " "))
 """
@@ -238,10 +238,10 @@ for i, env in enumerate(json.loads(sys.argv[1])):
 def test_knn_env_knobs_are_read_and_validated_at_import():
     """The port reads PCOT_KNN, PCOT_KNN_RECALL, PCOT_KNN_APPROX_MIN_N and
     PCOT_KNN_GRID_{G,R,M} at import as the JAX package does: a typo fails
-    (the package's import too),
-    'approx' (not ported) fails naming ROADMAP.md, ' grid ' (stripped) is
-    the dispatch, and without the knobs the defaults stand."""
-    envs = [{"PCOT_KNN": "Approx"}, {"PCOT_KNN": "approx"},
+    (the package's import too), 'approx' is the dispatch with its recall
+    target stored, ' grid ' (stripped) is the dispatch, and without the
+    knobs the defaults stand."""
+    envs = [{"PCOT_KNN": "Approx"}, {"PCOT_KNN": "approx", "PCOT_KNN_RECALL": "0.5"},
             {"PCOT_KNN": "grid", "PCOT_KNN_RECALL": "1.5"},
             {"PCOT_KNN": " grid ", "PCOT_KNN_APPROX_MIN_N": "2048", "PCOT_KNN_GRID_M": "512"},
             {}]
@@ -253,20 +253,26 @@ def test_knn_env_knobs_are_read_and_validated_at_import():
     package, typo, approx, recall, grid, default = r.stdout.splitlines()
     assert package == "package ValueError bad knn impl: Approx"
     assert typo == "ValueError bad knn impl: Approx"
-    assert approx.startswith("NotImplementedError") and "ROADMAP" in approx
+    assert approx.split() == ["approx", "4096", "8", "1", "1024", "False", "True", "0.5"]
     assert recall == "ValueError bad recall_target: 1.5"
-    assert grid.split() == ["grid", "2048", "8", "1", "512", "True"]
-    assert default.split() == ["exact", "4096", "8", "1", "1024", "False"]
+    assert grid.split() == ["grid", "2048", "8", "1", "512", "True", "False", "0.95"]
+    assert default.split() == ["exact", "4096", "8", "1", "1024", "False", "False", "0.95"]
 
 
 def test_set_knn_impl_validates_before_it_changes_anything():
+    """A rejected call changes nothing (the JAX package's atomicity); an
+    accepted 'approx' takes the dispatch and stores its recall target."""
     G.set_knn_impl("grid", approx_min_n=2000)
     for args, err in ((("grid",), {"approx_min_n": 0}), (("grid",), {"recall_target": 0.0}),
-                      (("Grid",), {}), (("approx",), {"approx_min_n": 5})):
-        with pytest.raises(ValueError if args[0] != "approx" else NotImplementedError):
+                      (("Grid",), {}), (("approx",), {"approx_min_n": 0}),
+                      (("approx",), {"recall_target": 1.5})):
+        with pytest.raises(ValueError):
             G.set_knn_impl(*args, **err)
-        assert G._KNN_IMPL == "grid" and G._KNN_APPROX_MIN_N == 2000
+        assert G._KNN_IMPL == "grid" and G._KNN_APPROX_MIN_N == 2000 and G._KNN_RECALL == 0.95
     assert G.grid_eligible(2000) and not G.grid_eligible(1999)
+    G.set_knn_impl("approx", recall_target=0.9, approx_min_n=5)
+    assert (G._KNN_IMPL, G._KNN_RECALL, G._KNN_APPROX_MIN_N) == ("approx", 0.9, 5)
+    assert G.approx_eligible(5) and not G.grid_eligible(5) and not G.approx_eligible(4)
 
 
 def test_pointnet_pp_8dir_under_grid_matches_jax_under_grid():

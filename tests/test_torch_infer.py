@@ -65,7 +65,7 @@ def test_forward_vectors_are_unit_and_follow_the_logits(predictors, rng):
 
 
 @pytest.mark.parametrize("kwargs, error", [
-    ({"model_name": "moe_point_transformer"}, NotImplementedError),
+    ({"model_name": "moe_point_transformer"}, ValueError),
     ({"tta_views": 3}, ValueError),
     ({"model_name": "pointnet_pp_cls", "tta_views": 2}, ValueError),
     ({"tta_views": 0}, ValueError),
@@ -74,11 +74,11 @@ def test_forward_vectors_are_unit_and_follow_the_logits(predictors, rng):
     ({"mesh": object()}, NotImplementedError),
 ], ids=["other-model", "tta", "tta-head", "tta-zero", "ensemble", "int8", "mesh"])
 def test_predictor_refuses_what_is_not_ported(kwargs, error):
-    """What the port still refuses (an unported model, meshes:
-    ``NotImplementedError``) and the JAX predictor's own ``ValueError``s:
-    an 8-dir TTA view count outside (2, 4, 8), TTA on a head that is not
-    yaw-equivariant, no views, an ensemble of a head with no combine, an
-    unknown quantization mode."""
+    """What the port still refuses (meshes: ``NotImplementedError``) and
+    the JAX predictor's own ``ValueError``s: a model that returns ``(out,
+    aux)`` (the MoE transformer), an 8-dir TTA view count outside (2, 4,
+    8), TTA on a head that is not yaw-equivariant, no views, an ensemble
+    of a head with no combine, an unknown quantization mode."""
     v = random_flax_variables(0)
     args = dict(model_name="pointnet_pp_8dir", params=v["params"],
                 batch_stats=v["batch_stats"], device="cpu")

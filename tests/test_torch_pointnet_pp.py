@@ -14,6 +14,7 @@ from pointcloud_orientation_tpu_torch.models import (
     PointNetCls,
     SimplePointNet,
     MODEL_REGISTRY,
+    MoEPointTransformer,
     PointNetPP,
     PointNetPP8Dir,
     PointNetPPCls,
@@ -138,6 +139,7 @@ def test_registry_holds_the_ported_model():
                               "pointnet_pp_xyz": PointNetPPXYZ,
                               "pointnet_pp_xyz_schmidt": PointNetPPXYZSchmidt,
                               "point_transformer": PointTransformer,
+                              "moe_point_transformer": MoEPointTransformer,
                               "simple_pointnet": SimplePointNet,
                               "pointnet": PointNet,
                               "pointnet_cls": PointNetCls}

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from pointcloud_orientation_tpu.models import MoEPointTransformer as JaxMoEPointTransformer
 from pointcloud_orientation_tpu.models import PointNetPPCls as JaxPointNetPPCls
 from pointcloud_orientation_tpu.ops.geometry import set_pallas_mode
 from pointcloud_orientation_tpu_torch.infer import OrientationPredictor
@@ -65,8 +66,15 @@ def test_random_flax_variables_match_the_classifier_tree(channels, num_classes):
     assert cls_kwargs(v["params"]) == {"in_channels": channels, "num_classes": num_classes}
     model = _model(v)
     assert model.in_channels == channels and model.fc3.out_features == num_classes
+    # the MoE transformer's tree is made too (at its full width, against the
+    # JAX model's); a model outside the port still raises
+    moe = jax.eval_shape(lambda: JaxMoEPointTransformer().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 3)), train=False))
+    assert (jax.tree_util.tree_map(np.shape, random_flax_variables(0, "moe_point_transformer"))
+            == {"params": jax.tree_util.tree_map(lambda x: x.shape, moe["params"]),
+                "batch_stats": {}})
     with pytest.raises(NotImplementedError):
-        random_flax_variables(0, "moe_point_transformer")
+        random_flax_variables(0, "ring_point_transformer")
 
 
 def test_classifier_refuses_train_mode_wrong_widths_and_trees():

@@ -11,12 +11,14 @@ protocol flags and their errors. (The protocols against the JAX package's:
 
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from pointcloud_orientation_tpu_torch.data import OrientationDataset
+from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
 from pointcloud_orientation_tpu_torch.train import run as R
 from pointcloud_orientation_tpu_torch.train.ensemble import run_per_label_vmapped
@@ -185,7 +187,8 @@ def test_cli_vmap_labels_schedule_and_flag_errors(tmp_path, small_data):
     """``--vmap-labels`` on a per-label preset trains its labels together
     (the summary and a directory a label); ``--lr-schedule`` reaches the
     config; ``--async-checkpoint`` with a protocol warns; ``--resume-from``
-    without a protocol exits; ``--knn approx`` is not ported."""
+    without a protocol exits; ``--knn approx`` trains through the approx
+    kNN (its stages of 128 points on that path with ``approx_min_n`` 64)."""
     R.main(["--preset", "axes_all_labels", "--epochs", "1", "--num-points", str(N),
             "--batch-size", str(B), "--classes", "chair,sofa", "--device", "cpu", "--out",
             str(tmp_path / "v"), "--vmap-labels", "--lr-schedule", "cosine"])
@@ -196,5 +199,12 @@ def test_cli_vmap_labels_schedule_and_flag_errors(tmp_path, small_data):
         _main(tmp_path / "w", "--seeds", "3", "--async-checkpoint", epochs=1)
     with pytest.raises(SystemExit):
         _main(tmp_path / "x", "--resume-from", str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        _main(tmp_path / "y", "--knn", "approx")
+    G.set_knn_impl("exact", approx_min_n=64)
+    try:
+        with mock.patch.object(G, "approx_knn", wraps=G.approx_knn) as approx:
+            _main(tmp_path / "y", "--knn", "approx", epochs=1)
+        assert G._KNN_IMPL == "approx" and approx.call_count > 0
+        m = json.loads((tmp_path / "y" / "metrics.json").read_text())
+        assert np.isfinite(m["test"]["loss"])
+    finally:
+        G.set_knn_impl("exact", approx_min_n=4096)

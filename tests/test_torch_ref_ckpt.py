@@ -136,10 +136,18 @@ def test_reference_checkpoint_serves_as_in_jax(tmp_path, rng, model):
 
 
 def test_unported_layouts_raise():
-    with pytest.raises(NotImplementedError):
-        import_state_dict({}, "moe_point_transformer")
-    with pytest.raises(NotImplementedError):
-        export_state_dict({}, None, "moe_point_transformer")
+    """The MoE transformer has no reference layout: both directions raise
+    the JAX package's ``ValueError`` with its message."""
+    for port, jax_fn in ((lambda: import_state_dict({}, "moe_point_transformer"),
+                          lambda: jax_import.import_pointnet_pp_state_dict(
+                              {}, "moe_point_transformer")),
+                         (lambda: export_state_dict({}, None, "moe_point_transformer"),
+                          lambda: jax_export.export_pointnet_state_dict(
+                              {}, None, "moe_point_transformer"))):
+        with pytest.raises(ValueError) as want:
+            jax_fn()
+        with pytest.raises(ValueError, match=f"^{want.value}$"):
+            port()
     with pytest.raises(KeyError):
         import_state_dict({"nonsense.weight": np.zeros(3)}, "pointnet_pp_8dir")
     assert set(HEADS) == set(jax_import._HEADS)

@@ -182,16 +182,21 @@ def test_unknown_optimizer_schedule_and_too_long_warmup_raise_as_in_jax():
 
 
 def test_ported_fields_are_accepted_and_the_rest_still_refused():
-    """The six lifted fields take their JAX values (``keep_best`` and
-    ``host_resident`` change nothing); the MoE fields and ``bn_sync_axis``
-    stay refused."""
+    """The lifted fields take their JAX values (``keep_best`` and
+    ``host_resident`` change nothing), the MoE fields among them, with the
+    JAX config's defaults; ``bn_sync_axis`` stays refused."""
     cfg = preset("8dir_kl", optimizer="sgd", lr_schedule="cosine", warmup_epochs=2,
                  async_checkpoint=True, host_resident=True, keep_best=False)
     assert (cfg.optimizer, cfg.lr_schedule, cfg.warmup_epochs, cfg.async_checkpoint,
             cfg.host_resident, cfg.keep_best) == ("sgd", "cosine", 2, True, True, False)
-    for kw in ({"moe_experts": 8}, {"moe_dispatch": "capacity"}, {"bn_sync_axis": "data"}):
-        with pytest.raises(NotImplementedError):
-            preset("8dir_kl", **kw)
+    moe = dict(moe_experts=8, moe_dispatch="capacity", moe_aux_weight=0.1,
+               moe_capacity_factor=2.0)
+    cfg, jcfg = preset("8dir_kl", **moe), jax_preset("8dir_kl").replace(**moe)
+    assert {k: getattr(cfg, k) for k in moe} == {k: getattr(jcfg, k) for k in moe} == moe
+    assert ({k: getattr(preset("8dir_kl"), k) for k in moe}
+            == {k: getattr(jax_preset("8dir_kl"), k) for k in moe})
+    with pytest.raises(NotImplementedError):
+        preset("8dir_kl", bn_sync_axis="data")
     host = Trainer(preset("simple_pointnet", num_points=N, batch_size=B, epochs=1,
                           host_resident=True, keep_best=False), _dataset(), device="cpu")
     plain = Trainer(preset("simple_pointnet", num_points=N, batch_size=B, epochs=1), _dataset(),

@@ -38,6 +38,7 @@ from pointcloud_orientation_tpu_torch.infer import OrientationPredictor
 from pointcloud_orientation_tpu_torch.models import MODEL_REGISTRY
 from pointcloud_orientation_tpu_torch.ops import rotations
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
+from pointcloud_orientation_tpu_torch.train.config import PRESETS
 from pointcloud_orientation_tpu_torch.train import tasks as T
 from pointcloud_orientation_tpu_torch.train.trainer import config_model_kwargs
 from pointcloud_orientation_tpu_torch.utils import (
@@ -550,8 +551,10 @@ def test_preset_fields_equal_jax_and_train_a_step(name):
 def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
     """``TrainConfig(task="forward_mse", model="pointnet_pp",
     rotation_mode="so3")`` trains an epoch with the FPS/ball trunk on the
-    CPU; the presets of the other backbones, an unknown rotation mode and
-    the JAX fields still unported raise. A dataset with stored targets
+    CPU; every JAX preset is ported (the MoE transformer's last, with the
+    JAX preset's fields) and the MoE model is accepted as the JAX config
+    accepts it; an unknown rotation mode and the JAX field still unported
+    raise. A dataset with stored targets
     gives them to the batch under ``rotation_mode="none"``
     (tests/test_torch_real_data.py holds that path against the JAX
     trainer)."""
@@ -561,14 +564,15 @@ def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
     trainer = Trainer(cfg, ds, device="cpu", sampling="fps", grouping="ball")
     hist = trainer.fit(log_every=0)
     assert math.isfinite(hist["train"][0]) and 0 <= hist["val_ang"][0] <= 180
-    for bad in ("moe_point_transformer",):
-        assert bad in jax_config.PRESETS
-        with pytest.raises(NotImplementedError):
-            preset(bad)
+    for name in ("moe_point_transformer",):  # the last preset ported: the JAX one's fields
+        got = dataclasses.asdict(preset(name))
+        want = dataclasses.asdict(jax_config.PRESETS[name])
+        assert got == {k: want[k] for k in got}
+    assert set(PRESETS) == set(jax_config.PRESETS)
     with pytest.raises(NotImplementedError):
         TrainConfig(rotation_mode="so2")
-    with pytest.raises(NotImplementedError):
-        TrainConfig(model="moe_point_transformer")
+    assert TrainConfig(model="moe_point_transformer").model == jax_config.TrainConfig(
+        model="moe_point_transformer").model
     with pytest.raises(NotImplementedError):
         preset("pointnet_pp_forward", bn_sync_axis="data")
     stored = OrientationDataset.synthetic(samples_per_class=1, num_points=N)

@@ -392,12 +392,15 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
         "8dir_kl", 16, 10_000, 1e-3, "yaw")
     assert preset("8dir_mse").task == "8dir_mse"
     assert preset("8dir_kl", compute_dtype=None).task == "8dir_kl"  # a default is fine
+    moe = preset("moe_point_transformer")  # ported last, with its task
+    assert (moe.task, moe.model, moe.num_points) == ("forward_mse_aux", "moe_point_transformer",
+                                                    1024)
     with pytest.raises(NotImplementedError):
-        preset("moe_point_transformer")
+        preset("ring_point_transformer")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
-        preset("8dir_kl", task="forward_mse_aux")
+        preset("8dir_kl", task="no_such_task")
     with pytest.raises(TypeError):
         preset("8dir_kl", no_such_field=1)
 
