@@ -93,7 +93,22 @@ factor 4 against the masked one, the tokens factor 1.25 drops; an 8-dir
 request at B=16 N=10,000 under ``set_knn_impl("approx")`` (one
 ``topk_min`` launch, sa1's indices equal to the exact dispatch's) timed
 beside the exact one; the 8-dir ``.pt2`` artifact exported on the host,
-run on the card at B=1 and B=64 against the kernel-path request.
+run on the card at B=1 and B=64 against the kernel-path request. The
+parallelism layer (``parallel``, over NCCL at world size 1, full width):
+the 8dir_kl DP epoch (B=16, N=10,000) in both train configurations bit-equal
+to the meshless Trainer's, a sharded 8-dir request equal to the meshless
+one, an FSDP step of the 8-dir model, TP and one-stage PP steps of the
+point transformer with flash attention (B=16, N=1,024), the MoE layer
+expert-sharded in both dispatches, the ring transformer's forward and
+step, each against its one-device path; then two processes of this file
+(``--gloo-rank``) sharing the card on gloo run the DP epoch (with SGD),
+the request and the epoch's first step in float64 on the host (plain
+versions), held against the one-rank run: ``simple_pointnet`` at the JAX DP
+test's bounds, the request at ``LOGIT_TOL``, the 8-dir epoch at bounds above the
+readings of ``parallel/dp_gap.py`` over five seeds, the float64 gradient
+at 1e-10; the kernels line's ``launches_parallel``; ``timing_parallel``:
+the DP step at world size 1 against the meshless step, and its
+collectives. Both run after every earlier timing phase.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -4156,6 +4171,405 @@ def phase_aot_export(dev) -> dict:
     return {"rows": rows}
 
 
+PAR_B = 16  # the 8dir_kl preset's batch and N=TRAIN_N: the DP epoch and sharded serving
+PAR_T = (16, 1024)  # B, N of the point transformer under TP and PP, flash attention
+PAR_RING = (4, 1024)  # B, N of the ring transformer (its defaults: E=64, 2 layers, F=256)
+PAR_MOE = (16, 1024)  # tokens of the MoE layer under EP: B x N, the moe preset's widths
+PAR_TOL = 1e-5  # TP, PP, EP, SP and FSDP at world size 1 against their one-device paths
+# Two gloo ranks on the card against the one-rank run, both with SGD as the JAX DP
+# tests (Adam's early steps are near lr * sign(g): summation-order noise in a
+# near-zero gradient moves a weight by up to the rate). simple_pointnet (BatchNorm
+# in every layer, no neighbour max) at the JAX DP test's bounds; the request at
+# LOGIT_TOL. The 8-dir epoch's gradient passes a max over 32 neighbours whose
+# winner follows values that the two summation orders round differently, so
+# near-ties route gradient through other rows: `python -m
+# pointcloud_orientation_tpu_torch.parallel.dp_gap` (this epoch's configuration,
+# two gloo ranks on one NVIDIA H100 80GB HBM3 at 700 W, seeds 0-4) read 5.2e-4 to
+# 3.3e-3 on the weights and statistics and 6.6e-6 to 3.4e-4 on the train loss
+# (relative), this script's seed 7.1e-4 and 2.4e-6; the same runs in float64 on the
+# host, through the plain versions, agreed to 3.3e-16 on the weights and 5.5e-14 on
+# the first step's gradient. The float32 bounds sit above the largest readings;
+# the float64 first step, held at PAR_GLOO_F64_GRAD, is what holds the arithmetic.
+PAR_GLOO_8DIR = {"params": 4e-3, "loss_rel": 5e-4}
+PAR_GLOO_SIMPLE = {"params": 2e-5, "loss_rel": 1e-5}
+PAR_GLOO_F64_GRAD = 1e-10
+PAR_STEP_ITERS = 5
+
+
+def _state_np(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(a[k].astype(np.float64) - b[k]))) for k in a)
+
+
+def par_dp_epoch(ds, dev, mesh=None, fused=False, optimizer="adam", name="8dir_kl"):
+    """One epoch of the preset ``name`` (B=16, N=10,000, every class of
+    ``ds``) on ``dev``, data-parallel over ``mesh``; returns the trainer."""
+    t = Trainer(preset(name, epochs=1, optimizer=optimizer, classes=None), ds, device=dev,
+                fused_mlp_train=fused, mesh=mesh)
+    t.fit(epochs=1, log_every=0)
+    return t
+
+
+def par_serve(dev, mesh=None) -> tuple:
+    """An 8-dir request of B=16 at N=10,000 with random centroids (drawn at
+    the whole bucket's shape under a mesh)."""
+    v = random_flax_variables(SEED)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=TRAIN_N, max_batch=PAR_B, seed=SEED, device=dev,
+                                mesh=mesh)
+    x = np.random.default_rng(SEED + 70).normal(size=(PAR_B, TRAIN_N, 3)).astype(np.float32)
+    return pred, x
+
+
+def par_first_grads_f64(mesh=None) -> dict:
+    """The 8dir_kl epoch's first step (its configuration, the preset's
+    seed) in float64 on the host through the kernels' plain versions: the
+    gradient at the initial weights, summed over ``mesh``'s ranks."""
+    from pointcloud_orientation_tpu_torch.parallel import dp_gap
+
+    with dp_gap.plain_kernels():
+        return dp_gap.first_grads(dp_gap.make_trainer(
+            preset("8dir_kl").seed, device="cpu", dtype="float64", num_points=TRAIN_N,
+            batch_size=PAR_B, samples_per_class=TRAIN_SAMPLES_PER_CLASS, mesh=mesh))
+
+
+def gloo_rank_main(rank: int, port: int, out: str) -> None:
+    """One of two processes sharing the card on gloo: the DP epoch and a
+    sharded request; rank 0 saves the results to ``out``."""
+    from pointcloud_orientation_tpu_torch import parallel as P
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2",
+                      RANK=str(rank), LOCAL_RANK="0")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = P.make_mesh(("data",), device="cuda", backend="gloo")
+    ds = train_dataset()
+    t = par_dp_epoch(ds, dev, mesh, optimizer="sgd")
+    simple = par_dp_epoch(ds, dev, mesh, optimizer="sgd", name="simple_pointnet")
+    pred, x = par_serve(dev, mesh)
+    served = pred(x)
+    g64 = par_first_grads_f64(mesh)
+    if rank == 0:
+        np.savez(out, served=served, train=np.asarray(t.history["train"]),
+                 simple_train=np.asarray(simple.history["train"]),
+                 **{f"g64::{k}": v for k, v in g64.items()},
+                 **{f"state::{k}": v for k, v in _state_np(t.model).items()},
+                 **{f"simple::{k}": v for k, v in _state_np(simple.model).items()})
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def par_gloo_ranks(timeout: float = 600) -> dict:
+    """Start the two gloo ranks (this file with ``--gloo-rank``) on the
+    card and read rank 0's results."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "rank0.npz")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                                   str(r), str(port), out], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0])
+        if any(p.returncode for p in procs):
+            fail("parallel: the two gloo ranks failed: "
+                 + " | ".join(f"rank {r} rc {p.returncode}: {log[-1500:]}"
+                              for r, (p, log) in enumerate(zip(procs, logs))))
+        with np.load(out) as z:
+            return {k: z[k] for k in z.files}
+
+
+def _free_port() -> int:
+    from pointcloud_orientation_tpu_torch.parallel.mesh import free_port
+
+    return free_port()
+
+
+class _Collectives:
+    """Counts ``torch.distributed`` collective calls while active."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "reduce_scatter")
+
+    def __enter__(self):
+        self.counts = {n: 0 for n in self.NAMES}
+        self._patches = []
+        for n in self.NAMES:
+            orig = getattr(torch.distributed, n)
+
+            def counted(*a, _n=n, _orig=orig, **k):
+                self.counts[_n] += 1
+                return _orig(*a, **k)
+
+            p = mock.patch.object(torch.distributed, n, counted)
+            p.start()
+            self._patches.append(p)
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def _mse_step(model, x, target, lr=0.05):
+    """One plain SGD step of ``model`` on the mean squared error."""
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    out = model(x)
+    loss = ((out - target) ** 2).mean()
+    loss.backward()
+    opt.step()
+    return float(loss)
+
+
+def phase_parallel(dev) -> dict:
+    """The parallelism layer on the card. Over NCCL at world size 1, at
+    full width: the 8dir_kl preset's DP epoch (B=16, N=10,000) in both train
+    configurations bit-equal to the meshless Trainer's; a sharded 8-dir
+    request equal to the meshless one; an FSDP train step of the same model
+    against the one-device step; TP and PP (one stage: two need two ranks)
+    steps of the point transformer with flash attention (B=16, N=1,024)
+    and the pipelined forward; the MoE layer (the moe preset's widths)
+    expert-sharded under both dispatches; the ring transformer at its
+    defaults, forward and step. Then two processes sharing the card on
+    gloo: the DP epoch (with SGD), the request and the epoch's first step
+    in float64 on the host against the one-rank run (bounds at
+    ``PAR_GLOO_8DIR``). Each path's launches are counted from 0."""
+    from pointcloud_orientation_tpu_torch import parallel as P
+    from pointcloud_orientation_tpu_torch.models import PointNetPP8Dir, PointTransformer
+    from pointcloud_orientation_tpu_torch.parallel.sp_transformer import RingPointTransformer
+    from pointcloud_orientation_tpu_torch.utils.jax_weights import (load_flax_variables,
+                                                                    transformer_kwargs)
+
+    paths, launches, checks = {}, {}, {}
+    mesh = P.make_mesh(("data",), device=dev.type)
+    backend = torch.distributed.get_backend()
+    ds = train_dataset()
+
+    # the DP epoch, world size 1, both train configurations
+    for mode in ("default", "fused"):
+        fused = mode == "fused"
+        one = par_dp_epoch(ds, dev, None, fused)
+        K.reset_launch_counts()
+        dp = par_dp_epoch(ds, dev, mesh, fused)
+        torch.cuda.synchronize()
+        launches[f"dp epoch {mode} world 1"] = K.launch_counts()
+        a, b = _state_np(one.model), _state_np(dp.model)
+        same = all(np.array_equal(a[k], b[k]) for k in a) and one.history == dp.history
+        checks[f"dp_{mode}"] = {"bit_equal": same, "max_abs_diff": _max_diff(a, b),
+                                "train_loss": dp.history["train"][0]}
+        paths[f"dp epoch {mode}"] = {"world": 1, "backend": backend}
+        if not same:
+            fail(f"parallel: DP epoch ({mode}) at world size 1 differs from the meshless one "
+                 f"by {checks[f'dp_{mode}']['max_abs_diff']}")
+        if mode == "default":
+            dp_default, one_default = dp, one
+
+    # sharded serving
+    plain_pred, x = par_serve(dev)
+    mesh_pred, _ = par_serve(dev, mesh)
+    want = plain_pred(x)
+    K.reset_launch_counts()
+    got = mesh_pred(x)
+    launches["serve 8dir B=16 N=10000 world 1"] = K.launch_counts()
+    checks["serve"] = {"bit_equal": bool(np.array_equal(got, want)),
+                       "max_abs_err": max_abs(got, want), "tol": LOGIT_TOL}
+    paths["serve"] = {"world": 1, "backend": backend}
+    if checks["serve"]["max_abs_err"] > LOGIT_TOL:
+        fail(f"parallel: sharded request {checks['serve']}")
+
+    # FSDP of the 8-dir model, train mode, one SGD step against one device
+    v = random_flax_variables(SEED + 71)
+    xb = torch.from_numpy(np.random.default_rng(SEED + 72).normal(
+        size=(PAR_B, TRAIN_N, 3)).astype(np.float32)).to(dev)
+    tb = torch.from_numpy(np.random.default_rng(SEED + 73).normal(
+        size=(PAR_B, 8)).astype(np.float32)).to(dev)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.05)  # noqa: E731
+    ref = load_flax_variables(PointNetPP8Dir(sampling="first", p_drop=0.0),
+                              v).to(dev).train()
+    opt = sgd(ref.parameters())
+    out = ref(xb, None)
+    ref_loss = ((out - tb) ** 2).mean()
+    ref_loss.backward()
+    opt.step()
+    ref_loss = float(ref_loss.detach())
+    m = load_flax_variables(PointNetPP8Dir(sampling="first", p_drop=0.0),
+                            v).to(dev)
+    fp = P.shard_fsdp_params(m, mesh, min_weight_size=1)
+    K.reset_launch_counts()
+    fp, _, loss = P.make_fsdp_train_step(m, mesh, train=True)(
+        fp, sgd(fp.parameters()), xb, tb, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    launches["fsdp step 8dir world 1"] = K.launch_counts()
+    diff = _max_diff(_state_np(fp.unshard()), _state_np(ref))
+    checks["fsdp"] = {"loss": float(loss), "loss_one_device": ref_loss,
+                      "max_abs_diff": diff, "tol": PAR_TOL}
+    paths["fsdp step 8dir"] = {"world": 1, "backend": backend}
+    if diff > PAR_TOL or abs(float(loss) - ref_loss) > PAR_TOL:
+        fail(f"parallel: FSDP step {checks['fsdp']}")
+
+    # TP and PP on the point transformer, flash attention
+    B, N = PAR_T
+    tv = random_flax_variables(SEED + 74, "point_transformer")
+    kw = transformer_kwargs(tv["params"])
+    xt = torch.from_numpy(np.random.default_rng(SEED + 75).normal(
+        size=(B, N, 3)).astype(np.float32)).to(dev)
+    tt = torch.from_numpy(np.random.default_rng(SEED + 76).normal(
+        size=(B, 3)).astype(np.float32)).to(dev)
+
+    def transformer():
+        return load_flax_variables(PointTransformer(**kw, dropout=0.0, attention_impl="flash"),
+                                   tv).to(dev)
+
+    ref = transformer().eval()
+    with torch.no_grad():
+        fwd_want = ref(xt)
+    ref_loss = _mse_step(ref, xt, tt, lr=0.1)
+    ref_state = _state_np(ref)
+    tmesh = P.make_mesh(("data", "model"), (1, 1), device=dev.type)
+    full = transformer()
+    tp = P.shard_tp_params(full, tmesh)
+    K.reset_launch_counts()
+    tp, _, loss = P.make_tp_train_step(tmesh)(tp, torch.optim.SGD(
+        tp.parameters(), lr=0.1), xt, tt)
+    torch.cuda.synchronize()
+    launches["tp step transformer flash world 1"] = K.launch_counts()
+    diff = _max_diff(_state_np(tp.unshard(transformer())), ref_state)
+    checks["tp"] = {"loss": float(loss), "loss_one_device": ref_loss, "max_abs_diff": diff,
+                    "tol": PAR_TOL}
+    paths["tp step transformer flash"] = {"world": 1, "model_axis": 1, "backend": backend}
+    if diff > PAR_TOL or abs(float(loss) - ref_loss) > PAR_TOL:
+        fail(f"parallel: TP step {checks['tp']}")
+
+    smesh = P.make_mesh(("stage",), device=dev.type)
+    stacked, rest = P.split_pipeline_params(tv["params"], kw["depth"])
+    stage = P.place_pipeline_state(stacked, rest, smesh, attention_impl="flash").to(dev)
+    K.reset_launch_counts()
+    fwd = P.make_pp_apply(4)(stage, xt)
+    stage, _, loss = P.make_pp_train_step(smesh, 4)(
+        stage, torch.optim.SGD(stage.parameters(), lr=0.1), xt, tt)
+    torch.cuda.synchronize()
+    launches["pp apply and step transformer flash world 1"] = K.launch_counts()
+    local = PointTransformer(**kw, dropout=0.0)
+    local.load_state_dict(stage.state_dict())
+    diff = _max_diff(_state_np(local), ref_state)
+    checks["pp"] = {"forward_max_abs_err": max_abs(fwd.cpu().numpy(), fwd_want.cpu().numpy()),
+                    "loss": float(loss), "loss_one_device": ref_loss, "max_abs_diff": diff,
+                    "microbatches": 4, "tol": PAR_TOL}
+    paths["pp apply and step transformer flash"] = {"world": 1, "stages": 1, "backend": backend}
+    if max(diff, checks["pp"]["forward_max_abs_err"], abs(float(loss) - ref_loss)) > PAR_TOL:
+        fail(f"parallel: PP {checks['pp']}")
+
+    # EP: the moe preset's layer widths, both dispatches
+    cfg = preset("moe_point_transformer")
+    emesh = P.make_mesh(("expert",), device=dev.type)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 77).normal(
+        size=(*PAR_MOE, 64)).astype(np.float32)).to(dev)
+    ep_checks = {}
+    for dispatch in ("masked", "capacity"):
+        mod = EP.MoEFeedForward(64, 2048, cfg.moe_experts, dispatch, cfg.moe_capacity_factor)
+        mod.reset_parameters(torch.Generator().manual_seed(SEED))
+        torch.nn.init.normal_(mod.router.weight, std=0.1)
+        mod = mod.to(dev)
+        tree = {"router": {"kernel": mod.router.weight.detach().t().cpu().numpy()},
+                **{k: getattr(mod, k).detach().cpu().numpy() for k in ("wi", "bi", "wo", "bo")}}
+        with torch.no_grad():
+            y_want, aux_want = mod(tokens)
+            y, aux = P.make_ep_apply(mod, emesh)(P.place_ep_params(tree, emesh, device=dev),
+                                                 tokens)
+        ep_checks[dispatch] = {"max_abs_err": max_abs(y.cpu().numpy(), y_want.cpu().numpy()),
+                               "aux": float(aux), "aux_one_device": float(aux_want)}
+        if (ep_checks[dispatch]["max_abs_err"] > PAR_TOL
+                or abs(float(aux) - float(aux_want)) > PAR_TOL):
+            fail(f"parallel: EP {dispatch} {ep_checks[dispatch]}")
+    checks["ep"] = ep_checks
+    paths["ep moe layer"] = {"world": 1, "expert_axis": 1, "backend": backend}
+
+    # SP: the ring transformer at its defaults
+    rv = random_flax_variables(SEED + 78, "ring_point_transformer")
+    ring = load_flax_variables(RingPointTransformer(), rv).to(dev)
+    plain = load_flax_variables(RingPointTransformer(), rv).to(dev)
+    rmesh = P.make_mesh(("data", "model"), (1, 1), device=dev.type)
+    xr = torch.from_numpy(np.random.default_rng(SEED + 79).normal(
+        size=(*PAR_RING, 3)).astype(np.float32)).to(dev)
+    tr = torch.from_numpy(np.random.default_rng(SEED + 80).normal(
+        size=(PAR_RING[0], 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        f_ring = ring(xr, group=rmesh.get_group("model"))
+        f_plain = plain(xr)
+    plain_loss = _mse_step(plain, xr, tr, lr=1e-2)
+    ring, _, loss = P.make_sp_train_step(rmesh)(
+        ring, torch.optim.SGD(ring.parameters(), lr=1e-2), xr, tr)
+    diff = _max_diff(_state_np(ring), _state_np(plain))
+    checks["sp"] = {"forward_max_abs_err": max_abs(f_ring.cpu().numpy(), f_plain.cpu().numpy()),
+                    "loss": float(loss), "loss_plain": plain_loss, "max_abs_diff": diff,
+                    "tol": PAR_TOL}
+    paths["sp ring transformer"] = {"world": 1, "model_axis": 1, "backend": backend}
+    if max(diff, checks["sp"]["forward_max_abs_err"], abs(float(loss) - plain_loss)) > PAR_TOL:
+        fail(f"parallel: SP {checks['sp']}")
+
+    # two processes sharing the card on gloo, against the one-rank SGD epoch
+    gloo = par_gloo_ranks()
+    gloo_checks = {}
+    for name, prefix, key, tol in (("8dir_kl", "state::", "train", PAR_GLOO_8DIR),
+                                   ("simple_pointnet", "simple::", "simple_train",
+                                    PAR_GLOO_SIMPLE)):
+        one_rank = par_dp_epoch(ds, dev, mesh, optimizer="sgd", name=name)
+        g_state = {k[len(prefix):]: v for k, v in gloo.items() if k.startswith(prefix)}
+        loss = one_rank.history["train"][0]
+        gloo_checks[name] = {"max_abs_diff": _max_diff(g_state, _state_np(one_rank.model)),
+                             "train_loss_rel": abs(float(gloo[key][0]) - loss) / abs(loss),
+                             "params_tol": tol["params"], "loss_rel_tol": tol["loss_rel"]}
+        paths[f"dp epoch {name} sgd"] = {"world": [1, 2], "backend": [backend,
+                                                                     "gloo (one card)"]}
+    g64 = par_first_grads_f64()
+    gloo_checks["8dir_kl_float64_first_grad"] = {
+        "max_abs_diff": max(float(np.max(np.abs(gloo[f"g64::{n}"] - g))) for n, g in g64.items()),
+        "tol": PAR_GLOO_F64_GRAD}
+    paths["dp first step 8dir_kl float64 (host, plain versions)"] = {
+        "world": [1, 2], "backend": [None, "gloo"]}
+    gloo_checks["serve_max_abs_err"] = max_abs(gloo["served"], got)
+    checks["gloo_two_ranks"] = gloo_checks
+    paths["serve"] = {"world": [1, 2], "backend": [backend, "gloo (one card)"]}
+    if (any(gloo_checks[n]["max_abs_diff"] > gloo_checks[n]["params_tol"]
+            or gloo_checks[n]["train_loss_rel"] > gloo_checks[n]["loss_rel_tol"]
+            for n in ("8dir_kl", "simple_pointnet"))
+            or gloo_checks["8dir_kl_float64_first_grad"]["max_abs_diff"] > PAR_GLOO_F64_GRAD
+            or gloo_checks["serve_max_abs_err"] > LOGIT_TOL):
+        fail(f"parallel: two gloo ranks against one rank {gloo_checks}")
+
+    nonzero = {k: sum(v.get(k, 0) for v in launches.values()) for k in
+               ("sa_group", "sa_mlp_max", "flash_attention_fwd")}
+    emit("parallel", paths=paths, checks=checks, launches=launches)
+    if not all(nonzero.values()):
+        fail(f"parallel: kernels not launched on the parallel paths: {nonzero}")
+    return {"launches": launches, "mesh": mesh, "one": one_default, "dp": dp_default}
+
+
+def phase_timing_parallel(card: str, parallel: dict) -> None:
+    """The DP step at world size 1 against the meshless step (the same
+    batch, in turns: meshless, DP, DP, meshless), host clock around a
+    synchronised step, with the collectives a DP step calls, and the card's
+    name and power limit."""
+    one, dp = parallel["one"], parallel["dp"]
+    rows = []
+    for turn, (what, t) in enumerate((("meshless", one), ("dp world 1", dp),
+                                      ("dp world 1", dp), ("meshless", one))):
+        rows.append({"path": what, "turn": turn, **step_times(t, f"timing_parallel {what}")})
+    ds = dp.train_ds
+    idx, valid, _ = next(ds.batches(dp.cfg.batch_size))
+    batch, valid, _ = dp.device_batch(ds, idx, valid, dp.generator(0, 96, 0))
+    with _Collectives() as c:
+        dp.train_step(batch, valid, dp.generator(0, 95, 0))
+        torch.cuda.synchronize()
+    emit("timing_parallel", card=card, step=rows, collectives_per_dp_step=c.counts)
+
+
 def main() -> None:
     info = phase_device()
     dev = torch.device("cuda", 0)
@@ -4203,6 +4617,10 @@ def main() -> None:
     flash_rows = phase_timing_transformer(dev, checks, serve_transformer, train_transformer)
     phase_timing_serving(dev, info["nvidia_smi"], serve_tta, serve_int8, pointnet)
     phase_timing_protocols(dev, info["nvidia_smi"], protocols)
+    # after every earlier timing phase: its process group (and NCCL's threads) then
+    # does not run beside them, and their yardsticks are taken as at the parent
+    parallel = phase_parallel(dev)
+    phase_timing_parallel(info["nvidia_smi"], parallel)
     so3_paths = {**{f"serve {case}": n for case, n in serve_so3["launches"].items()},
                  **{f"train {path}": run["launches"] for path, run in train_so3.items()}}
     for row in summary:  # the classifier's and the SO(3) paths, beside each row's own path
@@ -4232,9 +4650,12 @@ def main() -> None:
                                for path, n in train_moe["launches"].items()}
         if approx["launches"].get(row["name"]):
             row["launches_approx"] = {"8dir B=16 N=10000": approx["launches"][row["name"]]}
+        row["launches_parallel"] = {path: n.get(row["name"], 0)
+                                    for path, n in parallel["launches"].items()}
         if row["name"] == "topk_min":
             row["shapes"]["approx sa1 B=16 M=10000"] = approx["topk_min"]
     summary += flash_rows
+    torch.distributed.destroy_process_group()  # phase_parallel's
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": summary,
                       "total_seconds": round(time.perf_counter() - T_START, 3)}), flush=True)
@@ -4243,4 +4664,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:  # one of phase_parallel's two ranks on the card
+        gloo_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -17,8 +17,10 @@ pads them. ``tta_views`` votes over yaw-rotated views of each request and
 ``quantize="int8"`` serves int8 weights dequantized on the device, as there;
 ``ensemble_size`` serves a deep ensemble of S members (stacked flax trees,
 :meth:`OrientationPredictor.from_seed_sweep`,
-:meth:`OrientationPredictor.from_protocol_checkpoint`); meshes are not
-ported.
+:meth:`OrientationPredictor.from_protocol_checkpoint`). ``mesh=`` serves
+data-parallel over the mesh's ``mesh_axis``: weights replicated, each
+rank running its slice of the bucket, the outputs gathered so that every
+rank returns the whole request.
 
 Example
 -------
@@ -45,11 +47,14 @@ from torch.func import functional_call
 from .models import MODEL_REGISTRY, MULTI_OUTPUT_MODELS
 from .ops import DIRS_8
 from .models.layers import compute_dtype
+from .ops.batch_shard import batch_shard
 from .ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from .ops.rotations import wrap_angle, yaw_matrix
 from .ops.von_mises import vm_mixture_moment_match
 from .utils.jax_weights import kernel_parameters, load_flax_variables
 from .utils.jax_weights import model_kwargs as tree_kwargs
+from .parallel.comm import all_gather_cat
+from .parallel.mesh import batch_sharding, replicate
 from .utils.quantize import dequantize_params, map_leaves, quantize_params_int8
 
 Output = Union[np.ndarray, Tuple[np.ndarray, ...]]
@@ -197,12 +202,19 @@ class OrientationPredictor:
     another on the same (view-stacked) batch, each from the same generator
     state (the JAX predictor passes one ``rng`` to every member), and
     combines the S * V outputs by :func:`tta_combine`: S times a single
-    request's launches. ``mesh`` is not ported (``NotImplementedError``);
-    the JAX package's ``ValueError``s stand: a model that returns ``(out,
-    aux)`` (``MULTI_OUTPUT_MODELS``, the MoE transformer), ``tta_views <
-    1``, an 8-dir V outside (2, 4, 8), TTA or an ensemble on a head with no
+    request's launches. ``mesh``/``mesh_axis``: data-parallel serving
+    over a :func:`.parallel.make_mesh` mesh (every rank builds the
+    predictor and calls it with the same request): the weights are
+    broadcast from the first rank, the bucket rounds up to a multiple of the
+    axis size (the clamp too, as the JAX predictor's), each rank runs its
+    rows with the random draws of the whole bucket
+    (:mod:`.ops.batch_shard`) and the outputs are all-gathered. The JAX
+    package's ``ValueError``s stand: a model that returns ``(out, aux)``
+    (``MULTI_OUTPUT_MODELS``, the MoE transformer), ``tta_views < 1``, an
+    8-dir V outside (2, 4, 8), TTA or an ensemble on a head with no
     combine, an ensemble with int8 weights, ``ensemble_size < 1``, an
-    unknown ``quantize``; and ``params`` without the leading member axis.
+    unknown ``quantize``, TTA or an ensemble with a mesh; and ``params``
+    without the leading member axis.
     """
 
     def __init__(
@@ -216,6 +228,7 @@ class OrientationPredictor:
         quantize: Optional[str] = None,
         scales: Optional[Dict] = None,
         mesh=None,
+        mesh_axis: str = "data",
         tta_views: int = 1,
         ensemble_size: int = 1,
         device: str | torch.device = "cuda",
@@ -256,8 +269,9 @@ class OrientationPredictor:
             if lead != {ensemble_size}:
                 raise ValueError(f"ensemble_size={ensemble_size} needs params stacked on a "
                                  f"leading member axis of {ensemble_size}; leading sizes {lead}")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r} is not ported")
+        if (tta_views > 1 or ensemble_size > 1) and mesh is not None:
+            raise ValueError("tta_views/ensemble_size > 1 with a mesh is unsupported (the "
+                             "view/member-stacked batch would break the bucket sharding)")
         if scales is None and quantize is not None:
             if quantize != "int8":
                 raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -294,6 +308,10 @@ class OrientationPredictor:
             other = MODEL_REGISTRY[model_name](**model_kwargs)
             load_flax_variables(other, {"params": p, "batch_stats": bs})
             self.members.append(other.to(self.device).eval())
+        self.sharding = None if mesh is None else batch_sharding(mesh, mesh_axis)
+        self._axis_size = 1 if mesh is None else self.sharding.world
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         f32_matmuls()  # the FC funnel runs in cuBLAS; the JAX side is full f32
@@ -470,10 +488,14 @@ class OrientationPredictor:
                                            for t, s in zip(trees, stats)], **kw)
 
     def _bucket(self, b: int) -> int:
-        bucket = 1
+        """The power of two from the axis size up to ``b``, clamped to
+        ``max_batch`` rounded up to a multiple of the axis size (1 without
+        a mesh), as the JAX predictor's buckets."""
+        bucket = self._axis_size
         while bucket < b:
             bucket *= 2
-        return min(bucket, self.max_batch)
+        axis = self._axis_size
+        return min(bucket, -(-max(self.max_batch, axis) // axis) * axis)
 
     def _pad(self, clouds: np.ndarray) -> np.ndarray:
         """Points by cycling or truncation to ``num_points``; batch by
@@ -513,7 +535,14 @@ class OrientationPredictor:
                 return tuple(np.concatenate(xs, axis=0) for xs in zip(*chunks))
             return np.concatenate(chunks, axis=0)
         pts = torch.from_numpy(np.ascontiguousarray(self._pad(clouds))).to(self.device)
-        out = self._apply(pts)
+        if self.sharding is None:
+            out = self._apply(pts)
+        else:
+            with batch_shard(self.sharding):
+                out = self._apply(pts[self.sharding.rows(pts.shape[0])])
+            group = self.sharding.group
+            out = (tuple(all_gather_cat(o, group) for o in out) if isinstance(out, tuple)
+                   else all_gather_cat(out, group))
         if isinstance(out, tuple):
             return tuple(o[:b].cpu().numpy() for o in out)
         return out[:b].cpu().numpy()

@@ -3,7 +3,9 @@ forward, von Mises, mixture of von Mises), the SO(3) heads (raw forward
 vector, the two two-axis heads), the PointNet++ ModelNet40 classifier, the
 point transformer and its mixture-of-experts variant, and the PointNet
 backbones (the simple baseline, PointNet regression and the PointNet
-ModelNet40 classifier), in eval and train mode."""
+ModelNet40 classifier), in eval and train mode; and, as in the JAX
+package's registry, the sequence-parallel ring transformer
+(``parallel/sp_transformer.py``), plain off a mesh."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
 from .moe_transformer import MoEPointTransformer
@@ -20,6 +22,7 @@ from .pointnet_pp import (
     PointNetPPXYZSchmidt,
 )
 from .simple_pointnet import SimplePointNet
+from ..parallel.sp_transformer import RingPointTransformer  # noqa: E402 (after .layers)
 
 MODEL_REGISTRY = {
     "simple_pointnet": SimplePointNet,
@@ -36,6 +39,8 @@ MODEL_REGISTRY = {
     "point_transformer": PointTransformer,
     # returns (out, aux_loss): the task "forward_mse_aux" consumes the tuple
     "moe_point_transformer": MoEPointTransformer,
+    # the sequence-parallel variant (the plain module when no group is given)
+    "ring_point_transformer": RingPointTransformer,
 }
 
 # Models whose forward returns a tuple with an auxiliary loss rather than a
@@ -60,6 +65,7 @@ __all__ = [
     "PointNetPPXYZSchmidt",
     "PointNetPPTrunk",
     "PointTransformer",
+    "RingPointTransformer",
     "STN3d",
     "STNkd",
     "SetAbstraction",

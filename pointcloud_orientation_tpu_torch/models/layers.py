@@ -39,6 +39,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import batch_shard
 from ..ops import cuda_kernels as K
 from ..ops import geometry as G
 
@@ -91,10 +92,14 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torc
 
 def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and the unclamped fast variance ``E[x^2] - E[x]^2`` over every
-    leading axis of ``x``."""
+    leading axis of ``x``; under a data-parallel shard
+    (:mod:`..ops.batch_shard`) over the global batch, ``E[x]`` and
+    ``E[x^2]`` all-reduced in one call."""
     rows = x.reshape(-1, x.shape[-1])
-    mean = rows.mean(dim=0)
-    return mean, (rows * rows).mean(dim=0) - mean * mean
+    mean, msq = rows.mean(dim=0), (rows * rows).mean(dim=0)
+    if batch_shard.current() is not None:
+        mean, msq = batch_shard.global_mean(torch.stack([mean, msq]))
+    return mean, msq - mean * mean
 
 
 def flax_batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
@@ -139,14 +144,16 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as ``flax.linen.Dropout``: keep each entry with
-    probability ``1 - p`` (mask drawn from ``generator``) and scale the kept
-    ones by ``1 / (1 - p)``."""
+    probability ``1 - p`` (mask drawn from ``generator``, at the global
+    batch's shape under a data-parallel shard) and scale the kept ones by
+    ``1 / (1 - p)``."""
     if p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep_prob = 1.0 - p
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = batch_shard.draw(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                            *x.shape) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

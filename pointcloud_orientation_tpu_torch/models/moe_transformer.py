@@ -92,3 +92,38 @@ class MoEPointTransformer(nn.Module):
             aux_total = aux_total + aux.float()
         pooled = h.float().mean(dim=1).to(self.head.weight.dtype)
         return self.head(pooled), aux_total / len(self.layers)
+
+
+def moe_ep_param_specs(params, axis: str = "expert"):
+    """The spec tree of a flax :class:`MoEPointTransformer` tree, a tuple a
+    leaf as ``tuple(PartitionSpec)``: the experts' stacked leaves
+    (``wi``/``bi``/``wo``/``bo`` inside any ``MoEFeedForward_*``) split on
+    their leading axis, ``(axis,)``; the rest ``()``."""
+    from ..parallel.mesh import map_tree
+
+    def spec_for(path, leaf):
+        if path and path[-1] in ("wi", "bi", "wo", "bo") and any(
+                "MoEFeedForward" in k for k in path):
+            return (axis,)
+        return ()
+
+    return map_tree(spec_for, params)
+
+
+def shard_moe_params(params, mesh, axis: str = "expert"):
+    """The flax tree with every leaf split by :func:`moe_ep_param_specs` cut
+    to this rank's block of ``axis`` (numpy; the rest whole)."""
+    import numpy as np
+
+    from ..parallel.mesh import map_tree
+
+    rank, n = mesh.get_local_rank(axis), mesh[axis].size()
+
+    def cut(path, leaf, spec):
+        leaf = np.asarray(leaf)
+        if not spec:
+            return leaf
+        k = leaf.shape[0] // n
+        return leaf[rank * k:(rank + 1) * k]
+
+    return map_tree(cut, params, moe_ep_param_specs(params, axis))

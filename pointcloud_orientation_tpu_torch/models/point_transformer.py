@@ -144,6 +144,7 @@ class PointTransformer(nn.Module):
         self.head = nn.Linear(embed_dim, 3)
         self.remat = remat
         self.compute_dtype = dtype
+        self.attention_impl = attention_impl
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:

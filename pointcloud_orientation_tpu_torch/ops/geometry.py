@@ -333,14 +333,14 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     """Farthest-point sampling ``(B, npoint)`` int32 through the FPS kernel.
     Each cloud starts at index 0, or, with ``generator``, at an index drawn
     uniformly from it (``jax.random.randint`` there; the numbers differ)."""
-    from . import cuda_kernels as K
+    from . import batch_shard, cuda_kernels as K
 
     B, N, _ = xyz.shape
     if generator is None:
         seeds = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
     else:
-        seeds = torch.randint(0, N, (B,), generator=generator, device=xyz.device,
-                              dtype=torch.int32)
+        seeds = batch_shard.draw(lambda shape: torch.randint(
+            0, N, shape, generator=generator, device=xyz.device, dtype=torch.int32), B)
     return K.fps(xyz.contiguous(), seeds, npoint)
 
 
@@ -357,7 +357,10 @@ def random_sample_indices(
     """Per-cloud random choice of ``npoint`` distinct indices out of ``n``:
     one uniform draw, then its top ``npoint``. Same distribution as the JAX
     function; the numbers differ because the generators differ."""
-    u = torch.rand((batch, n), generator=generator, device=device)
+    from . import batch_shard
+
+    u = batch_shard.draw(lambda shape: torch.rand(shape, generator=generator, device=device),
+                         batch, n)
     return topk_of_uniform(u, npoint)
 
 

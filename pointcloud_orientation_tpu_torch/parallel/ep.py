@@ -1,8 +1,7 @@
-"""The mixture-of-experts feed-forward of the MoE point transformer, on one
-device.
+"""The mixture-of-experts feed-forward of the MoE point transformer, and its
+experts sharded over ranks.
 
-Counterpart of the one-device part of
-``pointcloud_orientation_tpu/parallel/ep.py``: :class:`MoEFeedForward`
+Counterpart of ``pointcloud_orientation_tpu/parallel/ep.py``: :class:`MoEFeedForward`
 (top-1 softmax routing, the switch load-balance auxiliary loss) and its two
 dispatches, written as the JAX package writes them:
 
@@ -20,17 +19,27 @@ them; the router is a Dense without bias. The module takes no compute type:
 a bf16 input is promoted against the f32 parameters, as flax's ``Dense``
 and ``jnp.einsum`` promote it, so the FFN computes in f32 on bf16-rounded
 inputs and returns f32. The products are cuBLAS's (``torch.einsum``,
-``torch.bmm``; the JAX package's einsums have no Pallas body). Expert
-sharding over several devices (``make_ep_apply``, ``place_ep_params``,
-``moe_ep_param_specs``, ``shard_moe_params``) is not ported.
+``torch.bmm``; the JAX package's einsums have no Pallas body).
+
+Expert parallelism (:func:`make_ep_apply`, :func:`place_ep_params`): a rank
+of the mesh's ``expert`` axis holds ``K/n`` consecutive experts and the
+whole router; every rank routes the whole token set (the router is small),
+runs only its experts (either dispatch: the capacity slots are laid out on
+the global assignment and cut to the rank's experts), and the partial
+outputs are all-reduced (forward all-reduce, identity backward; the input
+reaches the experts through an identity whose backward all-reduces,
+:mod:`.comm`). The auxiliary loss is the one-device one.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+
+from ..ops.batch_shard import global_mean
 
 DISPATCHES = ("masked", "capacity")
 
@@ -76,7 +85,8 @@ def slot_tokens(assign: torch.Tensor, n_experts: int, capacity: int) -> torch.Te
 
 def expert_compute_capacity(x: torch.Tensor, assign: torch.Tensor, wi: torch.Tensor,
                             bi: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
-                            capacity: int) -> torch.Tensor:
+                            capacity: int, first_expert: int = 0,
+                            n_experts: Optional[int] = None) -> torch.Tensor:
     """Switch-style gather dispatch over ``x (B, N, E)``: each expert's
     ``capacity`` slots (:func:`slot_tokens`) gather their tokens' rows (the
     zero row ``T`` for an empty slot), run the expert's FFN, and their
@@ -88,11 +98,14 @@ def expert_compute_capacity(x: torch.Tensor, assign: torch.Tensor, wi: torch.Ten
     row with atomics: a real row receives one addition, so its value does
     not depend on their order, and the many empty slots' additions go to
     the cut-off row (the sort-based backward of an advanced-index gather
-    serialises that row's duplicates)."""
+    serialises that row's duplicates). ``first_expert``/``n_experts``:
+    ``wi``... hold the experts ``[first_expert, first_expert + K_local)``
+    of ``n_experts``; the slots are laid out on the global assignment, as
+    unsharded, and cut to those experts."""
     B, N, E = x.shape
     K = wi.shape[0]
     T = B * N
-    slots = slot_tokens(assign, K, capacity)
+    slots = slot_tokens(assign, n_experts or K, capacity)[first_expert:first_expert + K]
     x_pad = torch.cat([x.reshape(T, E), x.new_zeros((1, E))], dim=0)
     xg = torch.index_select(x_pad, 0, slots.reshape(-1)).reshape(K, capacity, E)
     h = torch.relu(torch.bmm(xg, wi) + bi[:, None, :])
@@ -144,11 +157,62 @@ class MoEFeedForward(nn.Module):
         assign = torch.argmax(probs, dim=-1)  # the first maximum, as jnp.argmax
         onehot = torch.nn.functional.one_hot(assign, self.n_experts).to(onehot_dtype)
         gate = (probs * onehot).sum(-1)  # (B, N) the chosen expert's probability
-        frac = onehot.to(probs.dtype).mean(dim=(0, 1)).to(onehot_dtype)
-        aux = self.n_experts * (frac * probs.mean(dim=(0, 1))).sum()
+        frac = global_mean(onehot.to(probs.dtype).mean(dim=(0, 1))).to(onehot_dtype)
+        aux = self.n_experts * (frac * global_mean(probs.mean(dim=(0, 1)))).sum()
         if self.dispatch == "capacity":
             cap = expert_capacity(x.shape[0] * x.shape[1], self.n_experts, self.capacity_factor)
             y = expert_compute_capacity(x, assign, self.wi, self.bi, self.wo, self.bo, cap)
         else:
             y = expert_compute(x, onehot, self.wi, self.bi, self.wo, self.bo)
         return y * gate[..., None], aux
+
+
+EXPERT_LEAVES = ("wi", "bi", "wo", "bo")
+
+
+def place_ep_params(params: Dict, mesh, axis_name: str = "expert",
+                    device: str | torch.device = "cpu") -> Dict[str, torch.Tensor]:
+    """A :class:`MoEFeedForward`'s flax tree (``router/kernel`` and the
+    stacked ``wi``/``bi``/``wo``/``bo``) as this rank's tensors on
+    ``device``: the router whole, the experts cut to the rank's
+    consecutive ``K/n`` (every rank holds the same tree)."""
+    rank, n = mesh.get_local_rank(axis_name), mesh[axis_name].size()
+    out = {"router": torch.as_tensor(np.asarray(params["router"]["kernel"])).to(device)}
+    for leaf in EXPERT_LEAVES:
+        full = torch.as_tensor(np.asarray(params[leaf]))
+        if full.shape[0] % n:
+            raise ValueError(f"{full.shape[0]} experts do not split over {n} ranks")
+        k = full.shape[0] // n
+        out[leaf] = full[rank * k:(rank + 1) * k].clone().to(device)
+    return out
+
+
+def make_ep_apply(module: MoEFeedForward, mesh, axis_name: str = "expert"):
+    """``apply(params, x) -> (y, aux)`` with the experts sharded over
+    ``axis_name``: ``params`` from :func:`place_ep_params` (tensors, which
+    may require grad), ``x (B, N, E)`` the same on every rank. Honours
+    ``module.dispatch`` and ``module.capacity_factor``; ``y`` and ``aux``
+    are the one-device module's, on every rank."""
+    from .comm import copy_to_group, reduce_from_group
+
+    group, rank = mesh.get_group(axis_name), mesh.get_local_rank(axis_name)
+    K = module.n_experts
+
+    def apply(params: Dict[str, torch.Tensor], x: torch.Tensor):
+        n_local = params["wi"].shape[0]
+        first = rank * n_local
+        probs = torch.softmax(x @ params["router"], dim=-1)  # (B, N, K), replicated
+        assign = torch.argmax(probs, dim=-1)
+        onehot = torch.nn.functional.one_hot(assign, K).to(x.dtype)
+        gate = (probs * onehot).sum(-1)
+        aux = K * (onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
+        xe = copy_to_group(x, group)
+        w = [params[leaf] for leaf in EXPERT_LEAVES]
+        if module.dispatch == "capacity":
+            cap = expert_capacity(x.shape[0] * x.shape[1], K, module.capacity_factor)
+            y = expert_compute_capacity(xe, assign, *w, cap, first_expert=first, n_experts=K)
+        else:
+            y = expert_compute(xe, onehot[..., first:first + n_local], *w)
+        return reduce_from_group(y, group) * gate[..., None], aux
+
+    return apply

@@ -28,10 +28,14 @@ with ``warmup_epochs`` of linear warmup), ``async_checkpoint``,
 change nothing here, as there; see :class:`.trainer.Trainer`). The MoE point
 transformer (preset ``moe_point_transformer``, task ``forward_mse_aux``)
 takes ``moe_experts``, ``moe_aux_weight``, ``moe_dispatch`` ("masked" or
-"capacity") and ``moe_capacity_factor``. The JAX config's other field,
-``bn_sync_axis``, is accepted by :func:`preset` and
-:meth:`TrainConfig.replace` at its default value only; any other value
-raises ``NotImplementedError``.
+"capacity") and ``moe_capacity_factor``. ``bn_sync_axis`` is the JAX
+config's field; a data-parallel ``Trainer`` already takes BatchNorm's
+statistics over the global batch, and any value but None raises there, as
+the JAX ``Trainer`` fails on it (:class:`.trainer.Trainer`).
+``ring_point_transformer`` is a model name the config takes, as the JAX
+config does, and no ``Trainer`` trains (its forward has no train mode:
+``parallel.make_sp_train_step`` trains it); :func:`preset` raises the JAX
+``KeyError`` for a name that is not a preset.
 """
 
 from __future__ import annotations
@@ -54,14 +58,13 @@ PORTED_TASKS = ("forward_mse", "forward_mse_aux", "axes", "8dir_kl", "8dir_mse",
 PORTED_MODELS = ("pointnet_pp", "pointnet_pp_xyz", "pointnet_pp_xyz_schmidt",
                  "pointnet_pp_8dir", "pointnet_pp_fwd", "pointnet_pp_von_mises",
                  "pointnet_pp_mvm", "pointnet_pp_cls", "point_transformer",
-                 "moe_point_transformer", "simple_pointnet", "pointnet", "pointnet_cls")
+                 "moe_point_transformer", "simple_pointnet", "pointnet", "pointnet_cls",
+                 "ring_point_transformer")
 PORTED_COMPUTE_DTYPES = (None, "float32", "bfloat16")
 
 # Fields of the JAX package's TrainConfig that the port does not carry,
-# with their defaults there.
-UNPORTED_DEFAULTS = {
-    "bn_sync_axis": None,
-}
+# with their defaults there: none since bn_sync_axis.
+UNPORTED_DEFAULTS: dict = {}
 
 
 @dataclasses.dataclass
@@ -116,6 +119,9 @@ class TrainConfig:
     # the JAX package's streaming path (one batch gathered on the host a
     # step); the port's step path already does that, so it changes nothing
     host_resident: bool = False
+    # the JAX config's BatchNorm sync axis; the port's data parallelism is
+    # global-batch already, and a Trainer refuses any value but None
+    bn_sync_axis: Optional[str] = None
 
     def __post_init__(self):
         checks = (
@@ -136,18 +142,7 @@ class TrainConfig:
                     f"{name}={getattr(self, name)!r} is not ported; the port takes {ported}")
 
     def replace(self, **kw) -> "TrainConfig":
-        return dataclasses.replace(self, **_ported_overrides(kw))
-
-
-def _ported_overrides(kw: dict) -> dict:
-    out = {}
-    for name, value in kw.items():
-        if name in UNPORTED_DEFAULTS:
-            if value != UNPORTED_DEFAULTS[name]:
-                raise NotImplementedError(f"{name}={value!r} is not ported")
-            continue
-        out[name] = value
-    return out
+        return dataclasses.replace(self, **kw)
 
 
 PRESETS = {
@@ -214,6 +209,6 @@ PRESETS = {
 
 
 def preset(name: str, **overrides) -> TrainConfig:
-    if name not in PRESETS:
-        raise NotImplementedError(f"preset {name!r} is not ported; the port has {sorted(PRESETS)}")
+    """The preset ``name`` with ``overrides``; ``KeyError``, as the JAX
+    package's, for a name that is not a preset."""
     return PRESETS[name].replace(**overrides)

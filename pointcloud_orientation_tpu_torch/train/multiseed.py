@@ -8,7 +8,8 @@ program. The port runs them on the per-label protocol's lockstep machinery
 own split, shuffles, initialisation and random draws), every member's epoch
 in turn, epoch by epoch. Each seed's result is bit-equal to its sequential
 run and independent of the seeds beside it; S members cost S times the
-launches of one.
+launches of one. With a mesh the seeds go over its first axis, as the
+labels of the per-label protocol (:func:`.ensemble.member_rows`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 
 from ..data.dataset import OrientationDataset
 from ..utils.jax_weights import to_flax_variables
-from .ensemble import run_lockstep
+from .ensemble import member_rows, run_lockstep
+from .protocol_ckpt import gather_members
 from .trainer import Trainer
 
 
@@ -45,9 +47,10 @@ def run_multi_seed(
 ) -> Optional[Dict[int, dict]]:
     """Train ``cfg`` once per seed, the seeds in lockstep, on ``device``
     (``fused_mlp_train`` and ``model_kwargs`` go to each
-    :class:`.trainer.Trainer`; ``mesh`` is not ported,
-    ``NotImplementedError``). The JAX package's ``ValueError``\\ s: duplicate
-    seeds, and a ``per_label`` config.
+    :class:`.trainer.Trainer`; ``mesh``: the seeds over its first axis,
+    their count dividing over it). The JAX package's ``ValueError``\\ s:
+    duplicate seeds, a seed count that does not divide over the mesh, and a
+    ``per_label`` config.
 
     ``return_params=True`` also returns each seed's best-val weights as a
     flax tree (``"params"``/``"batch_stats"``, numpy), ready for
@@ -67,24 +70,24 @@ def run_multi_seed(
     seeds = [int(s) for s in seeds]
     if len(set(seeds)) != len(seeds):
         raise ValueError(f"duplicate seeds: {seeds}")
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported: the port trains on one device")
+    rows, group, writes = member_rows(mesh, len(seeds), "seed")
     if cfg.per_label:
         raise ValueError("multi-seed vmapping composes with single-model "
                          "presets; per-label protocols sweep seeds label-wise")
     t_start = time.time()
     trainers = [Trainer(cfg.replace(seed=s), dataset, device=device,
-                        fused_mlp_train=fused_mlp_train, **model_kwargs) for s in seeds]
-    history = run_lockstep(trainers, seeds, cfg.epochs, cfg.checkpoint_every, log_every, "seeds",
-                           checkpoint_dir, resume_from, preemption_guard)
+                        fused_mlp_train=fused_mlp_train, **model_kwargs) for s in seeds[rows]]
+    history = run_lockstep(trainers, seeds[rows], cfg.epochs, cfg.checkpoint_every, log_every,
+                           "seeds", checkpoint_dir, resume_from, preemption_guard, group, seeds,
+                           rows)
     if history is None:
         return None
-    diverged = [s for s, t in zip(seeds, trainers) if not math.isfinite(t.best_val)]
+    diverged = [s for s, t in zip(seeds[rows], trainers) if not math.isfinite(t.best_val)]
     if diverged:
         print(f"WARNING: seeds {diverged} never produced a finite val loss; testing their "
               "final state", flush=True)
     results = {}
-    for s, t in zip(seeds, trainers):
+    for s, t in zip(seeds[rows], trainers):
         test = t.test()  # the best-val weights; a diverged seed's final ones
         finite = math.isfinite(t.best_val)
         results[s] = {"best_val": float(t.best_val) if finite else None,
@@ -93,8 +96,9 @@ def run_multi_seed(
                       "history": history[s]}
         if return_params:
             results[s].update(to_flax_variables(t.model))
+    results = dict(gather_members(list(results.items()), group))
     wall = time.time() - t_start
-    if out_dir:
+    if out_dir and writes:
         os.makedirs(out_dir, exist_ok=True)
         agg = {}
         for k in ("best_val", "test_loss", "test_angular"):

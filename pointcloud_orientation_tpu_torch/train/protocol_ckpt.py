@@ -16,6 +16,11 @@ and ``history``, one ``{train, val, train_ang, val_ang}`` a key). The JAX
 package's own checkpoints keep their carry in Orbax (``step_<E>/carry``):
 the port does not read them (``NotImplementedError``), as it does not read
 ``from_orbax_checkpoint``'s.
+
+With a mesh the members are split over its first axis
+(:func:`.ensemble.member_rows`): a save gathers every rank's members on the
+axis's first rank, which writes the same layout in key order; a resume reads
+the whole carry and keeps the rank's members.
 """
 
 from __future__ import annotations
@@ -23,24 +28,42 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .trainer import write_torch_file
 
 
+def gather_members(local: List, group) -> List:
+    """Every rank's list of ``group`` concatenated in rank order (``local``
+    itself without a group)."""
+    if group is None:
+        return list(local)
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, list(local), group=group)
+    return [x for part in parts for x in part]
+
+
 def save_protocol_checkpoint(directory: str, epoch: int, carry, history: Dict,
-                             keys: Sequence) -> str:
+                             keys: Sequence, group=None) -> str:
     """Synchronous save of the protocol's state after ``epoch``. ``carry``
     is the member trainers in key order; ``history`` is ``{key: {metric:
     [floats]}}`` with label-string or seed-int keys, ``keys`` their order
-    for the JSON round trip."""
+    for the JSON round trip. With ``group`` (the members split over its
+    ranks) ``carry``, ``history`` and ``keys`` are the rank's; the first
+    rank writes every rank's, in rank order."""
     path = os.path.join(os.path.abspath(directory), f"step_{int(epoch)}")
+    members = gather_members([t.state_payload() for t in carry], group)
+    configs = gather_members([dataclasses.asdict(t.cfg) for t in carry], group)
+    histories = gather_members([history[k] for k in keys], group)
+    keys = gather_members(keys, group)
+    history = dict(zip(keys, histories))
+    if group is not None and dist.get_rank(group) != 0:
+        return path
     os.makedirs(path, exist_ok=True)
-    write_torch_file({"members": [t.state_payload() for t in carry],
-                      "configs": [dataclasses.asdict(t.cfg) for t in carry]},
-                     os.path.join(path, "carry.pt"))
+    write_torch_file({"members": members, "configs": configs}, os.path.join(path, "carry.pt"))
     payload = {"epoch": int(epoch), "keys": [str(k) for k in keys],
                "history": {str(k): history[k] for k in keys}}
     tmp = os.path.join(path, "history.json.tmp")
@@ -61,45 +84,56 @@ def read_protocol_carry(path: str) -> Dict:
     return torch.load(pt, map_location="cpu", weights_only=False)
 
 
-def restore_protocol_checkpoint(path: str, carry_template, keys: Sequence
-                                ) -> Tuple[list, Dict, int]:
+def restore_protocol_checkpoint(path: str, carry_template, keys: Sequence,
+                                rows: Optional[slice] = None) -> Tuple[list, Dict, int]:
     """Restore ``(carry, history, epoch)`` from a protocol checkpoint into
     the freshly built member trainers ``carry_template`` (in place; the
     same list is returned). ``keys`` are the protocol's label or seed keys
-    in construction order, checked against the artifact's."""
+    in construction order, checked against the artifact's; ``rows``: the
+    rank's members among them (all by default)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "history.json")) as f:
         payload = json.load(f)
     if payload["keys"] != [str(k) for k in keys]:
         raise ValueError(f"checkpoint at {path} was written for keys {payload['keys']}, "
                          f"but this protocol runs {[str(k) for k in keys]}")
-    for trainer, state in zip(carry_template, read_protocol_carry(path)["members"]):
+    rows = rows or slice(0, len(keys))
+    keys = list(keys)[rows]
+    for trainer, state in zip(carry_template, read_protocol_carry(path)["members"][rows]):
         trainer.load_payload(state)  # its history too: the same as history.json's
     return carry_template, {k: payload["history"][str(k)] for k in keys}, int(payload["epoch"])
 
 
-def resume_protocol(resume_from: str, carry_template, keys: Sequence) -> Tuple[list, Dict, int]:
-    """The protocols' shared resume: restore the members and the history,
-    and return the epoch to continue from (``saved + 1``). (The JAX
-    package's ``place`` argument re-places the carry on a mesh; the port
-    has none.)"""
-    carry, history, last_epoch = restore_protocol_checkpoint(resume_from, carry_template, keys)
+def resume_protocol(resume_from: str, carry_template, keys: Sequence,
+                    rows: Optional[slice] = None) -> Tuple[list, Dict, int]:
+    """The protocols' shared resume: restore the members (the rank's
+    ``rows`` of ``keys``) and the history, and return the epoch to continue
+    from (``saved + 1``)."""
+    carry, history, last_epoch = restore_protocol_checkpoint(resume_from, carry_template, keys,
+                                                             rows)
     return carry, history, last_epoch + 1
 
 
 def checkpoint_and_maybe_stop(epoch: int, epochs: int, carry, history: Dict, keys: Sequence,
-                              checkpoint_dir, checkpoint_every: int, preemption_guard) -> bool:
+                              checkpoint_dir, checkpoint_every: int, preemption_guard,
+                              group=None) -> bool:
     """The protocols' bookkeeping after each epoch of every member: a
     periodic or preemption save, then the stop decision. Returns True only
     when the run must stop early: a preemption after the final epoch is a
     finished run, which goes on to its test phase and artifacts; the save
     still gives the preemption contract's durable state. (The JAX package
     calls it at the end of each compiled block of epochs; in the port a
-    block is one epoch, so the guard is read after every epoch.)"""
+    block is one epoch, so the guard is read after every epoch.) With
+    ``group`` the guard fires when it fired on any rank."""
     fired = preemption_guard is not None and preemption_guard.requested
+    if group is not None:
+        fired = any(gather_members([fired], group))
     if checkpoint_dir and (fired or (checkpoint_every and epoch % checkpoint_every == 0
                                      and epoch < epochs)):
-        save_protocol_checkpoint(checkpoint_dir, epoch, carry, history, keys)
+        if group is None:
+            save_protocol_checkpoint(checkpoint_dir, epoch, carry, history, keys)
+        else:
+            save_protocol_checkpoint(checkpoint_dir, epoch, carry, history, keys, group)
     if fired and epoch < epochs:
         print(f"[preempt] graceful stop after epoch {epoch}"
               + (f"; checkpoint in {checkpoint_dir}" if checkpoint_dir else ""), flush=True)

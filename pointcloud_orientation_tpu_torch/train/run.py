@@ -56,6 +56,16 @@ program). Both save protocol checkpoints under ``--out/ckpt/step_<E>`` with
 ``--host-resident``, ``--debug-checks`` set the config's fields;
 ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run to
 ``DIR/trace.json``.
+
+``--mesh data:N`` trains data-parallel over N ranks (the ``Trainer``'s
+``mesh``: global-batch BatchNorm, the gradients summed; the protocols put
+their members over the ranks). Under ``torchrun`` the world size must be N;
+launched alone the command starts N local ranks itself, one card a rank on
+``cuda`` (NCCL; N above the card count raises), gloo ranks with ``--device
+cpu``, after building the kernel library once::
+
+    python -m pointcloud_orientation_tpu_torch.train.run --preset 8dir_kl \
+        --mesh data:2 --device cpu --epochs 1 --num-points 256 --batch-size 4
 """
 
 from __future__ import annotations
@@ -184,17 +194,20 @@ def _write_8dir_distribution_summary(trainer: Trainer, out_dir: str, max_count: 
 
 
 def run_single(cfg, dataset: OrientationDataset, out_dir: str, device: str,
-               fused_mlp_train: bool = False, label: Optional[str] = None):
+               fused_mlp_train: bool = False, label: Optional[str] = None, mesh=None):
     """Train under a :class:`.reliability.PreemptionGuard`, test the
     best-val weights and write the artifacts to ``out_dir``:
     ``metrics.json``, ``summary.txt``, ``loss_curve.png``, ``pred_ply/``,
     the 8-direction summary lines and, for ``mvm``, ``results.txt`` and
-    ``figs/pred_density_<i>.png``."""
-    trainer = Trainer(cfg, dataset, device=device, fused_mlp_train=fused_mlp_train)
+    ``figs/pred_density_<i>.png``. With ``mesh`` the trainer is
+    data-parallel and rank 0 alone writes and prints."""
+    trainer = Trainer(cfg, dataset, device=device, fused_mlp_train=fused_mlp_train, mesh=mesh)
     with PreemptionGuard() as guard:
         trainer.fit(checkpoint_dir=os.path.join(out_dir, "ckpt") if cfg.checkpoint_every
-                    else None, preemption_guard=guard)
+                    else None, preemption_guard=guard, log_every=1 if trainer.writes else 0)
     test_acc = trainer.test()
+    if not trainer.writes:
+        return trainer, test_acc
     trainer.write_artifacts(out_dir, test_acc)
     export_test_predictions(trainer, os.path.join(out_dir, "pred_ply"))
     if cfg.task in ("8dir_mse", "8dir_kl"):
@@ -234,7 +247,8 @@ def _completed_best_val(label_dir: str, epochs: int) -> Optional[float]:
 
 
 def run_per_label(cfg, dataset: OrientationDataset, out_dir: str, device: str,
-                  fused_mlp_train: bool = False, resume: bool = False) -> Dict[str, float]:
+                  fused_mlp_train: bool = False, resume: bool = False,
+                  mesh=None) -> Dict[str, float]:
     """One model per category, in the dataset's label order: a fresh
     :class:`Trainer` (seeded from ``cfg.seed``) on
     ``dataset.select_classes([label])`` into ``out_dir/<label>``, and
@@ -242,7 +256,7 @@ def run_per_label(cfg, dataset: OrientationDataset, out_dir: str, device: str,
     label. With ``resume``, a label whose ``metrics.json`` records a
     finished run at this epoch budget is skipped and its best val read
     back. Returns the best val loss by label (the JAX package's
-    ``run_per_label``)."""
+    ``run_per_label``). With ``mesh`` each label trains data-parallel."""
     os.makedirs(out_dir, exist_ok=True)
     summary: Dict[str, float] = {}
     for label in dataset.class_names:
@@ -253,10 +267,51 @@ def run_per_label(cfg, dataset: OrientationDataset, out_dir: str, device: str,
             summary[label] = prior
         else:
             trainer, _ = run_single(sub_cfg, dataset.select_classes([label]), label_dir, device,
-                                    fused_mlp_train, label=label)
+                                    fused_mlp_train, label=label, mesh=mesh)
             summary[label] = trainer.best_val
-        write_summary_txt(os.path.join(out_dir, "summary.txt"), summary)
+        if mesh is None or torch.distributed.get_rank() == 0:
+            write_summary_txt(os.path.join(out_dir, "summary.txt"), summary)
     return summary
+
+
+def parse_mesh(spec: str):
+    """``data:N`` (``N`` may be left out: every rank) as ``(axis, N)``."""
+    axis, _, size = spec.partition(":")
+    if axis != "data":
+        raise SystemExit(f"--mesh {spec!r}: the CLI's mesh is data-parallel ('data:N')")
+    return axis, int(size) if size else None
+
+
+def launch_local_ranks(n: int, device: str, argv) -> int:
+    """Start ``n`` ranks of this command on this machine (torchrun's
+    variables on a free ``localhost`` port), one card a rank on ``cuda``,
+    and wait for them; returns the first nonzero exit code, else 0. On
+    ``cuda`` the kernel library is built once here first, so that the
+    ranks load it instead of each running nvcc. ``SystemExit`` when ``n``
+    exceeds the cards: NCCL puts one rank on a card."""
+    import subprocess
+    import sys
+
+    from ..parallel.mesh import free_port
+
+    if torch.device(device).type == "cuda":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise SystemExit(f"--mesh data:{n} on cuda needs {n} cards, this machine has "
+                             f"{count}: NCCL runs one rank a card (run the ranks on the CPU "
+                             "with --device cpu, gloo)")
+        from ..ops._build import load_library
+
+        load_library()
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(n)}
+    if torch.device(device).type == "cpu":  # the ranks share the cores
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    procs = [subprocess.Popen([sys.executable, "-m", "pointcloud_orientation_tpu_torch.train.run",
+                               *argv], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(n)]
+    codes = [p.wait() for p in procs]
+    return next((c for c in codes if c), 0)
 
 
 def main(argv=None):
@@ -311,10 +366,33 @@ def main(argv=None):
                     help="MoE FFN dispatch (moe_point_transformer): masked dense (the "
                          "default, every expert over every token) or the switch-style "
                          "capacity-factor gather (parallel/ep.py)")
+    ap.add_argument("--mesh", default=None,
+                    help="data:N - data-parallel over N ranks (global-batch BatchNorm, the "
+                         "gradients summed): under torchrun the world must be N; launched "
+                         "alone the command starts N local ranks itself, one card a rank on "
+                         "cuda (NCCL), or gloo ranks with --device cpu")
     ap.add_argument("--knn", default=None, choices=("exact", "approx"),
                     help="neighbour selection: exact (the default) or approx (matmul-form "
                          "distances selected by the topk_min kernel; exact on the card)")
     args = ap.parse_args(argv)
+
+    mesh = None
+    if args.mesh:
+        import sys
+
+        from ..parallel import make_mesh
+
+        axis, n = parse_mesh(args.mesh)
+        launched = os.environ.get("WORLD_SIZE")
+        if launched is None and n is not None and n > 1:
+            raise SystemExit(launch_local_ranks(n, args.device,
+                                                sys.argv[1:] if argv is None else list(argv)))
+        if launched is not None and n is not None and int(launched) != n:
+            raise SystemExit(f"--mesh data:{n} under a launch of {launched} ranks")
+        kind = torch.device(args.device).type
+        mesh = make_mesh((axis,), None if n is None else (n,), device=kind)
+        if kind == "cuda":
+            args.device = f"cuda:{torch.cuda.current_device()}"
 
     if args.knn:
         from ..ops import set_knn_impl
@@ -351,7 +429,7 @@ def main(argv=None):
                          "sequential runs resume from the trainer's own checkpoints "
                          "(Trainer.restore_checkpoint, --checkpoint-every)")
     ckpt_dir = os.path.join(out_dir, "ckpt") if cfg.checkpoint_every else None
-    kw = dict(device=args.device, fused_mlp_train=args.fused_mlp_train)
+    kw = dict(device=args.device, fused_mlp_train=args.fused_mlp_train, mesh=mesh)
     profile = contextlib.nullcontext()
     if args.profile_dir:
         from ..utils.profiling import capture_trace
@@ -377,7 +455,10 @@ def main(argv=None):
             run_per_label(cfg, dataset, out_dir, **kw)
         else:
             run_single(cfg, dataset, out_dir, **kw)
-    print(f"done in {(time.time() - t0) / 60:.1f} min; artifacts in {out_dir}", flush=True)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(f"done in {(time.time() - t0) / 60:.1f} min; artifacts in {out_dir}", flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

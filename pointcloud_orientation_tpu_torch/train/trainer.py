@@ -30,7 +30,19 @@ per-step finite checks and ``debug_log.txt`` (:meth:`Trainer.debug_check`).
 ``host_resident`` changes nothing: this step path already gathers one batch
 a step on the host, which is what the flag selects in the JAX package.
 Not ported (ROADMAP.md): the whole-epoch scan and block paths (the JAX
-package's answer to dispatch cost) and meshes.
+package's answer to dispatch cost).
+
+Data parallelism (``mesh=``, a :func:`..parallel.make_mesh` mesh with a
+``data`` axis) is the JAX trainer's global-batch arithmetic, written out:
+every rank gathers and augments the whole batch from the same generator
+and keeps its rows; inside the model the batch-shaped draws (centroids,
+FPS starts, dropout masks) are made at the global shape and BatchNorm's
+moments are all-reduced, differentiably (:mod:`..ops.batch_shard`); the
+loss's valid count is the global one and the gradients are summed over
+the ranks; per-sample results are gathered, so metrics and history are
+the global batch's on every rank; rank 0 alone writes checkpoints and
+artifacts. A DP epoch so equals the one-device epoch up to the order of
+float sums (bit for bit at world size 1).
 
 Example
 -------
@@ -62,8 +74,11 @@ import torch
 from ..data import OrientationDataset, augment_batch
 from ..models import MODEL_REGISTRY
 from ..models.layers import lecun_normal_
+from ..ops.batch_shard import batch_shard
 from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
+from ..parallel.comm import all_gather_cat, all_reduce_grads
 from ..parallel.ep import MoEFeedForward
+from ..parallel.mesh import batch_sharding, replicate
 from .config import TrainConfig
 from .metrics import MetricsAccumulator, plot_loss_curves, write_summary_txt
 from .tasks import TASKS
@@ -219,13 +234,36 @@ class Trainer:
     state stay f32);
     ``model_kwargs`` go to the model after the config's own
     (:func:`config_model_kwargs`; tests pass ``sampling="first",
-    p_drop=0.0``)."""
+    p_drop=0.0``). ``mesh``: data parallelism over its ``data`` axis
+    (module docstring); the batch size must divide over it. Raises
+    ``ValueError`` for a ``bn_sync_axis`` (the JAX ``Trainer`` fails on
+    it: a ``NameError`` for the unbound axis, with a mesh or without),
+    ``TypeError`` for ``ring_point_transformer`` (its forward takes no
+    train mode, as the JAX model's ``__call__`` takes no ``train``), and
+    ``NotImplementedError`` for the MoE capacity dispatch over more than
+    one rank (its slots would be the rank's, not the global batch's)."""
 
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
-                 **model_kwargs: Any):
+                 mesh=None, **model_kwargs: Any):
+        if config.bn_sync_axis is not None:
+            raise ValueError(
+                f"bn_sync_axis={config.bn_sync_axis!r}: a data-parallel Trainer already takes "
+                "BatchNorm's statistics over the global batch (the JAX Trainer's default under "
+                "a mesh); leave it None")
+        if config.model == "ring_point_transformer":
+            raise TypeError("ring_point_transformer has no train mode for the Trainer; "
+                            "train it with parallel.make_sp_train_step")
         self.cfg = config
         self.device = torch.device(device)
+        self.sharding = None if mesh is None else batch_sharding(mesh, "data")
+        self.writes = mesh is None or torch.distributed.get_rank() == 0
+        if self.sharding is not None:
+            if config.batch_size % self.sharding.world:
+                raise ValueError(f"batch_size={config.batch_size} does not shard evenly over "
+                                 f"the data axis of size {self.sharding.world}")
+            if config.moe_dispatch == "capacity" and self.sharding.world > 1:
+                raise NotImplementedError("the MoE capacity dispatch over more than one rank")
         self.dataset = dataset
         if config.classes is not None:
             wanted = [c for c in config.classes if c in dataset.class_names]
@@ -248,6 +286,8 @@ class Trainer:
         if hasattr(self.model, "reset_head_parameters"):  # the MvM heads' zero inits
             self.model.reset_head_parameters()
         self.model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         steps_per_epoch = max(1, -(-len(self.train_ds) // config.batch_size))
         self.lr_schedule = lr_schedule_for(config, steps_per_epoch)
         lr = config.lr if self.lr_schedule is None else self.lr_schedule(0)
@@ -298,29 +338,58 @@ class Trainer:
 
     # ---------- steps ----------
 
+    def _rows(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor):
+        """The rank's rows of a global batch (all of them on one device)."""
+        if self.sharding is None:
+            return batch, valid
+        rows = self.sharding.rows(valid.shape[0])
+        return {k: v[rows] for k, v in batch.items()}, valid[rows]
+
+    def _forward(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        with batch_shard(self.sharding):
+            return self.model(batch["points"], generator)
+
     def _metrics(self, outputs, batch, per, valid) -> Dict[str, Any]:
-        scalar = (per * valid).sum() / valid.sum().clamp_min(1.0)
+        """The step's results on the global batch. ``loss`` is the masked
+        mean, which on a rank is its rows' share: their sum over the global
+        valid count (summed over the ranks, the global loss, whose value is
+        returned); per-sample losses and angular errors gathered."""
+        count = valid.sum()
+        if self.sharding is not None:
+            torch.distributed.all_reduce(count, group=self.sharding.group)
+        scalar = (per * valid).sum() / count.clamp_min(1.0)
         if self.adapter.angular_error is None:  # classification: no angular error
             ang = torch.full_like(per, math.nan)
         else:
             ang = self.adapter.angular_error(outputs, batch, self.cfg)
         metrics = {"loss": scalar, "per_sample": per, "angular": ang}
+        if self.sharding is not None:
+            group = self.sharding.group
+            metrics["local_loss"] = scalar
+            metrics["loss"] = scalar.detach().clone()
+            torch.distributed.all_reduce(metrics["loss"], group=group)
+            metrics["per_sample"] = all_gather_cat(per.detach(), group)
+            metrics["angular"] = all_gather_cat(ang.detach(), group)
         if self.cfg.debug_checks:  # the raw outputs, for debug_check's dump
             metrics["outputs"] = tuple(o.detach() for o in _outputs_tuple(outputs))
         return metrics
 
     def train_step(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor,
                    generator: Optional[torch.Generator]) -> Dict[str, Any]:
-        """One optimizer step on a batch; ``generator`` feeds the centroid
-        sampling and dropout. Returns detached loss, per-sample losses and
+        """One optimizer step on a (global) batch, of which a data-parallel
+        rank runs its rows; ``generator`` feeds the centroid sampling and
+        dropout. Returns detached loss, per-sample losses and
         angular errors; with ``debug_checks`` also the outputs and, per
         parameter, whether its gradient is finite (before clipping)."""
         self.model.train()
-        outputs = self.model(batch["points"], generator)
+        batch, valid = self._rows(batch, valid)
+        outputs = self._forward(batch, generator)
         per = self.adapter.loss(outputs, batch, self.cfg)
         metrics = self._metrics(outputs, batch, per, valid)
         self.optimizer.zero_grad(set_to_none=True)
-        metrics["loss"].backward()
+        metrics.pop("local_loss", metrics["loss"]).backward()
+        if self.sharding is not None:
+            all_reduce_grads(self.model.parameters(), self.sharding.group)
         if self.cfg.debug_checks:
             named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
             finite = torch.stack([torch.isfinite(g).all() for _, g in named])
@@ -338,8 +407,11 @@ class Trainer:
     def eval_step(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor,
                   generator: Optional[torch.Generator]) -> Dict[str, Any]:
         self.model.eval()
-        outputs = self.model(batch["points"], generator)
-        return self._metrics(outputs, batch, self.adapter.loss(outputs, batch, self.cfg), valid)
+        batch, valid = self._rows(batch, valid)
+        outputs = self._forward(batch, generator)
+        metrics = self._metrics(outputs, batch, self.adapter.loss(outputs, batch, self.cfg), valid)
+        metrics.pop("local_loss", None)
+        return metrics
 
     def debug_check(self, metrics: Dict[str, Any], epoch: int, batch_idx: int) -> None:
         """The JAX package's per-step finite checks (``Trainer._debug_check``),
@@ -368,19 +440,20 @@ class Trainer:
                     out_lines.append(
                         f"  {name}={np.array2string(arr, precision=4, max_line_width=200)}")
         grad_finite = {n: bool(v) for n, v in metrics.get("grad_finite", {}).items()}
-        try:
-            os.makedirs(self.cfg.out_dir, exist_ok=True)
-            with open(os.path.join(self.cfg.out_dir, "debug_log.txt"), "a") as f:
-                f.write(f"epoch={epoch} batch={batch_idx} loss={loss:.6f} "
-                        f"per_sample={np.array2string(per, precision=4, max_line_width=200)}\n")
-                for line in out_lines:
-                    f.write(line + "\n")
-                if "grad_finite" in metrics:
-                    bad = [n for n, ok in grad_finite.items() if not ok]
-                    f.write(f"  grads: {len(grad_finite)} params, "
-                            f"non-finite: {bad if bad else 'none'}\n")
-        except OSError:
-            pass
+        if self.writes:  # the log is rank 0's; every rank checks
+            try:
+                os.makedirs(self.cfg.out_dir, exist_ok=True)
+                with open(os.path.join(self.cfg.out_dir, "debug_log.txt"), "a") as f:
+                    f.write(f"epoch={epoch} batch={batch_idx} loss={loss:.6f} "
+                            f"per_sample={np.array2string(per, precision=4, max_line_width=200)}\n")
+                    for line in out_lines:
+                        f.write(line + "\n")
+                    if "grad_finite" in metrics:
+                        bad = [n for n, ok in grad_finite.items() if not ok]
+                        f.write(f"  grads: {len(grad_finite)} params, "
+                                f"non-finite: {bad if bad else 'none'}\n")
+            except OSError:
+                pass
         if not np.isfinite(loss):
             raise FloatingPointError(f"non-finite loss {where}: loss={loss}, per-sample={per}")
         for name, ok in grad_finite.items():
@@ -510,7 +583,9 @@ class Trainer:
         """``metrics.json`` (config, history, best val, timings, test),
         ``loss_curve.png`` (where matplotlib imports; else one printed line
         says it was not written) and ``summary.txt`` (per-class loss, then
-        Overall)."""
+        Overall). Only rank 0 of a data-parallel run writes."""
+        if not self.writes:
+            return
         os.makedirs(out_dir, exist_ok=True)
         payload = {
             "config": dataclasses.asdict(self.cfg),
@@ -575,9 +650,12 @@ class Trainer:
         and the file write to a background thread, one write at a time in
         order, and returns at once. The file holds the same bytes either
         way. :meth:`wait_for_checkpoints` (``fit`` calls it) waits for the
-        writes and raises a failed one's error."""
-        os.makedirs(directory, exist_ok=True)
+        writes and raises a failed one's error. Only rank 0 of a
+        data-parallel run writes (the others return the path)."""
         path = os.path.join(directory, f"epoch_{self.epoch}.pt")
+        if not self.writes:
+            return path
+        os.makedirs(directory, exist_ok=True)
         payload = self.state_payload()
         if not asynchronous:
             write_torch_file(payload, path)

@@ -12,7 +12,9 @@ arrays (or anything ``np.asarray`` takes) under flax's names. A flax Dense
 ``kernel`` is ``(Cin, Cout)``, the transpose of ``nn.Linear.weight``; the
 attention's ``query``/``key``/``value`` kernels are ``(E, H, D)`` with
 biases ``(H, D)`` and its ``out`` kernel ``(H, D, E)``, the same numbers as
-the Linear's flattened. BatchNorm has ``scale``/``bias`` params and
+the Linear's flattened (the sequence-parallel ``RingPointTransformer``'s
+``qkv`` kernel is ``(E, 3, H, D)``, bias ``(3, H, D)``). BatchNorm has
+``scale``/``bias`` params and
 ``mean``/``var`` statistics, LayerNorm (the MvM trunk's funnel, the
 transformer) ``scale``/``bias`` params only; the transformers have no
 ``batch_stats``. The MoE layer's ``MoEFeedForward_0`` holds a ``router``
@@ -23,7 +25,7 @@ as they are.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +42,7 @@ from ..models.pointnet_pp import (
     mu_bias_init,
 )
 from ..models.simple_pointnet import SimplePointNet
+from ..parallel.sp_transformer import RingPointTransformer
 
 # MLP widths of each set abstraction (the grouped input width is 3 plus the
 # previous stage's output, or plus the cloud's features for the first)
@@ -51,7 +54,7 @@ _TRUNK = ("PointNetPPTrunk_0",)
 _SCOPE = {"pointnet_pp_8dir": _TRUNK, "pointnet_pp_fwd": _TRUNK,
           "pointnet_pp_von_mises": _TRUNK, "pointnet_pp_mvm": _TRUNK, "pointnet_pp_cls": (),
           "pointnet_pp": _TRUNK, "pointnet_pp_xyz": _TRUNK, "pointnet_pp_xyz_schmidt": _TRUNK,
-          "point_transformer": (), "moe_point_transformer": ()}
+          "point_transformer": (), "moe_point_transformer": (), "ring_point_transformer": ()}
 # the PointNet backbones: their flax trees are read off the port's module
 # (:func:`_pointnet_pairs`), not written out here
 POINTNET_MODELS = {"simple_pointnet": SimplePointNet, "pointnet": PointNet,
@@ -77,6 +80,23 @@ def _transformer_pairs(model: PointTransformer) -> Iterator[Tuple]:
     for i, layer in enumerate(model.layers):
         scope = (f"TransformerEncoderLayer_{i}",)
         yield from _attention_pairs(scope, layer.attn)
+        yield scope + ("Dense_0",), layer.ffn1, scope + ("LayerNorm_0",), layer.ln1, None
+        yield scope + ("Dense_1",), layer.ffn2, scope + ("LayerNorm_1",), layer.ln2, None
+    yield ("Dense_1",), model.head, None, None, None
+
+
+def _ring_pairs(model: RingPointTransformer) -> Iterator[Tuple]:
+    """The sequence-parallel transformer's Dense layers: ``layer_i`` holds
+    ``RingSelfAttention_0`` (``qkv`` to ``(3, H, D)``, ``out``), then
+    ``Dense_0``/``Dense_1`` paired with ``LayerNorm_0``/``LayerNorm_1``."""
+    yield ("Dense_0",), model.embed, None, None, None
+    for i, layer in enumerate(model.layers):
+        scope = (f"layer_{i}",)
+        attn = layer.attn
+        width, heads = attn.out.in_features, attn.num_heads
+        yield (scope + ("RingSelfAttention_0", "qkv"), attn.qkv, None, None,
+               ((width, 3, heads, width // heads), (3, heads, width // heads)))
+        yield scope + ("RingSelfAttention_0", "out"), attn.out, None, None, None
         yield scope + ("Dense_0",), layer.ffn1, scope + ("LayerNorm_0",), layer.ln1, None
         yield scope + ("Dense_1",), layer.ffn2, scope + ("LayerNorm_1",), layer.ln2, None
     yield ("Dense_1",), model.head, None, None, None
@@ -151,6 +171,9 @@ def _pairs(model: nn.Module) -> Iterator[Tuple]:
         return
     if isinstance(model, MoEPointTransformer):
         yield from _moe_pairs(model)
+        return
+    if isinstance(model, RingPointTransformer):
+        yield from _ring_pairs(model)
         return
     if isinstance(model, (SimplePointNet, _PointNetHead)):
         yield from _pointnet_pairs(model)
@@ -300,6 +323,59 @@ def to_flax_variables(model: nn.Module, grads: bool = False) -> Dict:
     return {"params": params} if grads else {"params": params, "batch_stats": stats}
 
 
+def flax_parameter_paths(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...],
+                                                                 str]]:
+    """Each parameter of ``model`` by its name: ``(flax path, flax shape,
+    kind)``, the path ending in the leaf's name (``kernel``, ``bias``,
+    ``scale``, ``wi``...), ``kind`` ``"kernel"`` for an ``nn.Linear``
+    weight (the flax kernel transposed, then reshaped) and ``"plain"`` for
+    the rest (reshaped only). :func:`to_flax_layout` and
+    :func:`from_flax_layout` turn a tensor between the two layouts."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out: Dict = {}
+    for lin_path, lin, norm_path, norm, shapes in _pairs(model):
+        kernel, bias = shapes or ((lin.in_features, lin.out_features), (lin.out_features,))
+        out[names[id(lin.weight)]] = (lin_path + ("kernel",), tuple(kernel), "kernel")
+        if lin.bias is not None:
+            out[names[id(lin.bias)]] = (lin_path + ("bias",), tuple(bias), "plain")
+        if norm is not None:
+            for leaf, p in (("scale", norm.weight), ("bias", norm.bias)):
+                out[names[id(p)]] = (norm_path + (leaf,), tuple(p.shape), "plain")
+    for path, leaves in _expert_leaves(model):
+        for leaf, p in leaves.items():
+            out[names[id(p)]] = (path + (leaf,), tuple(p.shape), "plain")
+    return out
+
+
+def to_flax_layout(t: torch.Tensor, shape: Tuple[int, ...], kind: str) -> torch.Tensor:
+    """A parameter tensor in its flax leaf's layout (:func:`flax_parameter_paths`)."""
+    return (t.t() if kind == "kernel" else t).reshape(shape)
+
+
+def from_flax_layout(t: torch.Tensor, torch_shape: Tuple[int, ...], kind: str) -> torch.Tensor:
+    """The inverse of :func:`to_flax_layout` for a parameter of ``torch_shape``."""
+    if kind == "kernel":
+        return t.reshape(torch_shape[1], torch_shape[0]).t()
+    return t.reshape(torch_shape)
+
+
+def ring_kwargs(params: Dict) -> Dict[str, int]:
+    """``RingPointTransformer`` constructor arguments read from a flax
+    ``params`` tree: ``in_dim`` and ``embed_dim`` from the embedding,
+    ``depth`` from the ``layer_i`` count, ``num_heads`` from the first
+    ``qkv`` kernel ``(E, 3, H, D)``, ``ffn_dim`` from its ``Dense_0``."""
+    embed = np.shape(_get(params, ("Dense_0",), "params")["kernel"])
+    depth = 0
+    while f"layer_{depth}" in params:
+        depth += 1
+    if depth == 0:
+        raise KeyError("params has no layer_0")
+    qkv = np.shape(_get(params, ("layer_0", "RingSelfAttention_0", "qkv"), "params")["kernel"])
+    ffn = np.shape(_get(params, ("layer_0", "Dense_0"), "params")["kernel"])
+    return {"in_dim": int(embed[0]), "embed_dim": int(embed[1]), "depth": depth,
+            "num_heads": int(qkv[2]), "ffn_dim": int(ffn[1])}
+
+
 def kernel_parameters(model: nn.Module) -> Dict[str, Tuple[str, int]]:
     """Each Dense kernel of ``model``'s flax tree by its ``/``-joined path
     (``.../Dense_0/kernel``, the key of :mod:`.quantize`'s scales): the name
@@ -368,6 +444,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
         return pointnet_kwargs(model, params)
     if model in ("point_transformer", "moe_point_transformer"):
         return transformer_kwargs(params, moe=model == "moe_point_transformer")
+    if model == "ring_point_transformer":
+        return ring_kwargs(params)
     if model == "pointnet_pp_von_mises":
         width = np.shape(_get(params, ("Dense_0",), "params")["kernel"])[1]
         return {"mu_parameterization": "atan2" if width == 3 else "tanh"}
@@ -379,8 +457,8 @@ def model_kwargs(model: str, params: Dict) -> Dict:
 def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channels: int = 3,
                           num_classes: int = 40, mu_parameterization: str = "tanh",
                           max_K: int = 4, mu_init: str = "zero", embed_dim: int = 64,
-                          num_heads: int = 4, depth: int = 6, ffn_dim: int = 2048,
-                          n_experts: int = 4) -> Dict:
+                          num_heads: int = 4, depth: Optional[int] = None,
+                          ffn_dim: Optional[int] = None, n_experts: int = 4) -> Dict:
     """A variable tree of the JAX package's ``model`` in its layout, made
     with numpy from ``seed``: LeCun-normal kernels, small random biases,
     BatchNorm with random scale, shift, mean and variance (var in [0.5,
@@ -394,11 +472,18 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
     ``num_heads``, ``depth`` and ``ffn_dim``, with no ``batch_stats``, and
     ``moe_point_transformer`` the same and ``n_experts`` (random expert
     biases, so that an empty capacity slot's bias output would show);
+    ``ring_point_transformer`` ``in_channels``, ``embed_dim``,
+    ``num_heads``, ``depth`` and ``ffn_dim`` (each model's own defaults
+    where None: depth 6 and ffn_dim 2,048 for the transformers, 2 and 256
+    for the ring model);
     ``simple_pointnet`` and ``pointnet`` ``in_channels``; ``pointnet_cls``
     ``in_channels`` and ``num_classes``."""
     if model not in _SCOPE and model not in POINTNET_MODELS:
         raise NotImplementedError(
             f"model {model!r}: the port has {sorted([*_SCOPE, *POINTNET_MODELS])}")
+    ring = model == "ring_point_transformer"
+    depth = (2 if ring else 6) if depth is None else depth
+    ffn_dim = (256 if ring else 2048) if ffn_dim is None else ffn_dim
     rng = np.random.default_rng(seed)
     params: Dict = {}
     stats: Dict = {}
@@ -428,6 +513,17 @@ def random_flax_variables(seed: int, model: str = "pointnet_pp_8dir", in_channel
             dense(lin_path, lin.in_features, lin.out_features)
             if bn is not None:
                 norm(bn_path, bn.num_features)
+        return {"params": params, "batch_stats": stats}
+    if ring:
+        template = RingPointTransformer(in_channels, embed_dim, num_heads, depth, ffn_dim)
+        for lin_path, lin, ln_path, ln, shapes in _pairs(template):
+            dense(lin_path, lin.in_features, lin.out_features)
+            if shapes is not None:
+                p = _get(params, lin_path, "params")
+                p["kernel"] = p["kernel"].reshape(shapes[0])
+                p["bias"] = p["bias"].reshape(shapes[1])
+            if ln is not None:
+                norm(ln_path, ln.normalized_shape[0], running_stats=False)
         return {"params": params, "batch_stats": stats}
     top = _SCOPE[model]
     if model in ("point_transformer", "moe_point_transformer"):

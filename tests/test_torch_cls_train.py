@@ -411,8 +411,12 @@ def test_classifier_config_builds_an_f32_model_whatever_the_compute_dtype():
     # the JAX config takes any model name; the MoE transformer is the port's too
     assert (TrainConfig(task="classification", model="moe_point_transformer").model
             == jax_config.TrainConfig(task="classification", model="moe_point_transformer").model)
-    with pytest.raises(NotImplementedError):
-        TrainConfig(task="classification", model="ring_point_transformer")
+    # the ring transformer is a model name of both configs; no Trainer trains it
+    ring = TrainConfig(task="classification", model="ring_point_transformer")
+    assert ring.model == jax_config.TrainConfig(task="classification",
+                                                model="ring_point_transformer").model
+    with pytest.raises(TypeError, match="make_sp_train_step"):
+        Trainer(ring, _tiny_dataset(), device="cpu")
 
 
 def _sweep(seeds=range(12)):

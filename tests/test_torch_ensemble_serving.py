@@ -150,7 +150,8 @@ def test_members_share_the_sampling_draws():
 def test_ensembles_refuse_as_the_jax_predictor_does(model, kwargs):
     """A head with no combine, int8 weights and a count below 1 raise
     ``ValueError`` in both predictors; the port also refuses weights without
-    the leading member axis, and a mesh (not ported)."""
+    the leading member axis; an ensemble with a mesh raises the JAX
+    ``ValueError`` in both."""
     v = random_flax_variables(0, model)
     stacked = jax.tree_util.tree_map(lambda a: np.stack([a, a]), v)
     kw = {"ensemble_size": 2, **kwargs}
@@ -162,9 +163,15 @@ def test_ensembles_refuse_as_the_jax_predictor_does(model, kwargs):
                              device="cpu")
     with pytest.raises(ValueError, match="at least one"):
         OrientationPredictor.from_seed_sweep("pointnet_pp_8dir", [])
-    with pytest.raises(NotImplementedError):
+    from pointcloud_orientation_tpu.parallel import make_mesh as jax_make_mesh
+
+    with pytest.raises(ValueError, match="with a mesh") as want:
+        JaxPredictor.from_seed_sweep("pointnet_pp_8dir", [v, v],
+                                     mesh=jax_make_mesh(("data",), (2,), jax.devices()[:2]))
+    with pytest.raises(ValueError, match="with a mesh") as got:
         OrientationPredictor.from_seed_sweep("pointnet_pp_8dir", [v, v], mesh=object(),
                                              device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 class _Fire:

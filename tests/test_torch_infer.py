@@ -71,14 +71,15 @@ def test_forward_vectors_are_unit_and_follow_the_logits(predictors, rng):
     ({"tta_views": 0}, ValueError),
     ({"model_name": "pointnet_pp_cls", "ensemble_size": 2}, ValueError),
     ({"quantize": "int4"}, ValueError),
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object(), "tta_views": 2}, ValueError),
 ], ids=["other-model", "tta", "tta-head", "tta-zero", "ensemble", "int8", "mesh"])
 def test_predictor_refuses_what_is_not_ported(kwargs, error):
-    """What the port still refuses (meshes: ``NotImplementedError``) and
-    the JAX predictor's own ``ValueError``s: a model that returns ``(out,
+    """The JAX predictor's own ``ValueError``s: a model that returns ``(out,
     aux)`` (the MoE transformer), an 8-dir TTA view count outside (2, 4,
     8), TTA on a head that is not yaw-equivariant, no views, an ensemble
-    of a head with no combine, an unknown quantization mode."""
+    of a head with no combine, an unknown quantization mode, TTA with a
+    mesh (raised before the mesh is read; sharded serving itself is held
+    in ``tests/test_torch_parallel_dp.py``)."""
     v = random_flax_variables(0)
     args = dict(model_name="pointnet_pp_8dir", params=v["params"],
                 batch_stats=v["batch_stats"], device="cpu")

@@ -26,6 +26,7 @@ from pointcloud_orientation_tpu_torch.models import (
     PointTransformer,
     SharedMLP,
 )
+from pointcloud_orientation_tpu_torch.parallel.sp_transformer import RingPointTransformer
 from pointcloud_orientation_tpu_torch.utils import load_flax_variables, random_flax_variables
 
 
@@ -142,7 +143,8 @@ def test_registry_holds_the_ported_model():
                               "moe_point_transformer": MoEPointTransformer,
                               "simple_pointnet": SimplePointNet,
                               "pointnet": PointNet,
-                              "pointnet_cls": PointNetCls}
+                              "pointnet_cls": PointNetCls,
+                              "ring_point_transformer": RingPointTransformer}
 
 
 def test_random_sampling_uses_the_generator(rng):

@@ -73,8 +73,18 @@ def test_random_flax_variables_match_the_classifier_tree(channels, num_classes):
     assert (jax.tree_util.tree_map(np.shape, random_flax_variables(0, "moe_point_transformer"))
             == {"params": jax.tree_util.tree_map(lambda x: x.shape, moe["params"]),
                 "batch_stats": {}})
+    # the ring transformer's tree is made too, at its own defaults; a model the port
+    # does not have still raises
+    from pointcloud_orientation_tpu.parallel.sp_transformer import (
+        RingPointTransformer as JaxRing)
+
+    ring = jax.eval_shape(lambda: JaxRing(axis_name=None).init(jax.random.PRNGKey(0),
+                                                               jnp.zeros((1, 8, 3))))
+    assert (jax.tree_util.tree_map(np.shape, random_flax_variables(0, "ring_point_transformer"))
+            == {"params": jax.tree_util.tree_map(lambda x: x.shape, ring["params"]),
+                "batch_stats": {}})
     with pytest.raises(NotImplementedError):
-        random_flax_variables(0, "ring_point_transformer")
+        random_flax_variables(0, "no_such_model")
 
 
 def test_classifier_refuses_train_mode_wrong_widths_and_trees():

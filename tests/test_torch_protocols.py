@@ -235,9 +235,25 @@ def test_protocol_errors_match_the_jax_ones():
     with pytest.raises(ValueError):
         run_multi_seed(preset("axes_all_labels", num_points=N, batch_size=4), ds, seeds=[1],
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_multi_seed(cfg, ds, seeds=[1], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_per_label_vmapped(cfg, ds, mesh=object(), device="cpu")
+    # a member count that does not divide over the mesh's first axis: the JAX message
+    # (the stand-in has a two-rank axis; the check runs before any collective)
+    with pytest.raises(ValueError, match="seed count 1 must divide over mesh axis 'data' of "
+                                         "size 2"):
+        run_multi_seed(cfg, ds, seeds=[1], mesh=_TwoRankMesh(), device="cpu")
+    with pytest.raises(ValueError, match="label count 1 must divide over mesh axis 'data' of "
+                                         "size 2"):
+        run_per_label_vmapped(cfg, ds, labels=["chair"], mesh=_TwoRankMesh(), device="cpu")
+
+
+class _TwoRankMesh:
+    """The ``DeviceMesh`` surface ``member_rows`` reads, for an axis of two."""
+
+    mesh_dim_names = ("data",)
+
+    def __getitem__(self, name):
+        return self
+
+    def size(self):
+        return 2
 
 

@@ -177,12 +177,20 @@ def test_predictor_from_a_pth_reproduces_the_trained_weights_bit_for_bit(tmp_pat
         for a, b in zip(other.state_dict().values(), module.state_dict().values()):
             if a.is_floating_point():
                 assert torch.equal(a, b)
-    # a mesh is not ported; one checkpoint's weights have no member axis to ensemble
-    for kw, error in (({"mesh": object()}, NotImplementedError),
-                      ({"ensemble_size": 2}, ValueError)):
-        with pytest.raises(error):
-            OrientationPredictor.from_torch_checkpoint(path, "point_transformer", device="cpu",
-                                                       **kw)
+    # served from the .pth over a one-rank mesh (gloo) it is the meshless request; one
+    # checkpoint's weights have no member axis to ensemble
+    from pointcloud_orientation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("data",), device="cpu")
+    try:
+        meshed = OrientationPredictor.from_torch_checkpoint(path, "point_transformer", num_points=N,
+                                                            device="cpu", mesh=mesh)(clouds)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(meshed, got)
+    with pytest.raises(ValueError):
+        OrientationPredictor.from_torch_checkpoint(path, "point_transformer", device="cpu",
+                                                   ensemble_size=2)
 
 
 @pytest.fixture(scope="module")

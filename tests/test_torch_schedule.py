@@ -184,7 +184,9 @@ def test_unknown_optimizer_schedule_and_too_long_warmup_raise_as_in_jax():
 def test_ported_fields_are_accepted_and_the_rest_still_refused():
     """The lifted fields take their JAX values (``keep_best`` and
     ``host_resident`` change nothing), the MoE fields among them, with the
-    JAX config's defaults; ``bn_sync_axis`` stays refused."""
+    JAX config's defaults; ``bn_sync_axis`` is a field of both configs and
+    the port's Trainer refuses any value (its DP is global-batch already;
+    the JAX Trainer fails on it)."""
     cfg = preset("8dir_kl", optimizer="sgd", lr_schedule="cosine", warmup_epochs=2,
                  async_checkpoint=True, host_resident=True, keep_best=False)
     assert (cfg.optimizer, cfg.lr_schedule, cfg.warmup_epochs, cfg.async_checkpoint,
@@ -195,8 +197,10 @@ def test_ported_fields_are_accepted_and_the_rest_still_refused():
     assert {k: getattr(cfg, k) for k in moe} == {k: getattr(jcfg, k) for k in moe} == moe
     assert ({k: getattr(preset("8dir_kl"), k) for k in moe}
             == {k: getattr(jax_preset("8dir_kl"), k) for k in moe})
-    with pytest.raises(NotImplementedError):
-        preset("8dir_kl", bn_sync_axis="data")
+    cfg = preset("8dir_kl", bn_sync_axis="data")
+    assert cfg.bn_sync_axis == jax_preset("8dir_kl").replace(bn_sync_axis="data").bn_sync_axis
+    with pytest.raises(ValueError, match="global batch"):
+        Trainer(cfg, _dataset(), device="cpu")
     host = Trainer(preset("simple_pointnet", num_points=N, batch_size=B, epochs=1,
                           host_resident=True, keep_best=False), _dataset(), device="cpu")
     plain = Trainer(preset("simple_pointnet", num_points=N, batch_size=B, epochs=1), _dataset(),

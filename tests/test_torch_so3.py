@@ -573,8 +573,11 @@ def test_forward_mse_trains_on_the_cpu_and_the_unported_still_raises():
         TrainConfig(rotation_mode="so2")
     assert TrainConfig(model="moe_point_transformer").model == jax_config.TrainConfig(
         model="moe_point_transformer").model
-    with pytest.raises(NotImplementedError):
-        preset("pointnet_pp_forward", bn_sync_axis="data")
+    sync = preset("pointnet_pp_forward", bn_sync_axis="data")  # the JAX field, refused in use
+    assert sync.bn_sync_axis == "data"
+    with pytest.raises(ValueError, match="global batch"):
+        Trainer(sync, OrientationDataset.synthetic(samples_per_class=1, num_points=N),
+                device="cpu")
     stored = OrientationDataset.synthetic(samples_per_class=1, num_points=N)
     stored.targets = {"axes": np.zeros((len(stored), 3, 3), np.float32)}
     t = Trainer(cfg.replace(rotation_mode="none"), stored, device="cpu")

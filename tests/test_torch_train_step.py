@@ -395,8 +395,11 @@ def test_config_takes_the_ported_presets_and_refuses_the_rest():
     moe = preset("moe_point_transformer")  # ported last, with its task
     assert (moe.task, moe.model, moe.num_points) == ("forward_mse_aux", "moe_point_transformer",
                                                     1024)
-    with pytest.raises(NotImplementedError):
-        preset("ring_point_transformer")
+    from pointcloud_orientation_tpu.train import preset as jax_preset
+
+    for fn in (preset, jax_preset):  # not a preset of either package: the JAX KeyError
+        with pytest.raises(KeyError):
+            fn("ring_point_transformer")
     with pytest.raises(NotImplementedError):
         preset("8dir_kl", compute_dtype="float16")
     with pytest.raises(NotImplementedError):
