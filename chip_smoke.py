@@ -92,8 +92,16 @@ host (B=4) with each layer's routing agreement, the capacity dispatch at
 factor 4 against the masked one, the tokens factor 1.25 drops; an 8-dir
 request at B=16 N=10,000 under ``set_knn_impl("approx")`` (one
 ``topk_min`` launch, sa1's indices equal to the exact dispatch's) timed
-beside the exact one; the 8-dir ``.pt2`` artifact exported on the host,
-run on the card at B=1 and B=64 against the kernel-path request. The
+beside the exact one; the 8-dir and the flash point transformer's
+``.pt2`` artifacts exported on the host, portable (stock operations, no
+launch) and with ``use_kernels=True`` (their ``pcot.*`` nodes launching as
+many kernels as the request), run on the card at B=1 and B=64 against the
+kernel-path request and timed in turns beside it. The JAX trainer's
+default fit (``train_resident``): the 8dir_kl preset at B=16 N=10,000 over
+3 epochs in blocks of 2 on the device-resident splits, bit-equal to the
+step path (``host_resident=True``) with the same launches, in f32 and one
+bf16 epoch; an epoch of each in turns, the copies from host to card an
+epoch, the resident bytes. The
 parallelism layer (``parallel``, over NCCL at world size 1, full width):
 the 8dir_kl DP epoch (B=16, N=10,000) in both train configurations bit-equal
 to the meshless Trainer's, a sharded 8-dir request equal to the meshless
@@ -166,6 +174,7 @@ from pointcloud_orientation_tpu_torch.utils import grad_check as GC
 from pointcloud_orientation_tpu_torch.utils import save_torch_checkpoint, to_flax_variables
 from pointcloud_orientation_tpu_torch.utils.aot_export import (
     export_orientation_model,
+    kernel_nodes,
     load_artifact,
     save_artifact,
 )
@@ -3541,16 +3550,17 @@ def add_launches(a: dict, b: dict) -> dict:
 
 def requesting_after(trainer, epoch: int, guard):
     """Make ``guard.request()`` fire once ``trainer`` finishes ``epoch``: the
-    signal a preempted job gets, at a known point."""
-    run_epoch = trainer.run_epoch
+    signal a preempted job gets, at a known point. Both ways an epoch ends
+    are watched: ``run_epoch`` (the per-epoch loop's) and ``fit`` (a
+    protocol member's epoch)."""
+    for name in ("run_epoch", "fit"):
+        def wrapped(*a, _real=getattr(trainer, name), **k):
+            out = _real(*a, **k)
+            if trainer.epoch == epoch:
+                guard.request()
+            return out
 
-    def wrapped(e):
-        out = run_epoch(e)
-        if e == epoch:
-            guard.request()
-        return out
-
-    trainer.run_epoch = wrapped
+        setattr(trainer, name, wrapped)
 
 
 def sequential_run(cfg, ds, dev) -> tuple:
@@ -3857,7 +3867,8 @@ def phase_timing_protocols(dev, card: str, protocols: dict) -> None:
     """Times of the protocols slice, with the card's name and power limit
     (``card``, nvidia-smi's): ensemble requests at S=1 and S=3 (B=64
     N=1,024, in turns); the per-member epoch in lockstep (3 seeds, each
-    member's epoch in turn) against one sequential trainer's epoch (8dir_kl,
+    member's fit over one epoch in turn, as ``run_lockstep``) against one
+    sequential trainer's epoch (its fit over 3 epochs, one block; 8dir_kl,
     B=16 N=1,024, 48 clouds; host clock, synchronised, 3 epochs each after
     one); and the caller's stall of a synchronous checkpoint against an
     asynchronous one (host copy, then the write on a background thread),
@@ -3875,14 +3886,17 @@ def phase_timing_protocols(dev, card: str, protocols: dict) -> None:
     def epochs(trainers, first):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for e in range(first, first + 3):
-            for tr in trainers:
-                tr.run_epoch(e)
+        if trainers == [alone]:
+            alone.fit(epochs=first + 2, start_epoch=first, log_every=0)
+        else:
+            for e in range(first, first + 3):
+                for tr in trainers:
+                    tr.fit(epochs=e, start_epoch=e, log_every=0)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / 3
 
     for tr in members + [alone]:
-        tr.run_epoch(1)  # warm-up
+        tr.fit(epochs=1, log_every=0)  # warm-up
     lockstep = [epochs(members, 2), epochs(members, 5)]
     sequential = [epochs([alone], 2), epochs([alone], 5)]
     stalls = {"sync_ms": [], "async_ms": [], "async_write_ms": []}
@@ -4122,53 +4136,185 @@ def phase_approx_knn(dev) -> dict:
     return {"launches": launches, "topk_min": sel}
 
 
+AOT_MODELS = {  # name -> (model, constructor arguments, the request's, its launches)
+    "pointnet_pp_8dir": ("pointnet_pp_8dir", {}, {"sampling": "first"},
+                         {"sa_group": 2, "sa_mlp_max": 3}),
+    "point_transformer flash": ("point_transformer", {"attention_impl": "flash"},
+                                {"attention_impl": "flash"}, {"flash_attention_fwd": PT_DEPTH}),
+}
+
+
 def phase_aot_export(dev) -> dict:
-    """The 8-dir model exported on the host's CPU with a symbolic batch
-    (``utils/aot_export.py``), saved, loaded onto the card and run at B=1
-    and B=64 (stock operations: no hand kernel launched), each held against
-    the port's kernel-path request on the same weights (sampling "first",
-    as the artifact) within LOGIT_TOL; then both timed in turns."""
-    v = random_flax_variables(SEED)
+    """The 8-dir model and the flash point transformer exported on the
+    host's CPU with a symbolic batch (``utils/aot_export.py``), each as the
+    portable artifact (stock operations: no hand kernel launched) and as
+    the kernel artifact (``use_kernels=True``: its ``pcot.*`` nodes launch
+    the kernels, as many as the request, none falling back to stock
+    operations), saved, loaded onto the card and run at B=1 and B=64, each
+    held against the port's kernel-path request on the same weights (the
+    8-dir model with sampling "first", as the artifact) within LOGIT_TOL;
+    then the three timed in turns."""
     x = np.random.default_rng(SEED + 62).normal(size=(max(AOT_BATCHES), AOT_N, 3)).astype(
         np.float32)
-    t0 = time.perf_counter()
-    exported = export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
-                                        batch_size=None, num_points=AOT_N)
-    export_s = time.perf_counter() - t0
-    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
-                                num_points=AOT_N, max_batch=max(AOT_BATCHES), seed=SEED,
-                                device=dev, sampling="first")
-    rows = []
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "pointnet_pp_8dir.pt2")
-        save_artifact(path, exported)
-        size = os.path.getsize(path)
-        program = load_artifact(path, device=dev).module()
-    for b in AOT_BATCHES:
-        K.reset_launch_counts()
-        got = program(torch.from_numpy(x[:b]).to(dev)).cpu().numpy()
-        art_launches = K.launch_counts()
-        K.reset_launch_counts()
-        want = pred(x[:b])
-        req_launches = K.launch_counts()
-        err = max_abs(got, want)
-        rows.append({"B": b, "max_abs_err_vs_kernel_request": err, "tol": LOGIT_TOL,
-                     "artifact_launches": art_launches, "request_launches": req_launches,
-                     "shape": list(got.shape), "finite": bool(np.isfinite(got).all())})
-        if (err > LOGIT_TOL or got.shape != (b, 8) or art_launches != expected_launches()
-                or req_launches != expected_launches(sa_group=2, sa_mlp_max=3)):
-            fail(f"aot_export B={b}: {rows[-1]}")
+    out = {"launches": {}}
+    for name, (model, kw, request_kw, per_request) in AOT_MODELS.items():
+        v = random_flax_variables(SEED, model)
+        stats = v.get("batch_stats")
+        programs, sizes, export_s, nodes = {}, {}, {}, {}
+        with tempfile.TemporaryDirectory() as d:
+            for kind in ("portable", "kernels"):
+                t0 = time.perf_counter()
+                exported = export_orientation_model(model, v["params"], stats, batch_size=None,
+                                                    num_points=AOT_N, model_kwargs=kw,
+                                                    use_kernels=kind == "kernels")
+                export_s[kind] = time.perf_counter() - t0
+                nodes[kind] = kernel_nodes(exported)
+                path = os.path.join(d, f"{kind}.pt2")
+                save_artifact(path, exported)
+                sizes[kind] = os.path.getsize(path)
+                programs[kind] = load_artifact(path, device=dev).module()
+        pred = OrientationPredictor(model, v["params"], stats, num_points=AOT_N,
+                                    max_batch=max(AOT_BATCHES), seed=SEED, device=dev,
+                                    **request_kw)
+        rows = []
+        for b in AOT_BATCHES:
+            K.reset_launch_counts()
+            want = pred(x[:b])
+            req_launches = K.launch_counts()
+            row = {"B": b, "tol": LOGIT_TOL, "request_launches": req_launches}
+            for kind, program in programs.items():
+                K.reset_launch_counts()
+                got = program(torch.from_numpy(x[:b]).to(dev)).cpu().numpy()
+                launches = K.launch_counts()
+                row[kind] = {"max_abs_err_vs_kernel_request": max_abs(got, want),
+                             "launches": launches, "shape": list(got.shape),
+                             "finite": bool(np.isfinite(got).all())}
+            rows.append(row)
+            k, pt = row["kernels"], row["portable"]
+            if (req_launches != expected_launches(**per_request)
+                    or k["launches"] != req_launches or pt["launches"] != expected_launches()
+                    or max(k["max_abs_err_vs_kernel_request"],
+                           pt["max_abs_err_vs_kernel_request"]) > LOGIT_TOL
+                    or k["shape"] != pt["shape"] or k["shape"] != list(want.shape)
+                    or not (k["finite"] and pt["finite"])):
+                fail(f"aot_export {name} B={b}: {row}")
+        out["launches"][f"{name} kernel artifact B={max(AOT_BATCHES)}"] = \
+            rows[-1]["kernels"]["launches"]
 
-    class Artifact:  # request_latency's interface over the artifact
-        def __call__(self, clouds):
-            return program(torch.from_numpy(clouds).to(dev)).cpu().numpy()
+        class Artifact:  # request_latency's interface over an artifact
+            def __init__(self, program):
+                self.program = program
 
-    latency = [{"path": name, "turn": i, **request_latency(p, x)}
-               for i, (name, p) in enumerate((("kernels", pred), ("artifact", Artifact()),
-                                              ("artifact", Artifact()), ("kernels", pred)))]
-    emit("aot_export", N=AOT_N, export_seconds=export_s, artifact_bytes=size, batches=rows,
-         request=latency)
-    return {"rows": rows}
+            def __call__(self, clouds):
+                return self.program(torch.from_numpy(clouds).to(dev)).cpu().numpy()
+
+        turns = (("request", pred), ("portable", Artifact(programs["portable"])),
+                 ("kernels", Artifact(programs["kernels"])),
+                 ("kernels", Artifact(programs["kernels"])),
+                 ("portable", Artifact(programs["portable"])), ("request", pred))
+        latency = [{"path": path, "turn": i, **request_latency(p, x)}
+                   for i, (path, p) in enumerate(turns)]
+        emit("aot_export", model=name, N=AOT_N, export_seconds=export_s, artifact_bytes=sizes,
+             kernel_nodes=nodes, batches=rows, request=latency)
+    return out
+
+
+RESIDENT_EPOCHS, RESIDENT_BLOCK = 3, "2"  # 3 epochs in blocks of 2: one whole, one cut short
+
+
+def resident_run(ds, dev, epochs: int = RESIDENT_EPOCHS, **kw) -> tuple:
+    """The 8dir_kl preset (B=16, N=TRAIN_N) fitted from a fresh Trainer,
+    counters from 0: (trainer, launches)."""
+    t = Trainer(preset("8dir_kl", epochs=epochs, **kw), ds, device=dev)
+    K.reset_launch_counts()
+    with mock.patch.dict(os.environ, {"PCOT_EPOCH_BLOCK": RESIDENT_BLOCK}):
+        t.fit(log_every=0)
+    torch.cuda.synchronize()
+    return t, K.launch_counts()
+
+
+def same_fit(a, b) -> dict:
+    """Two fits' results compared bit for bit."""
+    return {"history": same_record(a.history, b.history),
+            "class_history": same_record(a.class_history, b.class_history),
+            "state_and_optimizer": same_state(trainer_state(a), trainer_state(b)),
+            "best_state": a.best_state.keys() == b.best_state.keys() and all(
+                torch.equal(a.best_state[k], b.best_state[k]) for k in a.best_state),
+            "best_val_epoch": a.best_val_epoch == b.best_val_epoch is not None,
+            "step_losses": a.step_losses == b.step_losses}
+
+
+def more_epochs(trainer, profile: bool = False) -> tuple:
+    """One more block's epochs of ``trainer`` (``RESIDENT_BLOCK``) on its
+    own path: host seconds an epoch, to a synchronise, and with ``profile``
+    the copies from host to card an epoch that the profiler saw on the
+    device (a resident fit's start uploads its best-val snapshot once,
+    included) and the ``cudaMemcpyAsync`` calls an epoch, either way."""
+    first, n = trainer.epoch + 1, int(RESIDENT_BLOCK)
+    ctx = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                             torch.profiler.ProfilerActivity.CUDA]) \
+        if profile else contextlib.nullcontext()
+    with ctx as prof, mock.patch.dict(os.environ, {"PCOT_EPOCH_BLOCK": RESIDENT_BLOCK}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(epochs=first + n - 1, start_epoch=first, log_every=0)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+    if not profile:
+        return dt, None
+    copies = [name for name, _ in device_events(prof) if name.startswith("Memcpy HtoD")]
+    calls = sum(1 for evt in prof.events() if evt.name == "cudaMemcpyAsync")
+    return dt, {"htod_copies_per_epoch": len(copies) / n,
+                "cudaMemcpyAsync_calls_per_epoch": calls / n}
+
+
+def phase_train_resident(dev) -> dict:
+    """The JAX trainer's default fit on the card: the 8dir_kl preset at
+    full width (B=16, N=10,000, f32) over 3 epochs in blocks of 2
+    (``PCOT_EPOCH_BLOCK=2``) on the device-resident splits, against the
+    step path (``host_resident=True``) on the same card: history, weights,
+    statistics, Adam state, the best-val snapshot and its epoch bit-equal,
+    and the same launches, 3 epochs' worth of one epoch's; one bf16 epoch
+    each way, equal too. Then an epoch of each path in turns (host
+    seconds), the copies from host to card in an epoch (the profiler's), and
+    the bytes the resident splits hold."""
+    ds = train_dataset()
+    runs = {}
+    for dname, dtype, epochs in (("f32", None, RESIDENT_EPOCHS), ("bf16", "bfloat16", 1)):
+        res, res_n = resident_run(ds, dev, epochs, compute_dtype=dtype)
+        step, step_n = resident_run(ds, dev, epochs, compute_dtype=dtype, host_resident=True)
+        steps, val = batches_of(res.train_ds, 16), batches_of(res.val_ds, 16)
+        per_epoch = knn_trunk_launches(steps, val, False)
+        if dtype is not None:  # the bf16 MLP forward counts apart
+            per_epoch["sa_mlp_max_bf16"], per_epoch["sa_mlp_max"] = per_epoch["sa_mlp_max"], 0
+        expected = {k: epochs * n for k, n in per_epoch.items()}
+        equal = same_fit(res, step)
+        ok = all(equal.values()) and res_n == step_n == expected
+        runs[dname] = {"resident": res, "step": step, "launches": {
+            f"{dname} blocks {epochs} epochs": res_n,
+            f"{dname} host_resident {epochs} epochs": step_n}}
+        emit("train_resident", dtype=dname, epochs=epochs, block=int(RESIDENT_BLOCK),
+             train_steps=steps, val_batches=val, equal=equal, launches_resident=res_n,
+             launches_step=step_n, expected_launches=expected, history=res.history,
+             best_val=res.best_val, best_val_epoch=res.best_val_epoch,
+             timings_resident=res.timings, ok=ok)
+        if not ok:
+            fail(f"train_resident {dname}: equal {equal}, launches {res_n} (step path "
+                 f"{step_n}, expected {expected})")
+    res, step = runs["f32"]["resident"], runs["f32"]["step"]
+    turns = []
+    for i, (path, t) in enumerate((("resident", res), ("step", step), ("step", step),
+                                   ("resident", res))):
+        turns.append({"path": path, "turn": i, "epoch_s": more_epochs(t)[0]})
+    copies = {path: more_epochs(t, profile=True)[1] for path, t in (("resident", res),
+                                                                    ("step", step))}
+    resident_bytes = sum(v.numel() * v.element_size() for _, split in res._resident_cache
+                         for v in split.values())
+    emit("timing_train_resident", card=torch.cuda.get_device_name(0), B=16, N=TRAIN_N,
+         train_steps=batches_of(res.train_ds, 16), val_batches=batches_of(res.val_ds, 16),
+         epoch_turns=turns, copies_per_epoch=copies, resident_bytes=resident_bytes,
+         resident_splits=[len(d) for d, _ in res._resident_cache])
+    return {"launches": {**runs["f32"]["launches"], **runs["bf16"]["launches"]}}
 
 
 PAR_B = 16  # the 8dir_kl preset's batch and N=TRAIN_N: the DP epoch and sharded serving
@@ -4605,7 +4751,8 @@ def main() -> None:
     protocols = phase_protocols(dev)
     train_moe = phase_train_moe(dev)
     approx = phase_approx_knn(dev)
-    phase_aot_export(dev)
+    aot = phase_aot_export(dev)
+    resident = phase_train_resident(dev)
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -4652,6 +4799,11 @@ def main() -> None:
             row["launches_approx"] = {"8dir B=16 N=10000": approx["launches"][row["name"]]}
         row["launches_parallel"] = {path: n.get(row["name"], 0)
                                     for path, n in parallel["launches"].items()}
+        # the default fit's and the kernel artifacts' counts, zeros printed too
+        row["launches_resident"] = {path: n.get(row["name"], 0)
+                                    for path, n in resident["launches"].items()}
+        row["launches_aot_kernels"] = {path: n.get(row["name"], 0)
+                                       for path, n in aot["launches"].items()}
         if row["name"] == "topk_min":
             row["shapes"]["approx sa1 B=16 M=10000"] = approx["topk_min"]
     summary += flash_rows

@@ -72,11 +72,25 @@ the K-smallest selection of the grid-pruned kNN (``geometry.grid_pruned_core``):
 a radix select of the K-th smallest (value, position) key, 8 bits a pass
 over a shared-memory histogram, then a sort of the K candidates; one block
 per row, the row staged in shared memory while it fits.
+
+The forward kernels that a served model's eval forward launches
+(``sa_group``, ``sa_mlp_max``, ``knn``, ``fps``, ``ball_query``,
+``topk_min``, ``flash_attention_fwd``) are also ``torch.library`` custom
+ops, ``torch.ops.pcot.<name>``: the CUDA implementation is the kernel's
+launch on the current stream, the CPU one the plain version, and a fake
+implementation gives the shapes to a trace. On a CUDA tensor the wrapper
+calls the op's CUDA implementation directly, and the autograd Functions
+call the wrappers, so every launch takes that one path. :func:`kernel_mode`
+(the counterpart of the JAX export's ``_pallas_mode``) makes the wrappers
+call their ops on any device (``"ops"``: a trace records ``pcot.*`` nodes;
+``utils/aot_export.py``'s ``use_kernels``); by default a trace on CPU
+tensors records the plain versions' stock operations.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -130,6 +144,65 @@ def _raise_on(err: int, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the forward kernels as custom ops (pcot::*), and the wrappers' mode
+# ---------------------------------------------------------------------------
+
+KERNEL_MODES = ("auto", "ops")
+_KERNEL_MODE = "auto"
+_LIB = torch.library.Library("pcot", "DEF")
+
+
+@contextlib.contextmanager
+def kernel_mode(mode: str) -> Iterator[None]:
+    """Within the block the forward wrappers run ``"ops"``: their ``pcot``
+    ops on any device (on the CPU the op's implementation is the plain
+    version; a trace records ``pcot.*`` nodes); or ``"auto"``, the
+    default: the plain version on CPU tensors, the kernel's launch on CUDA
+    ones. The mode is restored on leaving."""
+    global _KERNEL_MODE
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"kernel mode {mode!r} is not one of {KERNEL_MODES}")
+    prev, _KERNEL_MODE = _KERNEL_MODE, mode
+    try:
+        yield
+    finally:
+        _KERNEL_MODE = prev
+
+
+def _plain(fn: str, t: torch.Tensor) -> bool:
+    """Whether wrapper ``fn`` runs its plain version on ``t``: on a CPU
+    tensor in the default mode. A device other than the CPU or CUDA
+    raises ``ValueError`` there."""
+    if _KERNEL_MODE == "ops":
+        return False
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cpu or cuda tensors, got {t.device}")
+    return t.device.type == "cpu"
+
+
+def _op(name: str, launch):
+    """What a wrapper calls where it does not run its plain version: its
+    op ``pcot::<name>`` under ``kernel_mode("ops")``, else ``launch``, the
+    op's CUDA implementation called directly (the dispatcher's host time
+    is spent only where a trace needs the op)."""
+    return getattr(torch.ops.pcot, name) if _KERNEL_MODE == "ops" else launch
+
+
+def _define_op(schema: str, cpu, cuda, fake) -> None:
+    """``pcot::<schema>`` with its CPU (plain version), CUDA (the kernel's
+    launch) and fake (shapes and dtypes) implementations."""
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"pcot::{name}", fake, lib=_LIB)
+
+
+def _layers_of(flat: Sequence[torch.Tensor]) -> List[Layer]:
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+# ---------------------------------------------------------------------------
 # K1: fused SA grouping
 # ---------------------------------------------------------------------------
 
@@ -160,10 +233,15 @@ def sa_group(
     """
     if xyz.dtype != torch.float32 or (feats is not None and feats.dtype != torch.float32):
         raise TypeError("sa_group takes float32 xyz and feats")
-    if xyz.device.type == "cpu":
+    if _plain("sa_group", xyz):
         return sa_group_plain(xyz, feats, cidx, nsample)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"sa_group runs on cpu or cuda tensors, got {xyz.device}")
+    return _op("sa_group", _sa_group_cuda)(xyz, feats, cidx, nsample)
+
+
+def _sa_group_cuda(xyz: torch.Tensor, feats: Optional[torch.Tensor], cidx: torch.Tensor,
+                   nsample: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pcot::sa_group`` on the card: check, launch, count."""
+    _cuda_only("sa_group", xyz)
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     B, N, _ = xyz.shape
@@ -201,6 +279,17 @@ def sa_group(
 
 
 sa_group.launches = 0
+
+
+def _sa_group_fake(xyz, feats, cidx, nsample):
+    B, S = cidx.shape
+    D = 0 if feats is None else feats.shape[-1]
+    return (xyz.new_empty((B, S, 3)), xyz.new_empty((B, nsample, S, 3 + D)),
+            cidx.new_empty((B, S, nsample), dtype=torch.int32))
+
+
+_define_op("sa_group(Tensor xyz, Tensor? feats, Tensor cidx, int nsample) "
+           "-> (Tensor, Tensor, Tensor)", sa_group_plain, _sa_group_cuda, _sa_group_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -264,14 +353,23 @@ def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer],
     if grouped.dtype != torch.float32:
         raise TypeError(f"sa_mlp_max takes float32 grouped features (bf16=True rounds "
                         f"them inside), got {grouped.dtype}")
-    if grouped.device.type == "cpu":
+    if _plain("sa_mlp_max", grouped):
         return sa_mlp_max_plain(grouped, layers, bf16)
-    if grouped.device.type != "cuda":
-        raise ValueError(f"sa_mlp_max runs on cpu or cuda tensors, got {grouped.device}")
+    flat = [t for layer in layers for t in layer]
+    return _op("sa_mlp_max", _sa_mlp_max_cuda)(grouped, flat, bf16)
+
+
+def _sa_mlp_max_cuda(grouped: torch.Tensor, flat: List[torch.Tensor],
+                     bf16: bool) -> torch.Tensor:
+    """``pcot::sa_mlp_max`` on the card (``flat``: W, scale, shift per
+    layer): check, launch, count."""
+    _cuda_only("sa_mlp_max", grouped)
+    layers = _layers_of(flat)
     if grouped.dim() != 4:
         raise ValueError(f"grouped must be (B, K, S, C), got {tuple(grouped.shape)}")
-    if not 1 <= len(layers) <= MAX_MLP_LAYERS:
-        raise ValueError(f"sa_mlp_max takes 1 to {MAX_MLP_LAYERS} layers, got {len(layers)}")
+    if len(flat) % 3 or not 1 <= len(layers) <= MAX_MLP_LAYERS:
+        raise ValueError(f"sa_mlp_max takes 1 to {MAX_MLP_LAYERS} layers of (W, scale, shift), "
+                         f"got {len(flat)} tensors")
     B, K, S, C = grouped.shape
     if B > 65535:
         raise ValueError(f"B={B} must be at most 65535")
@@ -298,6 +396,16 @@ def sa_mlp_max(grouped: torch.Tensor, layers: Sequence[Layer],
 
 sa_mlp_max.launches = 0
 sa_mlp_max.launches_bf16 = 0
+
+
+def _sa_mlp_max_fake(grouped, flat, bf16):
+    B, _, S, _ = grouped.shape
+    return grouped.new_empty((B, S, flat[-3].shape[1]))
+
+
+_define_op("sa_mlp_max(Tensor grouped, Tensor[] layers, bool bf16) -> Tensor",
+           lambda grouped, flat, bf16: sa_mlp_max_plain(grouped, _layers_of(flat), bf16),
+           _sa_mlp_max_cuda, _sa_mlp_max_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -581,8 +689,13 @@ def knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
     ``N <= geometry.KNN_KERNEL_MAX_N`` and ``nsample <= 128``."""
     _check_points("new_xyz", "knn", new_xyz)
     _check_points("xyz", "knn", xyz)
-    if xyz.device.type == "cpu":
+    if _plain("knn", xyz):
         return knn_plain(new_xyz, xyz, nsample)
+    return _op("knn", _knn_cuda)(new_xyz, xyz, nsample)
+
+
+def _knn_cuda(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
+    """``pcot::knn`` on the card: check, launch, count."""
     _cuda_only("knn", xyz)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -606,6 +719,9 @@ def knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> torch.Tensor:
 
 
 knn.launches = 0
+_define_op("knn(Tensor new_xyz, Tensor xyz, int nsample) -> Tensor", knn_plain, _knn_cuda,
+           lambda new_xyz, xyz, nsample: new_xyz.new_empty(
+               (*new_xyz.shape[:2], nsample), dtype=torch.int32))
 
 
 def fps_plain(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -637,8 +753,13 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
     _check_points("xyz", "fps", xyz)
     if npoint < 1:
         raise ValueError(f"npoint={npoint} must be >= 1")
-    if xyz.device.type == "cpu":
+    if _plain("fps", xyz):
         return fps_plain(xyz, seeds, npoint)
+    return _op("fps", _fps_cuda)(xyz, seeds, npoint)
+
+
+def _fps_cuda(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
+    """``pcot::fps`` on the card: check, launch, count."""
     _cuda_only("fps", xyz)
     B, N, _ = xyz.shape
     if N > FPS_MAX_N:
@@ -660,6 +781,8 @@ def fps(xyz: torch.Tensor, seeds: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 fps.launches = 0
+_define_op("fps(Tensor xyz, Tensor seeds, int npoint) -> Tensor", fps_plain, _fps_cuda,
+           lambda xyz, seeds, npoint: xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32))
 
 
 def radius_sq_f32(radius: float) -> float:
@@ -699,8 +822,14 @@ def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
     _check_points("xyz", "ball_query", xyz)
     if nsample < 1:
         raise ValueError(f"nsample={nsample} must be >= 1")
-    if xyz.device.type == "cpu":
+    if _plain("ball_query", xyz):
         return ball_query_plain(new_xyz, xyz, radius, nsample, matmul_form)
+    return _op("ball_query", _ball_query_cuda)(new_xyz, xyz, float(radius), nsample, matmul_form)
+
+
+def _ball_query_cuda(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float, nsample: int,
+                     matmul_form: bool) -> torch.Tensor:
+    """``pcot::ball_query`` on the card: check, launch, count."""
     _cuda_only("ball_query", xyz)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -723,6 +852,10 @@ def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
 
 
 ball_query.launches = 0
+_define_op("ball_query(Tensor new_xyz, Tensor xyz, float radius, int nsample, "
+           "bool matmul_form) -> Tensor", ball_query_plain, _ball_query_cuda,
+           lambda new_xyz, xyz, radius, nsample, matmul_form: new_xyz.new_empty(
+               (*new_xyz.shape[:2], nsample), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -755,9 +888,15 @@ def topk_min(d: torch.Tensor, nsample: int) -> torch.Tensor:
     B, S, M = d.shape
     if not 1 <= nsample <= min(M, TOPK_MIN_MAX_K):
         raise ValueError(f"nsample={nsample} must lie in [1, min(M={M}, {TOPK_MIN_MAX_K})]")
-    if d.device.type == "cpu":
+    if _plain("topk_min", d):
         return topk_min_plain(d, nsample)
+    return _op("topk_min", _topk_min_cuda)(d, nsample)
+
+
+def _topk_min_cuda(d: torch.Tensor, nsample: int) -> torch.Tensor:
+    """``pcot::topk_min`` on the card: check, launch, count."""
     _cuda_only("topk_min", d)
+    B, S, M = d.shape
     if M > TOPK_MIN_MAX_M or B * S > 2 ** 31 - 1:
         raise ValueError(f"M={M} must be at most {TOPK_MIN_MAX_M} and B*S={B * S} below 2^31")
     dev = d.device
@@ -773,6 +912,8 @@ def topk_min(d: torch.Tensor, nsample: int) -> torch.Tensor:
 
 
 topk_min.launches = 0
+_define_op("topk_min(Tensor d, int nsample) -> Tensor", topk_min_plain, _topk_min_cuda,
+           lambda d, nsample: d.new_empty((*d.shape[:2], nsample), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -808,8 +949,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
     """Flash attention forward over ``(B,H,N,D)`` f32 or bf16: ``o`` (q's
     type) and the row statistics ``l`` (sum) and ``m`` (max) ``(B,H,N)``
     f32 (``ops/flash_attention.py``'s :func:`flash_attention_plain`)."""
-    if q.device.type == "cpu":
+    if _plain("flash_attention_fwd", q):
         return FA.flash_attention_plain(q, k, v, sm_scale)
+    return _op("flash_attention_fwd", _flash_attention_fwd_cuda)(q, k, v, float(sm_scale))
+
+
+def _flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              sm_scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pcot::flash_attention_fwd`` on the card: check, launch, count."""
     B, H, N, D = _flash_args("flash_attention_fwd", q, k, v)
     o = torch.empty_like(q)
     l = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
@@ -826,6 +974,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_sc
 
 
 flash_attention_fwd.launches = 0
+
+
+def _flash_attention_fwd_fake(q, k, v, sm_scale):
+    stats = q.new_empty(q.shape[:3], dtype=torch.float32)
+    return q.new_empty(q.shape), stats, stats.new_empty(stats.shape)
+
+
+_define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, float sm_scale) "
+           "-> (Tensor, Tensor, Tensor)", FA.flash_attention_plain, _flash_attention_fwd_cuda,
+           _flash_attention_fwd_fake)
 
 
 def flash_attention_bwd_dkv(q, k, v, l, m, dout, di, sm_scale: float

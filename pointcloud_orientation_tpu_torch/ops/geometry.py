@@ -76,6 +76,11 @@ def set_knn_impl(impl: str, recall_target: Optional[float] = None,
         _KNN_APPROX_MIN_N = approx_min_n
 
 
+def knn_impl() -> str:
+    """The kNN formulation :func:`set_knn_impl` selected."""
+    return _KNN_IMPL
+
+
 def approx_eligible(n: int) -> bool:
     """Whether a stage of ``n`` candidate points takes the approx path."""
     return _KNN_IMPL == "approx" and n >= _KNN_APPROX_MIN_N

@@ -75,14 +75,13 @@ def make_trainer(seed: int, device: str = "cuda", dtype: str = "float32",
     t = Trainer(cfg, ds, device=device, mesh=mesh)
     if dtype == "float64":
         t.model.double()  # the optimizer holds the same Parameter objects
-        to_batch = t.device_batch
+        build = t.build_batch  # every path builds its batches here
 
-        def device_batch(*a, **k):
-            batch, valid, labels = to_batch(*a, **k)
-            batch = {n: v.double() if v.is_floating_point() else v for n, v in batch.items()}
-            return batch, valid.double(), labels
+        def build_batch(*a, **k):
+            return {n: v.double() if v.is_floating_point() else v
+                    for n, v in build(*a, **k).items()}
 
-        t.device_batch = device_batch
+        t.build_batch = build_batch
     return t
 
 

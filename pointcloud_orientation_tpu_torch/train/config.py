@@ -24,8 +24,11 @@ model="pointnet_pp_cls")``. ``pointnet`` (PointNet regression) trains on the
 vector tasks by config. ``optimizer`` ("adam", the reference's, or
 "sgd"), ``lr_schedule`` (None, the reference's constant rate, or "cosine"
 with ``warmup_epochs`` of linear warmup), ``async_checkpoint``,
-``host_resident`` and ``keep_best`` are the JAX config's (the last two
-change nothing here, as there; see :class:`.trainer.Trainer`). The MoE point
+``host_resident`` and ``keep_best`` are the JAX config's. ``host_resident``
+streams one batch a step from the host, for splits larger than the card,
+in place of the device-resident splits (the fit, ``test`` and the
+protocols' members; see :class:`.trainer.Trainer`); ``keep_best`` changes
+nothing here, as there. The MoE point
 transformer (preset ``moe_point_transformer``, task ``forward_mse_aux``)
 takes ``moe_experts``, ``moe_aux_weight``, ``moe_dispatch`` ("masked" or
 "capacity") and ``moe_capacity_factor``. ``bn_sync_axis`` is the JAX
@@ -116,8 +119,8 @@ class TrainConfig:
     async_checkpoint: bool = False  # periodic checkpoints written on a background thread
     keep_best: bool = True  # read nowhere, as in the JAX package
     debug_checks: bool = False  # per-step finite checks and debug_log.txt in out_dir
-    # the JAX package's streaming path (one batch gathered on the host a
-    # step); the port's step path already does that, so it changes nothing
+    # stream one batch a step from the host (splits larger than the card)
+    # instead of keeping the splits on the device, as in the JAX package
     host_resident: bool = False
     # the JAX config's BatchNorm sync axis; the port's data parallelism is
     # global-batch already, and a Trainer refuses any value but None

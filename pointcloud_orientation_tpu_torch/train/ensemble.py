@@ -7,8 +7,12 @@ the L models as one ``jax.vmap``\\ ped program. ``torch.func.vmap`` cannot
 map over the port's kernels (``torch.autograd.Function``\\ s over ctypes
 launches, with no batching rule), so the port trains the L members in
 lockstep instead (:func:`run_lockstep`): each epoch runs every member's
-stepwise epoch (:meth:`.trainer.Trainer.run_epoch`), member by member, then
-saves and polls for preemption. L members cost L times the launches of one,
+:meth:`.trainer.Trainer.fit` over that one epoch, member by member, then
+saves and polls for preemption. A member's epoch so takes the path its
+sequential run takes (a block of one epoch on the resident splits, with
+the best val chosen on the device in float32 as the JAX protocols' block
+program chooses it; the step path under ``host_resident`` or
+``debug_checks``). L members cost L times the launches of one,
 and the lockstep is no faster than the sequential ``run_per_label``
 (``train/run.py``): it exists so that every member stands at the same epoch
 when the protocol's one ``step_<E>`` checkpoint is written. A launch over
@@ -80,7 +84,7 @@ def run_lockstep(trainers: List[Trainer], keys: Sequence, epochs: int, checkpoin
     for epoch in range(first, epochs + 1):
         t0 = time.perf_counter()
         for t in trainers:
-            t.run_epoch(epoch)
+            t.fit(epochs=epoch, start_epoch=epoch, log_every=0)
         dt = time.perf_counter() - t0
         if log_every and (epoch % log_every == 0 or epoch == epochs):
             n_clouds = sum(len(t.train_ds) for t in trainers)

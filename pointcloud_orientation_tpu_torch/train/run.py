@@ -345,8 +345,8 @@ def main(argv=None):
                          "the last write")
     ap.add_argument("--debug-checks", action="store_true", dest="debug_checks")
     ap.add_argument("--host-resident", action="store_true", dest="host_resident",
-                    help="the JAX package's streaming flag; the port's step path already "
-                         "gathers one batch a step on the host, so it changes nothing")
+                    help="stream one batch a step from the host (splits larger than the "
+                         "card) instead of keeping the splits on the device")
     ap.add_argument("--lr-schedule", default=None, dest="lr_schedule", choices=("cosine",),
                     help="learning-rate schedule (default: the reference's constant lr)")
     ap.add_argument("--warmup-epochs", type=int, default=None, dest="warmup_epochs")
@@ -419,8 +419,6 @@ def main(argv=None):
         unsupported = []
         if cfg.async_checkpoint:
             unsupported.append("--async-checkpoint (the protocols' saves are synchronous)")
-        if cfg.host_resident:
-            unsupported.append("--host-resident (it changes nothing in the port)")
         if unsupported:
             warnings.warn("ignored by the protocols (--seeds / --vmap-labels): "
                           + "; ".join(unsupported), stacklevel=1)

@@ -8,12 +8,11 @@ BatchNorm running statistics or, as the transformer, none: the step, the
 checkpoint and the best-val snapshot go through ``state_dict``, which
 holds whatever the model has.
 
-Counterpart of ``pointcloud_orientation_tpu/train/trainer.py`` on its
-step-by-step path (``_run_phase_stepwise``): seed -> split 70/15/15 -> per
-epoch a train pass and a val pass -> best-val snapshot -> reload best ->
-test pass -> artifacts (``loss_curve.png`` where matplotlib imports), with
-checkpoint and resume, checkpoints written on a background thread
-(``async_checkpoint``) and a preemption guard polled at each epoch's end
+Counterpart of ``pointcloud_orientation_tpu/train/trainer.py``: seed ->
+split 70/15/15 -> per epoch a train pass and a val pass -> best-val
+snapshot -> reload best -> test pass -> artifacts (``loss_curve.png`` where
+matplotlib imports), with checkpoint and resume, checkpoints written on a
+background thread (``async_checkpoint``) and a preemption guard
 (:meth:`Trainer.fit`). The optimizer is the JAX package's optax chain: the
 optional global-norm clip (``clip_by_global_norm``), then Adam at optax's
 defaults (b1 0.9, b2 0.999, eps 1e-8) or plain SGD (no momentum, no weight
@@ -25,12 +24,21 @@ by wrapping. Every random draw comes from a ``torch.Generator`` keyed by the
 run's seed and the absolute epoch and step, so that a resumed run
 reproduces an uninterrupted one. A dataset's stored sidecar ``targets``
 replace the synthesized ones under ``rotation_mode="none"``
-(:meth:`Trainer.device_batch`). ``debug_checks`` runs the JAX package's
+(:meth:`Trainer.build_batch`). ``debug_checks`` runs the JAX package's
 per-step finite checks and ``debug_log.txt`` (:meth:`Trainer.debug_check`).
-``host_resident`` changes nothing: this step path already gathers one batch
-a step on the host, which is what the flag selects in the JAX package.
-Not ported (ROADMAP.md): the whole-epoch scan and block paths (the JAX
-package's answer to dispatch cost).
+
+The paths are the JAX trainer's, by its rules. By default each split is
+kept on the device (:meth:`Trainer._resident`) and every step takes its
+rows there by ``index_select``; :meth:`Trainer.fit` runs blocks of
+``PCOT_EPOCH_BLOCK`` epochs (default 25; :meth:`Trainer._fit_blocks`) with
+the best-val snapshot chosen on the device in float32 and the results read
+once a block, and :meth:`Trainer.run_phase` (the per-epoch loop's, and
+``test``'s) reads them once a pass. ``debug_checks`` and ``host_resident``
+take the step path instead, which gathers one batch a step on the host and
+copies it to the device (``host_resident``: splits larger than the card);
+``checkpoint_dir`` with ``checkpoint_every`` takes the per-epoch loop,
+whose best val is compared on the host in float64. A gather is exact, so
+every path runs the same steps on the same batches, bit for bit.
 
 Data parallelism (``mesh=``, a :func:`..parallel.make_mesh` mesh with a
 ``data`` axis) is the JAX trainer's global-batch arithmetic, written out:
@@ -66,7 +74,7 @@ import json
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -294,6 +302,7 @@ class Trainer:
         self.optimizer = make_optimizer(config, self.model.parameters(), lr)
         self._ckpt_writer: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._ckpt_pending: List[concurrent.futures.Future] = []
+        self._resident_cache: List[tuple] = []  # (dataset, its split on the device)
         self.step = 0
         self.epoch = 0  # last completed epoch
         self.history: Dict[str, List[float]] = {"train": [], "val": [], "train_ang": [],
@@ -317,24 +326,79 @@ class Trainer:
         g.manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
         return g
 
-    def device_batch(self, ds: OrientationDataset, idx: np.ndarray, valid: np.ndarray,
-                     generator: torch.Generator):
-        """Gather a batch on the host, move it to the device and augment it
-        there (subsample, rotation, targets, labels). A dataset's stored
-        ``targets`` (a pre-rotated PLY tree's sidecars) replace the
-        synthesized ones under ``rotation_mode="none"``, and are ignored
-        under a rotation, as in the JAX trainer."""
-        pts, labels, uniform, symm, k_spec = ds.gather_host(idx)
-        pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
-        uniform, symm, k_spec = (torch.from_numpy(np.asarray(a)).to(self.device)
-                                 for a in (uniform, symm, k_spec))
-        batch = augment_batch(generator, pts, uniform, symm, k_spec, self.num_points,
-                              self.cfg.rotation_mode, self.cfg.kappa_default, self.cfg.max_k)
-        batch["labels"] = torch.from_numpy(np.asarray(labels, np.int64)).to(self.device)
+    def _split_rows(self, ds: OrientationDataset, idx: Optional[np.ndarray] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Rows ``idx`` of ``ds`` (all of them when None) on the device, the
+        arrays a batch is built from: ``points`` float32, ``labels`` int64,
+        the class behaviour masks ``uniform``, ``symm``, ``k_spec``, and
+        under ``rotation_mode="none"`` a dataset's stored ``targets`` (a
+        pre-rotated PLY tree's sidecars) as ``tgt_<key>`` in their own
+        dtypes; under a rotation those are ignored, as in the JAX trainer."""
+        if idx is None:
+            arrays = (ds.points, ds.labels, ds.uniform_mask, ds.symm_mask, ds.k_spec)
+        else:
+            arrays = ds.gather_host(idx)
+        rows = dict(zip(("points", "labels", "uniform", "symm", "k_spec"), arrays))
+        rows["points"] = np.asarray(rows["points"], np.float32)
+        rows["labels"] = np.asarray(rows["labels"], np.int64)
         if ds.targets is not None and self.cfg.rotation_mode == "none":
             for k, v in ds.targets.items():
-                batch[k] = torch.from_numpy(np.ascontiguousarray(v[idx])).to(self.device)
-        return batch, torch.from_numpy(np.asarray(valid, np.float32)).to(self.device), labels
+                rows[f"tgt_{k}"] = v if idx is None else v[idx]
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in rows.items()}
+
+    def build_batch(self, rows: Dict[str, torch.Tensor], generator: torch.Generator
+                    ) -> Dict[str, torch.Tensor]:
+        """A batch from its rows on the device (:meth:`_split_rows`, or
+        gathered from :meth:`_resident`): augmented (subsample, rotation,
+        targets) from ``generator``, with the labels, and the stored
+        targets over the synthesized ones. Both paths build every batch
+        here, so the same rows and generator give the same batch."""
+        batch = augment_batch(generator, rows["points"], rows["uniform"], rows["symm"],
+                              rows["k_spec"], self.num_points, self.cfg.rotation_mode,
+                              self.cfg.kappa_default, self.cfg.max_k)
+        batch["labels"] = rows["labels"]
+        for k, v in rows.items():
+            if k.startswith("tgt_"):
+                batch[k[len("tgt_"):]] = v
+        return batch
+
+    def device_batch(self, ds: OrientationDataset, idx: np.ndarray, valid: np.ndarray,
+                     generator: torch.Generator):
+        """Gather a batch on the host, move it to the device and build it
+        there (:meth:`build_batch`). Returns the batch, the valid mask on
+        the device and the labels on the host."""
+        batch = self.build_batch(self._split_rows(ds, idx), generator)
+        return (batch, torch.from_numpy(np.asarray(valid, np.float32)).to(self.device),
+                np.asarray(ds.labels[idx], np.int64))
+
+    def _resident(self, ds: OrientationDataset) -> Dict[str, torch.Tensor]:
+        """The split on the device (:meth:`_split_rows` of all its rows),
+        copied once and indexed there at every step. Cached by identity,
+        the cache entry holding the dataset, so that a reused ``id`` cannot
+        alias two datasets. Under a mesh every rank holds the whole split,
+        and the step takes its rows of each global batch (:meth:`_rows`)."""
+        for cached_ds, cached in self._resident_cache:
+            if cached_ds is ds:
+                return cached
+        resident = self._split_rows(ds)
+        self._resident_cache.append((ds, resident))
+        return resident
+
+    def _epoch_batches(self, ds: OrientationDataset, train: bool, epoch: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The pass's ``(nb, B)`` index matrix and float32 valid matrix on
+        the device: the batches of ``ds.batches`` that the step path draws,
+        shuffled by ``seed + epoch`` for training."""
+        idx, valid = [], []
+        for i, v, _ in ds.batches(self.cfg.batch_size, shuffle=train, seed=self.cfg.seed + epoch):
+            idx.append(i)
+            valid.append(v)
+        empty = (0, self.cfg.batch_size)  # a split with no clouds
+        return (torch.from_numpy(np.stack(idx) if idx else np.zeros(empty, np.int64)
+                                 ).to(self.device),
+                torch.from_numpy(np.stack(valid).astype(np.float32) if valid
+                                 else np.zeros(empty, np.float32)).to(self.device))
 
     # ---------- steps ----------
 
@@ -461,17 +525,49 @@ class Trainer:
                 raise FloatingPointError(
                     f"non-finite grad in param {name} {where} (loss itself finite: {loss})")
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def run_phase(self, ds: OrientationDataset, train: bool, epoch: int) -> MetricsAccumulator:
-        """One pass over ``ds``. Per-step results stay on the device until
-        the pass ends, so the host does not wait on the device every step
-        (unless ``debug_checks`` reads them after each step)."""
-        acc = MetricsAccumulator(self.class_names)
-        pending = []
-        n_clouds = 0.0
+        """One pass over ``ds`` (the JAX ``_run_phase``): from its resident
+        copy (:meth:`_resident_pass`) unless ``debug_checks`` or
+        ``host_resident`` asks for the step path, which gathers each batch
+        on the host (:meth:`_run_phase_stepwise`). Either way the per-step
+        results stay on the device until the pass ends."""
+        if self.cfg.debug_checks or self.cfg.host_resident:
+            return self._run_phase_stepwise(ds, train, epoch)
+        resident = self._resident(ds)
+        idx_mat, valid_mat = self._epoch_batches(ds, train, epoch)
+        t0 = time.perf_counter()
+        res = self._fetch([self._resident_pass(resident, idx_mat, valid_mat, train, epoch)],
+                          [valid_mat])[0]
+        return self._phase_result(res, train, time.perf_counter() - t0)
+
+    def _resident_pass(self, resident: Dict[str, torch.Tensor], idx_mat: torch.Tensor,
+                       valid_mat: torch.Tensor, train: bool, epoch: int
+                       ) -> Dict[str, torch.Tensor]:
+        """The steps of one pass, each batch's rows taken from the resident
+        split on the device (``index_select``) and built from the step
+        path's generator. Returns the stacked results on the device:
+        ``loss (nb,)``, ``per_sample``, ``angular`` and ``labels`` ``(nb,
+        B)``."""
+        step = self.train_step if train else self.eval_step
+        out: Dict[str, list] = {"loss": [], "per_sample": [], "angular": [], "labels": []}
+        for bi in range(idx_mat.shape[0]):
+            gen = self.generator(_TRAIN, epoch, bi) if train else self.generator(_EVAL, bi)
+            batch = self.build_batch({k: v.index_select(0, idx_mat[bi])
+                                      for k, v in resident.items()}, gen)
+            m = step(batch, valid_mat[bi], gen)
+            for k in ("loss", "per_sample", "angular"):
+                out[k].append(m[k])
+            out["labels"].append(batch["labels"])
+        return self._stack(out)
+
+    def _run_phase_stepwise(self, ds: OrientationDataset, train: bool, epoch: int
+                            ) -> MetricsAccumulator:
+        """One pass gathering one batch a step on the host (the JAX
+        ``_run_phase_stepwise``): the debug path (``debug_checks`` reads
+        each step's results) and the streaming path (``host_resident``:
+        splits larger than the card)."""
+        out: Dict[str, list] = {"loss": [], "per_sample": [], "angular": [], "labels": []}
+        valids = []
         t0 = time.perf_counter()
         for bi, (idx, valid, _) in enumerate(
                 ds.batches(self.cfg.batch_size, shuffle=train, seed=self.cfg.seed + epoch)):
@@ -481,26 +577,55 @@ class Trainer:
             m = step(batch, valid_dev, gen)
             if self.cfg.debug_checks:
                 self.debug_check(m, epoch, bi)
-            pending.append((m["loss"], m["per_sample"], m["angular"], labels, valid))
-            n_clouds += float(valid.sum())
-        self._sync()
-        dt = time.perf_counter() - t0
-        for loss, per, ang, labels, valid in pending:
-            acc.update(per.cpu().numpy(), labels, valid, ang.cpu().numpy())
+            for k in ("loss", "per_sample", "angular"):
+                out[k].append(m[k])
+            out["labels"].append(labels)
+            valids.append(valid)
+        out["labels"] = [torch.from_numpy(labels) for labels in out["labels"]]
+        valid = np.stack(valids) if valids else np.zeros((0, self.cfg.batch_size), np.float32)
+        res = self._fetch([self._stack(out)], [valid])[0]
+        return self._phase_result(res, train, time.perf_counter() - t0)
+
+    def _stack(self, out: Dict[str, list]) -> Dict[str, torch.Tensor]:
+        """A pass's per-step results stacked, step first (empty ``(0, B)``
+        for a split with no clouds)."""
+        if out["loss"]:
+            return {k: torch.stack(v) for k, v in out.items()}
+        empty, dev = (0, self.cfg.batch_size), self.device
+        return {"loss": torch.zeros(0, device=dev), "per_sample": torch.zeros(empty, device=dev),
+                "angular": torch.zeros(empty, device=dev),
+                "labels": torch.zeros(empty, dtype=torch.int64, device=dev)}
+
+    @staticmethod
+    def _fetch(passes: Sequence[Dict[str, Any]], valids: Sequence[Any]
+               ) -> List[Dict[str, np.ndarray]]:
+        """The passes' stacked results, each with its valid matrix, read to
+        the host: the first read waits for the device, once."""
+        return [{k: v.cpu().numpy() if torch.is_tensor(v) else v
+                 for k, v in {**p, "valid": valid}.items()}
+                for p, valid in zip(passes, valids)]
+
+    def _accumulate(self, res: Dict[str, np.ndarray]) -> MetricsAccumulator:
+        """A fetched pass as metrics, one update a step, as the step path
+        has always summed them."""
+        acc = MetricsAccumulator(self.class_names)
+        for per, labels, valid, ang in zip(res["per_sample"], res["labels"], res["valid"],
+                                           res["angular"]):
+            acc.update(per, labels, valid, ang)
+        return acc
+
+    def _phase_result(self, res: Dict[str, np.ndarray], train: bool,
+                      dt: float) -> MetricsAccumulator:
         if train:
-            self.step_losses = [float(p[0]) for p in pending]
+            self.step_losses = res["loss"].tolist()
         phase = "train" if train else "eval"
         self.timings[f"{phase}_seconds"] = dt
-        self.timings[f"{phase}_clouds_per_sec"] = n_clouds / max(dt, 1e-9)
-        return acc
+        self.timings[f"{phase}_clouds_per_sec"] = float(res["valid"].sum()) / max(dt, 1e-9)
+        return self._accumulate(res)
 
     # ---------- the protocol ----------
 
-    def run_epoch(self, epoch: int):
-        """One epoch: the train pass, the val pass, the histories and the
-        best-val snapshot. Returns the two passes' accumulators."""
-        tr = self.run_phase(self.train_ds, train=True, epoch=epoch)
-        va = self.run_phase(self.val_ds, train=False, epoch=epoch)
+    def _record_epoch(self, epoch: int, tr: MetricsAccumulator, va: MetricsAccumulator) -> None:
         self.epoch = epoch
         self.history["train"].append(tr.mean_loss)
         self.history["val"].append(va.mean_loss)
@@ -510,6 +635,15 @@ class Trainer:
             self.class_history[c]["train"].append(v)
         for c, v in va.per_class_mean().items():
             self.class_history[c]["val"].append(v)
+
+    def run_epoch(self, epoch: int):
+        """One epoch of the per-epoch loop: the train pass, the val pass,
+        the histories and the best-val snapshot, chosen on the host in
+        float64 as the JAX per-epoch loop does. Returns the two passes'
+        accumulators."""
+        tr = self.run_phase(self.train_ds, train=True, epoch=epoch)
+        va = self.run_phase(self.val_ds, train=False, epoch=epoch)
+        self._record_epoch(epoch, tr, va)
         if va.mean_loss < self.best_val:
             self.best_val = va.mean_loss
             self.best_state = {k: v.detach().cpu().clone()
@@ -517,20 +651,100 @@ class Trainer:
             self.best_val_epoch = epoch
         return tr, va
 
+    def _fit_blocks(self, epochs: int, log_every: int, start_epoch: int,
+                    preemption_guard=None, checkpoint_dir: Optional[str] = None
+                    ) -> Dict[str, List[float]]:
+        """The JAX ``_fit_blocks``: blocks of ``PCOT_EPOCH_BLOCK`` epochs
+        (default 25) on the resident splits, each epoch a train pass and a
+        val pass keyed by its absolute number (so a resumed run reproduces
+        an uninterrupted one), the best-val snapshot chosen on the device
+        in float32 with no host read: ``vloss = sum(vper * valid) /
+        max(sum(valid), 1)``, and where ``vloss < bv`` the weights and
+        buffers, ``bv`` and the epoch taken by ``torch.where``. The host
+        reads a block's results once, after it; the preemption guard is
+        polled there, and a fired one saves the run's only checkpoint on
+        this path (with ``checkpoint_dir``). ``timings`` as JAX's:
+        ``train_seconds`` the block's time over its epochs, ``eval_seconds``
+        0. The snapshot starts from ``best_state`` where a resumed run has
+        one (JAX's starts from the current weights, which a resumed run
+        that never improves would report as its best), copied to the
+        device once a fit."""
+        block = max(1, int(os.environ.get("PCOT_EPOCH_BLOCK", "25")))
+        tr_res, va_res = self._resident(self.train_ds), self._resident(self.val_ds)
+        va_idx, va_valid = self._epoch_batches(self.val_ds, False, 0)
+        va_count = va_valid.sum().clamp_min(1.0)
+        snapshot = self.model.state_dict() if self.best_state is None else self.best_state
+        bp = {k: v.detach().to(self.device, copy=True) for k, v in snapshot.items()}
+        bv = torch.full((), self.best_val, dtype=torch.float32, device=self.device)
+        be = torch.full((), self.best_val_epoch or 0, dtype=torch.int64, device=self.device)
+        t_start = time.time()
+        epoch, preempted = start_epoch, False
+        while epoch <= epochs:
+            nums = list(range(epoch, min(epoch + block - 1, epochs) + 1))
+            tr_batches = [self._epoch_batches(self.train_ds, True, e) for e in nums]
+            t0 = time.perf_counter()
+            passes = []
+            for e, (idx_mat, valid_mat) in zip(nums, tr_batches):
+                passes.append(self._resident_pass(tr_res, idx_mat, valid_mat, True, e))
+                va = self._resident_pass(va_res, va_idx, va_valid, False, e)
+                passes.append(va)
+                vloss = ((va["per_sample"] * va_valid).sum() / va_count).float()
+                better = vloss < bv
+                bp = {k: torch.where(better, v.detach(), bp[k])
+                      for k, v in self.model.state_dict().items()}
+                bv, be = torch.where(better, vloss, bv), torch.where(better, e, be)
+            res = self._fetch(passes, [v for _, tv in tr_batches for v in (tv, va_valid)])
+            dt = time.perf_counter() - t0
+            n_clouds = sum(float(r["valid"].sum()) for r in res[::2])
+            self.timings["train_clouds_per_sec"] = n_clouds / max(dt, 1e-9)
+            self.timings["train_seconds"] = dt / len(nums)
+            self.timings["eval_seconds"] = 0.0
+            self.step_losses = res[-2]["loss"].tolist()
+            for j, e in enumerate(nums):
+                tr, va = self._accumulate(res[2 * j]), self._accumulate(res[2 * j + 1])
+                self._record_epoch(e, tr, va)
+                if log_every and e % log_every == 0:
+                    eta = (time.time() - t_start) / max(e - start_epoch + 1, 1) * (epochs - e)
+                    print(f"Ep {e:03}/{epochs}  Train {tr.mean_loss:.4f}  Val {va.mean_loss:.4f}  "
+                          f"ang(val) {va.mean_angular_error:.2f}deg  {dt / len(nums):.2f}s/ep  "
+                          f"ETA {eta / 60:.1f}m  "
+                          f"({self.timings['train_clouds_per_sec']:.0f} clouds/s)", flush=True)
+            epoch = nums[-1] + 1
+            if preemption_guard is not None and preemption_guard.requested:
+                preempted = True
+                print(f"[preempt] graceful stop after epoch {nums[-1]}"
+                      + (f"; checkpoint in {checkpoint_dir}" if checkpoint_dir else ""),
+                      flush=True)
+                break
+        if math.isfinite(float(bv)):
+            self.best_val, self.best_val_epoch = float(bv), int(be)
+            self.best_state = {k: v.cpu().clone() for k, v in bp.items()}
+        if preempted and checkpoint_dir:
+            self.save_checkpoint(checkpoint_dir)
+        self.wait_for_checkpoints()
+        return self.history
+
     def fit(self, epochs: Optional[int] = None, log_every: int = 1,
             checkpoint_dir: Optional[str] = None, start_epoch: int = 1,
             preemption_guard=None) -> Dict[str, List[float]]:
         """Train and validate from ``start_epoch`` to ``epochs`` inclusive.
         After :meth:`restore_checkpoint`, ``start_epoch = epoch + 1`` carries
-        on exactly where an uninterrupted run would be. Periodic checkpoints
-        (``checkpoint_every``) are written on a background thread under
-        ``async_checkpoint``. ``preemption_guard`` (a
-        :class:`.reliability.PreemptionGuard`) is polled at each epoch's
-        end: when it fires, the run drains the writes in flight, saves a
-        final checkpoint (with ``checkpoint_dir``) and returns early with a
-        consistent history. Every write has finished when ``fit`` returns."""
+        on exactly where an uninterrupted run would be. By the JAX rule the
+        run takes the blocks (:meth:`_fit_blocks`) unless ``debug_checks``
+        or ``host_resident`` is set or periodic checkpoints are written
+        (``checkpoint_dir`` with ``checkpoint_every``): those take the
+        per-epoch loop (:meth:`run_epoch`), whose checkpoints are written
+        on a background thread under ``async_checkpoint``.
+        ``preemption_guard`` (a :class:`.reliability.PreemptionGuard`) is
+        polled at each epoch's or block's end: when it fires, the run
+        drains the writes in flight, saves a final checkpoint (with
+        ``checkpoint_dir``) and returns early with a consistent history.
+        Every write has finished when ``fit`` returns."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
+        if not (cfg.debug_checks or cfg.host_resident or (checkpoint_dir and cfg.checkpoint_every)):
+            return self._fit_blocks(epochs, log_every, start_epoch, preemption_guard,
+                                    checkpoint_dir=checkpoint_dir)
         t_start = time.time()
         for epoch in range(start_epoch, epochs + 1):
             t_ep = time.time()

@@ -11,18 +11,28 @@ one artifact serves any batch.
 
 Properties of the artifact:
 
-* **self-contained**: loading and running it needs only ``torch``, not
-  this package or the model's class;
+* **self-contained**: loading and running the default artifact needs only
+  ``torch``, not this package or the model's class;
 * **deterministic**: traced without a generator, so centroid sampling takes
   the first ``npoint`` points (the JAX artifact, exported without a
   ``"sampling"`` rng, does the same);
-* **portable, on stock operations**: the trace runs on CPU tensors, so it
-  records the plain PyTorch versions of the kernels (the JAX artifact's
-  portable default, which forces Pallas off). :func:`load_artifact` with
+* **portable by default, on stock operations**: the trace runs on CPU
+  tensors, where the kernels' wrappers run their plain PyTorch versions
+  (the JAX artifact's portable default, which forces Pallas off), so the
+  graph holds no ``pcot.*`` node; :func:`load_artifact` with
   ``device="cuda"`` moves it to the card, where it runs those stock
-  operations, not the port's hand-written kernels: the kernels are ctypes
-  launches, which ``torch.export`` cannot carry. ``use_kernels=True`` (the
-  counterpart of ``use_pallas=True``) raises ``NotImplementedError``.
+  operations;
+* **or carrying the hand-written kernels**: ``use_kernels=True`` (the
+  counterpart of ``use_pallas=True``, CLI ``--kernels``) traces with the
+  forward kernels kept opaque (``kernel_mode("ops")``), so the graph holds
+  one ``pcot.*`` node for each kernel launch an eager request makes. On
+  the card each node launches its kernel; on the CPU it runs its plain
+  version. Unlike the JAX package's Pallas artifact, which needs only
+  ``jax``, such an artifact needs this package on the serving host:
+  :func:`load_artifact` imports the op registrations before it loads.
+  The grid kNN (``set_knn_impl("grid")``) reads its exactness certificate
+  on the host, a branch on data that an exported program cannot hold, and
+  is refused with kernels; the approximate kNN composes.
 
 Example
 -------
@@ -39,7 +49,7 @@ Example
     logits = program(clouds)          # (B, 1024, 3) -> (B, 8)
 
 CLI: ``python -m pointcloud_orientation_tpu_torch.utils.aot_export CKPT
-OUT.pt2 --model pointnet_pp_8dir --batch-size 0``, ``CKPT`` the port's
+OUT.pt2 --model pointnet_pp_8dir --batch-size 0 [--kernels]``, ``CKPT`` the port's
 checkpoint (``Trainer.save_checkpoint``'s ``.pt``), a reference ``.pth`` or
 the int8 ``.npz`` (dequantized to f32 before the trace).
 """
@@ -47,11 +57,13 @@ the int8 ``.npz`` (dequantized to f32 before the trace).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
 from ..models import MODEL_REGISTRY
+from ..ops import cuda_kernels as K  # registers the pcot ops that kernel artifacts call
+from ..ops import geometry as G
 from .jax_weights import load_flax_variables, model_kwargs as tree_kwargs, to_flax_variables
 
 
@@ -81,20 +93,28 @@ def export_orientation_model(
     """Export the eval forward of ``model_name`` with these weights as an
     ``ExportedProgram`` of one argument, the clouds ``(batch_size,
     num_points, C)`` float32 (``C`` the model's input width), traced on the
-    CPU through the kernels' plain versions. ``batch_size=None`` exports a
-    symbolic batch (any B >= 1). ``use_kernels=True`` raises
-    ``NotImplementedError``: the hand-written kernels are ctypes launches
-    that an exported program cannot hold."""
-    if use_kernels:
+    CPU. ``batch_size=None`` exports a symbolic batch (any B >= 1).
+    ``use_kernels``: the forward kernels as ``pcot.*`` nodes (module
+    docstring), else their plain versions; raises ``NotImplementedError``
+    under the grid kNN."""
+    if use_kernels and G.knn_impl() == "grid":
         raise NotImplementedError(
-            "use_kernels=True: the CUDA kernels are ctypes launches, which torch.export "
-            "cannot carry; the artifact runs their plain versions")
+            "use_kernels=True under set_knn_impl('grid'): the grid kNN reads its exactness "
+            "certificate on the host (ops/geometry.py grid_pruned_knn, bool(ok)), a branch "
+            "on data that an exported program cannot hold; export under 'exact' or 'approx'")
     model = build_model(model_name, params, batch_stats, model_kwargs)
     channels = getattr(model, "in_channels", 3)
     example = torch.zeros((batch_size or 2, num_points, channels), dtype=torch.float32)
     dynamic = None if batch_size is not None else ({0: torch.export.Dim("batch", min=1)},)
-    with torch.no_grad():
+    with torch.no_grad(), K.kernel_mode("ops" if use_kernels else "auto"):
         return torch.export.export(model, (example,), dynamic_shapes=dynamic)
+
+
+def kernel_nodes(exported: torch.export.ExportedProgram) -> List[str]:
+    """The ``pcot.*`` ops an artifact's graph calls, one entry a node."""
+    return [n.target.name() for n in exported.graph.nodes
+            if n.op == "call_function" and isinstance(n.target, torch._ops.OpOverload)
+            and n.target.namespace == "pcot"]
 
 
 def save_artifact(path: str, exported: torch.export.ExportedProgram) -> None:
@@ -107,7 +127,8 @@ def load_artifact(path: str, device: Optional[str | torch.device] = None
     """Read an artifact; run it with ``.module()(clouds)``. ``device`` moves
     its weights, constants and the devices written into its graph there
     (``torch.export.passes.move_to_device_pass``); its clouds must then be
-    on that device."""
+    on that device. The ``pcot`` ops are registered first (this module
+    imports ``ops.cuda_kernels``), so a kernel artifact loads too."""
     exported = torch.export.load(path)
     if device is not None:
         from torch.export.passes import move_to_device_pass
@@ -161,16 +182,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--batch-size", type=int, default=64,
                    help="fixed batch dimension; 0 = symbolic (any batch)")
     p.add_argument("--num-points", type=int, default=1024)
+    p.add_argument("--kernels", action="store_true",
+                   help="keep the hand-written CUDA kernels as pcot ops (the artifact then "
+                        "needs this package where it is served)")
     args = p.parse_args(argv)
 
     params, stats = read_checkpoint(args.checkpoint, args.model)
     exported = export_orientation_model(args.model, params, stats,
                                         batch_size=args.batch_size or None,
-                                        num_points=args.num_points)
+                                        num_points=args.num_points, use_kernels=args.kernels)
     save_artifact(args.output, exported)
     batch = str(args.batch_size) if args.batch_size else "b"
     print(f"wrote {args.output}: model={args.model} shape=({batch},{args.num_points},"
-          f"{exported.example_inputs[0][0].shape[-1]}) bytes={os.path.getsize(args.output)}")
+          f"{exported.example_inputs[0][0].shape[-1]}) kernels={len(kernel_nodes(exported))} "
+          f"bytes={os.path.getsize(args.output)}")
 
 
 if __name__ == "__main__":

@@ -5,14 +5,22 @@ the CPU, and the two small demos against the JAX package's. Mirrors
 equals the eager eval forward (and the JAX model's) at a fixed and at a
 symbolic batch, survives a save and load, is deterministic, exports under
 the approximate kNN, and the CLI writes it from each checkpoint kind the
-port reads; ``use_kernels=True`` and the JAX package's Orbax checkpoints
-are refused.
+port reads; the JAX package's Orbax checkpoints are refused. The kernel
+artifact (``use_kernels=True``, ``--kernels``): one ``pcot.*`` node for each
+kernel launch an eager request makes (the 8-dir model and the flash point
+transformer), run on the CPU through the ops' plain versions, equal to the
+portable artifact and the JAX artifact, through a save and load with a
+symbolic batch; the default artifact holds no such node; the grid kNN is
+refused with kernels, the approximate kNN composes. Each ``pcot`` op
+against its plain version.
 """
 
+import collections
 import contextlib
 import io
 import os
 import runpy
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +29,11 @@ import pytest
 import torch
 
 from pointcloud_orientation_tpu.models import PointNetPP8Dir as JaxPointNetPP8Dir
+from pointcloud_orientation_tpu.utils.stablehlo_export import (
+    export_orientation_model as jax_export_orientation_model,
+)
 from pointcloud_orientation_tpu_torch.data import OrientationDataset
+from pointcloud_orientation_tpu_torch.ops import cuda_kernels as K
 from pointcloud_orientation_tpu_torch.ops import geometry as G
 from pointcloud_orientation_tpu_torch.train import Trainer, preset
 from pointcloud_orientation_tpu_torch.utils import (
@@ -32,6 +44,7 @@ from pointcloud_orientation_tpu_torch.utils import (
 from pointcloud_orientation_tpu_torch.utils.aot_export import (
     build_model,
     export_orientation_model,
+    kernel_nodes,
     load_artifact,
     main as export_main,
     save_artifact,
@@ -134,13 +147,171 @@ def test_load_artifact_moves_to_a_device(eight_dir, tmp_path):
     assert moved.module()(torch.zeros((3, N, 3), device="meta")).shape == (3, 8)
 
 
-def test_use_kernels_and_orbax_are_refused(eight_dir, tmp_path):
-    v = eight_dir[0]
-    with pytest.raises(NotImplementedError, match="ctypes"):
-        export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
-                                 batch_size=B, num_points=N, use_kernels=True)
+def test_orbax_is_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="Orbax"):
         export_main([str(tmp_path), str(tmp_path / "x.pt2")])
+
+
+@pytest.fixture(scope="module")
+def eight_dir_kernels(eight_dir):
+    """The 8-dir model's kernel artifact with a symbolic batch, and the
+    JAX package's portable artifact of the same weights (both once)."""
+    v = eight_dir[0]
+    exported = export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                        batch_size=None, num_points=N, use_kernels=True)
+    jax_exported = jax_export_orientation_model(
+        "pointnet_pp_8dir", jax.tree_util.tree_map(jnp.asarray, v["params"]),
+        jax.tree_util.tree_map(jnp.asarray, v["batch_stats"]), batch_size=None, num_points=N,
+        platforms=("cpu",))
+    return exported, jax_exported
+
+
+def _wrapper_calls(model, x, names=("sa_group", "sa_mlp_max", "knn", "fps", "ball_query",
+                                    "topk_min", "flash_attention_fwd")):
+    """``pcot::<name>`` for each kernel wrapper call of an eager forward
+    (each one launch on the card)."""
+    calls = []
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            real = getattr(K, name)
+            stack.enter_context(mock.patch.object(
+                K, name, lambda *a, _real=real, _name=name, **k: calls.append(
+                    f"pcot::{_name}") or _real(*a, **k)))
+        _eager(model, x)
+    return calls
+
+
+def test_kernel_artifact_holds_a_node_per_launch(eight_dir, eight_dir_kernels):
+    """The 8-dir kernel artifact's graph calls ``pcot::sa_group`` twice and
+    ``pcot::sa_mlp_max`` three times, one node for each kernel launch of
+    an eager request (``chip_smoke.py``'s request launches); the portable
+    artifact calls none."""
+    v, model, x, portable = eight_dir
+    nodes = kernel_nodes(eight_dir_kernels[0])
+    assert collections.Counter(nodes) == collections.Counter(_wrapper_calls(model, x)) == {
+        "pcot::sa_group": 2, "pcot::sa_mlp_max": 3}
+    assert kernel_nodes(portable) == []
+
+
+def test_kernel_artifact_equals_portable_and_jax(eight_dir, eight_dir_kernels, tmp_path):
+    """On the CPU every ``pcot`` node runs its plain version: the kernel
+    artifact's logits equal the portable artifact's bit for bit and lie
+    within 1e-4 of the JAX artifact's (``stablehlo_export``), at batches
+    1, 2 and 5 after a save and load (a symbolic batch)."""
+    _, _, _, portable = eight_dir
+    exported, jax_exported = eight_dir_kernels
+    path = str(tmp_path / "kernels.pt2")
+    save_artifact(path, exported)
+    restored = load_artifact(path)
+    assert kernel_nodes(restored) == kernel_nodes(exported)
+    program = restored.module()
+    for b in (1, 2, 5):
+        xb = np.random.default_rng(b + 10).normal(size=(b, N, 3)).astype(np.float32)
+        got = program(torch.from_numpy(xb)).numpy()
+        np.testing.assert_array_equal(got, portable.module()(torch.from_numpy(xb)).numpy())
+        np.testing.assert_allclose(got, np.asarray(jax_exported.call(jnp.asarray(xb))),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_artifact_of_the_flash_transformer():
+    """The point transformer with flash attention: one
+    ``pcot::flash_attention_fwd`` node for each of its eager forward's six
+    launches; on the CPU equal to the portable artifact and the eager
+    forward."""
+    kw = {"attention_impl": "flash"}
+    v = random_flax_variables(1, "point_transformer")
+    x = np.random.default_rng(1).normal(size=(B, 128, 3)).astype(np.float32)
+    model = build_model("point_transformer", v["params"], None, kw)
+    kernels, portable = (export_orientation_model(
+        "point_transformer", v["params"], None, batch_size=None, num_points=128,
+        model_kwargs=kw, use_kernels=use) for use in (True, False))
+    assert kernel_nodes(kernels) == _wrapper_calls(model, x) == [
+        "pcot::flash_attention_fwd"] * 6
+    assert kernel_nodes(portable) == []
+    got = kernels.module()(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, portable.module()(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(got, _eager(model, x))
+
+
+def test_kernels_under_grid_are_refused_and_approx_composes(eight_dir):
+    """The grid kNN reads its certificate on the host: ``use_kernels``
+    raises under it. Under the approximate kNN sa1 traces through
+    ``pcot::topk_min`` and equals the portable approx artifact."""
+    v, _, x, _ = eight_dir
+    G.set_knn_impl("grid")
+    try:
+        with pytest.raises(NotImplementedError, match="certificate"):
+            export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                     batch_size=B, num_points=N, use_kernels=True)
+        G.set_knn_impl("approx", approx_min_n=N)
+        kernels, portable = (export_orientation_model(
+            "pointnet_pp_8dir", v["params"], v["batch_stats"], batch_size=B, num_points=N,
+            use_kernels=use) for use in (True, False))
+    finally:
+        G.set_knn_impl("exact", approx_min_n=4096)
+    assert collections.Counter(kernel_nodes(kernels)) == {
+        "pcot::topk_min": 1, "pcot::sa_group": 1, "pcot::sa_mlp_max": 3}
+    np.testing.assert_array_equal(kernels.module()(torch.from_numpy(x)).numpy(),
+                                  portable.module()(torch.from_numpy(x)).numpy())
+
+
+def test_cli_kernels_flag(eight_dir, tmp_path, capsys):
+    """``--kernels`` writes the kernel artifact from a reference ``.pth``."""
+    v, model, x, _ = eight_dir
+    pth, out = str(tmp_path / "w.pth"), str(tmp_path / "k.pt2")
+    save_torch_checkpoint(pth, v["params"], v["batch_stats"], model="pointnet_pp_8dir")
+    export_main([pth, out, "--batch-size", "0", "--num-points", str(N), "--kernels"])
+    assert "kernels=5" in capsys.readouterr().out
+    restored = load_artifact(out)
+    assert len(kernel_nodes(restored)) == 5
+    np.testing.assert_allclose(restored.module()(torch.from_numpy(x)).numpy(), _eager(model, x),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _op_cases():
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.randn(2, 256, 3, generator=g)
+    feats = torch.randn(2, 256, 5, generator=g)
+    cidx = torch.randint(0, 256, (2, 32), generator=g, dtype=torch.int32)
+    layers = [(torch.randn(8, 16, generator=g), torch.rand(16, generator=g),
+               torch.randn(16, generator=g)),
+              (torch.randn(16, 32, generator=g), torch.rand(32, generator=g),
+               torch.randn(32, generator=g))]
+    grouped = torch.randn(2, 16, 32, 8, generator=g)
+    d = torch.rand(2, 4, 50, generator=g)
+    d[0, 0, 5:] = float("inf")
+    q, k, v = (torch.randn(1, 2, 128, 16, generator=g) for _ in range(3))
+    return {
+        "sa_group": lambda: K.sa_group(xyz, feats, cidx, 16),
+        "sa_group coords": lambda: K.sa_group(xyz, None, cidx, 16),
+        "sa_mlp_max": lambda: K.sa_mlp_max(grouped, layers),
+        "sa_mlp_max bf16": lambda: K.sa_mlp_max(grouped, layers, True),
+        "knn": lambda: K.knn(xyz[:, :32], xyz, 8),
+        "fps": lambda: K.fps(xyz, torch.tensor([0, 7], dtype=torch.int32), 16),
+        "ball_query": lambda: K.ball_query(xyz[:, :32], xyz, 0.4, 8),
+        "ball_query matmul": lambda: K.ball_query(xyz[:, :32], xyz, 0.4, 8, True),
+        "topk_min": lambda: K.topk_min(d, 8),
+        "flash_attention_fwd": lambda: K.flash_attention_fwd(q, k, v, 0.25),
+    }
+
+
+@pytest.mark.parametrize("case", list(_op_cases()))
+def test_ops_on_the_cpu_are_the_plain_versions(case):
+    """Each ``pcot`` op called on CPU tensors (``kernel_mode("ops")``) runs
+    its plain version: the wrapper's outputs, bit for bit, in type and
+    shape (the fake implementation's too)."""
+    call = _op_cases()[case]
+    want = call()
+    with K.kernel_mode("ops"):
+        got = call()
+    with torch._subclasses.fake_tensor.FakeTensorMode(allow_non_fake_inputs=True), \
+            K.kernel_mode("ops"):
+        fake = call()
+    want, got, fake = (o if isinstance(o, tuple) else (o,) for o in (want, got, fake))
+    assert len(got) == len(want) == len(fake)
+    for a, b, f in zip(got, want, fake):
+        assert a.dtype == b.dtype == f.dtype and a.shape == b.shape == f.shape
+        assert torch.equal(a, b)
 
 
 def test_export_under_approx_knn(eight_dir):

@@ -161,7 +161,11 @@ def test_preempted_run_resumes_bit_equal_from_its_async_checkpoint(tmp_path, cap
     assert sorted(os.listdir(ckpt)) == [f"epoch_{e}.pt" for e in range(1, 5)]
 
 
-def test_guard_without_checkpoint_dir_returns_early():
+def test_guard_without_checkpoint_dir_returns_early(monkeypatch):
+    """The block path polls the guard at block ends: blocks of one epoch
+    stop after epoch 1 (as tests/test_reliability.py sets the block for
+    JAX)."""
+    monkeypatch.setenv("PCOT_EPOCH_BLOCK", "1")
     t = _trainer()
     hist = t.fit(log_every=0, preemption_guard=_FireAfter(t, 1))
     assert len(hist["val"]) == 1 and t.epoch == 1

@@ -182,8 +182,9 @@ def test_unknown_optimizer_schedule_and_too_long_warmup_raise_as_in_jax():
 
 
 def test_ported_fields_are_accepted_and_the_rest_still_refused():
-    """The lifted fields take their JAX values (``keep_best`` and
-    ``host_resident`` change nothing), the MoE fields among them, with the
+    """The lifted fields take their JAX values (``keep_best`` changes
+    nothing; ``host_resident``'s step path gives the resident blocks'
+    history), the MoE fields among them, with the
     JAX config's defaults; ``bn_sync_axis`` is a field of both configs and
     the port's Trainer refuses any value (its DP is global-batch already;
     the JAX Trainer fails on it)."""
