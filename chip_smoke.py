@@ -4153,7 +4153,8 @@ def phase_aot_export(dev) -> dict:
     operations), saved, loaded onto the card and run at B=1 and B=64, each
     held against the port's kernel-path request on the same weights (the
     8-dir model with sampling "first", as the artifact) within LOGIT_TOL;
-    then the three timed in turns."""
+    then the three timed in turns. Then the 8-dir artifacts under the grid
+    kNN (:func:`aot_export_grid`)."""
     x = np.random.default_rng(SEED + 62).normal(size=(max(AOT_BATCHES), AOT_N, 3)).astype(
         np.float32)
     out = {"launches": {}}
@@ -4201,22 +4202,103 @@ def phase_aot_export(dev) -> dict:
         out["launches"][f"{name} kernel artifact B={max(AOT_BATCHES)}"] = \
             rows[-1]["kernels"]["launches"]
 
-        class Artifact:  # request_latency's interface over an artifact
-            def __init__(self, program):
-                self.program = program
-
-            def __call__(self, clouds):
-                return self.program(torch.from_numpy(clouds).to(dev)).cpu().numpy()
-
-        turns = (("request", pred), ("portable", Artifact(programs["portable"])),
-                 ("kernels", Artifact(programs["kernels"])),
-                 ("kernels", Artifact(programs["kernels"])),
-                 ("portable", Artifact(programs["portable"])), ("request", pred))
+        portable, kernels = (ArtifactRequest(programs[k], dev) for k in ("portable", "kernels"))
+        turns = (("request", pred), ("portable", portable), ("kernels", kernels),
+                 ("kernels", kernels), ("portable", portable), ("request", pred))
         latency = [{"path": path, "turn": i, **request_latency(p, x)}
                    for i, (path, p) in enumerate(turns)]
         emit("aot_export", model=name, N=AOT_N, export_seconds=export_s, artifact_bytes=sizes,
              kernel_nodes=nodes, batches=rows, request=latency)
+    out["launches"].update(aot_export_grid(dev))
     return out
+
+
+class ArtifactRequest:
+    """``request_latency``'s interface over a loaded artifact: clouds in,
+    logits on the host out."""
+
+    def __init__(self, program, dev):
+        self.program, self.dev = program, dev
+
+    def __call__(self, clouds):
+        return self.program(torch.from_numpy(clouds).to(self.dev)).cpu().numpy()
+
+
+AOT_GRID_B = 16  # the grid artifacts' batch, at N=GRID_N: the grid requests' shape
+AOT_GRID_LAUNCHES = {"certified": {"topk_min": 1, "sa_group": 1, "sa_mlp_max": 3},
+                     "fallback": {"topk_min": 1, "knn": 1, "sa_group": 1, "sa_mlp_max": 3}}
+
+
+def aot_export_grid(dev) -> dict:
+    """Under ``set_knn_impl("grid")`` the 8-dir model's two artifacts
+    (portable and with kernels, symbolic batch, N=GRID_N), the grid
+    certificate a ``torch.cond`` in each; saved, loaded onto the card and
+    run at B=16 on clouds that pass the certificate (the pruned branch)
+    and on two-cluster clouds that fail it (the fallback branch), each held
+    against the eager grid request (sampling "first") within LOGIT_TOL: the
+    kernel artifact launching what the request launches, the portable one
+    nothing. Then request and artifacts timed in turns on each batch. The
+    dispatch is restored to ``"exact"`` whatever happens. Returns the
+    kernel artifact's launches by batch."""
+    rng = np.random.default_rng(SEED + 63)
+    batches = {"certified": grid_clouds(AOT_GRID_B, GRID_N, rng),
+               "fallback": two_clusters(AOT_GRID_B, GRID_N, rng)}
+    v = random_flax_variables(SEED)
+    launches, rows, latency = {}, [], []
+    try:
+        G.set_knn_impl("grid")
+        programs, nodes, export_s, sizes = {}, {}, {}, {}
+        with tempfile.TemporaryDirectory() as d:
+            for kind in ("portable", "kernels"):
+                t0 = time.perf_counter()
+                exported = export_orientation_model(
+                    "pointnet_pp_8dir", v["params"], v["batch_stats"], batch_size=None,
+                    num_points=GRID_N, use_kernels=kind == "kernels")
+                export_s[kind] = time.perf_counter() - t0
+                nodes[kind] = kernel_nodes(exported)
+                path = os.path.join(d, f"grid_{kind}.pt2")
+                save_artifact(path, exported)
+                sizes[kind] = os.path.getsize(path)
+                programs[kind] = ArtifactRequest(load_artifact(path, device=dev).module(), dev)
+        pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                    num_points=GRID_N, max_batch=AOT_GRID_B, seed=SEED,
+                                    device=dev, sampling="first")
+        for name, x in batches.items():
+            xt = torch.from_numpy(x).to(dev)
+            ok = bool(G.grid_pruned_core(xt[:, :128].contiguous(), xt, 32)[1])
+            K.reset_launch_counts()
+            want = pred(x)
+            req_launches = K.launch_counts()
+            row = {"batch": name, "B": AOT_GRID_B, "certificate": ok, "tol": LOGIT_TOL,
+                   "request_launches": req_launches}
+            for kind, program in programs.items():
+                K.reset_launch_counts()
+                got = program(x)
+                row[kind] = {"max_abs_err_vs_grid_request": max_abs(got, want),
+                             "launches": K.launch_counts(), "shape": list(got.shape),
+                             "finite": bool(np.isfinite(got).all())}
+            rows.append(row)
+            k, pt = row["kernels"], row["portable"]
+            if (ok != (name == "certified")
+                    or req_launches != expected_launches(**AOT_GRID_LAUNCHES[name])
+                    or k["launches"] != req_launches or pt["launches"] != expected_launches()
+                    or max(k["max_abs_err_vs_grid_request"],
+                           pt["max_abs_err_vs_grid_request"]) > LOGIT_TOL
+                    or k["shape"] != pt["shape"] or k["shape"] != list(want.shape)
+                    or not (k["finite"] and pt["finite"])):
+                fail(f"aot_export grid {name}: {row}")
+            launches[f"8dir grid kernel artifact B={AOT_GRID_B} N={GRID_N} {name}"] = \
+                k["launches"]
+            turns = (("request", pred), ("portable", programs["portable"]),
+                     ("kernels", programs["kernels"]), ("kernels", programs["kernels"]),
+                     ("portable", programs["portable"]), ("request", pred))
+            latency += [{"batch": name, "path": path, "turn": i, **request_latency(p, x)}
+                        for i, (path, p) in enumerate(turns)]
+    finally:
+        G.set_knn_impl("exact")
+    emit("aot_export_grid", model="pointnet_pp_8dir", N=GRID_N, export_seconds=export_s,
+         artifact_bytes=sizes, kernel_nodes=nodes, batches=rows, request=latency)
+    return launches
 
 
 RESIDENT_EPOCHS, RESIDENT_BLOCK = 3, "2"  # 3 epochs in blocks of 2: one whole, one cut short
@@ -4340,6 +4422,13 @@ PAR_GLOO_8DIR = {"params": 4e-3, "loss_rel": 5e-4}
 PAR_GLOO_SIMPLE = {"params": 2e-5, "loss_rel": 1e-5}
 PAR_GLOO_F64_GRAD = 1e-10
 PAR_STEP_ITERS = 5
+# The MoE capacity dispatch under DP: one step of the moe_point_transformer preset
+# (its widths) on a global batch of B clouds of N points at the capacity factor; at
+# world size 1 bit-equal to the meshless step; on the two gloo ranks the same kept
+# tokens as the one-rank step, its loss (relative) and each gradient leaf
+# (relative in norm, each attention's key bias left out) within PAR_GLOO_MOE.
+MOE_DP = (16, 1024, 1.25)  # B, N, factor
+PAR_GLOO_MOE = {"loss_rel": 1e-5, "grad_rel": 1e-4}
 
 
 def _state_np(model) -> dict:
@@ -4382,9 +4471,47 @@ def par_first_grads_f64(mesh=None) -> dict:
             batch_size=PAR_B, samples_per_class=TRAIN_SAMPLES_PER_CLASS, mesh=mesh))
 
 
+@contextlib.contextmanager
+def moe_kept(rank: int):
+    """Within the block, each capacity dispatch's kept tokens as global ids
+    (rank ``r``'s ``T`` tokens follow the lower ranks'), one array a
+    call, appended to the yielded list."""
+    real, kept = EP.slot_tokens, []
+
+    def slot_tokens(assign, n_experts, capacity, before=None):
+        slots = real(assign, n_experts, capacity, before)
+        T = assign.numel()
+        kept.append(np.sort(slots[slots < T].cpu().numpy()) + rank * T)
+        return slots
+
+    with mock.patch.object(EP, "slot_tokens", slot_tokens):
+        yield kept
+
+
+def par_moe_step(dev, mesh=None) -> dict:
+    """One ``Trainer`` step (SGD) of the ``moe_point_transformer`` preset at
+    its widths with the capacity dispatch at ``MOE_DP``'s factor, on a
+    fixed global batch of ``MOE_DP``'s B chairs of N points, data-parallel
+    over ``mesh``: its loss, its gradient by parameter, the leaves a
+    gradient check leaves out and each layer's kept tokens (the rank's,
+    as global ids)."""
+    B, N, factor = MOE_DP
+    ds = transformer_dataset(N, B)
+    t = Trainer(preset("moe_point_transformer", batch_size=B, num_points=N, optimizer="sgd",
+                       moe_dispatch="capacity", moe_capacity_factor=factor), ds, device=dev,
+                mesh=mesh)
+    batch, valid, _ = t.device_batch(ds, np.arange(B), np.ones(B, np.float32),
+                                     t.generator(0, 97, 0))
+    with moe_kept(0 if mesh is None else torch.distributed.get_rank()) as kept:
+        loss = float(t.train_step(batch, valid, t.generator(0, 98, 0))["loss"])
+    return {"loss": loss, "kept": kept, "skip": GC.zero_gradient_leaves(t.model),
+            "grads": {n: p.grad.detach().cpu().numpy() for n, p in t.model.named_parameters()}}
+
+
 def gloo_rank_main(rank: int, port: int, out: str) -> None:
-    """One of two processes sharing the card on gloo: the DP epoch and a
-    sharded request; rank 0 saves the results to ``out``."""
+    """One of two processes sharing the card on gloo: the DP epoch, a
+    sharded request and the MoE capacity step; rank 0 saves the results to
+    ``out``."""
     from pointcloud_orientation_tpu_torch import parallel as P
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2",
@@ -4398,9 +4525,14 @@ def gloo_rank_main(rank: int, port: int, out: str) -> None:
     pred, x = par_serve(dev, mesh)
     served = pred(x)
     g64 = par_first_grads_f64(mesh)
+    moe = par_moe_step(dev, mesh)
+    kept = [None, None]
+    torch.distributed.all_gather_object(kept, moe["kept"])
     if rank == 0:
         np.savez(out, served=served, train=np.asarray(t.history["train"]),
-                 simple_train=np.asarray(simple.history["train"]),
+                 simple_train=np.asarray(simple.history["train"]), moe_loss=moe["loss"],
+                 **{f"moe_kept::{i}": np.concatenate(k) for i, k in enumerate(zip(*kept))},
+                 **{f"moe_grad::{k}": v for k, v in moe["grads"].items()},
                  **{f"g64::{k}": v for k, v in g64.items()},
                  **{f"state::{k}": v for k, v in _state_np(t.model).items()},
                  **{f"simple::{k}": v for k, v in _state_np(simple.model).items()})
@@ -4481,11 +4613,14 @@ def phase_parallel(dev) -> dict:
     against the one-device step; TP and PP (one stage: two need two ranks)
     steps of the point transformer with flash attention (B=16, N=1,024)
     and the pipelined forward; the MoE layer (the moe preset's widths)
-    expert-sharded under both dispatches; the ring transformer at its
-    defaults, forward and step. Then two processes sharing the card on
-    gloo: the DP epoch (with SGD), the request and the epoch's first step
-    in float64 on the host against the one-rank run (bounds at
-    ``PAR_GLOO_8DIR``). Each path's launches are counted from 0."""
+    expert-sharded under both dispatches; a DP step of the MoE preset with
+    the capacity dispatch (``MOE_DP``) bit-equal to the meshless step; the
+    ring transformer at its defaults, forward and step. Then two processes
+    sharing the card on gloo: the DP epoch (with SGD), the request, the
+    epoch's first step in float64 on the host and the MoE capacity step
+    against the one-rank run (bounds at ``PAR_GLOO_8DIR`` and
+    ``PAR_GLOO_MOE``; the MoE step's kept tokens equal). Each path's
+    launches are counted from 0."""
     from pointcloud_orientation_tpu_torch import parallel as P
     from pointcloud_orientation_tpu_torch.models import PointNetPP8Dir, PointTransformer
     from pointcloud_orientation_tpu_torch.parallel.sp_transformer import RingPointTransformer
@@ -4636,6 +4771,26 @@ def phase_parallel(dev) -> dict:
     checks["ep"] = ep_checks
     paths["ep moe layer"] = {"world": 1, "expert_axis": 1, "backend": backend}
 
+    # the MoE capacity dispatch under DP: world size 1 against the meshless step
+    moe_one = par_moe_step(dev)
+    K.reset_launch_counts()
+    moe_dp = par_moe_step(dev, mesh)
+    torch.cuda.synchronize()
+    launches["moe capacity step world 1"] = K.launch_counts()
+    tokens = MOE_DP[0] * MOE_DP[1]
+    same = (moe_one["loss"] == moe_dp["loss"]
+            and len(moe_one["kept"]) == len(moe_dp["kept"])
+            and all(np.array_equal(a, b) for a, b in zip(moe_one["kept"], moe_dp["kept"]))
+            and all(np.array_equal(g, moe_dp["grads"][k]) for k, g in moe_one["grads"].items()))
+    checks["moe_capacity_dp"] = {"bit_equal": same, "loss": moe_dp["loss"],
+                                 "dropped_per_layer": [tokens - len(k) for k in moe_dp["kept"]],
+                                 "tokens": tokens, "factor": MOE_DP[2]}
+    paths["moe capacity step"] = {"world": 1, "backend": backend, "B": MOE_DP[0],
+                                  "N": MOE_DP[1]}
+    if not same:
+        fail(f"parallel: the MoE capacity step at world size 1 differs from the meshless one "
+             f"{checks['moe_capacity_dp']}")
+
     # SP: the ring transformer at its defaults
     rv = random_flax_variables(SEED + 78, "ring_point_transformer")
     ring = load_flax_variables(RingPointTransformer(), rv).to(dev)
@@ -4680,13 +4835,30 @@ def phase_parallel(dev) -> dict:
     paths["dp first step 8dir_kl float64 (host, plain versions)"] = {
         "world": [1, 2], "backend": [None, "gloo"]}
     gloo_checks["serve_max_abs_err"] = max_abs(gloo["served"], got)
+    grads = {k: torch.from_numpy(v) for k, v in moe_dp["grads"].items()}
+    moe_grads = GC.compare_grads({k: torch.from_numpy(gloo[f"moe_grad::{k}"]) for k in grads},
+                                 grads, PAR_GLOO_MOE["grad_rel"], moe_dp["skip"], {}, False)
+    kept_equal = [bool(np.array_equal(gloo[f"moe_kept::{i}"], k))
+                  for i, k in enumerate(moe_dp["kept"])]
+    gloo_checks["moe_capacity_step"] = {
+        "kept_tokens_equal_per_layer": kept_equal,
+        "dropped_per_layer": [tokens - len(k) for k in moe_dp["kept"]],
+        "loss_rel": abs(float(gloo["moe_loss"]) - moe_dp["loss"]) / abs(moe_dp["loss"]),
+        "grads_worst": moe_grads["worst"], "grads_norm_rel_err": moe_grads["norm_rel_err"],
+        "grads_median_norm_rel_err": moe_grads["median_norm_rel_err"],
+        "loss_rel_tol": PAR_GLOO_MOE["loss_rel"], "grad_rel_tol": PAR_GLOO_MOE["grad_rel"]}
+    paths["moe capacity step"] = {"world": [1, 2], "backend": [backend, "gloo (one card)"],
+                                  "B": MOE_DP[0], "N": MOE_DP[1]}
     checks["gloo_two_ranks"] = gloo_checks
     paths["serve"] = {"world": [1, 2], "backend": [backend, "gloo (one card)"]}
     if (any(gloo_checks[n]["max_abs_diff"] > gloo_checks[n]["params_tol"]
             or gloo_checks[n]["train_loss_rel"] > gloo_checks[n]["loss_rel_tol"]
             for n in ("8dir_kl", "simple_pointnet"))
             or gloo_checks["8dir_kl_float64_first_grad"]["max_abs_diff"] > PAR_GLOO_F64_GRAD
-            or gloo_checks["serve_max_abs_err"] > LOGIT_TOL):
+            or gloo_checks["serve_max_abs_err"] > LOGIT_TOL
+            or not all(kept_equal) or len(kept_equal) != len(moe_one["kept"])
+            or not moe_grads["ok"]
+            or gloo_checks["moe_capacity_step"]["loss_rel"] > PAR_GLOO_MOE["loss_rel"]):
         fail(f"parallel: two gloo ranks against one rank {gloo_checks}")
 
     nonzero = {k: sum(v.get(k, 0) for v in launches.values()) for k in

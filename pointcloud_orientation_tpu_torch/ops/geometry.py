@@ -302,11 +302,20 @@ def grid_pruned_knn(new_xyz: torch.Tensor, xyz: torch.Tensor, nsample: int) -> t
     from the centroid, so ``d_K <= margin^2`` proves the K nearest are
     inside. If any centroid fails that, or its cube holds more than M or
     fewer than K points, the whole batch takes :func:`exact_full_knn`. The
-    JAX package decides with a ``lax.cond`` on the device; here the
+    JAX package decides with a ``lax.cond`` on the device. Eagerly the
     certificate is read on the host, one device-to-host sync per grid
     stage (so a grid stage cannot be captured in a CUDA graph), and only
-    the branch taken runs."""
+    the branch taken runs. Under ``torch.export`` the batch branches in
+    the program, with ``torch.cond`` as the JAX package's ``lax.cond``:
+    both branches give ``(B, S, K)`` int32 (the pruned ``idx`` is copied,
+    as a branch may not return its operand)."""
     idx, ok = grid_pruned_core(new_xyz, xyz, nsample)
+    if torch.compiler.is_exporting():
+        return torch.cond(
+            ok,
+            lambda i, c, x: i.clone(),
+            lambda i, c, x: exact_full_knn(c, x, nsample).to(torch.int32),
+            (idx, new_xyz, xyz))
     if bool(ok):
         return idx
     return exact_full_knn(new_xyz, xyz, nsample)

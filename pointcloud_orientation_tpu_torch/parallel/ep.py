@@ -39,7 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.batch_shard import global_mean
+from ..ops.batch_shard import current, global_mean
+from .comm import all_gather_cat
 
 DISPATCHES = ("masked", "capacity")
 
@@ -61,11 +62,16 @@ def expert_compute(x: torch.Tensor, onehot: torch.Tensor, wi: torch.Tensor, bi: 
     return torch.einsum("bnke,bnk->bne", y, onehot.to(y.dtype))
 
 
-def slot_tokens(assign: torch.Tensor, n_experts: int, capacity: int) -> torch.Tensor:
+def slot_tokens(assign: torch.Tensor, n_experts: int, capacity: int,
+                before: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(K, C)`` token index of each expert slot, ``T = assign.numel()``
     (the sentinel) where a slot is empty. A token's slot in its expert is
     the count of the tokens routed there before it in the flattened order;
-    tokens at or past ``capacity`` get none. Tokens that get no slot are
+    tokens at or past ``capacity`` get none. ``before (K,)``: the tokens
+    that precede this shard in the global order and go to each expert
+    (:func:`tokens_before`); a token then keeps its slot only while its
+    global place ``before[k] + slot`` is below ``capacity``, so the shard
+    keeps exactly its tokens of the global layout. Tokens that get no slot are
     written to one spare slot that is cut off, so every kept slot is written
     at most once: the result is deterministic on any device, with no
     host sync. The count runs along the token axis of a ``(K, T)`` one-hot,
@@ -76,17 +82,30 @@ def slot_tokens(assign: torch.Tensor, n_experts: int, capacity: int) -> torch.Te
     T = a.numel()
     onehot = (a[None, :] == torch.arange(n_experts, device=a.device)[:, None]).long()
     pos = torch.gather(onehot.cumsum(1), 0, a[None, :])[0] - 1  # (T,) place within its expert
-    flat = torch.where(pos < capacity, a * capacity + pos,
+    place = pos if before is None else pos + before[a]
+    flat = torch.where(place < capacity, a * capacity + pos,
                        torch.full_like(a, n_experts * capacity))
     slots = torch.full((n_experts * capacity + 1,), T, dtype=torch.long, device=a.device)
     slots[flat] = torch.arange(T, device=a.device)
     return slots[:-1].reshape(n_experts, capacity)
 
 
+def tokens_before(assign: torch.Tensor, n_experts: int, shard) -> torch.Tensor:
+    """``(K,)`` the tokens that the data ranks below ``shard.rank`` route to
+    each expert: every rank's per-expert counts gathered over the data
+    group (integers, no gradient), the lower ranks' summed. Rank ``r``
+    holds rows ``[r*b, (r+1)*b)`` of the global batch, so these tokens come
+    before the rank's own in the global flattened order."""
+    counts = torch.bincount(assign.reshape(-1), minlength=n_experts)
+    every = all_gather_cat(counts, shard.group).reshape(shard.world, n_experts)
+    return every[:shard.rank].sum(0)
+
+
 def expert_compute_capacity(x: torch.Tensor, assign: torch.Tensor, wi: torch.Tensor,
                             bi: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
                             capacity: int, first_expert: int = 0,
-                            n_experts: Optional[int] = None) -> torch.Tensor:
+                            n_experts: Optional[int] = None,
+                            before: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Switch-style gather dispatch over ``x (B, N, E)``: each expert's
     ``capacity`` slots (:func:`slot_tokens`) gather their tokens' rows (the
     zero row ``T`` for an empty slot), run the expert's FFN, and their
@@ -101,11 +120,13 @@ def expert_compute_capacity(x: torch.Tensor, assign: torch.Tensor, wi: torch.Ten
     serialises that row's duplicates). ``first_expert``/``n_experts``:
     ``wi``... hold the experts ``[first_expert, first_expert + K_local)``
     of ``n_experts``; the slots are laid out on the global assignment, as
-    unsharded, and cut to those experts."""
+    unsharded, and cut to those experts. ``before``: ``x`` is a data
+    rank's shard of the batch, and its tokens keep their slots of the
+    global batch's layout (:func:`slot_tokens`)."""
     B, N, E = x.shape
     K = wi.shape[0]
     T = B * N
-    slots = slot_tokens(assign, n_experts or K, capacity)[first_expert:first_expert + K]
+    slots = slot_tokens(assign, n_experts or K, capacity, before)[first_expert:first_expert + K]
     x_pad = torch.cat([x.reshape(T, E), x.new_zeros((1, E))], dim=0)
     xg = torch.index_select(x_pad, 0, slots.reshape(-1)).reshape(K, capacity, E)
     h = torch.relu(torch.bmm(xg, wi) + bi[:, None, :])
@@ -160,8 +181,15 @@ class MoEFeedForward(nn.Module):
         frac = global_mean(onehot.to(probs.dtype).mean(dim=(0, 1))).to(onehot_dtype)
         aux = self.n_experts * (frac * global_mean(probs.mean(dim=(0, 1)))).sum()
         if self.dispatch == "capacity":
-            cap = expert_capacity(x.shape[0] * x.shape[1], self.n_experts, self.capacity_factor)
-            y = expert_compute_capacity(x, assign, self.wi, self.bi, self.wo, self.bo, cap)
+            # under a batch_shard context the slots are the global batch's, as the JAX
+            # package's one program over the sharded batch lays them out
+            shard = current()
+            world = 1 if shard is None else shard.world
+            cap = expert_capacity(world * x.shape[0] * x.shape[1], self.n_experts,
+                                  self.capacity_factor)
+            before = None if shard is None else tokens_before(assign, self.n_experts, shard)
+            y = expert_compute_capacity(x, assign, self.wi, self.bi, self.wo, self.bo, cap,
+                                        before=before)
         else:
             y = expert_compute(x, onehot, self.wi, self.bi, self.wo, self.bo)
         return y * gate[..., None], aux

@@ -45,7 +45,9 @@ Data parallelism (``mesh=``, a :func:`..parallel.make_mesh` mesh with a
 every rank gathers and augments the whole batch from the same generator
 and keeps its rows; inside the model the batch-shaped draws (centroids,
 FPS starts, dropout masks) are made at the global shape and BatchNorm's
-moments are all-reduced, differentiably (:mod:`..ops.batch_shard`); the
+moments are all-reduced, differentiably (:mod:`..ops.batch_shard`), and
+the MoE capacity dispatch gives each token its slot of the global batch's
+layout (:mod:`..parallel.ep`); the
 loss's valid count is the global one and the gradients are summed over
 the ranks; per-sample results are gathered, so metrics and history are
 the global batch's on every rank; rank 0 alone writes checkpoints and
@@ -247,9 +249,9 @@ class Trainer:
     ``ValueError`` for a ``bn_sync_axis`` (the JAX ``Trainer`` fails on
     it: a ``NameError`` for the unbound axis, with a mesh or without),
     ``TypeError`` for ``ring_point_transformer`` (its forward takes no
-    train mode, as the JAX model's ``__call__`` takes no ``train``), and
-    ``NotImplementedError`` for the MoE capacity dispatch over more than
-    one rank (its slots would be the rank's, not the global batch's)."""
+    train mode, as the JAX model's ``__call__`` takes no ``train``). The
+    MoE capacity dispatch under a mesh lays its slots out on the global
+    batch, as the JAX ``Trainer``'s one program does (``parallel/ep.py``)."""
 
     def __init__(self, config: TrainConfig, dataset: OrientationDataset,
                  device: str | torch.device = "cuda", fused_mlp_train: bool = False,
@@ -270,8 +272,6 @@ class Trainer:
             if config.batch_size % self.sharding.world:
                 raise ValueError(f"batch_size={config.batch_size} does not shard evenly over "
                                  f"the data axis of size {self.sharding.world}")
-            if config.moe_dispatch == "capacity" and self.sharding.world > 1:
-                raise NotImplementedError("the MoE capacity dispatch over more than one rank")
         self.dataset = dataset
         if config.classes is not None:
             wanted = [c for c in config.classes if c in dataset.class_names]

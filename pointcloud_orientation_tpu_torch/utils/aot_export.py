@@ -30,9 +30,11 @@ Properties of the artifact:
   version. Unlike the JAX package's Pallas artifact, which needs only
   ``jax``, such an artifact needs this package on the serving host:
   :func:`load_artifact` imports the op registrations before it loads.
-  The grid kNN (``set_knn_impl("grid")``) reads its exactness certificate
-  on the host, a branch on data that an exported program cannot hold, and
-  is refused with kernels; the approximate kNN composes.
+  Under the grid kNN (``set_knn_impl("grid")``) either artifact holds the
+  exactness certificate as a ``torch.cond`` (``ops/geometry.py``
+  ``grid_pruned_knn``), as the JAX artifact holds a ``lax.cond``: the
+  pruned neighbours, or the full exact kNN (``pcot.knn`` with kernels);
+  the approximate kNN composes too.
 
 Example
 -------
@@ -63,7 +65,6 @@ import torch
 
 from ..models import MODEL_REGISTRY
 from ..ops import cuda_kernels as K  # registers the pcot ops that kernel artifacts call
-from ..ops import geometry as G
 from .jax_weights import load_flax_variables, model_kwargs as tree_kwargs, to_flax_variables
 
 
@@ -95,13 +96,7 @@ def export_orientation_model(
     num_points, C)`` float32 (``C`` the model's input width), traced on the
     CPU. ``batch_size=None`` exports a symbolic batch (any B >= 1).
     ``use_kernels``: the forward kernels as ``pcot.*`` nodes (module
-    docstring), else their plain versions; raises ``NotImplementedError``
-    under the grid kNN."""
-    if use_kernels and G.knn_impl() == "grid":
-        raise NotImplementedError(
-            "use_kernels=True under set_knn_impl('grid'): the grid kNN reads its exactness "
-            "certificate on the host (ops/geometry.py grid_pruned_knn, bool(ok)), a branch "
-            "on data that an exported program cannot hold; export under 'exact' or 'approx'")
+    docstring), else their plain versions."""
     model = build_model(model_name, params, batch_stats, model_kwargs)
     channels = getattr(model, "in_channels", 3)
     example = torch.zeros((batch_size or 2, num_points, channels), dtype=torch.float32)
@@ -111,8 +106,10 @@ def export_orientation_model(
 
 
 def kernel_nodes(exported: torch.export.ExportedProgram) -> List[str]:
-    """The ``pcot.*`` ops an artifact's graph calls, one entry a node."""
-    return [n.target.name() for n in exported.graph.nodes
+    """The ``pcot.*`` ops an artifact's graph calls, one entry a node: the
+    top graph's, then each ``torch.cond`` branch's (the grid kNN's)."""
+    return [n.target.name() for m in exported.graph_module.modules()
+            if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
             if n.op == "call_function" and isinstance(n.target, torch._ops.OpOverload)
             and n.target.namespace == "pcot"]
 

@@ -10,9 +10,12 @@ artifact (``use_kernels=True``, ``--kernels``): one ``pcot.*`` node for each
 kernel launch an eager request makes (the 8-dir model and the flash point
 transformer), run on the CPU through the ops' plain versions, equal to the
 portable artifact and the JAX artifact, through a save and load with a
-symbolic batch; the default artifact holds no such node; the grid kNN is
-refused with kernels, the approximate kNN composes. Each ``pcot`` op
-against its plain version.
+symbolic batch; the default artifact holds no such node; the approximate
+kNN composes. Under the grid kNN both artifacts hold its certificate as a
+``torch.cond``, as the JAX export holds a ``lax.cond``: on a batch that
+passes it and on one that falls back, equal to the eager grid model and the
+JAX grid artifact, the kernel artifact's fallback branch holding
+``pcot::knn``. Each ``pcot`` op against its plain version.
 """
 
 import collections
@@ -29,6 +32,7 @@ import pytest
 import torch
 
 from pointcloud_orientation_tpu.models import PointNetPP8Dir as JaxPointNetPP8Dir
+from pointcloud_orientation_tpu.ops import geometry as jax_geometry
 from pointcloud_orientation_tpu.utils.stablehlo_export import (
     export_orientation_model as jax_export_orientation_model,
 )
@@ -233,17 +237,95 @@ def test_kernel_artifact_of_the_flash_transformer():
     np.testing.assert_array_equal(got, _eager(model, x))
 
 
-def test_kernels_under_grid_are_refused_and_approx_composes(eight_dir):
-    """The grid kNN reads its certificate on the host: ``use_kernels``
-    raises under it. Under the approximate kNN sa1 traces through
-    ``pcot::topk_min`` and equals the portable approx artifact."""
-    v, _, x, _ = eight_dir
-    G.set_knn_impl("grid")
+GRID_N = 4096  # the grid kNN's smallest stage (approx_min_n): sa1 takes it
+
+
+def _grid_clouds(kind):
+    """B=2 clouds of GRID_N points in [-1, 1]^3. ``"certified"``: the first
+    512 points scaled into [-0.4, 0.4]^3, a dense core around sa1's 128
+    centroids (sampling "first"), whose 32 nearest then lie inside their
+    cell cubes; ``"fallback"``: uniform, where some centroid's do not."""
+    x = np.random.default_rng(21).uniform(-1, 1, size=(B, GRID_N, 3)).astype(np.float32)
+    if kind == "certified":
+        x[:, :512] *= 0.4
+    return x
+
+
+@pytest.fixture(scope="module")
+def grid_artifacts(eight_dir):
+    """Under ``set_knn_impl("grid", approx_min_n=GRID_N)``: the portable and
+    the kernel artifact (symbolic batch), the eager model's logits on both
+    clouds, and the JAX package's portable artifact under its own grid kNN
+    (the same weights, B=2) with its logits on both clouds."""
+    v = eight_dir[0]
+    G.set_knn_impl("grid", approx_min_n=GRID_N)
+    jax_geometry.set_knn_impl("grid", approx_min_n=GRID_N)
     try:
-        with pytest.raises(NotImplementedError, match="certificate"):
-            export_orientation_model("pointnet_pp_8dir", v["params"], v["batch_stats"],
-                                     batch_size=B, num_points=N, use_kernels=True)
-        G.set_knn_impl("approx", approx_min_n=N)
+        portable, kernels = (export_orientation_model(
+            "pointnet_pp_8dir", v["params"], v["batch_stats"], batch_size=None,
+            num_points=GRID_N, use_kernels=use) for use in (False, True))
+        model = build_model("pointnet_pp_8dir", v["params"], v["batch_stats"])
+        eager = {kind: _eager(model, _grid_clouds(kind)) for kind in ("certified", "fallback")}
+        jax_exported = jax_export_orientation_model(
+            "pointnet_pp_8dir", jax.tree_util.tree_map(jnp.asarray, v["params"]),
+            jax.tree_util.tree_map(jnp.asarray, v["batch_stats"]), batch_size=B,
+            num_points=GRID_N, platforms=("cpu",))
+    finally:
+        G.set_knn_impl("exact", approx_min_n=4096)
+        jax_geometry.set_knn_impl("exact", approx_min_n=4096)
+    jax_logits = {kind: np.asarray(jax_exported.call(jnp.asarray(_grid_clouds(kind))))
+                  for kind in eager}
+    return portable, kernels, eager, jax_logits
+
+
+@pytest.mark.parametrize("kind", ["certified", "fallback"])
+def test_grid_artifacts_take_the_certificate_branch(grid_artifacts, kind, tmp_path):
+    """The grid kNN's certificate is a ``torch.cond`` in the exported
+    program (the JAX export's ``lax.cond``): on a batch that passes it
+    (``grid_pruned_core``'s ``ok``, sa1's centroids) and on one that fails
+    it, the portable artifact equals the eager grid model bit for bit and
+    the JAX grid artifact within 1e-4; the kernel artifact, through a save
+    and load, equals the portable one (its ``pcot`` nodes run the plain
+    versions on the CPU)."""
+    portable, kernels, eager, jax_logits = grid_artifacts
+    x = torch.from_numpy(_grid_clouds(kind))
+    _, ok = G.grid_pruned_core(x[:, :128], x, 32)  # sa1: 128 centroids, K=32
+    assert bool(ok) == (kind == "certified")
+    got = portable.module()(x).numpy()
+    np.testing.assert_array_equal(got, eager[kind])
+    np.testing.assert_allclose(got, jax_logits[kind], rtol=1e-4, atol=1e-4)
+    path = str(tmp_path / "grid_kernels.pt2")
+    save_artifact(path, kernels)
+    np.testing.assert_array_equal(load_artifact(path).module()(x).numpy(), got)
+
+
+def test_kernels_under_grid_are_refused_and_approx_composes(eight_dir, grid_artifacts,
+                                                             tmp_path):
+    """The kernel export under grid is no longer refused: its graph calls
+    ``pcot::topk_min`` (the pruned selection, before the branch),
+    ``pcot::knn`` inside the ``cond``'s fallback branch and the grouping
+    and MLP kernels of sa2 and sa3, and a move to another device carries
+    the branches (no node left naming the CPU). Under the approximate kNN
+    sa1 traces through ``pcot::topk_min`` and equals the portable approx
+    artifact."""
+    v, _, x, _ = eight_dir
+    _, grid_kernels, _, _ = grid_artifacts
+    assert collections.Counter(kernel_nodes(grid_kernels)) == {
+        "pcot::topk_min": 1, "pcot::knn": 1, "pcot::sa_group": 1, "pcot::sa_mlp_max": 3}
+    branches = {name: [n.target.name() for n in m.graph.nodes if n.op == "call_function"
+                       and getattr(n.target, "namespace", None) == "pcot"]
+                for name, m in grid_kernels.graph_module.named_children()
+                if isinstance(m, torch.fx.GraphModule)}
+    assert sorted(branches.values()) == [[], ["pcot::knn"]]
+    path = str(tmp_path / "grid_kernels.pt2")
+    save_artifact(path, grid_kernels)
+    moved = load_artifact(path, device="meta")
+    devices = {str(n.kwargs["device"]) for m in moved.graph_module.modules()
+               if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
+               if "device" in n.kwargs}
+    assert devices == {"meta"}
+    G.set_knn_impl("approx", approx_min_n=N)
+    try:
         kernels, portable = (export_orientation_model(
             "pointnet_pp_8dir", v["params"], v["batch_stats"], batch_size=B, num_points=N,
             use_kernels=use) for use in (True, False))

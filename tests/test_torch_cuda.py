@@ -918,6 +918,48 @@ def test_grid_request_launches_topk_min_and_matches_exact_on_card(cuda_device):
     np.testing.assert_allclose(got, pred(clouds), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_grid_kernel_artifact_launches_what_the_request_launches_on_card(cuda_device,
+                                                                         tmp_path):
+    """The 8-dir kernel artifact under the grid dispatch (symbolic batch,
+    N=10,000, the certificate a ``torch.cond``) loaded onto the card, at
+    B=4: on clouds that certify it launches what the eager grid request
+    launches (1 topk_min, no kNN); on a two-cluster cloud that fails the
+    certificate, the fallback branch's kNN kernel too; logits within 1e-4
+    of the request's."""
+    from pointcloud_orientation_tpu_torch.utils.aot_export import (
+        export_orientation_model, load_artifact, save_artifact)
+
+    v = random_flax_variables(9)
+    pred = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                num_points=10_000, max_batch=4, device=cuda_device,
+                                sampling="first")
+    rng = np.random.default_rng(9)
+    certified = rng.uniform(-1, 1, size=(4, 10_000, 3)).astype(np.float32)
+    certified[:, :128] *= 0.5
+    clusters = rng.uniform(2, 3, size=(4, 10_000, 3)).astype(np.float32)
+    clusters[:, 1::2] *= -1
+    path = str(tmp_path / "grid_kernels.pt2")
+    try:
+        TG.set_knn_impl("grid")
+        save_artifact(path, export_orientation_model(
+            "pointnet_pp_8dir", v["params"], v["batch_stats"], batch_size=None,
+            num_points=10_000, use_kernels=True))
+        program = load_artifact(path, device=cuda_device).module()
+        for clouds, knn in ((certified, 0), (clusters, 1)):
+            K.reset_launch_counts()
+            want = pred(clouds)
+            request = K.launch_counts()
+            K.reset_launch_counts()
+            got = program(torch.from_numpy(clouds).to(cuda_device)).cpu().numpy()
+            artifact = K.launch_counts()
+            assert request == artifact == {**{k: 0 for k in artifact}, "topk_min": 1,
+                                           "knn": knn, "sa_group": 1, "sa_mlp_max": 3}
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    finally:
+        TG.set_knn_impl("exact")
+
+
 # ---------------------------------------------------------------------------
 # the MLP forward against its backward's recompute
 # ---------------------------------------------------------------------------

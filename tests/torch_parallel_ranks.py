@@ -14,6 +14,7 @@ seeds by the functions below, which the tests call too.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import shutil
@@ -163,6 +164,141 @@ def dp_jax_step(mesh=None) -> Dict:
     return {"params": after["params"], "batch_stats": after["batch_stats"],
             "grads": to_flax_variables(t.model, grads=True)["params"],
             "history": t.history, "steps": t.step}
+
+
+# One step of the MoE point transformer's capacity dispatch under DP, against the
+# JAX Trainer on its virtual mesh (tests/test_torch_moe_dp.py): the DP step's
+# deterministic configuration above on the preset's task (forward_mse_aux), at
+# the port's MoE test sizes with no dropout, at a capacity factor that drops
+# tokens and at n_experts, which drops none. The global batch is 8 clouds of 128
+# points: 1,024 tokens, 320 slots an expert at 1.25.
+MOE_SIZE = dict(depth=2, embed_dim=16, num_heads=2, ffn_dim=32)
+MOE_FACTORS = (1.25, 4.0)
+MOE_STEP_CFG = dict(JAX_STEP_CFG, moe_dispatch="capacity")
+MOE_STEP_WEIGHTS = 6
+
+
+def moe_step_weights() -> Dict:
+    from pointcloud_orientation_tpu_torch.utils.jax_weights import random_flax_variables
+
+    return random_flax_variables(MOE_STEP_WEIGHTS, "moe_point_transformer", **MOE_SIZE)
+
+
+@contextlib.contextmanager
+def recorded_slots(rank: int, factor: float):
+    """Record each capacity dispatch's kept tokens (``ep.slot_tokens``'s
+    table) as global token ids (rank ``r``'s ``T`` tokens follow the lower
+    ranks'), and the tokens that the rank's batch would keep laid out
+    alone (its own capacity at ``factor``, its own counts), one array each
+    a call."""
+    from unittest import mock
+
+    from pointcloud_orientation_tpu_torch.parallel import ep
+
+    real, kept, alone = ep.slot_tokens, [], []
+
+    def slot_tokens(assign, n_experts, capacity, before=None):
+        slots = real(assign, n_experts, capacity, before)
+        T = assign.numel()
+        kept.append(np.sort(slots[slots < T].cpu().numpy()) + rank * T)
+        own = real(assign, n_experts, ep.expert_capacity(T, n_experts, factor))
+        alone.append(np.sort(own[own < T].cpu().numpy()) + rank * T)
+        return slots
+
+    with mock.patch.object(ep, "slot_tokens", slot_tokens):
+        yield kept, alone
+
+
+def moe_dp_step(factor: float, mesh=None) -> Dict:
+    """The port's side of the JAX MoE DP step: the Trainer's one epoch (one
+    step) of the capacity dispatch in float64 from the shared weights; the
+    step's loss, aux loss, gradient and each layer's kept tokens (global
+    ids, every rank's), and each rank's kept tokens had it laid out its
+    own batch alone."""
+    from unittest import mock
+
+    from pointcloud_orientation_tpu_torch import data
+    from pointcloud_orientation_tpu_torch.train import Trainer, preset
+    from pointcloud_orientation_tpu_torch.train import trainer as TR
+    from pointcloud_orientation_tpu_torch.utils.jax_weights import (load_flax_variables,
+                                                                    to_flax_variables)
+
+    v = moe_step_weights()
+    rank = 0 if mesh is None else _rank()
+    aux = []
+    with mock.patch.object(TR, "flax_dense_init_",
+                           lambda model, generator: load_flax_variables(model, v)), \
+            recorded_slots(rank, factor) as (kept, alone):
+        t = Trainer(preset("moe_point_transformer", **MOE_STEP_CFG, moe_capacity_factor=factor),
+                    jax_step_dataset(data), device="cpu", mesh=mesh, dropout=0.0, **MOE_SIZE)
+        t.model.double()
+        t.model.register_forward_hook(
+            lambda module, args, out: aux.append(float(out[1].detach())))
+        to_batch = t.device_batch
+
+        def device_batch(*a, **k):
+            batch, valid, labels = to_batch(*a, **k)
+            return ({n: x.double() if x.is_floating_point() else x for n, x in batch.items()},
+                    valid.double(), labels)
+
+        t.device_batch = device_batch
+        t.fit(epochs=1, log_every=0)
+    depth = MOE_SIZE["depth"]  # the step's forward comes first, one dispatch a layer
+    every = _gather_objects((kept[:depth], alone[:depth])) if mesh is not None else [
+        (kept[:depth], alone[:depth])]
+    return {"loss": t.history["train"][0], "aux": aux[0], "steps": t.step,
+            "grads": to_flax_variables(t.model, grads=True)["params"],
+            "kept": [np.concatenate([r[0][i] for r in every]) for i in range(depth)],
+            "kept_alone": [np.concatenate([r[1][i] for r in every]) for i in range(depth)]}
+
+
+def moe_fsdp(mesh) -> Dict:
+    """An FSDP step (``make_fsdp_train_step``) of the MoE transformer's
+    regression output under the capacity dispatch at a dropping factor,
+    and the same SGD step on one rank's whole batch without FSDP, in
+    float64, with each layer's kept tokens."""
+    import torch
+
+    from pointcloud_orientation_tpu_torch import parallel as P
+    from pointcloud_orientation_tpu_torch.models import MoEPointTransformer
+    from pointcloud_orientation_tpu_torch.utils.jax_weights import (load_flax_variables,
+                                                                    to_flax_variables)
+
+    class Regression(MoEPointTransformer):  # the FSDP step's loss takes one output
+        def forward(self, x, generator=None):
+            return super().forward(x, generator)[0]
+
+    def model():
+        return load_flax_variables(Regression(dropout=0.0, dispatch="capacity", **MOE_SIZE),
+                                   moe_step_weights()).double()
+
+    x = torch.from_numpy(clouds(16, 8, 64)).double()
+    target = torch.from_numpy(np.random.default_rng(17).normal(size=(8, 3))).double()
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)  # noqa: E731
+    rows = P.batch_sharding(mesh).rows(8)
+    out = {}
+    m = model()
+    fp = P.shard_fsdp_params(m, mesh, min_weight_size=1)
+    with recorded_slots(_rank(), 1.25) as (kept, _):
+        fp, _, loss = P.make_fsdp_train_step(m, mesh)(fp, sgd(fp.parameters()), x[rows],
+                                                       target[rows])
+    out["fsdp"] = {"loss": float(loss), "params": to_flax_variables(fp.unshard())["params"],
+                   "kept": [np.concatenate(k) for k in zip(*_gather_objects(kept))]}
+    ref = model()
+    with recorded_slots(0, 1.25) as (kept, _):
+        ref_loss = ((ref(x) - target) ** 2).mean()
+    ref_loss.backward()
+    sgd(ref.parameters()).step()
+    out["one_device"] = {"loss": float(ref_loss), "params": to_flax_variables(ref)["params"],
+                         "kept": kept}
+    return out
+
+
+def suite_moe_dp(world: int) -> Dict:
+    from pointcloud_orientation_tpu_torch import parallel as P
+
+    mesh = P.make_mesh(("data",), device="cpu")
+    return {"step": {f: moe_dp_step(f, mesh) for f in MOE_FACTORS}, "fsdp": moe_fsdp(mesh)}
 
 
 def serving_predictor(mesh=None, sampling: str = "random"):
@@ -525,7 +661,8 @@ def suite_ring_sp(world: int) -> Dict:
 
 
 SUITES = {"mesh": suite_mesh, "dp": suite_dp, "protocols": suite_protocols,
-          "fsdp_tp": suite_fsdp_tp, "pp_ep": suite_pp_ep, "ring_sp": suite_ring_sp}
+          "fsdp_tp": suite_fsdp_tp, "pp_ep": suite_pp_ep, "ring_sp": suite_ring_sp,
+          "moe_dp": suite_moe_dp}
 
 
 # ---------- launching ----------
