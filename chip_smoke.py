@@ -116,7 +116,14 @@ test's bounds, the request at ``LOGIT_TOL``, the 8-dir epoch at bounds above the
 readings of ``parallel/dp_gap.py`` over five seeds, the float64 gradient
 at 1e-10; the kernels line's ``launches_parallel``; ``timing_parallel``:
 the DP step at world size 1 against the meshless step, and its
-collectives. Both run after every earlier timing phase.
+collectives. Both run after every earlier timing phase. The JAX
+package's Orbax checkpoints (``orbax``, before the timing phases): the
+committed fixture ``tests/data/orbax_transformer`` read bit-equal to its
+``.npz`` and served against the JAX predictor's outputs, the zstd
+decoder's rate; the 8dir_kl preset (B=16, N=10,000) trained three steps,
+written by ``save_orbax_checkpoint``, read back bit for bit, served
+bit-equal to the trainer's model, and resumed into a step bit-equal to the
+uninterrupted one; the kernels line's ``launches_orbax``.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -178,6 +185,7 @@ from pointcloud_orientation_tpu_torch.utils.aot_export import (
     load_artifact,
     save_artifact,
 )
+from pointcloud_orientation_tpu_torch.utils.orbax_format import flat_leaves, read_pytree
 from pointcloud_orientation_tpu_torch.utils.quantize import save_quantized_checkpoint
 
 # The card's peaks and the bound formula (roofline.bound_ms): a bf16
@@ -4399,6 +4407,163 @@ def phase_train_resident(dev) -> dict:
     return {"launches": {**runs["f32"]["launches"], **runs["bf16"]["launches"]}}
 
 
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "orbax_transformer")
+ORBAX_SERVE_TOL = 2e-6  # the port's f32 serving bound against the JAX predictor (CPU tests)
+ORBAX_DECODE_REPS = 5  # the decoder's rate: the best of this many passes over the fixture
+
+
+def same_leaves(a, b) -> bool:
+    """Two restored trees with the same key paths, ``None`` where the other
+    has ``None``, and arrays of the same dtype and bits."""
+    fa, fb = dict(flat_leaves(a)), dict(flat_leaves(b))
+    return fa.keys() == fb.keys() and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and np.asarray(x).dtype == np.asarray(y).dtype
+                                      and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+        for x, y in ((fa[k], fb[k]) for k in fa))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def model_state_equal(a, b) -> bool:
+    """Weights and running statistics bit for bit; BatchNorm's
+    ``num_batches_tracked`` (which no flax tree holds) left out."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa
+                                          if not k.endswith("num_batches_tracked"))
+
+
+def phase_orbax(dev, card: str) -> dict:
+    """The JAX package's Orbax checkpoints on the card, where neither orbax
+    nor JAX exists. (a) The committed fixture (``tests/data/
+    orbax_transformer``, written by the JAX ``Trainer.save_checkpoint`` of
+    a narrow point transformer; ``tests/torch_make_orbax_fixture.py``):
+    ``read_pytree`` bit-equal to its ``leaves.npz``, ``from_orbax_checkpoint``
+    serving the JAX predictor's outputs within ``ORBAX_SERVE_TOL`` (plain
+    attention) and the flash backend's request (one ``flash_attention_fwd``
+    launch) against it at ``PT_TOL``, and the zstd decoder's rate over the
+    fixture's compressed chunks (host seconds). (b) The full-width path:
+    the 8dir_kl preset (B=16, N=10,000, f32) trained three steps (one epoch,
+    counters from 0), written by ``save_orbax_checkpoint`` (bytes, write and
+    read seconds); ``read_pytree`` equal to the trainer's state bit for bit;
+    ``from_orbax_checkpoint`` serving a request bit-equal to the trainer's
+    own model (2 ``sa_group`` and 3 ``sa_mlp_max`` launches, counted); a
+    fresh ``Trainer`` restored from it at epoch 1 taking the next step
+    bit-equal to the uninterrupted trainer's (weights, statistics, Adam
+    state, count, loss; 2 ``sa_group`` and 1 ``sa_group_scatter``)."""
+    from pointcloud_orientation_tpu_torch.utils import ocdbt, zstd
+
+    z = np.load(os.path.join(ORBAX_FIXTURE, "leaves.npz"))
+    fixture = os.path.join(ORBAX_FIXTURE, f"step_{int(z['_step'])}")
+    store = ocdbt.Store(fixture)
+    frames = [v for v in (store.read(k) for k in store.keys() if not k.endswith(".zarray"))
+              if v[:4] == b"\x28\xb5\x2f\xfd"]
+    passes = []
+    for _ in range(ORBAX_DECODE_REPS):
+        t0 = time.perf_counter()
+        decoded = sum(len(zstd.decompress(f)) for f in frames)
+        passes.append(time.perf_counter() - t0)
+    compressed = sum(len(f) for f in frames)
+    t0 = time.perf_counter()
+    tree = read_pytree(fixture)
+    read_s = time.perf_counter() - t0
+    leaves = dict(flat_leaves(tree))
+    arrays = {k[len("leaf:"):]: z[k] for k in z.files if k.startswith("leaf:")}
+    bit_equal = (sorted(k for k, v in leaves.items() if v is None)
+                 == sorted(z["_none_paths"].tolist())
+                 and set(arrays) == {k for k, v in leaves.items() if v is not None}
+                 and all(leaves[k].dtype == v.dtype and leaves[k].tobytes() == v.tobytes()
+                         for k, v in arrays.items()))
+    x = z["_clouds"]
+    b, n = x.shape[:2]
+    plain = OrientationPredictor.from_orbax_checkpoint(fixture, "point_transformer",
+                                                       num_points=n, max_batch=b, device=dev)
+    got = plain(x)
+    err = float(np.abs(got - z["_outputs"]).max())
+    flash = OrientationPredictor.from_orbax_checkpoint(fixture, "point_transformer",
+                                                       num_points=n, max_batch=b, device=dev,
+                                                       attention_impl="flash")
+    K.reset_launch_counts()
+    flash_out = flash(x)
+    torch.cuda.synchronize()
+    flash_n = K.launch_counts()
+    depth = len(flash.model.layers)
+    flash_err = float(np.abs(flash_out - got).max())
+    ok_a = bool(bit_equal and err <= ORBAX_SERVE_TOL and flash_err <= PT_TOL["float32"]
+                and flash_n == expected_launches(flash_attention_fwd=depth))
+    best = min(passes)
+    emit("orbax_fixture", card=card, leaves=len(leaves),
+         bit_equal=bit_equal, zstd_frames=len(frames), compressed_bytes=compressed,
+         decoded_bytes=decoded, decode_seconds=passes, decode_mb_s=compressed / best / 1e6,
+         decoded_mb_s=decoded / best / 1e6, read_pytree_s=read_s,
+         checkpoint_bytes=dir_bytes(fixture), max_abs_err_vs_jax=err, tol=ORBAX_SERVE_TOL,
+         flash_vs_plain=flash_err, flash_tol=PT_TOL["float32"], launches_flash=flash_n,
+         ok=ok_a)
+    if not ok_a:
+        fail(f"orbax fixture: bit_equal {bit_equal}, {err} from the JAX outputs (tol "
+             f"{ORBAX_SERVE_TOL}), flash {flash_err} from plain, launches {flash_n}")
+
+    ds = train_dataset()
+    trainer = Trainer(preset("8dir_kl", epochs=2), ds, device=dev)
+    steps, val = batches_of(trainer.train_ds, 16), batches_of(trainer.val_ds, 16)
+    K.reset_launch_counts()
+    trainer.fit(epochs=1, log_every=0)
+    torch.cuda.synchronize()
+    fit_n = K.launch_counts()
+    launches = {"orbax fixture flash request": flash_n, "orbax fit 1 epoch": fit_n}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = trainer.save_orbax_checkpoint(d)
+        write_s = time.perf_counter() - t0
+        size = dir_bytes(path)
+        t0 = time.perf_counter()
+        tree = read_pytree(path)
+        read_full_s = time.perf_counter() - t0
+        state_equal = same_leaves(tree, trainer.flax_state())
+        pred = OrientationPredictor.from_orbax_checkpoint(path, "pointnet_pp_8dir",
+                                                          num_points=TRAIN_N, max_batch=16,
+                                                          device=dev)
+        x = so3_clouds(16, TRAIN_N, SEED + 61)
+        K.reset_launch_counts()
+        served = pred(x)
+        torch.cuda.synchronize()
+        serve_n = K.launch_counts()
+        own = trainer.predict(x, torch.Generator(device=dev).manual_seed(0))
+        serve_equal = bool(np.array_equal(served, own))
+        other = Trainer(preset("8dir_kl", epochs=2), ds, device=dev)
+        epoch = other.restore_checkpoint(path)
+    idx, valid, _ = next(ds.batches(16, shuffle=True, seed=2))
+    batch, valid, _ = trainer.device_batch(ds, idx, valid, trainer.generator(0, 2, 0))
+    K.reset_launch_counts()
+    m_resumed = other.train_step(batch, valid, other.generator(0, 2, 1))
+    torch.cuda.synchronize()
+    step_n = K.launch_counts()
+    m_full = trainer.train_step(batch, valid, trainer.generator(0, 2, 1))
+    opt_a, opt_b = trainer_state(trainer)[1:], trainer_state(other)[1:]
+    step_equal = {"weights_and_statistics": model_state_equal(trainer, other),
+                  "adam_state_and_count": same_state(({}, *opt_a), ({}, *opt_b)),
+                  "loss": float(m_full["loss"]) == float(m_resumed["loss"])}
+    launches.update({"orbax request B=16 N=10000": serve_n, "orbax resumed step": step_n})
+    expected = {"fit": knn_trunk_launches(steps, val, False),
+                "request": expected_launches(sa_group=2, sa_mlp_max=3),
+                "step": expected_launches(sa_group=2, sa_group_scatter=1)}
+    ok_b = bool(state_equal and serve_equal and epoch == 1 and all(step_equal.values())
+                and fit_n == expected["fit"] and serve_n == expected["request"]
+                and step_n == expected["step"])
+    emit("orbax_full_width", card=card, B=16, N=TRAIN_N,
+         train_steps=steps, checkpoint_bytes=size, write_s=write_s, read_s=read_full_s,
+         read_mb_s=size / read_full_s / 1e6, state_equal=state_equal, serve_equal=serve_equal,
+         restored_epoch=epoch, resumed_step_equal=step_equal, launches=launches,
+         expected_launches=expected, ok=ok_b)
+    if not ok_b:
+        fail(f"orbax full width: state {state_equal}, serve {serve_equal}, epoch {epoch}, "
+             f"step {step_equal}, launches {launches} (expected {expected})")
+    return {"launches": launches}
+
+
 PAR_B = 16  # the 8dir_kl preset's batch and N=TRAIN_N: the DP epoch and sharded serving
 PAR_T = (16, 1024)  # B, N of the point transformer under TP and PP, flash attention
 PAR_RING = (4, 1024)  # B, N of the ring transformer (its defaults: E=64, 2 layers, F=256)
@@ -4925,6 +5090,7 @@ def main() -> None:
     approx = phase_approx_knn(dev)
     aot = phase_aot_export(dev)
     resident = phase_train_resident(dev)
+    orbax = phase_orbax(dev, info["nvidia_smi"])
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -4976,6 +5142,8 @@ def main() -> None:
                                     for path, n in resident["launches"].items()}
         row["launches_aot_kernels"] = {path: n.get(row["name"], 0)
                                        for path, n in aot["launches"].items()}
+        row["launches_orbax"] = {path: n.get(row["name"], 0)
+                                 for path, n in orbax["launches"].items()}
         if row["name"] == "topk_min":
             row["shapes"]["approx sa1 B=16 M=10000"] = approx["topk_min"]
     summary += flash_rows

@@ -13,11 +13,12 @@ framework.
 POST /predict takes ``{"clouds": (B, N, 3) nested lists}`` and returns the
 decoded unit forward vectors; GET /healthz reports readiness. Requests of
 any batch and point count are padded to the predictor's buckets.
-``--torch-ckpt`` serves a reference ``.pth``, ``--quantized-npz`` an int8
-``.npz`` artifact (``utils/quantize.py`` of either package), ``--quantize
-int8`` quantizes the weights it is given, ``--tta-views`` votes over yaw
-views. The JAX server's ``--orbax`` is not ported: orbax is not a
-dependency of the port. ``--device`` defaults to ``cuda``.
+``--orbax`` serves an Orbax checkpoint (a ``step_<N>`` directory of the JAX
+package's ``Trainer.save_checkpoint``, read without orbax), ``--torch-ckpt``
+a reference ``.pth``, ``--quantized-npz`` an int8 ``.npz`` artifact
+(``utils/quantize.py`` of either package); ``--quantize int8`` quantizes
+the weights it is given, ``--tta-views`` votes over yaw views.
+``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ def build_predictor(args):
               tta_views=args.tta_views)
     if args.quantize:
         kw["quantize"] = args.quantize
+    if args.orbax:
+        return OrientationPredictor.from_orbax_checkpoint(args.orbax, args.model, **kw)
     if args.quantized_npz:
         return OrientationPredictor.from_quantized_checkpoint(args.quantized_npz, args.model, **kw)
     if args.torch_ckpt:
@@ -94,6 +97,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default="pointnet_pp_8dir")
+    ap.add_argument("--orbax", default=None,
+                    help="an Orbax checkpoint of the JAX package (a step_N directory)")
     ap.add_argument("--torch-ckpt", default=None, help="a reference-layout .pth")
     ap.add_argument("--quantized-npz", default=None,
                     help="an int8 .npz artifact (save_quantized_checkpoint)")

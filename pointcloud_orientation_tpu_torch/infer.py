@@ -388,6 +388,18 @@ class OrientationPredictor:
         return cls(model, params, stats, **kw)
 
     @classmethod
+    def from_orbax_checkpoint(cls, path: str, model: str, **kw) -> "OrientationPredictor":
+        """Serve the JAX package's Orbax checkpoint ``path`` (a ``step_<N>``
+        directory of its ``Trainer.save_checkpoint``, or the port's
+        :meth:`.train.Trainer.save_orbax_checkpoint`): its ``params`` and
+        ``batch_stats``, read by :func:`.utils.orbax_format.read_pytree`
+        without orbax; ``kw`` as the constructor's."""
+        from .utils.orbax_format import read_pytree
+
+        ckpt = read_pytree(path)
+        return cls(model, ckpt["params"], ckpt.get("batch_stats"), **kw)
+
+    @classmethod
     def from_quantized_checkpoint(cls, path: str, model: str, **kw) -> "OrientationPredictor":
         """Serve an int8 ``.npz`` artifact
         (:func:`.utils.quantize.save_quantized_checkpoint`, or the JAX
@@ -435,8 +447,11 @@ class OrientationPredictor:
         ``allow_label_keys=True`` (``ValueError``). A member whose val loss
         never improved (non-finite ``best_val``) is left out by default, with
         a warning; selected by ``members``, it serves its final weights (the
-        JAX package's slot holds its initial ones), with a warning. The JAX
-        package's Orbax checkpoints are not read (``NotImplementedError``)."""
+        JAX package's slot holds its initial ones), with a warning. A JAX
+        package's checkpoint (an Orbax ``carry/``) is read as the JAX
+        predictor reads it: every member's ``best_params`` and
+        ``best_batch_stats``, the initial weights where ``best_val`` never
+        improved."""
         import json
         import warnings
 
@@ -459,7 +474,8 @@ class OrientationPredictor:
                     "an ensemble). Pass allow_label_keys=True to override.") from None
         carry = read_protocol_carry(path)
         states, configs = carry["members"], carry["configs"]
-        finite = np.isfinite(np.asarray([s["best_val"] for s in states], np.float64))
+        jax_carry = configs is None
+        finite = np.isfinite(np.asarray([np.asarray(s["best_val"]) for s in states], np.float64))
         if members is None and not finite.all():
             warnings.warn(f"protocol checkpoint members {np.nonzero(~finite)[0].tolist()} have "
                           "non-finite best_val (validation never improved) — excluding them "
@@ -472,7 +488,12 @@ class OrientationPredictor:
                              "non-finite (all seeds diverged).")
         if not finite[idx].all():
             warnings.warn(f"selected members {[i for i in idx if not finite[i]]} have "
-                          "non-finite best_val — they serve their final weights.", stacklevel=2)
+                          "non-finite best_val — they serve their "
+                          + ("initial" if jax_carry else "final") + " weights.", stacklevel=2)
+        if jax_carry:
+            return cls.from_seed_sweep(model, [
+                {"params": states[i]["best_params"],
+                 "batch_stats": states[i].get("best_batch_stats") or None} for i in idx], **kw)
         trees = []
         for i in idx:
             cfg = TrainConfig(**configs[i])

@@ -1,18 +1,23 @@
-"""Evaluation of trained weights (a reference-layout ``.pth`` or the port's
-own checkpoint) on a dataset's test split: loss and mean angular error.
+"""Evaluation of trained weights (a reference-layout ``.pth``, the port's
+own checkpoint or the JAX package's) on a dataset's test split: loss and
+mean angular error.
 
 Counterpart of ``pointcloud_orientation_tpu/train/evaluate.py``, the
 cross-stack check: the same reference weights evaluated by both stacks on
 the same clouds. ``--ckpt`` takes a checkpoint of the port's
-``Trainer.save_checkpoint`` (the JAX package takes an Orbax one there).
+``Trainer.save_checkpoint`` (a ``.pt`` file) or, as the JAX package's does,
+an Orbax ``step_<N>`` directory of its ``Trainer.save_checkpoint``, read
+without orbax (``Trainer.restore_checkpoint``).
 
     # reference weights on a pre-rotated tree with its sidecars
     python -m pointcloud_orientation_tpu_torch.train.evaluate --preset 8dir_kl \\
         --torch-ckpt results/8dir_KLdiv_0926.pth --data plygt:/path/to/tree
 
-    # the port's own checkpoint
+    # the port's own checkpoint, or a JAX one
     python -m pointcloud_orientation_tpu_torch.train.evaluate --preset 8dir_kl \\
         --ckpt results/torch_8dir_kl/ckpt/epoch_5.pt --data synthetic
+    python -m pointcloud_orientation_tpu_torch.train.evaluate --preset 8dir_kl \\
+        --ckpt results/8dir_kl/ckpt/step_100 --data synthetic
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ def evaluate(cfg, dataset, torch_ckpt: Optional[str] = None, ckpt: Optional[str]
              device: str = "cuda") -> dict:
     """The test split's ``loss``, ``mean_angular_error_deg``, ``per_class``
     loss and ``count`` under ``cfg`` with the weights of ``torch_ckpt`` (a
-    reference ``.pth`` of ``cfg.model``) or ``ckpt`` (the port's checkpoint);
+    reference ``.pth`` of ``cfg.model``) or ``ckpt`` (the port's checkpoint
+    or the JAX package's Orbax directory);
     with neither, the config's initial weights."""
     trainer = Trainer(cfg, dataset, device=device)
     if torch_ckpt:

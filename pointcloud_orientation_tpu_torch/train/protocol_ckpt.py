@@ -13,9 +13,11 @@ Layout per save: ``<dir>/step_<E>/carry.pt`` (``torch.save`` of
 as :func:`.trainer.write_torch_file` writes) and
 ``<dir>/step_<E>/history.json`` (the JAX file's keys: ``epoch``, ``keys``
 and ``history``, one ``{train, val, train_ang, val_ang}`` a key). The JAX
-package's own checkpoints keep their carry in Orbax (``step_<E>/carry``):
-the port does not read them (``NotImplementedError``), as it does not read
-``from_orbax_checkpoint``'s.
+package's own checkpoints keep their carry in Orbax (``step_<E>/carry``,
+the eight fields of its ``_carry_to_np`` stacked on a member axis): the
+port reads them too (:func:`read_protocol_carry`, without orbax), so a
+protocol that the JAX package checkpointed resumes here and serves as an
+ensemble (``OrientationPredictor.from_protocol_checkpoint``).
 
 With a mesh the members are split over its first axis
 (:func:`.ensemble.member_rows`): a save gathers every rank's members on the
@@ -30,10 +32,16 @@ import json
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.orbax_format import read_pytree
 from .trainer import write_torch_file
+
+# the fields of the JAX package's protocol carry (its ``_carry_to_np``)
+JAX_CARRY = ("step", "params", "batch_stats", "opt_state", "best_val", "best_params",
+             "best_batch_stats", "best_epoch")
 
 
 def gather_members(local: List, group) -> List:
@@ -73,24 +81,43 @@ def save_protocol_checkpoint(directory: str, epoch: int, carry, history: Dict,
     return path
 
 
+def _member(tree, i: int):
+    """Member ``i`` of a tree stacked on a leading member axis."""
+    if isinstance(tree, dict):
+        return {k: _member(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_member(v, i) for v in tree]
+    return None if tree is None else np.asarray(tree)[i]
+
+
 def read_protocol_carry(path: str) -> Dict:
-    """``carry.pt`` of a ``step_<E>`` directory, tensors on the host.
-    ``NotImplementedError`` for the JAX package's Orbax carry."""
+    """The carry of a ``step_<E>`` directory: the port's ``carry.pt``
+    (``{"members": [payload, ...], "configs": [...]}``, tensors on the
+    host), or the JAX package's Orbax ``carry/`` as ``{"members": [tree,
+    ...], "configs": None}``, each member's tree the JAX carry's fields
+    (``JAX_CARRY``) at its index of the member axis, in the layout that
+    :meth:`.trainer.Trainer.load_flax_state` takes."""
     pt = os.path.join(path, "carry.pt")
     if not os.path.exists(pt) and os.path.isdir(os.path.join(path, "carry")):
-        raise NotImplementedError(
-            f"{path} holds the JAX package's Orbax carry; the port reads only its own "
-            "carry.pt (Orbax is not ported)")
+        tree = read_pytree(os.path.join(path, "carry"))
+        missing = sorted(set(JAX_CARRY) - set(tree))
+        if missing:
+            raise ValueError(f"{path}/carry has no {missing}: not a JAX protocol carry")
+        n = int(np.asarray(tree["best_val"]).shape[0])
+        return {"members": [_member(tree, i) for i in range(n)], "configs": None}
     return torch.load(pt, map_location="cpu", weights_only=False)
 
 
 def restore_protocol_checkpoint(path: str, carry_template, keys: Sequence,
                                 rows: Optional[slice] = None) -> Tuple[list, Dict, int]:
-    """Restore ``(carry, history, epoch)`` from a protocol checkpoint into
-    the freshly built member trainers ``carry_template`` (in place; the
-    same list is returned). ``keys`` are the protocol's label or seed keys
-    in construction order, checked against the artifact's; ``rows``: the
-    rank's members among them (all by default)."""
+    """Restore ``(carry, history, epoch)`` from a protocol checkpoint, the
+    port's or the JAX package's, into the freshly built member trainers
+    ``carry_template`` (in place; the same list is returned). ``keys`` are
+    the protocol's label or seed keys in construction order, checked
+    against the artifact's; ``rows``: the rank's members among them (all by
+    default). A JAX member loads by :meth:`.trainer.Trainer.load_flax_state`
+    (weights, optimizer, step, best-val snapshot) and takes its history from
+    ``history.json``."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "history.json")) as f:
         payload = json.load(f)
@@ -99,9 +126,16 @@ def restore_protocol_checkpoint(path: str, carry_template, keys: Sequence,
                          f"but this protocol runs {[str(k) for k in keys]}")
     rows = rows or slice(0, len(keys))
     keys = list(keys)[rows]
-    for trainer, state in zip(carry_template, read_protocol_carry(path)["members"][rows]):
-        trainer.load_payload(state)  # its history too: the same as history.json's
-    return carry_template, {k: payload["history"][str(k)] for k in keys}, int(payload["epoch"])
+    carry = read_protocol_carry(path)
+    history = {k: payload["history"][str(k)] for k in keys}
+    for key, trainer, state in zip(keys, carry_template, carry["members"][rows]):
+        if carry["configs"] is not None:
+            trainer.load_payload(state)  # its history too: the same as history.json's
+            continue
+        trainer.load_flax_state(state)  # a JAX member: its history is history.json's
+        trainer.history = {k: list(v) for k, v in history[key].items()}
+        trainer.epoch = int(payload["epoch"])
+    return carry_template, history, int(payload["epoch"])
 
 
 def resume_protocol(resume_from: str, carry_template, keys: Sequence,

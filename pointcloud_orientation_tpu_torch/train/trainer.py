@@ -13,7 +13,10 @@ split 70/15/15 -> per epoch a train pass and a val pass -> best-val
 snapshot -> reload best -> test pass -> artifacts (``loss_curve.png`` where
 matplotlib imports), with checkpoint and resume, checkpoints written on a
 background thread (``async_checkpoint``) and a preemption guard
-(:meth:`Trainer.fit`). The optimizer is the JAX package's optax chain: the
+(:meth:`Trainer.fit`); the JAX package's Orbax checkpoints are read and
+written too (:meth:`Trainer.restore_checkpoint` of a ``step_<N>``
+directory, :meth:`Trainer.save_orbax_checkpoint`). The optimizer is the
+JAX package's optax chain: the
 optional global-norm clip (``clip_by_global_norm``), then Adam at optax's
 defaults (b1 0.9, b2 0.999, eps 1e-8) or plain SGD (no momentum, no weight
 decay), at a constant rate or on optax's ``warmup_cosine_decay_schedule``
@@ -89,6 +92,16 @@ from ..ops.cuda_kernels import bf16_matmuls, f32_matmuls
 from ..parallel.comm import all_gather_cat, all_reduce_grads
 from ..parallel.ep import MoEFeedForward
 from ..parallel.mesh import batch_sharding, replicate
+from ..utils.jax_weights import _get as _leaf
+from ..utils.jax_weights import _set as _set_leaf
+from ..utils.jax_weights import (
+    flax_parameter_paths,
+    from_flax_layout,
+    load_flax_variables,
+    to_flax_layout,
+    to_flax_variables,
+)
+from ..utils.orbax_format import read_pytree, write_pytree
 from .config import TrainConfig
 from .metrics import MetricsAccumulator, plot_loss_curves, write_summary_txt
 from .tasks import TASKS
@@ -228,6 +241,11 @@ def config_model_kwargs(config: TrainConfig) -> Dict[str, Any]:
     if config.model == "pointnet_pp_von_mises":
         kwargs["mu_parameterization"] = config.vm_mu_parameterization
     return kwargs
+
+
+def _adam_step_dtype() -> torch.dtype:
+    """The dtype of ``torch.optim.Adam``'s per-parameter ``step``."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
 
 
 def _outputs_tuple(outputs) -> tuple:
@@ -458,14 +476,21 @@ class Trainer:
             named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
             finite = torch.stack([torch.isfinite(g).all() for _, g in named])
             metrics["grad_finite"] = dict(zip((n for n, _ in named), finite))
+        self.optimizer_step()
+        return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+
+    def optimizer_step(self) -> None:
+        """The optax chain's update from the parameters' ``.grad``: the
+        global-norm clip (``grad_clip``), the schedule's rate at the update
+        count (optax reads it before it increments), the optimizer's step,
+        then the count."""
         if self.cfg.grad_clip is not None:
             clip_by_global_norm_(self.model.parameters(), self.cfg.grad_clip)
-        if self.lr_schedule is not None:  # optax reads the count before it increments
+        if self.lr_schedule is not None:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.lr_schedule(self.step)
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], valid: torch.Tensor,
@@ -857,6 +882,18 @@ class Trainer:
         self.best_state = ckpt["best_state"]
         return self.epoch
 
+    def _write(self, write: Callable, payload, path: str, asynchronous: bool) -> str:
+        """``write(payload, path)`` now, or with ``asynchronous`` on the
+        background writer thread (one write at a time, in order)."""
+        if not asynchronous:
+            write(payload, path)
+            return path
+        if self._ckpt_writer is None:
+            self._ckpt_writer = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="checkpoint")
+        self._ckpt_pending.append(self._ckpt_writer.submit(write, payload, path))
+        return path
+
     def save_checkpoint(self, directory: str, asynchronous: bool = False) -> str:
         """:meth:`state_payload` to ``directory/epoch_<E>.pt`` (see
         :func:`write_torch_file`). The copy to host memory is made here, in
@@ -870,15 +907,7 @@ class Trainer:
         if not self.writes:
             return path
         os.makedirs(directory, exist_ok=True)
-        payload = self.state_payload()
-        if not asynchronous:
-            write_torch_file(payload, path)
-            return path
-        if self._ckpt_writer is None:
-            self._ckpt_writer = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="checkpoint")
-        self._ckpt_pending.append(self._ckpt_writer.submit(write_torch_file, payload, path))
-        return path
+        return self._write(write_torch_file, self.state_payload(), path, asynchronous)
 
     def wait_for_checkpoints(self) -> None:
         """Block until every asynchronous checkpoint write has finished,
@@ -893,9 +922,146 @@ class Trainer:
                 writer.shutdown(wait=True)
 
     def restore_checkpoint(self, path: str) -> int:
-        """Load a checkpoint written by :meth:`save_checkpoint`; returns its
-        epoch (resume with ``fit(start_epoch=epoch + 1)``). Read into host
-        memory: the loads copy the weights and moments to the device, and
-        the optimizer's step counts and the best-val snapshot stay on the
-        host, as in a run that was never interrupted."""
+        """Load a checkpoint and return its epoch (resume with
+        ``fit(start_epoch=epoch + 1)``): a file written by
+        :meth:`save_checkpoint`, or a directory in the JAX package's Orbax
+        layout (``step_<N>``, :meth:`load_flax_state`). A file is read into
+        host memory: the loads copy the weights and moments to the device,
+        and the optimizer's step counts and the best-val snapshot stay on
+        the host, as in a run that was never interrupted."""
+        if os.path.isdir(path):
+            return self.load_flax_state(read_pytree(path))
         return self.load_payload(torch.load(path, map_location="cpu", weights_only=False))
+
+    # ---------- the JAX package's Orbax checkpoints ----------
+
+    def _check_chain(self, opt_state) -> Tuple[Any, Any]:
+        """The optax chain's state of a JAX checkpoint, checked against this
+        trainer's config: ``(first, lr)`` of the optimizer's own chain,
+        ``first`` adam's ``{count, mu, nu}`` (or sgd's empty ``None``),
+        ``lr`` the schedule's ``{count}`` (``None`` at a constant rate)."""
+        parts = 2 if self.cfg.grad_clip is not None else 1
+        if not isinstance(opt_state, list) or len(opt_state) != parts or (
+                parts == 2 and opt_state[0] is not None):
+            raise ValueError(f"the checkpoint's optax chain is not this config's "
+                             f"({'clip_by_global_norm, ' if parts == 2 else ''}"
+                             f"{self.cfg.optimizer}): {opt_state!r:.200}")
+        inner = opt_state[-1]
+        if not isinstance(inner, list) or len(inner) != 2:
+            raise ValueError(f"the checkpoint's {self.cfg.optimizer} state is not a "
+                             "(transform, learning rate) chain")
+        first, lr = inner
+        if (lr is None) != (self.lr_schedule is None) or (lr is not None and set(lr) != {"count"}):
+            raise ValueError(f"the checkpoint's learning-rate state {lr!r:.100} does not match "
+                             f"lr_schedule={self.cfg.lr_schedule!r}")
+        adam = isinstance(first, dict) and set(first) == {"count", "mu", "nu"}
+        if adam != (self.cfg.optimizer == "adam") or (not adam and first is not None):
+            raise ValueError(f"the checkpoint's optimizer state does not match "
+                             f"optimizer={self.cfg.optimizer!r}")
+        return first, lr
+
+    def flax_state(self) -> Dict[str, Any]:
+        """The trainer's state as the JAX ``Trainer.save_checkpoint`` tree
+        of numpy arrays, copied to the host: ``params`` and
+        ``batch_stats`` in the flax layout (:func:`.to_flax_variables`),
+        ``opt_state`` in the JAX optax chain's structure as orbax's bare
+        restore gives it (a list a chain: ``[None]`` for the global-norm
+        clip's empty state when ``grad_clip`` is set, then ``[adam, lr]``
+        with adam's ``{"count", "mu", "nu"}`` (sgd: ``None``) and the
+        schedule's ``{"count"}`` (``None`` at a constant rate)), ``step``.
+        Every count is the update count, int32. Adam's moments are the
+        torch optimizer's ``exp_avg`` and ``exp_avg_sq`` in each
+        parameter's flax layout (zeros before its first update)."""
+        variables = to_flax_variables(self.model)
+        count = np.asarray(self.step, np.int32)
+        if self.cfg.optimizer == "adam":
+            mu: Dict = {}
+            nu: Dict = {}
+            for name, (path, shape, kind) in flax_parameter_paths(self.model).items():
+                p = self.model.get_parameter(name)
+                state = self.optimizer.state.get(p, {})
+                for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                    t = state.get(key, torch.zeros_like(p)).detach()
+                    _set_leaf(tree, path, to_flax_layout(t, shape, kind).cpu().numpy().copy())
+            first = {"count": count.copy(), "mu": mu, "nu": nu}
+        else:
+            first = None
+        lr = None if self.lr_schedule is None else {"count": count.copy()}
+        opt_state = ([None] if self.cfg.grad_clip is not None else []) + [[first, lr]]
+        return {"params": variables["params"], "batch_stats": variables["batch_stats"],
+                "opt_state": opt_state, "step": count}
+
+    def load_flax_state(self, tree: Dict[str, Any]) -> int:
+        """Load a JAX ``Trainer.save_checkpoint`` tree (as
+        :func:`.orbax_format.read_pytree` reads it; :meth:`flax_state`'s
+        layout) and return the epoch it implies.
+
+        The weights and running statistics go through
+        :func:`.load_flax_variables`; the optax chain, checked against the
+        config (``ValueError`` where its clip, optimizer or schedule
+        differs), becomes torch Adam's per-parameter ``step`` (adam's
+        count, as a float tensor), ``exp_avg`` and ``exp_avg_sq`` (``mu``
+        and ``nu`` by :func:`.from_flax_layout`), and ``step`` the
+        trainer's update count, which places the learning-rate schedule.
+        The next step so starts from the state the JAX package's resumed
+        step starts from. A JAX protocol member (a tree with ``best_val``,
+        ``best_params``, ``best_batch_stats`` and ``best_epoch``) also
+        sets the best-val snapshot from its best weights, ``best_val``
+        and ``best_val_epoch`` (None where ``best_val`` is not finite).
+
+        The JAX checkpoint stores no epoch, no history and no best-val
+        snapshot of the sequential trainer: the epoch returned and set is
+        the number of whole epochs that its step count makes,
+        ``step // steps_per_epoch``, which is the saved epoch for a
+        checkpoint written at an epoch's end (as the JAX ``fit`` writes
+        them); the histories stay as they are."""
+        first, _ = self._check_chain(tree["opt_state"])
+        load_flax_variables(self.model, {"params": tree["params"],
+                                         "batch_stats": tree.get("batch_stats")})
+        step = int(np.asarray(tree["step"]))
+        if first is not None:
+            count = float(np.asarray(first["count"]))
+            for name, (path, shape, kind) in flax_parameter_paths(self.model).items():
+                p = self.model.get_parameter(name)
+                state = {"step": torch.tensor(count, dtype=_adam_step_dtype())}
+                for key, src in (("exp_avg", first["mu"]), ("exp_avg_sq", first["nu"])):
+                    arr = np.asarray(_leaf(src, path, "the checkpoint's adam state"), np.float32)
+                    if arr.shape != shape:
+                        raise ValueError(f"{'/'.join(path)}: adam moment of shape {arr.shape}, "
+                                         f"the model expects {shape}")
+                    t = from_flax_layout(torch.from_numpy(arr.copy()), tuple(p.shape), kind)
+                    state[key] = t.to(device=p.device, dtype=p.dtype).contiguous()
+                self.optimizer.state[p] = state
+        else:
+            self.optimizer.state.clear()
+        if "best_params" in tree:
+            best = copy.deepcopy(self.model)
+            load_flax_variables(best, {"params": tree["best_params"],
+                                       "batch_stats": tree.get("best_batch_stats")})
+            self.best_state = {k: v.detach().cpu().clone() for k, v in best.state_dict().items()}
+            self.best_val = float(np.asarray(tree["best_val"]))
+            self.best_val_epoch = (int(np.asarray(tree["best_epoch"]))
+                                   if math.isfinite(self.best_val) else None)
+        steps_per_epoch = max(1, -(-len(self.train_ds) // self.cfg.batch_size))
+        self.step, self.epoch = step, step // steps_per_epoch
+        return self.epoch
+
+    def save_orbax_checkpoint(self, directory: str, step: Optional[int] = None,
+                              asynchronous: bool = False) -> str:
+        """The JAX ``Trainer.save_checkpoint``: :meth:`flax_state` as an
+        Orbax PyTree checkpoint at ``directory/step_<N>`` (``N`` the update
+        count unless ``step`` is given), written by
+        :func:`.orbax_format.write_pytree` with the chunks uncompressed;
+        the JAX package's ``Trainer.restore_checkpoint`` and
+        ``OrientationPredictor.from_orbax_checkpoint``, and orbax's bare
+        restore, read it. Returns the path. The host copy is made here;
+        ``asynchronous=True`` leaves the write to the background writer
+        thread (:meth:`wait_for_checkpoints`). Only rank 0 of a
+        data-parallel run writes."""
+        step = int(self.step if step is None else step)
+        path = os.path.join(os.path.abspath(directory), f"step_{step}")
+        if not self.writes:
+            return path
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return self._write(lambda tree, to: write_pytree(to, tree), self.flax_state(), path,
+                           asynchronous)

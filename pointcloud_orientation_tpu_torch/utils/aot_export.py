@@ -139,10 +139,16 @@ def read_checkpoint(path: str, model_name: str):
     ``.npz`` (dequantized), the port's own ``Trainer.save_checkpoint`` file
     ``.pt`` (its best-val weights where it has them; a pickle, read as
     ``Trainer.restore_checkpoint`` reads it, so only files this program
-    wrote) or a reference ``.pth`` (weights only). A directory (the JAX
-    package's Orbax checkpoint) raises ``NotImplementedError``."""
+    wrote), a reference ``.pth`` (weights only) or a directory: an Orbax
+    checkpoint of the JAX package's ``Trainer.save_checkpoint`` (or the
+    port's ``Trainer.save_orbax_checkpoint``), its ``params`` and
+    ``batch_stats`` as the JAX export CLI's ``--checkpoint DIR`` reads
+    them (:func:`.orbax_format.read_pytree`)."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: Orbax checkpoints of the JAX package are not read")
+        from .orbax_format import read_pytree
+
+        ckpt = read_pytree(path)
+        return ckpt["params"], ckpt.get("batch_stats") or None
     if path.endswith(".npz"):
         import numpy as np
 
@@ -172,8 +178,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(
         description="Export a trained checkpoint as a self-contained torch.export serving "
                     "artifact (.pt2).")
-    p.add_argument("checkpoint", help="the port's checkpoint (.pt), a reference .pth or an "
-                                      "int8 .npz")
+    p.add_argument("checkpoint", help="the port's checkpoint (.pt), a reference .pth, an "
+                                      "int8 .npz or a JAX Orbax step_<N> directory")
     p.add_argument("output", help="output artifact path (.pt2)")
     p.add_argument("--model", default="pointnet_pp_8dir")
     p.add_argument("--batch-size", type=int, default=64,

@@ -10,6 +10,13 @@ the set abstractions and a ``Linear`` weight ``(out, in)`` elsewhere;
 BatchNorm gets ``weight``/``bias``/``running_mean``/``running_var`` and a
 zero ``num_batches_tracked``; the PointNet backbones' pointwise layers are
 ``Conv1d`` weights ``(Cout, Cin, 1)``.
+
+As the JAX module, it is also a CLI from an Orbax checkpoint (the JAX
+package's ``Trainer.save_checkpoint``, read without orbax by
+:func:`.orbax_format.read_pytree`) to a reference-loadable ``.pth``::
+
+    python -m pointcloud_orientation_tpu_torch.utils.torch_export \\
+        --orbax results/run/ckpt/step_100 --model pointnet_pp_8dir --out best.pth
 """
 
 from __future__ import annotations
@@ -199,3 +206,26 @@ def save_torch_checkpoint(path: str, params: Mapping[str, Any],
     reference saves its own. For a port module:
     ``save_torch_checkpoint(path, **to_flax_variables(module), model=...)``."""
     torch.save(to_torch_state_dict(export_state_dict(params, batch_stats, model)), path)
+
+
+def main(argv=None) -> None:
+    """CLI: an Orbax checkpoint (a ``step_<N>`` directory) to a
+    reference-loadable ``.pth``, with the JAX CLI's flags."""
+    import argparse
+    import os
+
+    from .orbax_format import read_pytree
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--orbax", required=True, help="Orbax checkpoint dir (a step_N directory)")
+    ap.add_argument("--model", required=True,
+                    choices=sorted(HEADS) + ["pointnet", "pointnet_cls", "simple_pointnet"])
+    ap.add_argument("--out", required=True, help="output .pth path")
+    args = ap.parse_args(argv)
+    ckpt = read_pytree(os.path.abspath(args.orbax))
+    save_torch_checkpoint(args.out, ckpt["params"], ckpt.get("batch_stats"), args.model)
+    print(f"wrote {args.out} ({args.model})")
+
+
+if __name__ == "__main__":
+    main()

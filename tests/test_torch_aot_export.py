@@ -5,7 +5,7 @@ the CPU, and the two small demos against the JAX package's. Mirrors
 equals the eager eval forward (and the JAX model's) at a fixed and at a
 symbolic batch, survives a save and load, is deterministic, exports under
 the approximate kNN, and the CLI writes it from each checkpoint kind the
-port reads; the JAX package's Orbax checkpoints are refused. The kernel
+port reads, the JAX package's Orbax checkpoints among them. The kernel
 artifact (``use_kernels=True``, ``--kernels``): one ``pcot.*`` node for each
 kernel launch an eager request makes (the 8-dir model and the flash point
 transformer), run on the CPU through the ops' plain versions, equal to the
@@ -151,9 +151,27 @@ def test_load_artifact_moves_to_a_device(eight_dir, tmp_path):
     assert moved.module()(torch.zeros((3, N, 3), device="meta")).shape == (3, 8)
 
 
-def test_orbax_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        export_main([str(tmp_path), str(tmp_path / "x.pt2")])
+def test_orbax_is_refused(tmp_path, capsys):
+    """Once refused, now read: the CLI exports an Orbax checkpoint that
+    orbax wrote in the JAX package's ``Trainer.save_checkpoint`` layout,
+    read without orbax, equal to the model built from those weights."""
+    import orbax.checkpoint as ocp
+    import optax
+
+    v = random_flax_variables(3, "simple_pointnet")
+    tree = {"params": v["params"], "batch_stats": v["batch_stats"],
+            "opt_state": jax.tree_util.tree_map(np.asarray, optax.chain(optax.adam(1e-3)).init(
+                v["params"])), "step": np.asarray(0, np.int32)}
+    path, out = str(tmp_path / "step_0"), str(tmp_path / "x.pt2")
+    with ocp.PyTreeCheckpointer() as ckptr:
+        ckptr.save(path, tree)
+    export_main([path, out, "--model", "simple_pointnet", "--batch-size", "0",
+                 "--num-points", "64"])
+    assert f"wrote {out}: model=simple_pointnet" in capsys.readouterr().out
+    x = np.random.default_rng(8).normal(size=(2, 64, 3)).astype(np.float32)
+    got = load_artifact(out).module()(torch.from_numpy(x)).numpy()
+    want = _eager(build_model("simple_pointnet", v["params"], v["batch_stats"]), x)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

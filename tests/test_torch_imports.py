@@ -16,13 +16,14 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# A process in which jax, flax, optax, orbax, h5py, matplotlib, the JAX
-# package and the root benchmarks folder (the JAX package's micro-benchmarks)
-# cannot be imported, as on the card's machine.
+# A process in which jax, flax, optax, orbax, tensorstore, zstandard,
+# msgpack, h5py, matplotlib, the JAX package and the root benchmarks folder
+# (the JAX package's micro-benchmarks) cannot be imported, as on the card's
+# machine.
 _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py", "matplotlib",
-               "pointcloud_orientation_tpu", "benchmarks"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+               "msgpack", "h5py", "matplotlib", "pointcloud_orientation_tpu", "benchmarks"}
 
     class Blocker(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -88,6 +89,14 @@ def test_port_and_chip_smoke_import_and_serve_without_jax(tmp_path):
         assert np.isfinite(float(t.train_step(batch, valid, t.generator(0, 1, 0))["loss"]))
         main(["--preset", "8dir_kl", "--epochs", "1", "--num-points", "128",
               "--batch-size", "16", "--device", "cpu", "--out", sys.argv[1]])
+        # the JAX package's Orbax checkpoint (the committed fixture), read and served
+        import glob
+        ckpt = glob.glob("tests/data/orbax_transformer/step_*")[0]
+        tree = port.utils.orbax_format.read_pytree(ckpt)
+        assert tree["opt_state"][0][1] is None and tree["step"].dtype == np.int32
+        p = port.OrientationPredictor.from_orbax_checkpoint(ckpt, "point_transformer",
+                                                            num_points=128, device="cpu")
+        assert p(np.zeros((2, 128, 3), np.float32)).shape == (2, 3)
         print("IMPORTED", len(names))
     """)
     r = _run(code, args=(str(tmp_path / "run"),))

@@ -218,13 +218,44 @@ def test_checkpoint_helpers_match_the_jax_ones(tmp_path, capsys):
 
 
 def test_jax_orbax_carry_is_refused(tmp_path):
-    step = tmp_path / "step_3"
-    os.makedirs(step / "carry")
-    (step / "history.json").write_text(json.dumps({"epoch": 3, "keys": ["1"],
-                                                   "history": {"1": {}}}))
+    """Once refused, now read: a carry that the JAX package's
+    ``save_protocol_checkpoint`` wrote (one member, its Adam chain after an
+    update) restores into the port's trainer: weights, Adam moments in the
+    torch layout, best-val snapshot, history and epoch."""
+    import optax
+
+    from pointcloud_orientation_tpu_torch.utils import random_flax_variables, to_flax_variables
+
+    v, best = random_flax_variables(4), random_flax_variables(5)
+    tx = optax.chain(optax.adam(1e-3))
+    grads = jax.tree_util.tree_map(lambda a: np.full(np.shape(a), 0.5, np.float32), v["params"])
+    opt = jax.tree_util.tree_map(np.asarray, tx.update(grads, tx.init(v["params"]),
+                                                       v["params"])[1])
+    one = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a)[None], t)  # noqa: E731
+
+    class State:
+        step, params, batch_stats, opt_state = (np.ones(1, np.int32), one(v["params"]),
+                                                one(v["batch_stats"]), one(opt))
+
+    carry = (State, np.asarray([0.5], np.float32), one(best["params"]),
+             one(best["batch_stats"]), np.asarray([3], np.int32))
+    hist = {"1": {"train": [1.0, 0.8, 0.7], "val": [0.9, 0.6, 0.5], "train_ang": [1.0] * 3,
+                  "val_ang": [2.0] * 3}}
+    step = jax_pc.save_protocol_checkpoint(str(tmp_path), 3, carry, hist, ["1"])
     t = Trainer(preset("8dir_kl", num_points=N, batch_size=4), _small_ds(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        PC.restore_protocol_checkpoint(str(step), [t], [1])
+    _, history, epoch = PC.restore_protocol_checkpoint(step, [t], [1])
+    assert epoch == 3 and t.epoch == 3 and t.step == 1 and history[1] == hist["1"]
+    assert t.history["val"] == [0.9, 0.6, 0.5]
+    assert (t.best_val, t.best_val_epoch) == (0.5, 3)
+    got = to_flax_variables(t.model)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(
+            {"params": v["params"], "batch_stats": v["batch_stats"]})):
+        np.testing.assert_array_equal(a, b)
+    mu = opt[0][0].mu["Dense_0"]["kernel"]  # the head: (256, 8), torch (8, 256)
+    head = next(m for m in t.model.modules() if isinstance(m, torch.nn.Linear)
+                and m.weight.shape == (8, 256))
+    np.testing.assert_array_equal(t.optimizer.state[head.weight]["exp_avg"].numpy(), mu.T)
+    assert float(t.optimizer.state[head.weight]["step"]) == 1.0
 
 
 def test_protocol_errors_match_the_jax_ones():

@@ -116,11 +116,33 @@ def test_quantized_npz_and_tta_flags(tmp_path):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_help_names_the_flags_and_the_orbax_refusal(capsys):
+def test_help_names_the_flags_and_the_orbax_refusal(capsys, tmp_path):
+    """The help names every flag, ``--orbax`` among them (once a refusal),
+    and ``--orbax`` serves a JAX-written Orbax checkpoint as the
+    predictor built from its weights."""
     with pytest.raises(SystemExit):
         serve_http_torch.parse_args(["--help"])
     out = capsys.readouterr().out
     for flag in ("--model", "--torch-ckpt", "--quantized-npz", "--quantize", "--tta-views",
-                 "--device", "orbax"):
+                 "--device", "--orbax"):
         assert flag in out
     assert serve_http_torch.parse_args([]).device == "cuda"
+    import orbax.checkpoint as ocp
+
+    v = random_flax_variables(2)
+    path = str(tmp_path / "step_0")
+    with ocp.PyTreeCheckpointer() as ckptr:
+        ckptr.save(path, {"params": v["params"], "batch_stats": v["batch_stats"],
+                          "step": np.asarray(0, np.int32)})
+    clouds = np.random.RandomState(2).randn(2, N, 3).astype(np.float32)
+    srv, predictor, url = _start(["--orbax", path])
+    try:
+        status, body = _post(url + "/predict", {"clouds": clouds.tolist()})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert status == 200, body
+    direct = OrientationPredictor("pointnet_pp_8dir", v["params"], v["batch_stats"],
+                                  num_points=N, max_batch=8, device="cpu")
+    np.testing.assert_allclose(body["forward_vectors"], direct.forward_vectors(clouds),
+                               rtol=1e-6, atol=1e-6)
