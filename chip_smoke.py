@@ -123,7 +123,16 @@ committed fixture ``tests/data/orbax_transformer`` read bit-equal to its
 decoder's rate; the 8dir_kl preset (B=16, N=10,000) trained three steps,
 written by ``save_orbax_checkpoint``, read back bit for bit, served
 bit-equal to the trainer's model, and resumed into a step bit-equal to the
-uninterrupted one; the kernels line's ``launches_orbax``.
+uninterrupted one; the kernels line's ``launches_orbax``. The ModelNet40
+HDF5 archive (``hdf5``, after ``orbax``, read by ``data/h5format.py``: no
+h5py on the card's machine): the committed h5py fixture
+``tests/data/modelnet_h5`` by its hashes; a ModelNet40-size archive
+(12,311 clouds of 2,048 points) written by ``benchmarks/modelnet_h5.py``
+and ingested through ``from_hdf5`` (seconds, MB/s, the resident bytes);
+the mvm preset one epoch from ``--data hdf5:`` through the training CLI
+(N=2,048, exact launches, a step's gradients, the step's ms), its weights
+served from a ``.pth`` and evaluated by ``train.evaluate --data hdf5:``;
+``hdf5_to_ply_tree`` on the fixture; the kernels line's ``launches_hdf5``.
 Prints one
 flushed JSON line per phase, each with a ``"phase"`` key; any failure raises
 and exits non-zero. The line before the last is the per-kernel summary with
@@ -136,6 +145,7 @@ non-zero before building anything when no CUDA device is visible.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -153,11 +163,12 @@ import numpy as np
 import torch
 
 from pointcloud_orientation_tpu_torch import OrientationPredictor, infer, random_flax_variables
+from pointcloud_orientation_tpu_torch.benchmarks import modelnet_h5 as MH
 from pointcloud_orientation_tpu_torch.benchmarks import profile_vpu_select as PV
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import bound_ms, timed
 from pointcloud_orientation_tpu_torch.benchmarks.roofline import device_ms as cuda_ms
 from pointcloud_orientation_tpu_torch.data import OrientationDataset, synthetic_modelnet
-from pointcloud_orientation_tpu_torch.data import fastply, offline
+from pointcloud_orientation_tpu_torch.data import fastply, h5format, offline
 from pointcloud_orientation_tpu_torch.data.ply import read_ply, read_ply_numpy, write_ply
 from pointcloud_orientation_tpu_torch.models import layers as LAYERS
 from pointcloud_orientation_tpu_torch.ops import _build, cuda_kernels as K
@@ -169,8 +180,10 @@ from pointcloud_orientation_tpu_torch.ops.rotations import random_so3_matrix, ro
 from pointcloud_orientation_tpu_torch.parallel import ep as EP
 from pointcloud_orientation_tpu_torch.train import Trainer, TrainConfig, preset
 from pointcloud_orientation_tpu_torch.train import evaluate as EV
+from pointcloud_orientation_tpu_torch.train import run as RUN
 from pointcloud_orientation_tpu_torch.train import trainer as TR
 from pointcloud_orientation_tpu_torch.train.accum import make_accum_train_step
+from pointcloud_orientation_tpu_torch.train.config import MVM_CLASSES
 from pointcloud_orientation_tpu_torch.train.metrics import have_matplotlib
 from pointcloud_orientation_tpu_torch.train.ensemble import run_per_label_vmapped
 from pointcloud_orientation_tpu_torch.train.multiseed import run_multi_seed
@@ -3168,6 +3181,198 @@ def phase_real_data(dev, train: dict) -> dict:
     return out
 
 
+HDF5_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "modelnet_h5")
+HDF5_FILES = (MH.TRAIN_FILES, MH.TEST_FILES)  # clouds a file: 9,843 train and 2,468 test
+HDF5_N = MH.NUM_POINTS  # the archive's 2,048 points a cloud
+
+
+def sha256(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def ply_text_f32(cloud: np.ndarray) -> np.ndarray:
+    """A cloud as ``write_ply`` stores it (6 decimals) and a float32 parser
+    reads it back."""
+    return np.asarray([[float(f"{v:.6f}") for v in row] for row in cloud[:, :3].tolist()],
+                      np.float32)
+
+
+def phase_hdf5(dev, card: str) -> dict:
+    """The ModelNet40 HDF5 archive on the card, where there is no h5py
+    (``data/h5format.py`` reads it). (a) The committed fixture
+    (``tests/data/modelnet_h5``, written by h5py;
+    ``tests/torch_make_h5_fixture.py``): every dataset's SHA-256, shape and
+    dtype equal to its ``expected.json``. (b) Ingest: the full-size archive
+    (12,311 clouds of 2,048 points in 7 files, ``benchmarks/modelnet_h5.py``
+    from the seed) written into a temporary directory and read by
+    ``OrientationDataset.from_hdf5``, equal to what the writer was given;
+    write and read seconds, decompressed MB/s and clouds/s; the bytes of
+    the whole archive's splits resident on the card at N=2,048 (a trainer
+    over the 40 classes). (c) The README's first real-data command,
+    ``train.run --preset mvm --data hdf5:DIR --epochs 1`` (PointNetPPMvM at
+    full width, B=16, N=min(10,000, 2,048), the 12 ``MVM_CLASSES`` of the
+    40): exact launches (``launches_hdf5``), ``results.txt``, a step's
+    gradients against the plain versions, the step's ms; its weights as a
+    reference ``.pth`` served back bit-equal and evaluated by ``train.evaluate
+    --data hdf5:DIR`` at the run's own test loss. (d) ``hdf5_to_ply_tree``
+    on the fixture: every PLY, read back by the native parser, equal to its
+    cloud as the 6-decimal text stores it."""
+    t_phase = time.perf_counter()
+    with open(os.path.join(HDF5_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)
+    fixture = {}
+    t0 = time.perf_counter()
+    for fname, datasets in sorted(expected.items()):
+        path = os.path.join(HDF5_FIXTURE, fname)
+        listed = h5format.list_datasets(path)
+        for name, want in sorted(datasets.items()):
+            arr = h5format.read_dataset(path, name)
+            fixture[f"{fname}/{name}"] = (
+                [list(arr.shape), arr.dtype.str, sha256(arr)] == [want["shape"], want["dtype"],
+                                                                  want["sha256"]]
+                and listed[name] == (arr.shape, arr.dtype))
+    fixture_s = time.perf_counter() - t0
+    ok = len(fixture) == 8 and all(fixture.values())
+    emit("hdf5_fixture", card=card, datasets=fixture, read_s=fixture_s, ok=ok)
+    if not ok:
+        fail(f"hdf5 fixture: datasets against expected.json {fixture}")
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as d:
+        archive = os.path.join(d, "modelnet40_ply_hdf5_2048")
+        t0 = time.perf_counter()
+        files = MH.write_modelnet_h5(archive, seed=SEED, train=HDF5_FILES[0],
+                                     test=HDF5_FILES[1], num_points=HDF5_N)
+        write_s = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(archive, f)) for f in files}
+        t0 = time.perf_counter()
+        ds = OrientationDataset.from_hdf5(archive)
+        read_s = time.perf_counter() - t0
+        order = sorted(files)  # the loader's order: sorted names, test before train
+        want_pts = np.concatenate([files[f]["data"] for f in order])
+        want_labels = np.concatenate([files[f]["label"][:, 0] for f in order]).astype(np.int32)
+        equal = (np.array_equal(ds.points, want_pts) and np.array_equal(ds.labels, want_labels)
+                 and ds.class_names == list(MH.MODELNET40))
+        decompressed = want_pts.nbytes + want_labels.size  # data and the uint8 label
+        del files, want_pts
+        whole = Trainer(preset("8dir_kl", classes=None), ds, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        splits = [whole._resident(s) for s in (whole.train_ds, whole.val_ds, whole.test_ds)]
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        resident_bytes = sum(v.numel() * v.element_size() for sp in splits for v in sp.values())
+        ingest = {"clouds": len(ds), "files": sizes, "archive_bytes": sum(sizes.values()),
+                  "write_s": write_s, "read_s": read_s,
+                  "decompressed_bytes": decompressed, "decompressed_mb_s":
+                  decompressed / read_s / 1e6, "clouds_per_s": len(ds) / read_s,
+                  "arrays_equal": equal, "resident_split_bytes_n2048": resident_bytes,
+                  "resident_copy_s": resident_s,
+                  "resident_clouds": [len(s) for s in (whole.train_ds, whole.val_ds,
+                                                       whole.test_ds)]}
+        del whole, splits
+        torch.cuda.empty_cache()
+        emit("hdf5_ingest", card=card, **ingest)
+        if not equal or len(ds) != sum(HDF5_FILES[0]) + sum(HDF5_FILES[1]):
+            fail(f"hdf5 ingest: {len(ds)} clouds, arrays equal to the writer's {equal}")
+        out["ingest"] = ingest
+        del ds
+
+        run_dir = os.path.join(d, "mvm")
+        ran = {}
+        run_single = RUN.run_single
+
+        def keep(*a, **kw):
+            ran["run"] = run_single(*a, **kw)
+            return ran["run"]
+
+        K.reset_launch_counts()
+        with mock.patch.object(RUN, "run_single", keep), contextlib.redirect_stdout(sys.stderr):
+            RUN.main(["--preset", "mvm", "--data", f"hdf5:{archive}", "--epochs", "1",
+                      "--out", run_dir, "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        trainer, test_acc = ran["run"]
+        # the val and test passes, the prediction PLYs' request, the polar plots' where
+        # matplotlib imports
+        evals = (batches_of(trainer.val_ds, 16) + batches_of(trainer.test_ds, 16) + 1
+                 + int(have_matplotlib()))
+        run = check_run("hdf5 mvm", run_dir, trainer, test_acc, launches,
+                        knn_trunk_launches(batches_of(trainer.train_ds, 16), evals, False))
+        with open(os.path.join(run_dir, "results.txt")) as f:
+            results = f.read().splitlines()
+        run["ok"] &= (results[0] == "=== Multi-Peak von Mises KL Summary ==="
+                      and len(results) == 6 + len(trainer.class_names)
+                      and sorted(trainer.class_names) == sorted(MVM_CLASSES)
+                      and trainer.num_points == HDF5_N and trainer.cfg.batch_size == 16)
+
+        pth = os.path.join(d, "best.pth")
+        tree = to_flax_variables(trainer.model)
+        save_torch_checkpoint(pth, **tree, model="pointnet_pp_mvm")
+        clouds = trainer.test_ds.points[:16]
+        want = OrientationPredictor("pointnet_pp_mvm", tree["params"], tree["batch_stats"],
+                                    num_points=HDF5_N, device=dev)(clouds)
+        got = OrientationPredictor.from_torch_checkpoint(pth, "pointnet_pp_mvm",
+                                                         num_points=HDF5_N, device=dev)(clouds)
+        with contextlib.redirect_stdout(sys.stderr):
+            ev = EV.main(["--preset", "mvm", "--data", f"hdf5:{archive}", "--torch-ckpt", pth,
+                          "--device", str(dev)])
+        served_equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        finite = all(math.isfinite(ev[k]) for k in ("loss", "mean_angular_error_deg"))
+        rel = abs(ev["loss"] - test_acc.mean_loss) / abs(test_acc.mean_loss)
+        ok_serve = (served_equal and finite and ev["count"] == len(trainer.test_ds)
+                    and rel <= REAL_TOL)
+
+        idx, valid, _ = next(trainer.train_ds.batches(16, shuffle=True, seed=1))
+        batch, valid, _ = trainer.device_batch(trainer.train_ds, idx, valid,
+                                               trainer.generator(0, 99, 0))
+        check = grads_vs_plain(trainer, batch, valid, "default", TRAIN_PLAIN)
+        step = step_times(trainer, "hdf5 mvm")
+        emit("hdf5_train", card=card, preset="mvm", batch=16, num_points=trainer.num_points,
+             classes=trainer.class_names, **run, results_txt=results, grads_vs_plain=check,
+             step=step, timings=trainer.timings,
+             resident_bytes=sum(v.numel() * v.element_size() for _, sp in trainer._resident_cache
+                                for v in sp.values()),
+             served_bit_equal=served_equal, evaluate=ev, run_test_loss=test_acc.mean_loss,
+             evaluate_rel_err=rel, tol=REAL_TOL)
+        if not (run["ok"] and ok_serve and check["ok"]):
+            fail(f"hdf5 mvm: launches {launches} (expected {run['expected_launches']}), losses "
+                 f"{run['step_losses'][:4]}..., results.txt {results}, served bit-equal "
+                 f"{served_equal}, evaluate {ev} against {test_acc.mean_loss}, gradient of "
+                 f"{check['worst']} {check['norm_rel_err']}")
+        out["launches"]["hdf5 mvm 1 epoch"] = launches
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        tree_dir = os.path.join(d, "ply_tree")
+        t0 = time.perf_counter()
+        written = offline.hdf5_to_ply_tree(HDF5_FIXTURE, tree_dir)
+        convert_s = time.perf_counter() - t0
+        with open(os.path.join(HDF5_FIXTURE, "shape_names.txt")) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        wanted, counters = {}, {}
+        for fname in sorted(expected):
+            path = os.path.join(HDF5_FIXTURE, fname)
+            labels = h5format.read_dataset(path, "label")[:, 0]
+            for cloud, label in zip(h5format.read_dataset(path, "data"), labels):
+                cls = names[label]
+                n = counters[cls] = counters.get(cls, -1) + 1
+                wanted[os.path.join(tree_dir, cls, f"{cls}_{n:04d}.ply")] = ply_text_f32(cloud)
+        paths = ply_files(tree_dir)
+        parsed = fastply.try_read_ply_bulk_native(paths)
+        same = (parsed is not None and sorted(wanted) == paths
+                and all(np.array_equal(p, wanted[f]) for f, p in zip(paths, parsed)))
+        ok = same and written == len(wanted)
+        emit("hdf5_convert", files=written, convert_s=convert_s, parsed_native=parsed is not None,
+             equal=same, ok=ok)
+        if not ok:
+            fail(f"hdf5 convert: {written} files, parsed equal {same}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("hdf5_done", card=card, seconds=out["seconds"])
+    return out
+
+
 TTA_B, TTA_N = 64, 1024
 # (case, model, views, predictor options): every head family the JAX
 # predictor votes for, 8-dir at V=8 in f32 and bf16 (512 views through the
@@ -5091,6 +5296,7 @@ def main() -> None:
     aot = phase_aot_export(dev)
     resident = phase_train_resident(dev)
     orbax = phase_orbax(dev, info["nvidia_smi"])
+    hdf5 = phase_hdf5(dev, info["nvidia_smi"])
     summary = phase_timing(dev, checks, serve)
     summary += phase_timing_train(dev, checks, train)
     summary += phase_timing_select(dev, checks, cls, large)
@@ -5144,6 +5350,8 @@ def main() -> None:
                                        for path, n in aot["launches"].items()}
         row["launches_orbax"] = {path: n.get(row["name"], 0)
                                  for path, n in orbax["launches"].items()}
+        row["launches_hdf5"] = {path: n.get(row["name"], 0)
+                                for path, n in hdf5["launches"].items()}
         if row["name"] == "topk_min":
             row["shapes"]["approx sa1 B=16 M=10000"] = approx["topk_min"]
     summary += flash_rows

@@ -75,7 +75,7 @@ class OrientationDataset:
     @classmethod
     def from_hdf5(cls, dataset_dir: str, **kw) -> "OrientationDataset":
         """The ModelNet40 HDF5 archive under ``dataset_dir``
-        (:func:`.hdf5.load_modelnet_hdf5`; needs h5py)."""
+        (:func:`.hdf5.load_modelnet_hdf5`; no h5py needed)."""
         return cls(*load_modelnet_hdf5(dataset_dir, **kw))
 
     @classmethod

@@ -1,6 +1,6 @@
 """ModelNet40 ingest: the HDF5 archive read into packed arrays
-(``load_modelnet_hdf5``, h5py imported where it is used) and the procedural
-stand-in (``synthetic_modelnet``), numpy only.
+(``load_modelnet_hdf5``, through :mod:`.h5format`: no h5py) and the
+procedural stand-in (``synthetic_modelnet``), numpy only.
 
 Counterpart of ``pointcloud_orientation_tpu/data/hdf5.py``.
 """
@@ -12,15 +12,17 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .h5format import read_dataset
+
 
 def load_modelnet_hdf5(dataset_dir: str, splits: Sequence[str] = ("train", "test")
                        ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
     """Read every ``*.h5`` under ``dataset_dir`` whose name holds one of
     ``splits``, in sorted order, with its ``data`` and ``label`` keys, and
     the class names from ``shape_names.txt``. Returns ``(points (S, P, 3)
-    float32, labels (S,) int32, class_names)``."""
-    import h5py
-
+    float32, labels (S,) int32, class_names)``. Only ``data`` and ``label``
+    are read and decompressed (not the archive's ``normal`` or
+    ``faceId``)."""
     with open(os.path.join(dataset_dir, "shape_names.txt"), "r") as f:
         class_names = [ln.strip() for ln in f if ln.strip()]
     h5_files = sorted(f for f in os.listdir(dataset_dir)
@@ -29,9 +31,8 @@ def load_modelnet_hdf5(dataset_dir: str, splits: Sequence[str] = ("train", "test
         raise FileNotFoundError(f"no .h5 files in {dataset_dir}")
     all_pts, all_labels = [], []
     for fname in h5_files:
-        with h5py.File(os.path.join(dataset_dir, fname), "r") as f:
-            data = f["data"][:]
-            labels = f["label"][:]
+        path = os.path.join(dataset_dir, fname)
+        data, labels = read_dataset(path, "data"), read_dataset(path, "label")
         if labels.ndim > 1:
             labels = labels[:, 0]
         all_pts.append(np.asarray(data[..., :3], np.float32))

@@ -8,7 +8,8 @@ on the CPU, the 8-direction projection in the order in which XLA's CPU code
 computes the JAX function (:func:`_probs_8dir`), so that every file written
 equals the JAX tools' byte for byte. ``rotate_tree`` draws its rotations
 from a ``torch.Generator`` seeded with ``seed``: the same distribution as
-the JAX function's, other numbers. ``hdf5_to_ply_tree`` needs h5py, imported where it is used.
+the JAX function's, other numbers. ``hdf5_to_ply_tree`` reads the archive
+through ``data/h5format.py``: no h5py.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..ops.rotations import (
     random_so3_matrix,
     random_yaw_matrix,
 )
+from .h5format import read_dataset
 from .gt import K_DICT, KAPPA_DEFAULT, SYMM_CLASSES, UNIFORM_CLASSES
 from .ply import read_ply, write_ply
 from .sidecar import (
@@ -222,18 +224,16 @@ def hdf5_to_ply_tree(dataset_dir: str, output_dir: str) -> int:
     a cloud is named by its archive's ``*_id2file.json`` mapping where one
     is given (a dict by index or a list), else ``<class>_<nnnn>.ply``
     counted per class across the archives in sorted order. Returns the
-    files written."""
-    import h5py
-
+    files written. The archives are read by :mod:`.h5format` (no
+    h5py)."""
     with open(os.path.join(dataset_dir, "shape_names.txt"), "r") as f:
         names = [ln.strip() for ln in f if ln.strip()]
     counters = {i: 0 for i in range(len(names))}
     total = 0
     for fname in sorted(f for f in os.listdir(dataset_dir) if f.endswith(".h5")):
         id2file = _id2file(dataset_dir, os.path.splitext(fname)[0])
-        with h5py.File(os.path.join(dataset_dir, fname), "r") as f:
-            data = f["data"][:]
-            labels = f["label"][:]
+        path = os.path.join(dataset_dir, fname)
+        data, labels = read_dataset(path, "data"), read_dataset(path, "label")
         if labels.ndim > 1:
             labels = labels[:, 0]
         for i, (cloud, label) in enumerate(zip(data, labels)):

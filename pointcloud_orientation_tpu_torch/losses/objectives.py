@@ -1,8 +1,7 @@
-"""The yaw-task objectives and the classifier's. Counterpart of
-``pointcloud_orientation_tpu/losses/objectives.py`` (``soft_label_kl_8dir``,
-``softmax_mse_8dir_loss``, ``projected_probs_mse_loss``,
-``single_peak_vm_kl_loss``, ``mvm_matched_loss``, ``nll_loss``,
-``pointnet_cls_loss``); each returns ``(scalar_loss, per_sample (B,))``."""
+"""Every training objective: the regressions (``mse``,
+``forward_mse_loss``, ``axes_orth_loss``), the yaw tasks' and the
+classifier's. Counterpart of ``pointcloud_orientation_tpu/losses/objectives.py``;
+each returns ``(scalar_loss, per_sample (B,))`` but ``mse``, a scalar."""
 
 from __future__ import annotations
 
@@ -16,6 +15,30 @@ from ..ops.matching import matched_mvm_loss
 from ..ops.von_mises import kl_von_mises
 
 Loss = Tuple[torch.Tensor, torch.Tensor]
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over all elements (torch ``nn.MSELoss`` default)."""
+    return ((pred - target) ** 2).mean()
+
+
+def _per_sample_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred - target) ** 2).mean(dim=tuple(range(1, pred.dim())))
+
+
+def forward_mse_loss(pred: torch.Tensor, target: torch.Tensor) -> Loss:
+    """Direct forward-vector regression: ``MSE(pred, gt)``."""
+    per = _per_sample_mse(pred, target)
+    return per.mean(), per
+
+
+def axes_orth_loss(vy: torch.Tensor, vz: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
+                   lam: float = 0.1) -> Loss:
+    """Two-axis regression with orthogonality regularization:
+    ``(MSE(vy, gy) + MSE(vz, gz)) / 2 + lam * mean((vy . vz)^2)``."""
+    per = (_per_sample_mse(vy, gy) + _per_sample_mse(vz, gz)) / 2.0
+    per = per + lam * (vy * vz).sum(dim=-1) ** 2
+    return per.mean(), per
 
 
 def softmax_mse_8dir_loss(logits: torch.Tensor, probs_gt: torch.Tensor) -> Loss:

@@ -8,7 +8,7 @@ package's registry, the sequence-parallel ring transformer
 (``parallel/sp_transformer.py``), plain off a mesh."""
 
 from .layers import PointNetPPTrunk, SetAbstraction, SharedMLP
-from .moe_transformer import MoEPointTransformer
+from .moe_transformer import MoEPointTransformer, moe_ep_param_specs, shard_moe_params
 from .point_transformer import PointTransformer
 from .pointnet import PointNet, PointNetCls, PointNetEncoder, STN3d, STNkd
 from .pointnet_pp import (
@@ -71,4 +71,6 @@ __all__ = [
     "SetAbstraction",
     "SharedMLP",
     "SimplePointNet",
+    "moe_ep_param_specs",
+    "shard_moe_params",
 ]

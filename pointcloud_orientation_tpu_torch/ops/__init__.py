@@ -20,12 +20,28 @@ from .geometry import (
     topk_of_uniform,
 )
 from .matching import hungarian_small, matched_mvm_loss
-from .rotations import forward_to_mu, wrap_angle
-from .von_mises import bessel_ratio, kl_von_mises, log_i0, von_mises_pdf
+from .rotations import (
+    axes_gt_from_rotation,
+    forward_to_mu,
+    random_so3_matrix,
+    random_yaw_matrix,
+    rotate_points,
+    wrap_angle,
+    yaw_matrix,
+)
+from .von_mises import (
+    bessel_ratio,
+    kl_von_mises,
+    log_i0,
+    mixture_von_mises_pdf,
+    mvm_density_on_grid,
+    von_mises_pdf,
+)
 
 __all__ = [
     "DIRS_8",
     "approx_knn",
+    "axes_gt_from_rotation",
     "ball_query",
     "bessel_ratio",
     "diff_square_distance",
@@ -42,11 +58,17 @@ __all__ = [
     "knn_query",
     "log_i0",
     "matched_mvm_loss",
+    "mixture_von_mises_pdf",
+    "mvm_density_on_grid",
     "random_sample_indices",
+    "random_so3_matrix",
+    "random_yaw_matrix",
+    "rotate_points",
     "sample_and_group",
     "set_knn_impl",
     "square_distance",
     "topk_of_uniform",
     "von_mises_pdf",
     "wrap_angle",
+    "yaw_matrix",
 ]

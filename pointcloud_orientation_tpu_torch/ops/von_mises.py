@@ -92,3 +92,13 @@ def mixture_von_mises_pdf(theta: torch.Tensor, mu: torch.Tensor, kappa: torch.Te
     K)``: the components broadcast over a trailing grid axis."""
     vm = von_mises_pdf(theta[..., None, :], mu[..., :, None], kappa[..., :, None])
     return (weight[..., :, None] * vm).sum(dim=-2)
+
+
+def mvm_density_on_grid(mu: torch.Tensor, kappa: torch.Tensor, weight: torch.Tensor,
+                        num: int = 360) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mixture's density on ``num - 1`` angles covering ``[0, 2 pi)``
+    (``linspace(0, 2 pi, num)[:-1]``): ``(theta (num - 1,), p (B, num -
+    1))``, ``p`` normalized to sum to one (with a ``1e-8`` guard)."""
+    theta = torch.linspace(0.0, TWO_PI, num, dtype=mu.dtype, device=mu.device)[:-1]
+    p = mixture_von_mises_pdf(theta[None, :], mu, kappa, weight)
+    return theta, p / (p.sum(dim=-1, keepdim=True) + 1e-8)

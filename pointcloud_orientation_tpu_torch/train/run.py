@@ -24,7 +24,7 @@ test predictions (``figs/``), and ``loss_curve.png``; the PNGs only where
 matplotlib imports (the card's machine has none: one printed line says so).
 
 Data (:func:`load_dataset`): ``synthetic``, ``hdf5:DIR`` (the ModelNet40
-archive, needs h5py), ``ply:DIR`` (a PLY tree ``DIR/<class>/*.ply``) or
+archive, read by ``data/h5format.py``: no h5py), ``ply:DIR`` (a PLY tree ``DIR/<class>/*.ply``) or
 ``plygt:DIR`` (a pre-rotated PLY tree with its ground-truth sidecars, which
 sets ``rotation_mode="none"`` so that the stored targets are trained on):
 

@@ -54,7 +54,7 @@ def _nan_where(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _forward_mse(outputs, batch, cfg):
     """MSE of the raw forward head against the axes row ``cfg.target_row``."""
-    return ((outputs - batch["axes"][:, cfg.target_row]) ** 2).mean(dim=-1)
+    return L.forward_mse_loss(outputs, batch["axes"][:, cfg.target_row])[1]
 
 
 def _forward_mse_ang(outputs, batch, cfg):
@@ -78,9 +78,8 @@ def _axes(outputs, batch, cfg):
     against axes rows 1 and 2, plus ``lambda_orth`` times the squared dot
     product of the two heads."""
     vy, vz = outputs
-    gy, gz = batch["axes"][:, 1], batch["axes"][:, 2]
-    per = (((vy - gy) ** 2).mean(dim=-1) + ((vz - gz) ** 2).mean(dim=-1)) / 2.0
-    return per + cfg.lambda_orth * (vy * vz).sum(dim=-1) ** 2
+    return L.axes_orth_loss(vy, vz, batch["axes"][:, 1], batch["axes"][:, 2],
+                            cfg.lambda_orth)[1]
 
 
 def _axes_ang(outputs, batch, cfg):

@@ -181,8 +181,9 @@ def test_real_data_trains_evaluates_and_exports_without_jax(tmp_path):
     a PLY tree written and rotated by the offline tools with its three
     ground-truth passes, read through the native parser, one epoch of the
     CLI on ``plygt:`` (stored targets), a reference-layout ``.pth`` of the
-    trained weights served back and evaluated; the HDF5 loader says it needs
-    h5py."""
+    trained weights served back and evaluated; the committed HDF5 fixture
+    ``tests/data/modelnet_h5`` read by ``from_hdf5`` (no h5py) and one epoch
+    of the CLI on ``hdf5:`` over its classes."""
     code = _BLOCKER + textwrap.dedent("""
         import os, sys
         import numpy as np
@@ -216,12 +217,15 @@ def test_real_data_trains_evaluates_and_exports_without_jax(tmp_path):
         assert out.shape == (2, 8) and np.isfinite(out).all()
         r = evaluate.evaluate(cfg, ds, torch_ckpt=f"{root}/m.pth", device="cpu")
         assert np.isfinite(r["loss"]) and r["loss"] == t.test().mean_loss
-        try:
-            OrientationDataset.from_hdf5(root)
-        except ImportError as e:
-            assert "h5py" in str(e)
-        else:
-            raise AssertionError("from_hdf5 ran without h5py")
+        h5 = os.path.join("tests", "data", "modelnet_h5")
+        hd = OrientationDataset.from_hdf5(h5)
+        assert hd.points.shape == (10, 2048, 3) and hd.points.dtype == np.float32
+        assert len(hd.class_names) == 40 and hd.labels.dtype == np.int32
+        classes = ",".join(sorted({hd.class_names[i] for i in hd.labels}))
+        run.main(["--preset", "8dir_kl", "--data", f"hdf5:{h5}", "--epochs", "1",
+                  "--num-points", "128", "--batch-size", "4", "--classes", classes,
+                  "--device", "cpu", "--out", f"{root}/h5out"])
+        assert os.path.exists(f"{root}/h5out/metrics.json")
         for name in ("jax", "flax", "h5py", "matplotlib", "pointcloud_orientation_tpu"):
             assert name not in sys.modules, name
         print("REAL DATA")

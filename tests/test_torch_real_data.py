@@ -282,7 +282,10 @@ def test_missing_sidecars_get_the_jax_defaults(trees, tmp_path):
                          JaxDataset.from_ply_tree(str(root), 64, load_sidecars=True))
 
 
-def _write_h5(root, rng, id2file=True):
+def _write_h5(root, rng, id2file=True, layout="contiguous"):
+    """Three archives of 64-point clouds: contiguous ``data`` and ``label``,
+    or PointNet's ``save_h5`` layout (``data`` gzip 4 and ``label`` gzip 1,
+    chunked as h5py picks) with ``normal`` and ``faceId`` beside them."""
     import h5py
 
     os.makedirs(root)
@@ -290,9 +293,19 @@ def _write_h5(root, rng, id2file=True):
     (root / "shape_names.txt").write_text("\n".join(names) + "\n")
     for split, n, f in (("train", 5, "ply_data_train0.h5"), ("train", 4, "ply_data_train1.h5"),
                         ("test", 3, "ply_data_test0.h5")):
+        data = rng.normal(size=(n, 64, 3)).astype(np.float32)
+        label = rng.integers(0, 3, size=(n, 1)).astype(np.uint8)
         with h5py.File(root / f, "w") as h:
-            h["data"] = rng.normal(size=(n, 64, 3)).astype(np.float32)
-            h["label"] = rng.integers(0, 3, size=(n, 1)).astype(np.uint8)
+            if layout == "contiguous":
+                h["data"], h["label"] = data, label
+                continue
+            h.create_dataset("data", data=data, compression="gzip", compression_opts=4)
+            h.create_dataset("label", data=label, compression="gzip", compression_opts=1)
+            normal = rng.normal(size=(n, 64, 3)).astype(np.float32)
+            h.create_dataset("normal", data=normal, compression="gzip", compression_opts=4)
+            h.create_dataset("faceId", data=rng.integers(0, 999, size=(n, 64), dtype=np.int32),
+                             compression="gzip", compression_opts=4)
+            assert h["data"].chunks and h["label"].compression == "gzip"
     if id2file:
         (root / "ply_data_train_0_id2file.json").write_text(
             json.dumps([f"airplane/plane_{i}.ply" for i in range(5)]))
@@ -300,12 +313,14 @@ def _write_h5(root, rng, id2file=True):
     return names
 
 
-def test_hdf5_loader_and_tree_match_jax(tmp_path, rng):
+@pytest.mark.parametrize("layout", ["contiguous", "pointnet_gzip"])
+def test_hdf5_loader_and_tree_match_jax(tmp_path, rng, layout):
     """``load_modelnet_hdf5`` and ``from_hdf5`` (every archive, or one
     split) equal JAX's; ``hdf5_to_ply_tree`` writes the same tree, the
-    ``id2file`` names (a list and a dict) included."""
+    ``id2file`` names (a list and a dict) included; on contiguous archives
+    and on PointNet's chunked gzip layout with ``normal`` and ``faceId``."""
     root = tmp_path / "h5"
-    _write_h5(root, rng)
+    _write_h5(root, rng, layout=layout)
     for splits in (("train", "test"), ("test",)):
         got = load_modelnet_hdf5(str(root), splits)
         want = jax_hdf5.load_modelnet_hdf5(str(root), splits)
