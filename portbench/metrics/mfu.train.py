@@ -1,0 +1,8 @@
+"""The model's products per second over the untraced window, as a share of
+the 3xTF32 peak (train cells)."""
+
+from portbench.layer import mfu
+
+
+def read(ctx):
+    return mfu(ctx, "train")
